@@ -1,0 +1,322 @@
+"""GPT decoder-only transformer, serving path: the port of ``paddle_tpu/
+models/gpt.py`` as far as ``GPTForCausalLM.serving_step`` over a paged KV
+cache needs it.
+
+Same module tree, parameter names and (in, out) weight layout as the JAX
+package, so ``state_dict`` keys carry over (``convert.py``).  Two block
+paths, chosen by ``GPTConfig.use_fused_block`` as in the JAX package:
+
+- unfused: ``x + attn(ln_1(x))`` then ``x + mlp(ln_2(x))``, plain PyTorch
+  around the paged-decode kernel;
+- fused: K1 ``fused_ln_linear`` -> paged attention -> K2
+  ``fused_linear_residual``, then K3 ``fused_ffn_block``.
+
+Dtypes follow the JAX package: parameters stay float32; with ``dtype=
+"bfloat16"`` the embeddings are cast to bfloat16 (the residual stream) and
+the KV pages are bfloat16; every op promotes as ``jnp`` does.
+
+Not in this slice (later slices): the training forward and loss, MoE,
+sequence / context parallelism, recompute and the fixed-cache
+``generate``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional
+
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from ..distributed.mp_layers import (ColumnParallelLinear, RowParallelLinear,
+                                     VocabParallelEmbedding)
+from ..framework.errors import UnimplementedError, enforce
+from ..inference.kv_cache import PagedLayerCache
+from ..inference.paged_attention import paged_attention
+from ..nn import functional as F
+from ..nn.layers import Dropout, LayerNorm
+from ..ops.fused_block import (fused_ffn_block, fused_linear_residual,
+                               fused_ln_linear)
+
+__all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTDecoderLayer",
+           "GPTModel", "GPTForCausalLM", "gpt_tiny", "gpt_125m", "gpt_350m",
+           "gpt_1p3b", "gpt_6p7b"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass
+class GPTConfig:
+    vocab_size: int = 50304          # padded to a multiple of 128
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    ffn_hidden_size: Optional[int] = None   # default 4*hidden
+    max_position_embeddings: int = 1024
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    layer_norm_epsilon: float = 1e-5
+    initializer_range: float = 0.02
+    # block-level fused execution (ops/fused_block.py): LN->QKV as K1, the
+    # out-projection + residual as K2 and the whole FFN half as K3
+    use_fused_block: bool = False
+    dtype: str = "float32"               # activation dtype
+
+    def __post_init__(self):
+        if self.ffn_hidden_size is None:
+            self.ffn_hidden_size = 4 * self.hidden_size
+        enforce(self.hidden_size % self.num_heads == 0,
+                "num_heads must evenly divide hidden_size")
+        enforce(self.dtype in _DTYPES, f"unsupported dtype {self.dtype!r}")
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+
+class GPTAttention(nn.Module):
+    """Causal self-attention over the paged cache; qkv is one (h, 3h) GEMM
+    in head-major column order (head0: q|k|v, head1: q|k|v, ...)."""
+
+    def __init__(self, config: GPTConfig, device=None):
+        super().__init__()
+        c = config
+        self.config = c
+        std = c.initializer_range
+        self.qkv_proj = ColumnParallelLinear(c.hidden_size, 3 * c.hidden_size,
+                                             std=std, device=device)
+        self.out_proj = RowParallelLinear(
+            c.hidden_size, c.hidden_size,
+            std=std / math.sqrt(2.0 * c.num_layers), device=device)
+        self.resid_dropout = Dropout(c.hidden_dropout)
+
+    def _split_qkv(self, qkv, b, s):
+        c = self.config
+        qkv = qkv.reshape(b, s, c.num_heads, 3, c.head_dim)
+        q = qkv[:, :, :, 0].transpose(1, 2)           # (b, heads, s, d)
+        k = qkv[:, :, :, 1].transpose(1, 2)
+        v = qkv[:, :, :, 2].transpose(1, 2)
+        return q, k, v
+
+    def forward(self, x, cache: PagedLayerCache):
+        enforce(isinstance(cache, PagedLayerCache),
+                "GPTAttention runs over a PagedLayerCache; the fixed-shape "
+                "cache and the cache-free forward come with later slices",
+                exc=UnimplementedError)
+        b, s, _ = x.shape
+        q, k, v = self._split_qkv(self.qkv_proj(x), b, s)
+        out, new_cache = self._paged_cache_forward(q, k, v, cache, b, s)
+        return self.resid_dropout(self.out_proj(out)), new_cache
+
+    def _paged_cache_forward(self, q, k, v, cache: PagedLayerCache, b, s):
+        """Write this call's k/v into the pages at ``cache.slot_mapping``,
+        then attend: ``s == 1`` is the batched ragged decode over the block
+        tables; ``s > 1`` is a prefill chunk whose context is the chunk
+        itself (a causal in-chunk mask, pad columns masked by seq_lens)."""
+        c = self.config
+        new_k = k.transpose(1, 2).reshape(b * s, c.num_heads, c.head_dim)
+        new_v = v.transpose(1, 2).reshape(b * s, c.num_heads, c.head_dim)
+        slots = cache.slot_mapping.reshape(-1).long()
+        # Pages are written in place (the JAX package builds new arrays).
+        # Pad positions all land on the trailing sentinel row, which no
+        # read touches.  A step that fails after this write leaves nothing
+        # harmful: it only wrote its own sequences' slots at positions they
+        # have not read yet, and every later read of a position follows a
+        # fresh write of it by the step that owns it (decode writes its
+        # position before attending; prefill rewrites the whole context).
+        cache.k_pages.index_copy_(0, slots, new_k.to(cache.k_pages.dtype))
+        cache.v_pages.index_copy_(0, slots, new_v.to(cache.v_pages.dtype))
+        if s == 1:
+            o = paged_attention(q[:, :, 0, :].contiguous(), cache.k_pages,
+                                cache.v_pages, cache.block_tables,
+                                cache.seq_lens, block_size=cache.block_size)
+            out = o.to(q.dtype).reshape(b, 1, c.hidden_size)
+        else:
+            dev = q.device
+            rows = torch.arange(s, device=dev)
+            causal = rows[None, :] <= rows[:, None]                # (s, s)
+            valid = rows[None, None, :] < cache.seq_lens.long()[:, None, None]
+            bias = torch.where(causal[None] & valid,
+                               torch.zeros((), device=dev),
+                               torch.full((), -1e9, device=dev))
+            out = F.scaled_dot_product_attention(
+                q, k, v, attn_mask=bias[:, None].to(q.dtype),
+                is_causal=False, dropout_p=0.0, training=False)
+            out = out.transpose(1, 2).reshape(b, s, c.hidden_size)
+        return out, cache
+
+    def fused_paged_forward(self, x, ln: LayerNorm, cache: PagedLayerCache):
+        """Fused serving step: LN->QKV as K1, paged attention, out-proj +
+        residual as K2.  Returns the residual-added block output."""
+        c = self.config
+        b, s, _ = x.shape
+        qkv = fused_ln_linear(x, self.qkv_proj.weight, self.qkv_proj.bias,
+                              ln.weight, ln.bias, epsilon=ln.epsilon)
+        q, k, v = self._split_qkv(qkv, b, s)
+        out, new_cache = self._paged_cache_forward(q, k, v, cache, b, s)
+        y = fused_linear_residual(out, self.out_proj.weight,
+                                  self.out_proj.bias, x,
+                                  dropout_p=0.0, training=False)
+        return y, new_cache
+
+
+class GPTMLP(nn.Module):
+    """h -> 4h -> h with exact gelu."""
+
+    def __init__(self, config: GPTConfig, device=None):
+        super().__init__()
+        c = config
+        self.fc_in = ColumnParallelLinear(c.hidden_size, c.ffn_hidden_size,
+                                          std=c.initializer_range,
+                                          device=device)
+        self.fc_out = RowParallelLinear(
+            c.ffn_hidden_size, c.hidden_size,
+            std=c.initializer_range / math.sqrt(2.0 * c.num_layers),
+            device=device)
+        self.dropout = Dropout(c.hidden_dropout)
+
+    def forward(self, x):
+        return self.dropout(self.fc_out(F.gelu(self.fc_in(x))))
+
+
+class GPTDecoderLayer(nn.Module):
+    """Pre-LN block over the paged cache."""
+
+    def __init__(self, config: GPTConfig, index: int = 0, device=None):
+        super().__init__()
+        c = config
+        self.config = c
+        self.ln_1 = LayerNorm(c.hidden_size, epsilon=c.layer_norm_epsilon,
+                              device=device)
+        self.attn = GPTAttention(c, device=device)
+        self.ln_2 = LayerNorm(c.hidden_size, epsilon=c.layer_norm_epsilon,
+                              device=device)
+        self.mlp = GPTMLP(c, device=device)
+
+    def _fused_cache_forward(self, x, cache: PagedLayerCache):
+        c = self.config
+        x, new_cache = self.attn.fused_paged_forward(x, self.ln_1, cache)
+        m = self.mlp
+        x = fused_ffn_block(
+            x, m.fc_in.weight, m.fc_in.bias, m.fc_out.weight, m.fc_out.bias,
+            self.ln_2.weight, self.ln_2.bias, activation="gelu",
+            dropout2=c.hidden_dropout, epsilon=c.layer_norm_epsilon,
+            training=self.training)
+        return x, new_cache
+
+    def forward(self, x, cache: PagedLayerCache):
+        if self.config.use_fused_block:
+            return self._fused_cache_forward(x, cache)
+        h, new_cache = self.attn(self.ln_1(x), cache=cache)
+        x = x + h
+        x = x + self.mlp(self.ln_2(x))
+        return x, new_cache
+
+
+class GPTModel(nn.Module):
+    """Embeddings + decoder stack + final LN."""
+
+    def __init__(self, config: GPTConfig, device=None):
+        super().__init__()
+        c = config
+        self.config = c
+        self.wte = VocabParallelEmbedding(c.vocab_size, c.hidden_size,
+                                          std=c.initializer_range,
+                                          device=device)
+        self.wpe = nn.Parameter(torch.empty(c.max_position_embeddings,
+                                            c.hidden_size, device=device))
+        nn.init.normal_(self.wpe, 0.0, c.initializer_range)
+        self.drop = Dropout(c.hidden_dropout)
+        self.h = nn.ModuleList([GPTDecoderLayer(c, i, device=device)
+                                for i in range(c.num_layers)])
+        self.ln_f = LayerNorm(c.hidden_size, epsilon=c.layer_norm_epsilon,
+                              device=device)
+
+    def forward(self, input_ids, position_offset=0,
+                caches: Optional[List[PagedLayerCache]] = None):
+        """``position_offset`` is a scalar or a ``(b,)`` vector — every
+        ragged-batch row decodes at its own position."""
+        enforce(caches is not None,
+                "the cache-free (training) forward comes with the training "
+                "slice; serving passes paged caches", exc=UnimplementedError)
+        c = self.config
+        b, s = input_ids.shape
+        dev = input_ids.device
+        off = torch.as_tensor(position_offset, device=dev).long()
+        steps = torch.arange(s, device=dev)
+        pos = off[:, None] + steps if off.dim() else off + steps
+        x = self.wte(input_ids) + self.wpe[pos]
+        if c.dtype != "float32":
+            x = x.to(c.torch_dtype)
+        x = self.drop(x)
+        new_caches = []
+        for i, layer in enumerate(self.h):
+            x, kv = layer(x, cache=caches[i])
+            new_caches.append(kv)
+        x = self.ln_f(x)
+        return x, new_caches
+
+
+class GPTForCausalLM(nn.Module):
+    """LM head tied to the embedding.  Parameters are made on ``device``
+    (``cuda`` when none is given; the CPU only when asked)."""
+
+    def __init__(self, config: GPTConfig, device=None):
+        super().__init__()
+        self.config = config
+        self.device = resolve_device(device)
+        self.gpt = GPTModel(config, device=self.device)
+
+    def forward(self, input_ids, labels=None):
+        raise UnimplementedError(
+            "the training forward and loss come with the training slice; "
+            "serving calls serving_step")
+
+    def serving_step(self, input_ids, caches, position_offset, last_index):
+        """One serving-engine step over paged caches: run the stack, take
+        the hidden state at ``last_index`` per row (the last real token of
+        a padded prefill chunk; 0 for decode) and return its tied-head
+        logits ``(b, vocab)`` with the caches."""
+        hidden, new_caches = self.gpt(input_ids,
+                                      position_offset=position_offset,
+                                      caches=caches)
+        b = hidden.shape[0]
+        idx = torch.as_tensor(last_index, device=hidden.device).long()
+        idx = idx.expand(b) if idx.dim() == 0 else idx
+        h_last = hidden[torch.arange(b, device=hidden.device), idx]
+        table = self.gpt.wte.weight.to(h_last.dtype)
+        logits = torch.matmul(h_last, table.t())
+        return logits, new_caches
+
+
+# -- standard configs (the JAX package's table) ------------------------------
+def _cfg(defaults: Dict[str, Any], kw: Dict[str, Any]) -> GPTConfig:
+    return GPTConfig(**{**defaults, **kw})
+
+
+def gpt_tiny(**kw) -> GPTConfig:
+    return _cfg(dict(hidden_size=128, num_layers=2, num_heads=4,
+                     max_position_embeddings=256, vocab_size=1024), kw)
+
+
+def gpt_125m(**kw) -> GPTConfig:
+    return _cfg(dict(hidden_size=768, num_layers=12, num_heads=12), kw)
+
+
+def gpt_350m(**kw) -> GPTConfig:
+    return _cfg(dict(hidden_size=1024, num_layers=24, num_heads=16), kw)
+
+
+def gpt_1p3b(**kw) -> GPTConfig:
+    return _cfg(dict(hidden_size=2048, num_layers=24, num_heads=16,
+                     max_position_embeddings=2048), kw)
+
+
+def gpt_6p7b(**kw) -> GPTConfig:
+    return _cfg(dict(hidden_size=4096, num_layers=32, num_heads=32,
+                     max_position_embeddings=2048), kw)

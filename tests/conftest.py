@@ -64,6 +64,9 @@ def pytest_configure(config):
         "ladder, checkpoint digest round trip; ci.sh runs this tier "
         "explicitly)")
     config.addinivalue_line(
+        "markers", "gpu: PyTorch/CUDA port tests that need a CUDA card "
+        "(the kernels have no CPU mode); they skip without one")
+    config.addinivalue_line(
         "markers", "ptlint: static-analysis engine tests (pass "
         "fixtures, annotation grammar, baseline workflow, whole-repo "
         "smoke; ci.sh runs this tier explicitly)")
