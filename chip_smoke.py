@@ -9,9 +9,12 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
 
   (a) build   the CUDA kernels from paddle_tpu_torch/csrc/ (one nvcc per
               source, in parallel) into build/paddle_tpu_torch/;
-  (b) kernels each kernel at the serving path's shapes and dtypes against
-              its plain PyTorch version on the card, with a stated
-              tolerance; times by CUDA events (median, L2 flushed);
+  (b) kernels each kernel at its path's shapes and dtypes against its
+              plain PyTorch version on the card, with a stated tolerance;
+              times by CUDA events (median, L2 flushed).  The flash kernels
+              at the training shape (B=8, H=12, S=2048, d=64, bf16, causal),
+              plus a dropout case (B=2, H=4, S=512, p=0.1) and a ragged one
+              (sq=136, sk=200) that are checked but not timed;
   (c) serving GPT-125M at full width (12 layers, h=768, 12 heads, vocab
               50304, bf16 activations, use_fused_block) with seeded random
               weights loaded through convert.py, served by ServingEngine:
@@ -20,6 +23,14 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               Beforehand, a float32 run on a small input is held against
               the same model on the CPU (plain versions): tokens identical,
               logits within 1e-3;
+  (c2) training one training step (bf16 O1, AdamW) of GPT-125M at full
+              width and depth, S=2048, B=8, with flash attention and the
+              chunked LM loss (convert.training_workload): 3 warm-up and 10
+              timed steps on one batch, the loss read back in each step.
+              The flash kernels' counters are zeroed just before these 13
+              steps and must read 12 x 13 after.  Beforehand, a float32
+              step of a gpt_tiny-sized model (S=256) on the card is held
+              against the same step on the CPU: loss and every gradient;
   (d) the kernel list as one JSON line;
   (e) the card's name and power limit from nvidia-smi.
 
@@ -38,12 +49,17 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 F32_FLOPS = 67e12           # H100 SXM float32 on the CUDA cores (no tensor
-# cores): every kernel here multiplies float32 parameters at full float32
-# precision, as the JAX package does, so this is the matching peak
+# cores): K1-K3 and paged decode multiply float32 parameters at full float32
+# precision, as the JAX package does, so this is their matching peak
+BF16_FLOPS = 989e12         # H100 SXM bf16 tensor cores, dense: the flash
+# kernels' products take bf16 operands, as the TPU kernels' MXU passes do
 
-PEAK_NOTE = "bytes at 3.35 TB/s; float32 operations at 67 TFLOP/s"
+PEAK_F32 = "bytes at 3.35 TB/s; float32 operations at 67 TFLOP/s"
+PEAK_BF16 = "bytes at 3.35 TB/s; bf16 operations at 989 TFLOP/s"
 
 SEED = 1234
+SERVING_KERNELS = ("paged_decode", "ln_linear", "linear_residual", "ffn")
+TRAINING_KERNELS = ("flash_fwd", "flash_dkdv", "flash_dq")
 
 
 def require(cond: bool, msg: str) -> None:
@@ -86,17 +102,22 @@ def main() -> int:
     # -- (b) each kernel against its plain version ---------------------------
     results = check_kernels(torch, np, dev)
 
+    results.update(check_flash(torch, np, dev))
+
     # -- (c) serving ---------------------------------------------------------
     serving = serve(torch, np, dev, _kernels)
 
-    # -- (d) kernel list -----------------------------------------------------
+    # -- (c2) training -------------------------------------------------------
+    training = train(torch, np, dev, _kernels)
+
+    # -- (d) kernel list: launches from the path each kernel belongs to ------
     for r in results.values():
-        r["launches"] = serving["launches"][r["name"]]
+        path = training if r["name"] in TRAINING_KERNELS else serving
+        r["launches"] = path["launches"][r["name"]]
         require(r["launches"] > 0,
-                f"{r['name']}: no launch on the serving path")
+                f"{r['name']}: no launch on its main path")
         log(json.dumps({"kernel": r["name"], "kernel_ms": r["ms"],
-                        **{k: v for k, v in r.items() if k != "name"},
-                        "peak": PEAK_NOTE}))
+                        **{k: v for k, v in r.items() if k != "name"}}))
     log(json.dumps({"kernels": list(results.values())}))
 
     # -- (e) card line and the result line ------------------------------------
@@ -135,9 +156,9 @@ def time_ms(torch, fn, reps: int = 25) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = F32_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -153,30 +174,47 @@ def bf16_tol(ref) -> float:
     return float(ref.float().abs().max()) * 2.0 ** -7
 
 
-def measure(torch, name, kernel, plain, tol_fn, work):
-    out = kernel()
-    ref = plain()
-    torch.cuda.synchronize()
+def compare(torch, name, out, ref, tol):
+    """max |out - ref| and the err/tol of the element nearest its limit.  A
+    float tolerance holds for every element; a tensor one is per element,
+    and the tolerance reported is that of the element nearest its limit."""
     require(out.shape == ref.shape and out.dtype == ref.dtype,
             f"{name}: kernel gives {tuple(out.shape)} {out.dtype}, plain "
             f"{tuple(ref.shape)} {ref.dtype}")
     require(bool(torch.isfinite(out.float()).all()), f"{name}: nonfinite")
     diff = (out.float() - ref.float()).abs()
-    err = float(diff.max())
-    # a float tolerance holds for every element; a tensor one is per element,
-    # and the tolerance reported is that of the element nearest its limit
-    tol = tol_fn(ref)
     tol_t = torch.as_tensor(tol, device=diff.device).expand_as(diff)
     worst = int((diff / tol_t).argmax())
     err_over_tol = float(diff.flatten()[worst] / tol_t.flatten()[worst])
     require(err_over_tol <= 1.0,
             f"{name}: |kernel - plain| {float(diff.flatten()[worst])} > tol "
             f"{float(tol_t.flatten()[worst])} at element {worst}")
-    b_ms, b_by = bound(*work)
-    return {"max_abs_err": err, "tol": float(tol_t.flatten()[worst]),
-            "err_over_tol": err_over_tol, "ms": time_ms(torch, kernel),
-            "plain_ms": time_ms(torch, plain), "bound_ms": b_ms,
-            "bound_by": b_by}
+    return {"max_abs_err": float(diff.max()),
+            "tol": float(tol_t.flatten()[worst]),
+            "err_over_tol": err_over_tol}
+
+
+def measure(torch, name, kernel, plain, tol_fn, work, peak=F32_FLOPS,
+            timed=True):
+    """Kernel against plain on the same inputs.  ``kernel`` and ``plain``
+    return a tensor or a tuple of tensors; ``tol_fn(ref)`` gives the
+    tolerance of each (a tuple for a tuple).  Times both when ``timed``."""
+    out = kernel()
+    ref = plain()
+    torch.cuda.synchronize()
+    outs = out if isinstance(out, tuple) else (out,)
+    refs = ref if isinstance(ref, tuple) else (ref,)
+    tols = tol_fn(ref)
+    tols = tols if isinstance(ref, tuple) else (tols,)
+    parts = [compare(torch, f"{name}[{i}]", o, r, t)
+             for i, (o, r, t) in enumerate(zip(outs, refs, tols))]
+    res = dict(max(parts, key=lambda r: r["err_over_tol"]))
+    res["max_abs_err"] = max(r["max_abs_err"] for r in parts)
+    b_ms, b_by = bound(*work, peak=peak)
+    res.update(bound_ms=b_ms, bound_by=b_by,
+               ms=time_ms(torch, kernel) if timed else None,
+               plain_ms=time_ms(torch, plain) if timed else None)
+    return res
 
 
 def check_kernels(torch, np, dev):
@@ -267,7 +305,7 @@ def check_kernels(torch, np, dev):
             "err_over_tol": worst["err_over_tol"],
             "ms": dec["ms"], "plain_ms": dec["plain_ms"],
             "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-            "library_ms": None,
+            "library_ms": None, "peak": PEAK_F32,
             "shapes": {f"N={n}": dict(shapes[n][name]) for n in shapes}}
 
     # paged decode at the 125M serving shape: B=8, H=12, d=64, block 16,
@@ -312,7 +350,158 @@ def check_kernels(torch, np, dev):
         "launches": 0, "max_abs_err": r["max_abs_err"], "tol": r["tol"],
         "err_over_tol": r["err_over_tol"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": None}
+        "bound_by": r["bound_by"], "library_ms": None, "peak": PEAK_F32}
+    return results
+
+
+FLASH_CASES = {
+    # tag: (B, H, sq, sk, d, dropout_p, dtype, timed); "train" is the shape
+    # of the training step and the one timed
+    "train": (8, 12, 2048, 2048, 64, 0.0, "bfloat16", True),
+    "dropout": (2, 4, 512, 512, 64, 0.1, "bfloat16", False),
+    "ragged": (2, 4, 136, 200, 64, 0.0, "bfloat16", False),
+    "ragged-f32": (2, 4, 136, 200, 32, 0.0, "float32", False),
+}
+
+
+def visible_pairs(sq: int, sk: int) -> int:
+    """(query, key) pairs under the bottom-right causal mask: the work the
+    data needs (the kernels skip whole tiles above the diagonal)."""
+    return sum(min(sk, max(0, i + sk - sq + 1)) for i in range(sq))
+
+
+def check_flash(torch, np, dev):
+    """(b) the flash kernels against their plain versions: the training
+    shape (timed, with SDPA as the library yardstick), a dropout case and
+    a ragged sq != sk case (checked only)."""
+    import torch.nn.functional as TF
+    from paddle_tpu_torch.ops import flash_attention as fa
+    rng = np.random.default_rng(SEED + 2)
+    seed = 987654321
+
+    def t(shape, dtype):
+        a = rng.standard_normal(shape, dtype=np.float32)
+        return torch.from_numpy(a).to(dev).to(dtype)
+
+    def fwd_tol(q, k, v, p, dtype):
+        # per element.  bf16: the kernel's online softmax rounds p to bf16
+        # against a running max, the plain version against the row's max
+        # (2^-9 relative each), so an output moves by at most 2^-8 times
+        # the same attention over |v|; both round the float32 result once
+        # more (one bf16 unit, 2^-7 relative).  float32: summation order
+        # only, 1e-5 of the range.  lse: float32 sums of exact products on
+        # both sides, 1e-5 relative
+        def tol(ref):
+            out, lse = ref
+            lse_tol = 1e-5 * max(1.0, float(lse.abs().max()))
+            if dtype == torch.float32:
+                return 1e-5 * max(1.0, float(out.abs().max())), lse_tol
+            abs_pv, _ = fa.flash_fwd_reference(q.float(), k.float(),
+                                               v.float().abs(), seed, None,
+                                               True, p)
+            return (2.0 ** -8 * abs_pv + 2.0 ** -7 * out.float().abs()
+                    + 1e-6, lse_tol)
+        return tol
+
+    def bwd_tol(dtype):
+        # kernel and plain round pd and ds at the same points, from float32
+        # values that differ by summation order only; the sums are rounded
+        # once to the output dtype: one unit at the top of the range (bf16)
+        # or 1e-5 of it (float32)
+        def tol(ref):
+            refs = ref if isinstance(ref, tuple) else (ref,)
+            f = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+            out = tuple(f * max(1e-30, float(r.float().abs().max()))
+                        for r in refs)
+            return out if isinstance(ref, tuple) else out[0]
+        return tol
+
+    per = {"flash_fwd": {}, "flash_dkdv": {}, "flash_dq": {}}
+    library = {}
+    for tag, (b, h, sq, sk, d, p, dtype, timed) in FLASH_CASES.items():
+        dtype = getattr(torch, dtype)
+        bh = b * h
+        q, k, v = t((bh, sq, d), dtype), t((bh, sk, d), dtype), \
+            t((bh, sk, d), dtype)
+        do = t((bh, sq, d), dtype)
+        out, lse = fa.flash_fwd_reference(q, k, v, seed, None, True, p)
+        delta = (do.float() * out.float()).sum(-1)
+        pairs = visible_pairs(sq, sk) * bh
+        io = nbytes(q, k, v, do, lse, delta)
+        per["flash_fwd"][tag] = measure(
+            torch, f"flash_fwd {tag}",
+            lambda: fa.flash_fwd_cuda(q, k, v, seed, None, True, p),
+            lambda: fa.flash_fwd_reference(q, k, v, seed, None, True, p),
+            fwd_tol(q, k, v, p, dtype),
+            (nbytes(q, k, v, out, lse), 4.0 * d * pairs), BF16_FLOPS, timed)
+        per["flash_dkdv"][tag] = measure(
+            torch, f"flash_dkdv {tag}",
+            lambda: fa.flash_dkdv_cuda(q, k, v, do, lse, delta, seed, None,
+                                       True, p),
+            lambda: fa.flash_dkdv_reference(q, k, v, do, lse, delta, seed,
+                                            None, True, p),
+            bwd_tol(dtype), (io + nbytes(k, v), 8.0 * d * pairs), BF16_FLOPS,
+            timed)
+        per["flash_dq"][tag] = measure(
+            torch, f"flash_dq {tag}",
+            lambda: fa.flash_dq_cuda(q, k, v, do, lse, delta, seed, None,
+                                     True, p),
+            lambda: fa.flash_dq_reference(q, k, v, do, lse, delta, seed,
+                                          None, True, p),
+            bwd_tol(dtype), (io + nbytes(q), 6.0 * d * pairs), BF16_FLOPS,
+            timed)
+        for name in per:
+            r = per[name][tag]
+            timing = (f"; {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
+                      f"bound {r['bound_ms']:.4f} ms by {r['bound_by']})"
+                      if timed else "")
+            log(f"check {name} {tag} (B={b}, H={h}, sq={sq}, sk={sk}, d={d}, "
+                f"p={p}, {str(dtype).split('.')[-1]}): max_abs_err "
+                f"{r['max_abs_err']:.3e}, err/tol {r['err_over_tol']:.3f}"
+                f"{timing}")
+        if timed:
+            # the library yardstick, never called by the port: SDPA forward,
+            # and its forward + backward less the forward (the backward
+            # computes dK, dV and dQ together)
+            q4, k4, v4, do4 = (x.view(b, h, -1, d) for x in (q, k, v, do))
+            sdpa = TF.scaled_dot_product_attention
+            library["fwd"] = time_ms(
+                torch, lambda: sdpa(q4, k4, v4, is_causal=True))
+            qg, kg, vg = (x.detach().requires_grad_() for x in (q4, k4, v4))
+
+            def fwd_bwd():
+                o = sdpa(qg, kg, vg, is_causal=True)
+                torch.autograd.grad(o, (qg, kg, vg), do4)
+            library["bwd"] = time_ms(torch, fwd_bwd) - library["fwd"]
+            log(f"library: SDPA forward {library['fwd']:.4f} ms, backward "
+                f"{library['bwd']:.4f} ms (dK, dV and dQ together)")
+        del q, k, v, do, out, lse, delta
+        torch.cuda.empty_cache()
+
+    replaces = {"flash_fwd": ("paddle_tpu/ops/flash_attention.py:149", "fwd"),
+                "flash_dkdv": ("paddle_tpu/ops/flash_attention.py:254",
+                               "bwd"),
+                "flash_dq": ("paddle_tpu/ops/flash_attention.py:312", "bwd")}
+    results = {}
+    for name, (line, lib) in replaces.items():
+        train_r = per[name]["train"]
+        worst = max(per[name].values(), key=lambda r: r["err_over_tol"])
+        results[name] = {
+            "name": name, "route": "cuda",
+            "source": f"paddle_tpu_torch/csrc/{name}.cu", "replaces": line,
+            "launches": 0, "max_abs_err": worst["max_abs_err"],
+            "tol": worst["tol"], "err_over_tol": worst["err_over_tol"],
+            "ms": train_r["ms"], "plain_ms": train_r["plain_ms"],
+            "bound_ms": train_r["bound_ms"], "bound_by": train_r["bound_by"],
+            "library_ms": library[lib],
+            "library": ("scaled_dot_product_attention forward" if lib == "fwd"
+                        else "scaled_dot_product_attention backward (dK, dV "
+                        "and dQ together)"),
+            "peak": PEAK_BF16,
+            "shape": "B=8, H=12, S=2048, d=64, bf16, causal",
+            "cases": {tag: {"max_abs_err": r["max_abs_err"],
+                            "err_over_tol": r["err_over_tol"]}
+                      for tag, r in per[name].items()}}
     return results
 
 
@@ -384,8 +573,9 @@ def serve(torch, np, dev, _kernels):
                 f"{res['request_id']}: {len(res['tokens'])} tokens")
         require(all(0 <= tok < cfg.vocab_size for tok in res["tokens"]),
                 f"{res['request_id']}: token outside the vocabulary")
-    for name, n in launches.items():
-        require(n > 0, f"{name}: launched 0 times on the serving path")
+    for name in SERVING_KERNELS:
+        require(launches[name] > 0,
+                f"{name}: launched 0 times on the serving path")
     st = eng.stats()
     require(st["kv_blocks"]["used"] == 0 and st["kv_blocks"]["leaked"] == 0,
             f"KV blocks not returned: {st['kv_blocks']}")
@@ -402,6 +592,109 @@ def serve(torch, np, dev, _kernels):
         "prefills": st["step_ms"]["prefill"]["count"],
         "ttft_ms_p50": st["slo"]["ttft_ms"]["p50"],
         "tpot_ms_p50": st["slo"]["tpot_ms"]["p50"],
+        "launches": launches}}
+    log(json.dumps(line))
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# (c2) training
+# ---------------------------------------------------------------------------
+WARMUP_STEPS, TIMED_STEPS = 3, 10
+
+
+def train(torch, np, dev, _kernels):
+    from paddle_tpu_torch.convert import training_workload
+    from paddle_tpu_torch.models.gpt import gpt_tiny
+    from paddle_tpu_torch.ops import fused
+    from paddle_tpu_torch.training import train_step
+
+    # reference on a small model: float32 on the card (kernels) against the
+    # same weights and data on the CPU (plain versions), one step (forward,
+    # backward, AdamW) without autocast, then the next step's loss
+    cfg = gpt_tiny(hidden_dropout=0.0, attention_dropout=0.0,
+                   use_pallas_attention=True)
+    runs = []
+    for device in (dev, "cpu"):
+        m, opt, ids, labels = training_workload(device, cfg, batch=2,
+                                                seq_len=256)
+        loss, _ = m(ids, labels=labels)
+        loss.backward()
+        grads = {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
+        opt.step()
+        with torch.no_grad():
+            loss2, _ = m(ids, labels=labels)
+        runs.append((loss.item(), grads, loss2.item()))
+    (l_gpu, g_gpu, l2_gpu), (l_cpu, g_cpu, l2_cpu) = runs
+    # float32 end to end with exact products on both sides (TF32 off):
+    # summation order only, ~1e-6 relative; the bounds leave a 10x margin
+    # and a wrong kernel, mask or product is off by far more
+    for what, a, b in (("loss", l_gpu, l_cpu), ("loss after step", l2_gpu,
+                                                l2_cpu)):
+        require(abs(a - b) <= 1e-5 * abs(b),
+                f"float32 training reference: {what} {a} on the card, {b} "
+                f"on the CPU")
+    worst = 0.0
+    for name, ref in g_cpu.items():
+        tol = 1e-4 * float(ref.abs().max()) + 1e-6
+        err = float((g_gpu[name] - ref).abs().max())
+        require(err <= tol, f"float32 training reference: grad {name} "
+                f"differs by {err} > {tol}")
+        worst = max(worst, err / tol)
+    log(f"training reference: float32 gpt_tiny (S=256) card vs CPU, loss "
+        f"{l_gpu:.6f} vs {l_cpu:.6f}, {len(g_cpu)} gradients within 1e-4 "
+        f"of their range + 1e-6 (worst err/tol {worst:.3f}), loss after one "
+        f"AdamW step {l2_gpu:.6f} vs {l2_cpu:.6f}")
+
+    model, opt, ids, labels = training_workload(dev)
+    cfg = model.config
+    require(cfg.dtype == "bfloat16" and cfg.use_pallas_attention
+            and not cfg.use_fused_block and cfg.fused_lm_loss
+            and cfg.num_layers == 12 and cfg.hidden_size == 768
+            and cfg.num_heads == 12 and cfg.vocab_size == 50304
+            and tuple(ids.shape) == (8, 2048),
+            "not the full-width bf16 GPT-125M training step at B=8, S=2048")
+    b, s = ids.shape
+    steps = WARMUP_STEPS + TIMED_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = train_step(model, opt, ids, labels)
+        losses.append(float(loss))      # the readback ends the step
+        times.append(time.perf_counter() - t0)
+    launches = dict(_kernels.launches)
+    for name in TRAINING_KERNELS:
+        require(launches[name] == cfg.num_layers * steps,
+                f"{name}: {launches[name]} launches in {steps} steps, not "
+                f"{cfg.num_layers} per step")
+    require(all(np.isfinite(losses)), f"nonfinite loss: {losses}")
+    require(losses[-1] < losses[0],
+            f"the loss did not fall on the repeated batch: {losses}")
+    step_ms = [x * 1e3 for x in times[WARMUP_STEPS:]]
+    p50 = statistics.median(step_ms)
+    tokens_per_s = b * s / (p50 / 1e3)
+    n_params = sum(p.numel() for p in model.parameters())
+    # paddle_tpu/observability/mfu.py flops_per_token: 6N for the matmuls
+    # plus the causal attention term 12 L h S / 2
+    flops_per_token = (6.0 * n_params
+                       + 12.0 * cfg.num_layers * cfg.hidden_size * s / 2.0)
+    line = {"training": {
+        "model": "gpt_125m", "dtype": "bfloat16", "amp": "O1",
+        "optimizer": "AdamW(learning_rate=1e-4, weight_decay=0.01)",
+        "B": b, "S": s, "params": n_params,
+        "steps": {"warmup": WARMUP_STEPS, "timed": TIMED_STEPS},
+        "step_ms_p50": p50, "step_ms": step_ms,
+        "tokens_per_s": tokens_per_s,
+        "flops_per_token": flops_per_token,
+        "mfu": tokens_per_s * flops_per_token / BF16_FLOPS,
+        "mfu_peak": "989 TFLOP/s bf16 dense",
+        "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
+        "lm_head_products": ("bf16 mm, float32 out" if fused._MM_OUT_DTYPE
+                             else "float32 mm of widened bf16"),
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches}}
     log(json.dumps(line))
     return {"launches": launches}

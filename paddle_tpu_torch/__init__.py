@@ -11,9 +11,12 @@ without a card and without that argument they raise.  On a CPU tensor every
 kernel wrapper takes its plain PyTorch version, which is also the numerics
 oracle the kernels are held against.
 
-Ported so far (serving slice): ``GPTForCausalLM.serving_step`` over a paged
-KV cache, driven by ``inference.ServingEngine``, with the paged-decode and
-fused-block (K1 ln_linear, K2 linear_residual, K3 ffn) kernels.
+Ported so far: serving — ``GPTForCausalLM.serving_step`` over a paged KV
+cache, driven by ``inference.ServingEngine``, with the paged-decode and
+fused-block (K1 ln_linear, K2 linear_residual, K3 ffn) kernels; training —
+``training.train_step`` (bf16 O1 ``amp.auto_cast``, ``GPTForCausalLM``
+with labels, backward, ``optimizer.AdamW``) with the flash-attention
+forward, dK/dV and dQ kernels and the chunked LM loss (``ops/fused.py``).
 """
 from .device import resolve_device  # noqa: F401
 from .framework.errors import (  # noqa: F401

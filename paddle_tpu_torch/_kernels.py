@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, at first use, into
 ``build/paddle_tpu_torch/`` beside the package (listed in ``.gitignore``).
-A library's file name carries a digest of its sources and flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is.
+A library's file name carries a digest of its source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is loaded as it is.
 :func:`build` starts one ``nvcc`` per source, all at once, and waits for
 all of them.  The libraries are loaded with ``ctypes``; nothing here
 includes PyTorch's headers, which keeps a build to seconds.
@@ -39,7 +40,8 @@ BUILD_DIR = (Path(__file__).resolve().parent.parent / "build"
              / "paddle_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("paged_decode", "ln_linear", "linear_residual", "ffn")
+KERNELS = ("paged_decode", "ln_linear", "linear_residual", "ffn",
+           "flash_fwd", "flash_dkdv", "flash_dq")
 
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -63,7 +65,7 @@ def _nvcc() -> str:
 
 def _library(name: str) -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
         digest.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
@@ -167,6 +169,7 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
     dev = tensors[0].device
     for t in tensors:
         enforce(t.is_cuda and t.device == dev,
-                f"{name}: every operand must be on {dev}, got {t.device}")
+                f"{name}: every operand must be on one CUDA device, got "
+                f"{t.device} beside {dev}")
         enforce(t.is_contiguous(), f"{name}: operands must be contiguous")
     return dev

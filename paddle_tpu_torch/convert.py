@@ -21,7 +21,8 @@ from .framework.errors import enforce
 
 __all__ = ["state_dict_from_jax", "load_jax_state", "random_state",
            "serving_workload", "SERVING_SEED", "SERVING_ENGINE",
-           "SERVING_NEW_TOKENS"]
+           "SERVING_NEW_TOKENS", "training_workload", "TRAINING_SEED",
+           "TRAINING_BATCH", "TRAINING_SEQ"]
 
 
 def state_dict_from_jax(np_state: Dict[str, np.ndarray],
@@ -79,6 +80,44 @@ def serving_workload(device, *, dtype: str = "bfloat16",
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
                for n in lengths]
     return model, prompts
+
+
+TRAINING_SEED = 0
+TRAINING_BATCH = 8
+TRAINING_SEQ = 2048
+
+
+def training_workload(device, config=None, *, batch: int = TRAINING_BATCH,
+                      seq_len: int = TRAINING_SEQ):
+    """The training workload that ``chip_smoke.py`` drives, at the
+    configuration of the JAX package's headline bench (``bench.py``
+    ``main`` / ``_build``): GPT-125M at full width and depth with bf16
+    activations, dropout 0, flash attention, ``max_position_embeddings=
+    2048`` and the fused LM loss; :func:`random_state` weights of
+    ``TRAINING_SEED`` on ``device``; ``AdamW(learning_rate=1e-4,
+    weight_decay=0.01)``; ``ids`` then ``labels`` drawn by
+    ``np.random.RandomState(0).randint(0, vocab, (batch, seq_len))``.
+    ``config`` replaces the model configuration (the same weights and data
+    rules at another size).  Returns ``(model, optimizer, ids, labels)``;
+    run it with ``training.train_step``."""
+    from .models.gpt import GPTForCausalLM, gpt_125m
+    from .optimizer import AdamW
+    cfg = config or gpt_125m(dtype="bfloat16", hidden_dropout=0.0,
+                             attention_dropout=0.0,
+                             use_pallas_attention=True,
+                             max_position_embeddings=2048)
+    model = GPTForCausalLM(cfg, device=device)
+    load_jax_state(model, random_state(model, TRAINING_SEED))
+    model.train()
+    optimizer = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                      parameters=model.parameters())
+    rng = np.random.RandomState(0)
+    dev = model.device
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, seq_len))
+                           ).to(dev)
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                          (batch, seq_len))).to(dev)
+    return model, optimizer, ids, labels
 
 
 def random_state(model: nn.Module, seed: int) -> Dict[str, np.ndarray]:

@@ -1,23 +1,26 @@
-"""GPT decoder-only transformer, serving path: the port of ``paddle_tpu/
-models/gpt.py`` as far as ``GPTForCausalLM.serving_step`` over a paged KV
-cache needs it.
+"""GPT decoder-only transformer: the port of ``paddle_tpu/models/gpt.py``
+for the training step (``model(input_ids, labels=labels)``, the cache-free
+forward and the fused LM loss) and for ``GPTForCausalLM.serving_step`` over
+a paged KV cache.
 
 Same module tree, parameter names and (in, out) weight layout as the JAX
 package, so ``state_dict`` keys carry over (``convert.py``).  Two block
 paths, chosen by ``GPTConfig.use_fused_block`` as in the JAX package:
 
 - unfused: ``x + attn(ln_1(x))`` then ``x + mlp(ln_2(x))``, plain PyTorch
-  around the paged-decode kernel;
-- fused: K1 ``fused_ln_linear`` -> paged attention -> K2
-  ``fused_linear_residual``, then K3 ``fused_ffn_block``.
+  around the attention kernels (flash attention when
+  ``use_pallas_attention``, paged decode when serving);
+- fused (serving only so far): K1 ``fused_ln_linear`` -> paged attention
+  -> K2 ``fused_linear_residual``, then K3 ``fused_ffn_block``.
 
 Dtypes follow the JAX package: parameters stay float32; with ``dtype=
 "bfloat16"`` the embeddings are cast to bfloat16 (the residual stream) and
-the KV pages are bfloat16; every op promotes as ``jnp`` does.
+the KV pages are bfloat16; every op promotes as ``jnp`` does, and under
+``amp.auto_cast`` the ops cast as the JAX package's do.
 
-Not in this slice (later slices): the training forward and loss, MoE,
+Not in these slices (ROADMAP): training with ``use_fused_block``, MoE,
 sequence / context parallelism, recompute and the fixed-cache
-``generate``.
+``generate``; the config fields for the first four raise when set.
 """
 from __future__ import annotations
 
@@ -31,19 +34,30 @@ from torch import nn
 from ..device import resolve_device
 from ..distributed.mp_layers import (ColumnParallelLinear, RowParallelLinear,
                                      VocabParallelEmbedding)
+from ..distributed.mp_ops import parallel_cross_entropy
 from ..framework.errors import UnimplementedError, enforce
 from ..inference.kv_cache import PagedLayerCache
 from ..inference.paged_attention import paged_attention
 from ..nn import functional as F
 from ..nn.layers import Dropout, LayerNorm
+from ..ops.flash_attention import flash_attention
+from ..ops.fused import _lce_chunk, linear_softmax_cross_entropy
 from ..ops.fused_block import (fused_ffn_block, fused_linear_residual,
                                fused_ln_linear)
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTDecoderLayer",
-           "GPTModel", "GPTForCausalLM", "gpt_tiny", "gpt_125m", "gpt_350m",
-           "gpt_1p3b", "gpt_6p7b"]
+           "GPTModel", "GPTForCausalLM", "shift_labels", "gpt_tiny",
+           "gpt_125m", "gpt_350m", "gpt_1p3b", "gpt_6p7b"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def shift_labels(labels: torch.Tensor, ignore_index: int = -100):
+    """Causal-LM label shift: position t is scored against token t+1; the
+    last position gets ``ignore_index``."""
+    shifted = torch.roll(labels, -1, dims=1)
+    shifted[:, -1] = ignore_index
+    return shifted
 
 
 @dataclasses.dataclass
@@ -58,10 +72,18 @@ class GPTConfig:
     attention_dropout: float = 0.1
     layer_norm_epsilon: float = 1e-5
     initializer_range: float = 0.02
+    use_recompute: bool = False
+    use_pallas_attention: bool = False   # flash-attention kernels (ops/)
     # block-level fused execution (ops/fused_block.py): LN->QKV as K1, the
     # out-projection + residual as K2 and the whole FFN half as K3
     use_fused_block: bool = False
     dtype: str = "float32"               # activation dtype
+    sequence_parallel: bool = False
+    context_parallel: bool = False
+    moe_num_experts: int = 0
+    # memory-efficient LM loss (ops/fused.py linear_softmax_cross_entropy):
+    # never builds the [B, S, V] logits
+    fused_lm_loss: bool = True
 
     def __post_init__(self):
         if self.ffn_hidden_size is None:
@@ -69,6 +91,11 @@ class GPTConfig:
         enforce(self.hidden_size % self.num_heads == 0,
                 "num_heads must evenly divide hidden_size")
         enforce(self.dtype in _DTYPES, f"unsupported dtype {self.dtype!r}")
+        for name in ("use_recompute", "sequence_parallel",
+                     "context_parallel", "moe_num_experts"):
+            enforce(not getattr(self, name),
+                    f"GPTConfig.{name} is not ported yet (ROADMAP Queue 1)",
+                    exc=UnimplementedError)
 
     @property
     def head_dim(self) -> int:
@@ -80,8 +107,9 @@ class GPTConfig:
 
 
 class GPTAttention(nn.Module):
-    """Causal self-attention over the paged cache; qkv is one (h, 3h) GEMM
-    in head-major column order (head0: q|k|v, head1: q|k|v, ...)."""
+    """Causal self-attention, cache-free (training) or over the paged
+    cache; qkv is one (h, 3h) GEMM in head-major column order (head0:
+    q|k|v, head1: q|k|v, ...)."""
 
     def __init__(self, config: GPTConfig, device=None):
         super().__init__()
@@ -103,13 +131,25 @@ class GPTAttention(nn.Module):
         v = qkv[:, :, :, 2].transpose(1, 2)
         return q, k, v
 
-    def forward(self, x, cache: PagedLayerCache):
-        enforce(isinstance(cache, PagedLayerCache),
-                "GPTAttention runs over a PagedLayerCache; the fixed-shape "
-                "cache and the cache-free forward come with later slices",
-                exc=UnimplementedError)
+    def forward(self, x, cache: Optional[PagedLayerCache] = None):
         b, s, _ = x.shape
         q, k, v = self._split_qkv(self.qkv_proj(x), b, s)
+        if cache is None:
+            c = self.config
+            if c.use_pallas_attention:
+                out = flash_attention(q, k, v, causal=True,
+                                      dropout_p=c.attention_dropout,
+                                      training=self.training)
+            else:
+                out = F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, dropout_p=c.attention_dropout,
+                    training=self.training)
+            out = out.transpose(1, 2).reshape(b, s, c.hidden_size)
+            return self.resid_dropout(self.out_proj(out))
+        enforce(isinstance(cache, PagedLayerCache),
+                "GPTAttention runs cache-free or over a PagedLayerCache; the "
+                "fixed-shape cache comes with the generate slice",
+                exc=UnimplementedError)
         out, new_cache = self._paged_cache_forward(q, k, v, cache, b, s)
         return self.resid_dropout(self.out_proj(out)), new_cache
 
@@ -185,7 +225,7 @@ class GPTMLP(nn.Module):
 
 
 class GPTDecoderLayer(nn.Module):
-    """Pre-LN block over the paged cache."""
+    """Pre-LN block, cache-free or over the paged cache."""
 
     def __init__(self, config: GPTConfig, index: int = 0, device=None):
         super().__init__()
@@ -209,7 +249,16 @@ class GPTDecoderLayer(nn.Module):
             training=self.training)
         return x, new_cache
 
-    def forward(self, x, cache: PagedLayerCache):
+    def forward(self, x, cache: Optional[PagedLayerCache] = None):
+        if cache is None:
+            enforce(not self.config.use_fused_block,
+                    "the cache-free (training) forward with use_fused_block "
+                    "is not ported yet (ROADMAP Queue 2, slice 2b: K1 -> "
+                    "flash -> K2 and K3 with their backward and dropout on "
+                    "the card); set use_fused_block=False to train",
+                    exc=UnimplementedError)
+            x = x + self.attn(self.ln_1(x))
+            return x + self.mlp(self.ln_2(x))
         if self.config.use_fused_block:
             return self._fused_cache_forward(x, cache)
         h, new_cache = self.attn(self.ln_1(x), cache=cache)
@@ -239,11 +288,9 @@ class GPTModel(nn.Module):
 
     def forward(self, input_ids, position_offset=0,
                 caches: Optional[List[PagedLayerCache]] = None):
-        """``position_offset`` is a scalar or a ``(b,)`` vector — every
-        ragged-batch row decodes at its own position."""
-        enforce(caches is not None,
-                "the cache-free (training) forward comes with the training "
-                "slice; serving passes paged caches", exc=UnimplementedError)
+        """Hidden states ``(b, s, h)``, with the new caches when ``caches``
+        are given.  ``position_offset`` is a scalar or a ``(b,)`` vector —
+        every ragged-batch row decodes at its own position."""
         c = self.config
         b, s = input_ids.shape
         dev = input_ids.device
@@ -254,6 +301,10 @@ class GPTModel(nn.Module):
         if c.dtype != "float32":
             x = x.to(c.torch_dtype)
         x = self.drop(x)
+        if caches is None:
+            for layer in self.h:
+                x = layer(x)
+            return self.ln_f(x)
         new_caches = []
         for i, layer in enumerate(self.h):
             x, kv = layer(x, cache=caches[i])
@@ -263,7 +314,8 @@ class GPTModel(nn.Module):
 
 
 class GPTForCausalLM(nn.Module):
-    """LM head tied to the embedding.  Parameters are made on ``device``
+    """LM head tied to the embedding; the loss is the softmax cross-entropy
+    against the shifted labels.  Parameters are made on ``device``
     (``cuda`` when none is given; the CPU only when asked)."""
 
     def __init__(self, config: GPTConfig, device=None):
@@ -273,9 +325,25 @@ class GPTForCausalLM(nn.Module):
         self.gpt = GPTModel(config, device=self.device)
 
     def forward(self, input_ids, labels=None):
-        raise UnimplementedError(
-            "the training forward and loss come with the training slice; "
-            "serving calls serving_step")
+        """Logits ``(b, s, vocab)`` when ``labels`` is None, else ``(loss,
+        logits)``: the mean cross-entropy of position t against
+        ``labels[:, t + 1]``.  With ``fused_lm_loss`` and a sequence that a
+        multiple of 128 divides, the loss comes from the chunked
+        :func:`linear_softmax_cross_entropy` and the logits slot is None."""
+        c = self.config
+        hidden = self.gpt(input_ids)
+        table = self.gpt.wte.weight.to(hidden.dtype)
+        if labels is None:
+            return torch.matmul(hidden, table.t())
+        shifted = shift_labels(labels)
+        if c.fused_lm_loss and _lce_chunk(hidden.shape[1]) is not None:
+            loss = linear_softmax_cross_entropy(hidden, table, shifted,
+                                                reduction="mean")
+            return loss, None
+        logits = torch.matmul(hidden, table.t())
+        loss = parallel_cross_entropy(logits.float(), shifted,
+                                      reduction="mean")
+        return loss, logits
 
     def serving_step(self, input_ids, caches, position_offset, last_index):
         """One serving-engine step over paged caches: run the stack, take

@@ -1,7 +1,7 @@
-"""The layers the serving slice needs: the port of the matching parts of
-``paddle_tpu/nn/layers.py``.  Parameter names and layouts match the JAX
-package (``weight`` / ``bias``; Linear weights are (in, out)), so
-``state_dict`` keys carry over unchanged."""
+"""The layers the serving and training slices need: the port of the
+matching parts of ``paddle_tpu/nn/layers.py``.  Parameter names and layouts
+match the JAX package (``weight`` / ``bias``; Linear weights are (in,
+out)), so ``state_dict`` keys carry over unchanged."""
 from __future__ import annotations
 
 from typing import Optional
@@ -9,7 +9,6 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..framework.errors import UnimplementedError
 from . import functional as F
 
 __all__ = ["LayerNorm", "Dropout", "Linear", "Embedding"]
@@ -34,19 +33,15 @@ class LayerNorm(nn.Module):
 
 
 class Dropout(nn.Module):
-    """The identity in eval; training-mode dropout comes with the training
-    slice."""
+    """``F.dropout`` (upscale in train, mask from the device's explicit
+    generator) in training mode; the identity in eval."""
 
     def __init__(self, p: float = 0.5):
         super().__init__()
         self.p = p
 
     def forward(self, x):
-        if self.training and self.p > 0.0:
-            raise UnimplementedError(
-                "Dropout in training mode comes with the training slice; "
-                "call .eval() to serve")
-        return x
+        return F.dropout(x, self.p, training=self.training)
 
 
 class Linear(nn.Module):

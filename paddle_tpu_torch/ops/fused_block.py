@@ -16,10 +16,11 @@ the card.  The kernels compute in float32 and store in the dtype the JAX
 function returns, taking float32 or bfloat16 on each operand independently.
 
 Dropout is the counter-based hash of the JAX package (murmur3-fmix of seed,
-salt, row, col; ``_keep_mask``), emulated in int64 with ``& 0xFFFFFFFF`` so
-the masks match JAX bit for bit.  Only the plain versions apply it: the
-serving path runs with dropout 0, and a CUDA call with dropout > 0 raises
-until the training slice brings the in-kernel hash to the card.
+salt, row, col; ``_keep_mask`` of ``ops/flash_attention.py``), emulated in
+int64 with ``& 0xFFFFFFFF`` so the masks match JAX bit for bit.  Only the
+plain versions apply it: the serving path runs with dropout 0, and a CUDA
+call with dropout > 0 raises until slice 2b (fused-block training, ROADMAP)
+brings the in-kernel hash to the card.
 """
 from __future__ import annotations
 
@@ -30,7 +31,9 @@ from typing import Dict, Tuple
 import torch
 
 from .. import _kernels
+from ..framework import random as fw_random
 from ..framework.errors import UnimplementedError, enforce
+from .flash_attention import _keep_mask
 
 __all__ = ["fused_ln_linear", "fused_linear_residual", "fused_ffn_block",
            "ln_linear_reference", "ln_linear_cuda",
@@ -42,7 +45,6 @@ _SALT_RESID = 0x52455344
 _SALT_FFN1 = 0x46464E31
 _SALT_FFN2 = 0x46464E32
 
-_M32 = 0xFFFFFFFF
 _SMEM_LIMIT = 232448          # bytes of shared memory one Hopper block may use
 _TILE_ROWS, _TILE_COLS, _TILE_DEPTH = 16, 64, 32   # csrc/common.cuh tiles
 
@@ -54,39 +56,14 @@ def _no_dropout_on_card(p: float, what: str) -> None:
     if p > 0.0:
         raise UnimplementedError(
             f"{what}: dropout > 0 on a CUDA tensor is not ported yet; the "
-            "in-kernel hash dropout comes with the training slice (serving "
-            "runs with dropout 0)")
+            "in-kernel hash dropout of K2/K3 comes with slice 2b, fused-block "
+            "training (serving runs with dropout 0)")
 
 
 # ---------------------------------------------------------------------------
-# Counter-hash dropout (paddle_tpu/ops/flash_attention.py _keep_mask, and
-# ops/fused_block.py _hash_drop), in int64 holding uint32 values
+# Counter-hash dropout (ops/fused_block.py _hash_drop of the JAX package),
+# with the mask of ops/flash_attention.py
 # ---------------------------------------------------------------------------
-def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
-    """``(a * c) mod 2**32`` for uint32 values held in int64, split in
-    16-bit halves of ``c`` so no product leaves the int64 range."""
-    lo = a * (c & 0xFFFF)
-    hi = ((a * (c >> 16)) & 0xFFFF) << 16
-    return (lo + hi) & _M32
-
-
-def _keep_mask(seed, salt, rows, cols, dropout_p: float) -> torch.Tensor:
-    """keep(seed, salt, row, col) — bit-identical to the JAX hash: a
-    murmur3-fmix of the four counters whose top 24 bits become a uniform in
-    [0, 1).  ``rows`` / ``cols`` / ``salt`` broadcast; ``seed`` is an int32
-    (wrapped to uint32 as JAX's astype does)."""
-    as64 = lambda v: torch.as_tensor(v, dtype=torch.int64) & _M32  # noqa: E731
-    x = (_mul32(as64(rows), 0x85EBCA6B) ^ _mul32(as64(cols), 0xC2B2AE35)
-         ^ as64(seed) ^ _mul32(as64(salt), 0x9E3779B1))
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    x = x ^ (x >> 16)
-    u = (x >> 8).to(torch.int32).to(torch.float32) * (1.0 / (1 << 24))
-    return u >= dropout_p
-
-
 def _hash_drop(y: torch.Tensor, seed, salt: int, p: float) -> torch.Tensor:
     """Dropout of a (n, c) tensor by the hash mask over its global (row,
     col) indices, with the 1/(1-p) rescale."""
@@ -99,13 +76,11 @@ def _hash_drop(y: torch.Tensor, seed, salt: int, p: float) -> torch.Tensor:
 
 
 def _seed_or_draw(seed, need: bool) -> int:
-    """The int32 dropout seed; drawn from torch's default generator when
-    the caller passed none."""
+    """The int32 dropout seed; drawn from the framework's host stream
+    (``framework/random.py``) when the caller passed none."""
     if not need:
         return 0
-    if seed is None:
-        seed = int(torch.randint(0, 2 ** 31 - 1, ()).item())
-    return int(seed)
+    return fw_random.draw_seed() if seed is None else int(seed)
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -31,7 +31,10 @@ _SHORT = {"paged_decode_kernel": "paged_decode (ours)",
           "ln_linear_kernel": "ln_linear (ours)",
           "linear_residual_kernel": "linear_residual (ours)",
           "ffn_finalize_kernel": "ffn finalize (ours)",
-          "ffn_kernel": "ffn (ours)"}
+          "ffn_kernel": "ffn (ours)",
+          "flash_fwd_kernel": "flash_fwd (ours)",
+          "flash_dkdv_kernel": "flash_dkdv (ours)",
+          "flash_dq_kernel": "flash_dq (ours)"}
 
 
 def _short(name: str) -> str:

@@ -26,6 +26,14 @@ def test_package_imports_with_jax_blocked():
             "import paddle_tpu_torch.models.gpt\n"
             "import paddle_tpu_torch.inference.engine\n"
             "import paddle_tpu_torch.ops.fused_block\n"
+            "import paddle_tpu_torch.ops.flash_attention\n"
+            "import paddle_tpu_torch.ops.fused\n"
+            "import paddle_tpu_torch.amp\n"
+            "import paddle_tpu_torch.framework.random\n"
+            "import paddle_tpu_torch.distributed.mp_ops\n"
+            "import paddle_tpu_torch.optimizer\n"
+            "import paddle_tpu_torch.training\n"
+            "import paddle_tpu_torch.profile_training\n"
             "import paddle_tpu_torch.convert\n"
             "loaded = [m for m in sys.modules if sys.modules[m] is not None]\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"

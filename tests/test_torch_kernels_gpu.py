@@ -11,6 +11,7 @@ import torch
 from paddle_tpu_torch import UnimplementedError, _kernels
 from paddle_tpu_torch.inference.paged_attention import (
     paged_attention_cuda, paged_attention_reference)
+from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_block as fb
 
 pytestmark = pytest.mark.gpu
@@ -108,7 +109,7 @@ def test_paged_decode(dev, page_dtype):
 
 def test_dropout_on_card_is_refused(dev):
     x, w, b = _t(dev, 8, 128), _t(dev, 128, 128), _t(dev, 128)
-    with pytest.raises(UnimplementedError, match="training slice"):
+    with pytest.raises(UnimplementedError, match="slice 2b"):
         fb.fused_linear_residual(x, w, b, x, dropout_p=0.1, training=True)
 
 
@@ -129,3 +130,87 @@ def test_serving_on_card_matches_cpu(dev):
                           max_model_len=64).generate(prompts, 6)
             for m in (m_gpu, m_cpu)]
     assert outs[0] == outs[1]
+
+
+# flash attention: ragged lengths (neither a multiple of the 64-row tile),
+# sq < sk and sq > sk (bottom-right causal alignment, rows without keys),
+# dropout, every head-dim instantiation
+FLASH_CASES = [
+    # (bh, sq, sk, d, causal, dropout_p)
+    (6, 136, 200, 64, True, 0.0),
+    (6, 200, 136, 64, True, 0.0),
+    (4, 77, 77, 32, False, 0.0),
+    (4, 256, 256, 64, True, 0.1),
+    (3, 100, 130, 128, True, 0.2),
+    (2, 64, 64, 16, True, 0.0),
+]
+
+
+def _flash_inputs(dev, bh, sq, sk, d, dtype):
+    q = _t(dev, bh, sq, d, dtype=dtype, seed=1)
+    k = _t(dev, bh, sk, d, dtype=dtype, seed=2)
+    v = _t(dev, bh, sk, d, dtype=dtype, seed=3)
+    do = _t(dev, bh, sq, d, dtype=dtype, seed=4)
+    return q, k, v, do
+
+
+def _flash_out_tol(ref, q, k, v, causal, p, dtype):
+    """Per element.  float32: summation order only.  bf16: the kernel's
+    online softmax rounds p to bf16 against a running max, the plain
+    version against the row's max (2^-9 relative each), so an element
+    moves by at most 2^-8 times the same attention over |v|; both round
+    the result once more (one bf16 unit, 2^-7 relative)."""
+    if dtype == torch.float32:
+        return 1e-5 * max(1.0, float(ref.abs().max()))
+    abs_pv, _ = fa.flash_fwd_reference(q.float(), k.float(), v.float().abs(),
+                                       5, None, causal, p)
+    return 2.0 ** -8 * abs_pv + 2.0 ** -7 * ref.float().abs() + 1e-6
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels(dev, case, dtype):
+    bh, sq, sk, d, causal, p = case
+    q, k, v, do = _flash_inputs(dev, bh, sq, sk, d, dtype)
+    before = {n: _kernels.launches[n]
+              for n in ("flash_fwd", "flash_dkdv", "flash_dq")}
+    out, lse = fa.flash_fwd_cuda(q, k, v, 5, None, causal, p)
+    ref, ref_lse = fa.flash_fwd_reference(q, k, v, 5, None, causal, p)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    assert bool(((out.float() - ref.float()).abs()
+                 <= _flash_out_tol(ref, q, k, v, causal, p, dtype)).all())
+    # lse: float32 sums of exact products on both sides
+    assert float((lse - ref_lse).abs().max()) <= 1e-5 * max(
+        1.0, float(ref_lse.abs().max()))
+    delta = (do.float() * ref.float()).sum(-1)
+    dk, dv = fa.flash_dkdv_cuda(q, k, v, do, ref_lse, delta, 5, None,
+                                causal, p)
+    rdk, rdv = fa.flash_dkdv_reference(q, k, v, do, ref_lse, delta, 5, None,
+                                       causal, p)
+    dq = fa.flash_dq_cuda(q, k, v, do, ref_lse, delta, 5, None, causal, p)
+    rdq = fa.flash_dq_reference(q, k, v, do, ref_lse, delta, 5, None,
+                                causal, p)
+    torch.cuda.synchronize()
+    # both sides round pd / ds at the same points from float32 values that
+    # differ by summation order only: one unit of the output's range (bf16)
+    for got, want in ((dk, rdk), (dv, rdv), (dq, rdq)):
+        tol = (1e-5 * max(1.0, float(want.abs().max()))
+               if dtype == torch.float32 else
+               float(want.float().abs().max()) * 2.0 ** -7)
+        assert float((got.float() - want.float()).abs().max()) <= tol
+    for n in before:
+        assert _kernels.launches[n] == before[n] + 1
+
+
+def test_flash_autograd_on_card_matches_cpu(dev):
+    q, k, v, do = _flash_inputs(dev, 4, 130, 130, 64, torch.float32)
+    grads = []
+    for device in (dev, torch.device("cpu")):
+        qs = [t.detach().to(device).reshape(2, 2, 130, 64).requires_grad_()
+              for t in (q, k, v)]
+        out = fa.flash_attention(*qs, causal=True, dropout_p=0.1, seed=9)
+        out.backward(do.to(device).reshape(2, 2, 130, 64))
+        grads.append([out.detach().cpu()] + [t.grad.cpu() for t in qs])
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 1e-4
+
