@@ -11,7 +11,8 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               source, in parallel) into build/paddle_tpu_torch/;
   (b) kernels each kernel at its path's shapes and dtypes against its
               plain PyTorch version on the card, with a stated tolerance;
-              times by CUDA events (median, L2 flushed).  The flash kernels
+              times by CUDA events (median, L2 flushed, the host's launch
+              path hidden behind a spin kernel).  The flash kernels
               at the training shape (B=8, H=12, S=2048, d=64, bf16, causal),
               plus a dropout case (B=2, H=4, S=512, p=0.1) and a ragged one
               (sq=136, sk=200) that are checked but not timed;
@@ -31,6 +32,18 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               steps and must read 12 x 13 after.  Beforehand, a float32
               step of a gpt_tiny-sized model (S=256) on the card is held
               against the same step on the CPU: loss and every gradient;
+  (c3) generate GPTForCausalLM.generate at full width (convert.
+              generate_workload: B=8, prompt 512, 128 greedy tokens, bf16),
+              unfused (use_pallas_attention) and fused (use_fused_block):
+              prefill ms, decode-step p50 ms (CUDA events), generated
+              tokens/s.  The counters are zeroed just before each timed
+              call; flash_decode must read 12 x the decode steps, and in
+              the fused run K1-K3 > 0.  Beforehand, a float32 run on a
+              small input is held against the same model on the CPU
+              (tokens identical, generate_step logits within 1e-3), and the
+              flash decode kernel against its plain version at B=8, H=12,
+              d=64, L=640 (phase b).  Afterwards an eager loop of
+              generate_step must give the CUDA-graph run's tokens;
   (d) the kernel list as one JSON line;
   (e) the card's name and power limit from nvidia-smi.
 
@@ -60,6 +73,7 @@ PEAK_BF16 = "bytes at 3.35 TB/s; bf16 operations at 989 TFLOP/s"
 SEED = 1234
 SERVING_KERNELS = ("paged_decode", "ln_linear", "linear_residual", "ffn")
 TRAINING_KERNELS = ("flash_fwd", "flash_dkdv", "flash_dq")
+GENERATE_KERNELS = ("flash_decode",)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -104,15 +118,22 @@ def main() -> int:
 
     results.update(check_flash(torch, np, dev))
 
+    results.update(check_flash_decode(torch, np, dev))
+
     # -- (c) serving ---------------------------------------------------------
     serving = serve(torch, np, dev, _kernels)
 
     # -- (c2) training -------------------------------------------------------
     training = train(torch, np, dev, _kernels)
+    torch.cuda.empty_cache()
+
+    # -- (c3) generate -------------------------------------------------------
+    generating = generate(torch, np, dev, _kernels)
 
     # -- (d) kernel list: launches from the path each kernel belongs to ------
     for r in results.values():
-        path = training if r["name"] in TRAINING_KERNELS else serving
+        path = (training if r["name"] in TRAINING_KERNELS else
+                generating if r["name"] in GENERATE_KERNELS else serving)
         r["launches"] = path["launches"][r["name"]]
         require(r["launches"] > 0,
                 f"{r['name']}: no launch on its main path")
@@ -135,10 +156,16 @@ def main() -> int:
 # ---------------------------------------------------------------------------
 # (b) kernels
 # ---------------------------------------------------------------------------
+SPIN_CYCLES = 2_000_000     # ~1 ms at the H100's 1.98 GHz boost clock
+
+
 def time_ms(torch, fn, reps: int = 25) -> float:
     """Median of per-launch CUDA-event times, with the 50 MB L2 flushed
     before each launch (the serving path finds every layer's weights
-    cold)."""
+    cold).  A spin kernel queued after the flush keeps the card busy while
+    the host runs the wrapper's Python and queues the launch, so the events
+    time the work on the card, not the host's way to it (a decode step
+    replays its kernels from a CUDA graph, with no host in between)."""
     flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(3):
         fn()
@@ -146,6 +173,7 @@ def time_ms(torch, fn, reps: int = 25) -> float:
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -505,6 +533,95 @@ def check_flash(torch, np, dev):
     return results
 
 
+DECODE_LENGTHS = (0, 1, 63, 64, 65, 577, 640)
+DECODE_TIMED_LENGTH = 576
+
+
+def check_flash_decode(torch, np, dev):
+    """(b) the flash decode kernel against its plain version at the generate
+    shape (B=8, H=12, d=64, L=640, bf16 cache): every length of
+    DECODE_LENGTHS, q in float32 (the main path's: K1 and the unfused qkv
+    projection return float32) and in bf16, sq 1 and 2; timed at length
+    576 with float32 q, with SDPA over the cache prefix as the library
+    yardstick."""
+    import torch.nn.functional as TF
+    from paddle_tpu_torch.ops import flash_attention as fa
+    rng = np.random.default_rng(SEED + 3)
+    B, H, D, L = 8, 12, 64, 640
+
+    def t(shape, dtype):
+        a = rng.standard_normal(shape, dtype=np.float32)
+        return torch.from_numpy(a).to(dev).to(dtype)
+
+    k, v = t((B, H, L, D), torch.bfloat16), t((B, H, L, D), torch.bfloat16)
+    cases = {}
+    for qdtype in (torch.float32, torch.bfloat16):
+        for sq in (1, 2):
+            q = t((B, H, sq, D), qdtype)
+            for n in DECODE_LENGTHS:
+                length = torch.tensor(n, dtype=torch.int32, device=dev)
+                out = fa.flash_decode_cuda(q, k, v, length)
+                ref = fa.flash_decode_reference(q, k, v, length)
+                torch.cuda.synchronize()
+                # per element: the kernel rounds p to bf16 against the
+                # running max of a 32-position chunk, the plain version
+                # against the row's max (2^-9 relative each), so an element
+                # moves by at most 2^-8 times the same attention over |v|;
+                # a bf16 output is rounded once more (2^-7 relative); 1e-5
+                # for float32 sums in another order.  A dropped or misread
+                # chunk moves a row by far more
+                abs_pv = fa.flash_decode_reference(q.float(), k,
+                                                   v.float().abs(), length)
+                tol = 2.0 ** -8 * abs_pv + 1e-5
+                if qdtype == torch.bfloat16:
+                    tol = tol + 2.0 ** -7 * ref.float().abs()
+                tag = f"q {str(qdtype).split('.')[-1]}, sq={sq}, len={n}"
+                cases[tag] = compare(torch, f"flash_decode {tag}", out, ref,
+                                     tol)
+                if n == 0:
+                    require(float(out.abs().max()) == 0.0,
+                            f"flash_decode {tag}: length 0 is not zero")
+    worst = max(cases.values(), key=lambda r: r["err_over_tol"])
+    log(f"check flash_decode (B={B}, H={H}, d={D}, L={L}, bf16 cache): "
+        f"{len(cases)} cases (q float32 / bf16, sq 1 / 2, lengths "
+        f"{list(DECODE_LENGTHS)}), max_abs_err "
+        f"{max(r['max_abs_err'] for r in cases.values()):.3e}, worst "
+        f"err/tol {worst['err_over_tol']:.3f}")
+
+    n = DECODE_TIMED_LENGTH
+    q = t((B, H, 1, D), torch.float32)
+    length = torch.tensor(n, dtype=torch.int32, device=dev)
+    ms = time_ms(torch, lambda: fa.flash_decode_cuda(q, k, v, length))
+    plain_ms = time_ms(torch,
+                       lambda: fa.flash_decode_reference(q, k, v, length))
+    # the bytes this length needs: q, the first n rows of K and V of every
+    # (batch, head), the length and the float32 output; float32 products
+    b_ms, b_by = bound(nbytes(q, length) + q.numel() * 4
+                       + 2 * B * H * n * D * k.element_size(),
+                       4.0 * B * H * n * D, F32_FLOPS)
+    qb, ks, vs = q.to(torch.bfloat16), k[:, :, :n], v[:, :, :n]
+    library_ms = time_ms(
+        torch, lambda: TF.scaled_dot_product_attention(qb, ks, vs))
+    log(f"time flash_decode (len {n}, float32 q): {ms:.4f} ms (plain "
+        f"{plain_ms:.4f} ms, library {library_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms by {b_by})")
+    return {"flash_decode": {
+        "name": "flash_decode", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/flash_decode.cu",
+        "replaces": "paddle_tpu/ops/flash_attention.py:499",
+        "launches": 0, "max_abs_err": max(r["max_abs_err"]
+                                          for r in cases.values()),
+        "tol": worst["tol"], "err_over_tol": worst["err_over_tol"],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": library_ms,
+        "library": f"scaled_dot_product_attention over the first {n} "
+                   "positions (bf16 q, non-causal)",
+        "peak": PEAK_F32,
+        "shape": f"B={B}, H={H}, d={D}, L={L}, length {n}, float32 q over "
+                 "a bf16 cache",
+        "cases": len(cases)}}
+
+
 # ---------------------------------------------------------------------------
 # (c) serving
 # ---------------------------------------------------------------------------
@@ -698,6 +815,138 @@ def train(torch, np, dev, _kernels):
         "launches": launches}}
     log(json.dumps(line))
     return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# (c3) generate
+# ---------------------------------------------------------------------------
+FUSED_KERNELS = ("ln_linear", "linear_residual", "ffn")
+
+
+def eager_decode(torch, model, prompts, new_tokens):
+    """Greedy decoding by an eager loop of ``generate_step`` (no CUDA graph):
+    tokens and each step's CUDA-event ms, prefill first."""
+    b, plen = prompts.shape
+    caches = model.make_caches(b, plen + new_tokens)
+    events = [torch.cuda.Event(enable_timing=True)]
+    events[0].record()
+    chunk, out = prompts, [prompts]
+    for _ in range(new_tokens):
+        logits, caches = model.generate_step(chunk, caches, caches[0][2])
+        chunk = logits[:, -1].float().argmax(-1).to(torch.int32)[:, None]
+        out.append(chunk)
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+    events[-1].synchronize()
+    return torch.cat(out, dim=1), [a.elapsed_time(z) for a, z
+                                   in zip(events, events[1:])]
+
+
+def generate(torch, np, dev, _kernels):
+    from paddle_tpu_torch.convert import (GENERATE_NEW_TOKENS,
+                                          generate_workload)
+
+    # reference on a small input: float32 on the card (kernels, CUDA graph)
+    # against the same weights on the CPU (plain versions, eager)
+    for fused in (False, True):
+        m_gpu, prompts = generate_workload(dev, dtype="float32",
+                                           use_fused_block=fused)
+        m_cpu, _ = generate_workload("cpu", dtype="float32",
+                                     use_fused_block=fused)
+        small = prompts[:2, :16].cpu()
+        toks = [m.generate(small.to(m.device), max_new_tokens=8).cpu()
+                for m in (m_gpu, m_cpu)]
+        require(torch.equal(toks[0], toks[1]),
+                f"float32 generate reference (fused={fused}): card tokens "
+                f"{toks[0].tolist()} != CPU {toks[1].tolist()}")
+        logits = []
+        for m in (m_gpu, m_cpu):
+            ids = small.to(m.device)
+            caches = m.make_caches(2, 24)
+            l0, caches = m.generate_step(ids, caches, 0)
+            nxt = l0[:, -1].argmax(-1).to(torch.int32)[:, None]
+            l1, _ = m.generate_step(nxt, caches, caches[0][2])
+            logits.append((l0.cpu(), l1.cpu()))
+        err = max(float((a - b).abs().max())
+                  for a, b in zip(*logits))
+        # float32 through 12 layers in another summation order: ~1e-5
+        require(err <= 1e-3, f"float32 generate reference (fused={fused}): "
+                f"generate_step logits differ by {err}")
+        log(f"generate reference (fused={fused}): float32 card vs CPU, 2 x "
+            f"16 prompt, 8 greedy tokens identical; prefill and first "
+            f"decode-step logits max_abs_err {err:.3e} <= 1e-3")
+        del m_gpu, m_cpu
+    torch.cuda.empty_cache()
+
+    variants, total = {}, {name: 0 for name in _kernels.KERNELS}
+    for fused in (False, True):
+        tag = "fused" if fused else "unfused"
+        model, prompts = generate_workload(dev, use_fused_block=fused)
+        cfg = model.config
+        require(cfg.dtype == "bfloat16" and cfg.num_layers == 12
+                and cfg.hidden_size == 768 and cfg.num_heads == 12
+                and cfg.vocab_size == 50304
+                and cfg.use_fused_block == fused
+                and cfg.use_pallas_attention == (not fused)
+                and tuple(prompts.shape) == (8, 512),
+                f"not the full-width bf16 GPT-125M generate workload "
+                f"({tag})")
+        b, plen = prompts.shape
+        # warm-up: the first call captures the decode step's graph
+        warm = model.generate(prompts, max_new_tokens=GENERATE_NEW_TOKENS)
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        steps = []
+        t0 = time.perf_counter()
+        out = model.generate(prompts, max_new_tokens=GENERATE_NEW_TOKENS,
+                             step_times=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_kernels.launches)
+        decode_steps = GENERATE_NEW_TOKENS - 1
+        require(tuple(out.shape) == (b, plen + GENERATE_NEW_TOKENS)
+                and bool(((out >= 0) & (out < cfg.vocab_size)).all())
+                and torch.equal(out[:, :plen], prompts),
+                f"generate ({tag}): bad output {tuple(out.shape)}")
+        require(torch.equal(out, warm),
+                f"generate ({tag}): the capturing call and the replaying "
+                "call disagree")
+        require(launches["flash_decode"] == cfg.num_layers * decode_steps,
+                f"flash_decode ({tag}): {launches['flash_decode']} launches "
+                f"in {decode_steps} decode steps, not {cfg.num_layers} per "
+                "step")
+        for name in FUSED_KERNELS:
+            require((launches[name] > 0) == fused,
+                    f"{name} ({tag}): {launches[name]} launches")
+        eager, eager_steps = eager_decode(torch, model, prompts,
+                                          GENERATE_NEW_TOKENS)
+        require(torch.equal(eager, out),
+                f"generate ({tag}): the eager generate_step loop gives "
+                "other tokens than the CUDA-graph run")
+        for name in total:
+            total[name] += launches[name]
+        variants[tag] = {
+            "use_fused_block": fused, "use_pallas_attention": not fused,
+            "prefill_ms": steps[0],
+            "decode_step_ms_p50": statistics.median(steps[1:]),
+            "decode_steps": decode_steps, "wall_s": wall,
+            "generated_tokens": b * GENERATE_NEW_TOKENS,
+            "generated_tokens_per_s": b * GENERATE_NEW_TOKENS / wall,
+            "eager_prefill_ms": eager_steps[0],
+            "eager_decode_step_ms_p50": statistics.median(eager_steps[1:]),
+            "graph_vs_eager_tokens": "identical",
+            "launches": {k: v for k, v in launches.items() if v}}
+        log(f"generate ({tag}): prefill {steps[0]:.3f} ms, decode step p50 "
+            f"{variants[tag]['decode_step_ms_p50']:.4f} ms (CUDA graph) vs "
+            f"{variants[tag]['eager_decode_step_ms_p50']:.4f} ms (eager "
+            f"loop, same tokens), "
+            f"{variants[tag]['generated_tokens_per_s']:.1f} tok/s")
+        del model, warm, out, eager
+        torch.cuda.empty_cache()
+    log(json.dumps({"generate": {
+        "model": "gpt_125m", "dtype": "bfloat16", "B": 8, "prompt_len": 512,
+        "new_tokens": GENERATE_NEW_TOKENS, "variants": variants}}))
+    return {"launches": total}
 
 
 if __name__ == "__main__":

@@ -13,7 +13,13 @@ includes PyTorch's headers, which keeps a build to seconds.
 Every C entry point returns ``cudaGetLastError()``; :func:`check` raises on
 anything but 0.  ``launches`` counts, per kernel, the calls in which a
 wrapper launched it on the card: the wrappers add one right after a launch
-and nowhere else.  Nothing here is imported or built until a kernel runs.
+and nowhere else.  A CUDA graph is the one exception, handled here and
+nowhere else: a capture runs the wrappers' Python but launches nothing, and
+a replay launches the captured kernels without running any Python.  So
+:func:`capture` takes the launches its wrappers counted back out of
+``launches`` and returns them as the graph's record, and :func:`replay`
+adds that record once per replay.  Nothing here is imported or built until
+a kernel runs.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ from .framework.errors import UnavailableError, enforce
 
 __all__ = ["KERNELS", "BUILD_DIR", "launches", "reset_launches", "build",
            "bind", "check", "dtype_code", "ptr", "stream", "sm_count",
-           "ptxas_report", "require_cuda"]
+           "ptxas_report", "require_cuda", "capture", "replay"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parent.parent / "build"
@@ -41,7 +47,7 @@ BUILD_DIR = (Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("paged_decode", "ln_linear", "linear_residual", "ffn",
-           "flash_fwd", "flash_dkdv", "flash_dq")
+           "flash_fwd", "flash_dkdv", "flash_dq", "flash_decode")
 
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -53,6 +59,27 @@ _lock = threading.Lock()
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def capture(graph, fn) -> Dict[str, int]:
+    """Capture ``fn()`` into ``graph`` (a ``torch.cuda.CUDAGraph``) and
+    return the launches its wrappers counted, per kernel: the graph's
+    record.  The capture launched nothing, so they leave ``launches``."""
+    before = dict(launches)
+    try:
+        with torch.cuda.graph(graph):
+            fn()
+    finally:
+        recorded = {n: launches[n] - before[n] for n in launches}
+        launches.update(before)
+    return {n: c for n, c in recorded.items() if c}
+
+
+def replay(graph, recorded: Dict[str, int]) -> None:
+    """Replay ``graph`` and count the launches of its record."""
+    graph.replay()
+    for name, count in recorded.items():
+        launches[name] += count
 
 
 def _nvcc() -> str:

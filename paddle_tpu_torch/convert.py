@@ -22,7 +22,9 @@ from .framework.errors import enforce
 __all__ = ["state_dict_from_jax", "load_jax_state", "random_state",
            "serving_workload", "SERVING_SEED", "SERVING_ENGINE",
            "SERVING_NEW_TOKENS", "training_workload", "TRAINING_SEED",
-           "TRAINING_BATCH", "TRAINING_SEQ"]
+           "TRAINING_BATCH", "TRAINING_SEQ", "generate_workload",
+           "GENERATE_SEED", "GENERATE_BATCH", "GENERATE_PROMPT",
+           "GENERATE_NEW_TOKENS"]
 
 
 def state_dict_from_jax(np_state: Dict[str, np.ndarray],
@@ -118,6 +120,40 @@ def training_workload(device, config=None, *, batch: int = TRAINING_BATCH,
     labels = torch.from_numpy(rng.randint(0, cfg.vocab_size,
                                           (batch, seq_len))).to(dev)
     return model, optimizer, ids, labels
+
+
+GENERATE_SEED = 4321
+GENERATE_BATCH = 8
+GENERATE_PROMPT = 512
+GENERATE_NEW_TOKENS = 128
+
+
+def generate_workload(device, *, dtype: str = "bfloat16",
+                      use_fused_block: bool = False
+                      ) -> Tuple[nn.Module, torch.Tensor]:
+    """The ``generate`` workload that ``chip_smoke.py`` and
+    ``profile_generate`` drive: full-width GPT-125M (12 layers, h=768, 12
+    heads, vocab 50304, ``max_position_embeddings=1024``, dropout 0) on
+    ``device`` with :func:`random_state` weights of ``GENERATE_SEED``, and
+    a ``(GENERATE_BATCH, GENERATE_PROMPT)`` int32 prompt batch drawn by
+    ``np.random.default_rng(GENERATE_SEED + 1)``.  Unfused means
+    ``use_pallas_attention=True`` (the flash decode kernel in the unfused
+    block); fused means ``use_fused_block=True``.  Decode
+    ``GENERATE_NEW_TOKENS`` greedy tokens with ``model.generate``: a cache
+    capacity of 640, a multiple of 8, so every single-token step takes the
+    decode kernel.  Returns ``(model, prompts)``: the same weights and
+    prompts in every dtype and variant."""
+    from .models.gpt import GPTForCausalLM, gpt_125m
+    cfg = gpt_125m(dtype=dtype, use_fused_block=use_fused_block,
+                   use_pallas_attention=not use_fused_block,
+                   hidden_dropout=0.0, attention_dropout=0.0,
+                   max_position_embeddings=1024)
+    model = GPTForCausalLM(cfg, device=device)
+    load_jax_state(model, random_state(model, GENERATE_SEED))
+    rng = np.random.default_rng(GENERATE_SEED + 1)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (GENERATE_BATCH, GENERATE_PROMPT)).astype(np.int32)
+    return model, torch.from_numpy(prompts).to(model.device)
 
 
 def random_state(model: nn.Module, seed: int) -> Dict[str, np.ndarray]:

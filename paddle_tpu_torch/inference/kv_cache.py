@@ -18,11 +18,12 @@ ever touches it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..framework.errors import enforce
 
 __all__ = ["BlockAllocator", "PagedLayerCache", "PagedKVCache"]
@@ -111,13 +112,14 @@ class PagedLayerCache:
 
 
 class PagedKVCache:
-    """Whole-model paged KV store: per-layer pages on ``device``, the
-    allocator and the per-sequence block tables."""
+    """Whole-model paged KV store: per-layer pages on ``device`` (``cuda``
+    when none is given; the CPU only when asked), the allocator and the
+    per-sequence block tables."""
 
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
                  num_blocks: int, block_size: int = 16,
                  dtype: torch.dtype = torch.float32,
-                 device: Optional[torch.device] = None):
+                 device: Optional[Union[str, torch.device]] = None):
         self.num_layers = int(num_layers)
         self.num_heads = int(num_heads)
         self.head_dim = int(head_dim)
@@ -126,7 +128,7 @@ class PagedKVCache:
         self.num_slots = self.num_blocks * self.block_size
         self.slot_pad = self.num_slots        # the trailing sentinel row
         self.dtype = dtype
-        self.device = torch.device("cpu") if device is None else device
+        self.device = resolve_device(device)
         self.allocator = BlockAllocator(self.num_blocks, self.block_size)
         self._tables: Dict[object, List[int]] = {}
         shape = (self.num_slots + 1, self.num_heads, self.head_dim)

@@ -1,7 +1,8 @@
 """GPT decoder-only transformer: the port of ``paddle_tpu/models/gpt.py``
 for the training step (``model(input_ids, labels=labels)``, the cache-free
-forward and the fused LM loss) and for ``GPTForCausalLM.serving_step`` over
-a paged KV cache.
+forward and the fused LM loss), for ``GPTForCausalLM.serving_step`` over a
+paged KV cache and for ``GPTForCausalLM.generate`` over fixed-shape caches
+(``make_caches``, ``generate_step``).
 
 Same module tree, parameter names and (in, out) weight layout as the JAX
 package, so ``state_dict`` keys carry over (``convert.py``).  Two block
@@ -9,9 +10,12 @@ paths, chosen by ``GPTConfig.use_fused_block`` as in the JAX package:
 
 - unfused: ``x + attn(ln_1(x))`` then ``x + mlp(ln_2(x))``, plain PyTorch
   around the attention kernels (flash attention when
-  ``use_pallas_attention``, paged decode when serving);
-- fused (serving only so far): K1 ``fused_ln_linear`` -> paged attention
-  -> K2 ``fused_linear_residual``, then K3 ``fused_ffn_block``.
+  ``use_pallas_attention``, paged decode when serving, the flash decode
+  kernel for a single-token ``generate`` step with
+  ``use_pallas_attention``);
+- fused (decoding only so far): K1 ``fused_ln_linear`` -> paged or
+  fixed-cache decode attention -> K2 ``fused_linear_residual``, then K3
+  ``fused_ffn_block``.
 
 Dtypes follow the JAX package: parameters stay float32; with ``dtype=
 "bfloat16"`` the embeddings are cast to bfloat16 (the residual stream) and
@@ -19,30 +23,34 @@ the KV pages are bfloat16; every op promotes as ``jnp`` does, and under
 ``amp.auto_cast`` the ops cast as the JAX package's do.
 
 Not in these slices (ROADMAP): training with ``use_fused_block``, MoE,
-sequence / context parallelism, recompute and the fixed-cache
-``generate``; the config fields for the first four raise when set.
+sequence / context parallelism and recompute; the config fields of the
+last three raise when set.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Any, Dict, List, Optional
 
 import torch
 from torch import nn
 
+from .. import _kernels
 from ..device import resolve_device
 from ..distributed.mp_layers import (ColumnParallelLinear, RowParallelLinear,
                                      VocabParallelEmbedding)
 from ..distributed.mp_ops import parallel_cross_entropy
+from ..framework import random as fw_random
 from ..framework.errors import UnimplementedError, enforce
 from ..inference.kv_cache import PagedLayerCache
 from ..inference.paged_attention import paged_attention
 from ..nn import functional as F
 from ..nn.layers import Dropout, LayerNorm
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import flash_attention, flash_attention_kvcache
 from ..ops.fused import _lce_chunk, linear_softmax_cross_entropy
-from ..ops.fused_block import (fused_ffn_block, fused_linear_residual,
+from ..ops.fused_block import (fused_attention_block_kvcache,
+                               fused_ffn_block, fused_linear_residual,
                                fused_ln_linear)
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTDecoderLayer",
@@ -131,7 +139,10 @@ class GPTAttention(nn.Module):
         v = qkv[:, :, :, 2].transpose(1, 2)
         return q, k, v
 
-    def forward(self, x, cache: Optional[PagedLayerCache] = None):
+    def forward(self, x, cache=None):
+        """Cache-free: the output.  With a cache (a :class:`PagedLayerCache`
+        or the fixed-shape ``(k_buf, v_buf, used)`` triple of
+        :meth:`GPTForCausalLM.make_caches`): ``(output, new_cache)``."""
         b, s, _ = x.shape
         q, k, v = self._split_qkv(self.qkv_proj(x), b, s)
         if cache is None:
@@ -146,12 +157,39 @@ class GPTAttention(nn.Module):
                     training=self.training)
             out = out.transpose(1, 2).reshape(b, s, c.hidden_size)
             return self.resid_dropout(self.out_proj(out))
-        enforce(isinstance(cache, PagedLayerCache),
-                "GPTAttention runs cache-free or over a PagedLayerCache; the "
-                "fixed-shape cache comes with the generate slice",
-                exc=UnimplementedError)
-        out, new_cache = self._paged_cache_forward(q, k, v, cache, b, s)
+        if isinstance(cache, PagedLayerCache):
+            out, new_cache = self._paged_cache_forward(q, k, v, cache, b, s)
+        else:
+            out, new_cache = self._fixed_cache_forward(q, k, v, cache, b, s)
         return self.resid_dropout(self.out_proj(out)), new_cache
+
+    def _fixed_cache_forward(self, q, k, v, cache, b, s):
+        """Write this call's k/v at ``used`` (a 0-d int32 device tensor) in
+        place, then attend: a single-token step with
+        ``use_pallas_attention`` (``L % 8 == 0``, ``head_dim % 8 == 0``)
+        runs the flash decode kernel over the first ``used + 1`` positions;
+        otherwise SDPA with the additive mask ``cols <= used + arange(s)``.
+        Returns the attention output and ``(k_buf, v_buf, used + s)``."""
+        c = self.config
+        k_buf, v_buf, used = cache
+        used = torch.as_tensor(used, dtype=torch.int32, device=q.device)
+        rows = used.long() + torch.arange(s, device=q.device)
+        k_buf.index_copy_(2, rows, k.to(k_buf.dtype))
+        v_buf.index_copy_(2, rows, v.to(v_buf.dtype))
+        cap = k_buf.shape[2]
+        if (c.use_pallas_attention and s == 1 and cap % 8 == 0
+                and c.head_dim % 8 == 0):
+            out = flash_attention_kvcache(q, k_buf, v_buf, used + 1)
+        else:
+            cols = torch.arange(cap, device=q.device)
+            bias = torch.where(cols[None, :] <= rows[:, None],
+                               torch.zeros((), device=q.device),
+                               torch.full((), -1e9, device=q.device))
+            out = F.scaled_dot_product_attention(
+                q, k_buf, v_buf, attn_mask=bias[None, None].to(q.dtype),
+                is_causal=False, dropout_p=0.0, training=False)
+        out = out.transpose(1, 2).reshape(b, s, c.hidden_size)
+        return out, (k_buf, v_buf, used + s)
 
     def _paged_cache_forward(self, q, k, v, cache: PagedLayerCache, b, s):
         """Write this call's k/v into the pages at ``cache.slot_mapping``,
@@ -225,7 +263,7 @@ class GPTMLP(nn.Module):
 
 
 class GPTDecoderLayer(nn.Module):
-    """Pre-LN block, cache-free or over the paged cache."""
+    """Pre-LN block, cache-free or over a cache (paged or fixed-shape)."""
 
     def __init__(self, config: GPTConfig, index: int = 0, device=None):
         super().__init__()
@@ -238,9 +276,21 @@ class GPTDecoderLayer(nn.Module):
                               device=device)
         self.mlp = GPTMLP(c, device=device)
 
-    def _fused_cache_forward(self, x, cache: PagedLayerCache):
+    def _fused_cache_forward(self, x, cache):
+        """Fused decode step over either kind of cache: the attention half
+        (K1 -> paged or fixed-cache decode -> K2), then K3."""
         c = self.config
-        x, new_cache = self.attn.fused_paged_forward(x, self.ln_1, cache)
+        if isinstance(cache, PagedLayerCache):
+            x, new_cache = self.attn.fused_paged_forward(x, self.ln_1, cache)
+        else:
+            k_buf, v_buf, used = cache
+            a = self.attn
+            x, k_buf, v_buf = fused_attention_block_kvcache(
+                x, a.qkv_proj.weight, a.qkv_proj.bias, a.out_proj.weight,
+                a.out_proj.bias, self.ln_1.weight, self.ln_1.bias, k_buf,
+                v_buf, used, num_heads=c.num_heads,
+                epsilon=c.layer_norm_epsilon)
+            new_cache = (k_buf, v_buf, used + x.shape[1])
         m = self.mlp
         x = fused_ffn_block(
             x, m.fc_in.weight, m.fc_in.bias, m.fc_out.weight, m.fc_out.bias,
@@ -249,7 +299,7 @@ class GPTDecoderLayer(nn.Module):
             training=self.training)
         return x, new_cache
 
-    def forward(self, x, cache: Optional[PagedLayerCache] = None):
+    def forward(self, x, cache=None):
         if cache is None:
             enforce(not self.config.use_fused_block,
                     "the cache-free (training) forward with use_fused_block "
@@ -287,10 +337,11 @@ class GPTModel(nn.Module):
                               device=device)
 
     def forward(self, input_ids, position_offset=0,
-                caches: Optional[List[PagedLayerCache]] = None):
+                caches: Optional[List[Any]] = None):
         """Hidden states ``(b, s, h)``, with the new caches when ``caches``
         are given.  ``position_offset`` is a scalar or a ``(b,)`` vector —
-        every ragged-batch row decodes at its own position."""
+        every ragged-batch row decodes at its own position — as an int or a
+        device tensor (read on the device: no host sync)."""
         c = self.config
         b, s = input_ids.shape
         dev = input_ids.device
@@ -323,6 +374,7 @@ class GPTForCausalLM(nn.Module):
         self.config = config
         self.device = resolve_device(device)
         self.gpt = GPTModel(config, device=self.device)
+        self._gen_loop: Optional[_DecodeLoop] = None
 
     def forward(self, input_ids, labels=None):
         """Logits ``(b, s, vocab)`` when ``labels`` is None, else ``(loss,
@@ -345,6 +397,20 @@ class GPTForCausalLM(nn.Module):
                                       reduction="mean")
         return loss, logits
 
+    @torch.no_grad()
+    def generate_step(self, input_ids, caches, position_offset):
+        """Single decode step over the fixed-shape caches of
+        :meth:`make_caches` (the reference CacheKV path): the tied-head
+        logits ``(b, 1, vocab)`` of the last position and the new caches.
+        The buffers are written in place; each ``used`` comes back advanced
+        as a new tensor.  ``position_offset`` may be a device tensor."""
+        hidden, new_caches = self.gpt(input_ids,
+                                      position_offset=position_offset,
+                                      caches=caches)
+        table = self.gpt.wte.weight.to(hidden.dtype)
+        logits = torch.matmul(hidden[:, -1:], table.t())
+        return logits, new_caches
+
     def serving_step(self, input_ids, caches, position_offset, last_index):
         """One serving-engine step over paged caches: run the stack, take
         the hidden state at ``last_index`` per row (the last real token of
@@ -360,6 +426,211 @@ class GPTForCausalLM(nn.Module):
         table = self.gpt.wte.weight.to(h_last.dtype)
         logits = torch.matmul(h_last, table.t())
         return logits, new_caches
+
+    def make_caches(self, batch_size: int, max_length: int):
+        """Fixed-shape KV caches, one ``(k_buf, v_buf, used)`` triple per
+        layer: zeroed ``(batch, heads, max_length, head_dim)`` buffers in
+        the activation dtype and ``used`` a 0-d int32 tensor, all on the
+        model's device, so every decode step has the same shapes."""
+        c = self.config
+        shape = (batch_size, c.num_heads, max_length, c.head_dim)
+        dev = self.device
+        return [(torch.zeros(shape, dtype=c.torch_dtype, device=dev),
+                 torch.zeros(shape, dtype=c.torch_dtype, device=dev),
+                 torch.zeros((), dtype=torch.int32, device=dev))
+                for _ in range(c.num_layers)]
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 temperature: float = 0.0, top_k: int = 0,
+                 seed: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None,
+                 eos_token_id: Optional[int] = None,
+                 step_times: Optional[List[float]] = None):
+        """Autoregressive decoding over fixed-shape caches: the prompt as one
+        prefill step, then one single-token step per new token (captured
+        once as a CUDA graph on the card and replayed, see
+        :meth:`_gen_step`).  ``temperature`` 0 is greedy; otherwise
+        sampling, cut to the ``top_k`` largest logits when ``top_k > 0``.
+        The sampling stream is seeded with ``seed``, else with one draw from
+        ``generator``, else from the framework's stream (JAX's keys give
+        other numbers, so sampled tokens are reproducible per seed but are
+        not JAX's).  Rows that emit ``eos_token_id`` stay pinned to it, and
+        decoding stops once every row has; without it the loop makes no
+        host sync.  Returns the prompt and the new tokens, int32 ``(b,
+        prompt_len + n)``.  ``step_times``, when given, receives each
+        step's milliseconds, prefill first (CUDA events on the card)."""
+        c = self.config
+        self.eval()
+        ids = torch.as_tensor(input_ids).to(device=self.device,
+                                            dtype=torch.int32)
+        b, prompt_len = ids.shape
+        if max_new_tokens <= 0:
+            return ids
+        total = prompt_len + max_new_tokens
+        enforce(total <= c.max_position_embeddings,
+                f"{total} positions exceed max_position_embeddings "
+                f"({c.max_position_embeddings})")
+        loop = self._gen_step(float(temperature), int(top_k), b, total)
+        loop.reset(_sampling_seed(seed, generator) if temperature > 0.0
+                   else 0)
+        marks: List[Any] = []
+
+        def mark():
+            if step_times is None:
+                return
+            if ids.is_cuda:
+                marks.append(torch.cuda.Event(enable_timing=True))
+                marks[-1].record()
+            else:
+                marks.append(time.perf_counter())
+
+        mark()
+        nxt = loop.prefill(ids)
+        mark()
+        out = [ids, nxt[:, None]]
+        finished = None if eos_token_id is None else nxt == eos_token_id
+        for _ in range(1, max_new_tokens):
+            nxt = loop.decode()
+            if finished is not None:
+                # finished rows stay pinned to EOS, and the pinned token is
+                # what the next step reads
+                nxt = torch.where(finished, torch.full_like(nxt, eos_token_id),
+                                  nxt)
+                loop.tokens.copy_(nxt[:, None])
+                finished = finished | (nxt == eos_token_id)
+            mark()
+            out.append(nxt[:, None])
+            if finished is not None and bool(finished.all()):
+                break
+        if step_times is not None:
+            if ids.is_cuda:
+                marks[-1].synchronize()
+                step_times.extend(a.elapsed_time(z)
+                                  for a, z in zip(marks, marks[1:]))
+            else:
+                step_times.extend((z - a) * 1e3
+                                  for a, z in zip(marks, marks[1:]))
+        return torch.cat(out, dim=1)
+
+    def _gen_step(self, temperature: float, top_k: int, batch: int,
+                  capacity: int) -> "_DecodeLoop":
+        """The decode loop of one ``(batch, capacity, temperature, top_k)``:
+        its caches, token buffer and sampling stream, and on the card the
+        CUDA graph of its single-token step, captured at the first decode
+        step and replayed after (the counterpart of the JAX package's
+        cached ``jax.jit``).  The instance keeps the loop of the last key
+        only: a loop holds caches for the whole batch's context, so a call
+        with another key frees it and builds (and captures) its own."""
+        key = (batch, capacity, temperature, top_k)
+        if self._gen_loop is None or self._gen_loop.key != key:
+            self._gen_loop = None                   # free the old caches
+            self._gen_loop = _DecodeLoop(self, *key)
+        return self._gen_loop
+
+
+def _sampling_seed(seed: Optional[int],
+                   generator: Optional[torch.Generator]) -> int:
+    if seed is not None:
+        return int(seed)
+    if generator is not None:
+        return int(torch.randint(0, 2 ** 62, (), generator=generator,
+                                 device=generator.device))
+    return fw_random.draw_seed()
+
+
+def _sample(logits: torch.Tensor, temperature: float, top_k: int,
+            generator: torch.Generator) -> torch.Tensor:
+    """Next tokens, int32 ``(b,)``, from float32 ``(b, vocab)`` logits:
+    argmax when ``temperature <= 0``; otherwise Gumbel-max over
+    ``logits / temperature`` (how ``jax.random.categorical`` draws), with
+    every logit below the ``top_k``-th largest set to -inf."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    scaled = logits / temperature
+    if top_k > 0:
+        kth = torch.topk(scaled, top_k, dim=-1).values[:, -1:]
+        scaled = torch.where(scaled < kth,
+                             torch.full((), -math.inf, device=scaled.device),
+                             scaled)
+    u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
+    return torch.argmax(scaled - torch.log(-torch.log(u)),
+                        dim=-1).to(torch.int32)
+
+
+class _DecodeLoop:
+    """The state of :meth:`GPTForCausalLM.generate` for one ``(batch,
+    capacity, temperature, top_k)``: the fixed-shape caches, a ``(b, 1)``
+    int32 token buffer and a sampling generator on the model's device.
+
+    A step reads its input from the caches and the buffer and leaves its
+    result there: it writes k/v at ``used``, samples the next tokens into
+    the buffer and advances every ``used`` in place, with the position
+    offset read from ``used`` on the device.  So on the card the
+    single-token step is captured once as a CUDA graph and every later
+    step is a replay, with no Python and no host sync; the flash decode
+    kernel reads the length the graph computed.  The generator is
+    registered with the graph, so each replay draws fresh noise.  The
+    first decode step runs eagerly on a side stream before the capture
+    (it sets up what the capture needs: the kernel libraries, cuBLAS
+    workspaces); a capture that fails raises.  Prefill runs eagerly, and
+    on the CPU every step does."""
+
+    def __init__(self, model: GPTForCausalLM, batch: int, capacity: int,
+                 temperature: float, top_k: int):
+        dev = model.device
+        self.key = (batch, capacity, temperature, top_k)
+        self.model = model
+        self.temperature = temperature
+        self.top_k = top_k
+        self.caches = model.make_caches(batch, capacity)
+        self.tokens = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+        self.generator = torch.Generator(device=dev)
+        self.graph = None
+        self.recorded: Dict[str, int] = {}
+
+    def reset(self, seed: int) -> None:
+        for k_buf, v_buf, used in self.caches:
+            k_buf.zero_()
+            v_buf.zero_()
+            used.zero_()
+        self.generator.manual_seed(seed)
+
+    def _step(self, chunk: torch.Tensor) -> None:
+        logits, new_caches = self.model.generate_step(
+            chunk, self.caches, self.caches[0][2])
+        nxt = _sample(logits[:, -1].float(), self.temperature, self.top_k,
+                      self.generator)
+        for (_, _, used), (_, _, new_used) in zip(self.caches, new_caches):
+            used.copy_(new_used)
+        self.tokens.copy_(nxt[:, None])
+
+    def prefill(self, ids: torch.Tensor) -> torch.Tensor:
+        self._step(ids)
+        return self.tokens[:, 0].clone()
+
+    def decode(self) -> torch.Tensor:
+        if not self.tokens.is_cuda:
+            self._step(self.tokens)
+        elif self.graph is None:
+            self._capture()
+        else:
+            _kernels.replay(self.graph, self.recorded)
+        return self.tokens[:, 0].clone()
+
+    def _capture(self) -> None:
+        dev = self.tokens.device
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._step(self.tokens)            # this step, eagerly
+        main.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        self.recorded = _kernels.capture(graph,
+                                         lambda: self._step(self.tokens))
+        self.graph = graph
 
 
 # -- standard configs (the JAX package's table) ------------------------------

@@ -1,14 +1,15 @@
 """Flash attention: the port of ``paddle_tpu/ops/flash_attention.py``
-(``flash_attention`` and its recompute backward; the fixed-cache decode
-kernel comes with the ``generate`` slice).
+(``flash_attention`` with its recompute backward, and the fixed-cache
+decode ``flash_attention_kvcache``).
 
-Three kernels, each CUDA C++ for Hopper beside its plain PyTorch version:
+Four kernels, each CUDA C++ for Hopper beside its plain PyTorch version:
 
-  [flash_fwd]   out, lse = attention(q, k, v)        csrc/flash_fwd.cu
-  [flash_dkdv]  dK, dV of the recompute backward     csrc/flash_dkdv.cu
-  [flash_dq]    dQ of the recompute backward         csrc/flash_dq.cu
+  [flash_fwd]    out, lse = attention(q, k, v)       csrc/flash_fwd.cu
+  [flash_dkdv]   dK, dV of the recompute backward    csrc/flash_dkdv.cu
+  [flash_dq]     dQ of the recompute backward        csrc/flash_dq.cu
+  [flash_decode] decode attention over a fixed cache csrc/flash_decode.cu
 
-They work on (batch*heads, seq, head_dim) tensors.  :class:`_FlashCore`,
+The first three work on (batch*heads, seq, head_dim) tensors.  :class:`_FlashCore`,
 a ``torch.autograd.Function``, is the counterpart of the JAX package's
 ``custom_vjp`` ``_flash_attention_core``: forward saves ``(q, k, v, seed,
 out, lse)``; backward computes ``delta = rowsum(dO * out)`` in float32 and
@@ -30,6 +31,15 @@ The plain versions round where the TPU kernels round: products of the input
 dtype summed in float32, ``p`` rounded to v's dtype before P.V, and in
 backward ``pd`` rounded to dO's dtype for dV and ``ds`` to q's / k's dtype
 for dK / dQ.
+
+:func:`flash_attention_kvcache` is the decode op: ``q`` (batch, heads, sq,
+head_dim) against the first ``cache_seqlen`` positions of (batch, heads, L,
+head_dim) caches, with no mask inside the query block and no backward (the
+JAX function has no VJP; it runs in decoding only).  ``q`` and the caches
+may differ in dtype (the fused decode hands it float32 q over a bfloat16
+cache); products are float32, ``p`` is rounded to the cache dtype before
+P.V and the output takes ``q``'s dtype.  The kernel reads the length from
+a device int32, so one CUDA graph of a decode step serves every position.
 """
 from __future__ import annotations
 
@@ -44,10 +54,12 @@ from ..framework.errors import enforce
 
 __all__ = ["flash_attention", "flash_fwd_reference", "flash_fwd_cuda",
            "flash_dkdv_reference", "flash_dkdv_cuda", "flash_dq_reference",
-           "flash_dq_cuda"]
+           "flash_dq_cuda", "flash_attention_kvcache",
+           "flash_decode_reference", "flash_decode_cuda"]
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (16, 32, 64, 128)        # the csrc/flash_*.cu instantiations
+_MAX_DECODE_HEAD_DIM = 256            # csrc/flash_decode.cu kMaxHeadDim
 _MAX_GRID_Y = 65535                   # batch*heads ride the grid's y axis
 _M32 = 0xFFFFFFFF
 
@@ -355,3 +367,101 @@ def flash_attention(q, k, v, causal: bool = True,
                            v.reshape(b * h, sk, d).contiguous(), seed,
                            float(scale), bool(causal), float(dropout_p))
     return out.reshape(b, h, sq, d)
+
+
+# ---------------------------------------------------------------------------
+# Decode against a fixed-capacity cache (flash_attention_kvcache)
+# ---------------------------------------------------------------------------
+def _check_decode(q, k_cache, v_cache, name: str) -> None:
+    enforce(q.dim() == 4 and k_cache.dim() == 4,
+            f"{name}: q must be (batch, heads, sq, head_dim) and the caches "
+            f"(batch, heads, L, head_dim), got {tuple(q.shape)} and "
+            f"{tuple(k_cache.shape)}")
+    b, h, sq, d = q.shape
+    enforce(k_cache.shape == v_cache.shape and k_cache.shape[:2] == (b, h)
+            and k_cache.shape[3] == d,
+            f"{name}: caches {tuple(k_cache.shape)} / "
+            f"{tuple(v_cache.shape)} disagree with q {tuple(q.shape)}")
+    enforce(sq > 0, f"{name}: empty query block")
+
+
+def flash_decode_reference(q, k_cache, v_cache, cache_seqlen,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Plain decode attention: float32 scores, columns at or past
+    ``cache_seqlen`` (clamped to [0, L]) masked to -1e30, ``p`` rounded to
+    the cache dtype before P.V, ``l`` clamped at 1e-30, output in ``q``'s
+    dtype.  A length of 0 gives zeros."""
+    _check_decode(q, k_cache, v_cache, "flash_decode_reference")
+    cap, d = k_cache.shape[2], q.shape[-1]
+    scale = d ** -0.5 if scale is None else scale
+    n = torch.as_tensor(cache_seqlen, device=q.device).long().clamp(0, cap)
+    valid = torch.arange(cap, device=q.device) < n            # (L,)
+    s = torch.matmul(q.float(), k_cache.float().transpose(-1, -2)) * scale
+    s = torch.where(valid, s, torch.full((), _NEG_INF, device=q.device))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), torch.zeros((), device=q.device))
+    l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    acc = torch.matmul(_round(p, v_cache.dtype), v_cache.float())
+    return (acc / l_safe).to(q.dtype)
+
+
+def flash_decode_cuda(q, k_cache, v_cache, cache_seqlen,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """The decode kernel: as :func:`flash_decode_reference`, with the
+    length a 0-d (or one-element) int32 tensor on the card, read by the
+    kernel.  ``q`` and the caches each float32 or bfloat16, contiguous and
+    16-byte aligned; ``head_dim`` a multiple of 8 in [16, 256]."""
+    name = "flash_decode"
+    _check_decode(q, k_cache, v_cache, name)
+    dev = _kernels.require_cuda(name, q, k_cache, v_cache, cache_seqlen)
+    b, h, sq, d = q.shape
+    cap = k_cache.shape[2]
+    enforce(cache_seqlen.dtype == torch.int32 and cache_seqlen.numel() == 1,
+            f"{name}: the length must be one int32 on the card, got "
+            f"{cache_seqlen.dtype} {tuple(cache_seqlen.shape)}")
+    enforce(k_cache.dtype == v_cache.dtype,
+            f"{name}: k and v caches differ in dtype ({k_cache.dtype}, "
+            f"{v_cache.dtype})")
+    enforce(d % 8 == 0 and 16 <= d <= _MAX_DECODE_HEAD_DIM,
+            f"{name}: head_dim {d} is not a multiple of 8 in [16, "
+            f"{_MAX_DECODE_HEAD_DIM}]")
+    enforce(sq <= _MAX_GRID_Y, f"{name}: {sq} query rows > {_MAX_GRID_Y}")
+    enforce(all(t.data_ptr() % 16 == 0 for t in (q, k_cache, v_cache)),
+            f"{name}: q and the caches must be 16-byte aligned (the kernel "
+            "reads 16-byte vectors)")
+    scale = d ** -0.5 if scale is None else scale
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    fn = _kernels.bind(name, "ptt_flash_decode",
+                       [_p, _c, _p, _p, _c, _p, _p, _c, _c, _c, _c, _f, _p])
+    pt, cd = _kernels.ptr, _kernels.dtype_code
+    rc = fn(pt(q), cd(q), pt(k_cache), pt(v_cache), cd(k_cache),
+            pt(cache_seqlen), pt(out), b * h, sq, cap, d, float(scale),
+            _kernels.stream(dev))
+    _kernels.check(rc, name)
+    _kernels.launches[name] += 1
+    return out
+
+
+def flash_attention_kvcache(q, k_cache, v_cache, cache_seqlen,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """Decode-step attention: ``q`` (batch, heads, sq, head_dim) attends to
+    ``k_cache / v_cache[:, :, :cache_seqlen]``.  ``cache_seqlen`` is an int
+    or a 0-d int32 tensor; on the card the kernel reads it from device
+    memory, so one captured step serves every position.  The kernel for a
+    CUDA tensor, the plain version for a CPU one."""
+    cap = k_cache.shape[2]
+    enforce(cap % 8 == 0,
+            f"kv cache capacity {cap} must be a multiple of 8 (allocate the "
+            "cache padded)")
+    if not q.is_cuda:
+        return flash_decode_reference(q, k_cache, v_cache, cache_seqlen,
+                                      scale)
+    if isinstance(cache_seqlen, torch.Tensor):
+        n = cache_seqlen.to(device=q.device, dtype=torch.int32)
+    else:
+        n = torch.tensor(int(cache_seqlen), dtype=torch.int32,
+                         device=q.device)
+    return flash_decode_cuda(q.contiguous(), k_cache.contiguous(),
+                             v_cache.contiguous(), n.reshape(()), scale)

@@ -1,5 +1,5 @@
 """Block-level fused transformer ops: the port of ``paddle_tpu/ops/
-fused_block.py`` that the serving path runs.
+fused_block.py`` that the serving and ``generate`` paths run.
 
 Three fused surfaces, each a CUDA kernel for Hopper beside its plain PyTorch
 version:
@@ -7,6 +7,10 @@ version:
   [K1 ln_linear]        LN(x) @ W + b          csrc/ln_linear.cu
   [K2 linear_residual]  r + dropout(x @ W + b) csrc/linear_residual.cu
   [K3 ffn]              x + W2 act(W1 LN(x) + b1) + b2   csrc/ffn.cu
+
+and the decode-step attention half over a fixed-shape cache,
+:func:`fused_attention_block_kvcache`: K1 -> cache write -> the flash
+decode kernel (``ops/flash_attention.py``) -> K2.
 
 Routing is by the tensor's device: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel (or raises).  The plain versions repeat the
@@ -33,9 +37,10 @@ import torch
 from .. import _kernels
 from ..framework import random as fw_random
 from ..framework.errors import UnimplementedError, enforce
-from .flash_attention import _keep_mask
+from .flash_attention import _NEG_INF, _keep_mask, flash_attention_kvcache
 
 __all__ = ["fused_ln_linear", "fused_linear_residual", "fused_ffn_block",
+           "fused_attention_block_kvcache",
            "ln_linear_reference", "ln_linear_cuda",
            "linear_residual_reference", "linear_residual_cuda",
            "ffn_reference", "ffn_cuda"]
@@ -346,3 +351,66 @@ def fused_ffn_block(x, w1, b1, w2, b2, ln_scale, ln_bias, *,
                             activation, float(dropout1), float(dropout2),
                             float(epsilon))
     return out.reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# The attention half of a decode step over a fixed-shape cache
+# ---------------------------------------------------------------------------
+def _split_heads(qkv, b: int, s: int, num_heads: int, head_dim: int):
+    """(N, 3h) -> q, k, v as (b, s, heads, d): head-major column order
+    (head0: q|k|v, head1: ...), GPTAttention's factorization."""
+    qkv = qkv.reshape(b, s, num_heads, 3, head_dim)
+    return qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+
+
+def fused_attention_block_kvcache(x, qkv_w, qkv_b, out_w, out_b, ln_scale,
+                                  ln_bias, k_buf, v_buf, used, *,
+                                  num_heads: int, epsilon: float = 1e-5,
+                                  scale=None, rotary: bool = False,
+                                  rope_base: float = 10000.0):
+    """Decode step of the attention half against a fixed-shape cache:
+    fused LN -> QKV (K1), the new k / v written at ``used`` (a 0-d int32
+    tensor), attention over the cache, out-projection + residual (K2).
+    Inference only.  Returns ``(out, k_buf, v_buf)``; the buffers are
+    written in place (the JAX package builds new arrays).
+
+    The two routes of the JAX function are kept apart, as their dtypes
+    differ: on the card a single-token step (``s == 1``, ``L % 8 == 0``,
+    ``head_dim % 8 == 0``) runs the flash decode kernel, whose output takes
+    q's dtype (K1's, the weights'), as on a TPU; every other call runs the
+    einsum route of the JAX package's CPU path, whose probabilities and
+    output take the cache dtype."""
+    if rotary:
+        raise UnimplementedError(
+            "fused_attention_block_kvcache: rotary=True is not ported yet "
+            "(_apply_rope, ROADMAP Queue 1 item 4)")
+    b, s, hidden = x.shape
+    head_dim = hidden // num_heads
+    if scale is None:
+        scale = head_dim ** -0.5
+    used = torch.as_tensor(used, dtype=torch.int32, device=x.device)
+    qkv = fused_ln_linear(x, qkv_w, qkv_b, ln_scale, ln_bias,
+                          epsilon=epsilon)
+    q, k, v = _split_heads(qkv.reshape(b * s, -1), b, s, num_heads,
+                           head_dim)
+    q = q.transpose(1, 2)                             # (b, heads, s, d)
+    rows = used.long() + torch.arange(s, device=x.device)
+    k_buf.index_copy_(2, rows, k.transpose(1, 2).to(k_buf.dtype))
+    v_buf.index_copy_(2, rows, v.transpose(1, 2).to(v_buf.dtype))
+    cap = k_buf.shape[2]
+    if x.is_cuda and s == 1 and cap % 8 == 0 and head_dim % 8 == 0:
+        out = flash_attention_kvcache(q, k_buf, v_buf, used + 1, scale=scale)
+    else:
+        dt = torch.promote_types(q.dtype, k_buf.dtype)
+        scores = (torch.einsum("bhqd,bhkd->bhqk", q.to(dt), k_buf.to(dt))
+                  * scale).float()
+        cols = torch.arange(cap, device=x.device)
+        valid = cols[None, :] <= rows[:, None]
+        scores = torch.where(valid, scores,
+                             torch.full((), _NEG_INF, device=x.device))
+        probs = torch.softmax(scores, dim=-1).to(v_buf.dtype)
+        out = torch.einsum("bhqk,bhkd->bhqd", probs, v_buf)
+    out = out.transpose(1, 2).reshape(b, s, hidden)
+    y = fused_linear_residual(out, out_w, out_b, x, dropout_p=0.0,
+                              training=False)
+    return y, k_buf, v_buf

@@ -34,6 +34,9 @@ def test_package_imports_with_jax_blocked():
             "import paddle_tpu_torch.optimizer\n"
             "import paddle_tpu_torch.training\n"
             "import paddle_tpu_torch.profile_training\n"
+            "import paddle_tpu_torch.profile_serving\n"
+            "import paddle_tpu_torch.profile_generate\n"
+            "import paddle_tpu_torch.inference.kv_cache\n"
             "import paddle_tpu_torch.convert\n"
             "loaded = [m for m in sys.modules if sys.modules[m] is not None]\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"

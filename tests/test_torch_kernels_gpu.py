@@ -214,3 +214,103 @@ def test_flash_autograd_on_card_matches_cpu(dev):
     for a, b in zip(*grads):
         assert float((a - b).abs().max()) <= 1e-4
 
+
+
+# flash decode: ragged lengths (0, inside a 32-position chunk, on and past
+# chunk edges, the full capacity), q and the cache in either dtype, head
+# dims that round the row's 16-byte vectors up to a power of two (24, 96)
+DECODE_LENS = (0, 1, 31, 32, 33, 77, 200, 256)
+
+
+def _decode_inputs(dev, b, h, sq, cap, d, qdtype, kvdtype):
+    q = _t(dev, b, h, sq, d, dtype=qdtype, seed=1)
+    k = _t(dev, b, h, cap, d, dtype=kvdtype, seed=2)
+    v = _t(dev, b, h, cap, d, dtype=kvdtype, seed=3)
+    return q, k, v
+
+
+def _decode_tol(q, k, v, n, ref):
+    """Per element: the kernel rounds p to the cache dtype against a running
+    max of its chunk, the plain version against the row's max (2^-9
+    relative each for bf16), so an element moves by at most 2^-8 times the
+    same attention over |v|; a bf16 output is rounded once more (2^-7
+    relative); float32 sums in another order, 1e-5."""
+    f = 2.0 ** -8 if v.dtype == torch.bfloat16 else 0.0
+    bound = fa.flash_decode_reference(q.float(), k, v.float().abs(), n)
+    out_round = 2.0 ** -7 * ref.float().abs() if ref.dtype == \
+        torch.bfloat16 else 0.0
+    return f * bound + out_round + 1e-5
+
+
+@pytest.mark.parametrize("d", [16, 24, 64, 96, 128, 256])
+@pytest.mark.parametrize("qdtype,kvdtype", [
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("sq", [1, 2])
+def test_flash_decode(dev, d, qdtype, kvdtype, sq):
+    q, k, v = _decode_inputs(dev, 2, 3, sq, 256, d, qdtype, kvdtype)
+    for n in DECODE_LENS:
+        length = torch.tensor(n, dtype=torch.int32, device=dev)
+        before = _kernels.launches["flash_decode"]
+        out = fa.flash_decode_cuda(q, k, v, length)
+        ref = fa.flash_decode_reference(q, k, v, length)
+        torch.cuda.synchronize()
+        assert _kernels.launches["flash_decode"] == before + 1
+        assert out.dtype == qdtype and out.shape == q.shape
+        assert bool(((out.float() - ref.float()).abs()
+                     <= _decode_tol(q, k, v, length, ref)).all()), n
+        if n == 0:
+            assert float(out.abs().max()) == 0.0
+
+
+def test_flash_decode_graph_replay_follows_device_length(dev):
+    """One captured call serves every length: the kernel reads it from
+    device memory at each replay."""
+    q, k, v = _decode_inputs(dev, 2, 3, 1, 128, 64, torch.float32,
+                             torch.bfloat16)
+    length = torch.zeros((), dtype=torch.int32, device=dev)
+    fa.flash_decode_cuda(q, k, v, length)            # load the library
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    holder = {}
+    recorded = _kernels.capture(
+        graph, lambda: holder.update(out=fa.flash_decode_cuda(q, k, v,
+                                                              length)))
+    assert recorded == {"flash_decode": 1}
+    for n in (1, 5, 64, 65, 128, 0, 100):
+        length.fill_(n)
+        before = _kernels.launches["flash_decode"]
+        _kernels.replay(graph, recorded)
+        assert _kernels.launches["flash_decode"] == before + 1
+        eager = fa.flash_decode_cuda(q, k, v, length)
+        torch.cuda.synchronize()
+        assert torch.equal(holder["out"], eager), n
+
+
+def test_paged_cache_defaults_to_cuda(dev):
+    from paddle_tpu_torch.inference import PagedKVCache
+    cache = PagedKVCache(num_layers=1, num_heads=2, head_dim=4, num_blocks=3,
+                         block_size=4)
+    assert cache.device.type == "cuda"
+    assert all(t.is_cuda for pair in cache.pages for t in pair)
+
+
+@pytest.mark.parametrize("variant", [dict(use_pallas_attention=True),
+                                     dict(use_fused_block=True)])
+def test_generate_on_card_matches_cpu(dev, variant):
+    from paddle_tpu_torch.convert import load_jax_state
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_tiny
+    cfg = gpt_tiny(hidden_dropout=0.0, attention_dropout=0.0, **variant)
+    m_gpu = GPTForCausalLM(cfg, device=dev)
+    rng = np.random.default_rng(0)
+    state = {k: (0.1 * rng.standard_normal(tuple(v.shape))).astype(
+        np.float32) for k, v in m_gpu.state_dict().items()}
+    load_jax_state(m_gpu, state)
+    m_cpu = load_jax_state(GPTForCausalLM(cfg, device="cpu"), state)
+    prompt = rng.integers(0, 1024, (3, 9)).astype(np.int32)
+    want = m_cpu.generate(prompt, max_new_tokens=7)
+    m_gpu.generate(prompt, max_new_tokens=7)          # capture
+    _kernels.reset_launches()
+    got = m_gpu.generate(prompt, max_new_tokens=7)    # replays
+    assert torch.equal(got.cpu(), want)
+    assert _kernels.launches["flash_decode"] == cfg.num_layers * 6

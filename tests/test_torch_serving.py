@@ -176,6 +176,19 @@ def test_no_device_without_cuda_raises(monkeypatch):
         GPTForCausalLM(gpt_tiny(), device="cuda")
 
 
+def test_paged_cache_device_resolution(monkeypatch):
+    from paddle_tpu_torch.inference import PagedKVCache
+    kw = dict(num_layers=1, num_heads=2, head_dim=4, num_blocks=3,
+              block_size=4)
+    cache = PagedKVCache(**kw, device="cpu")
+    assert cache.device == torch.device("cpu")
+    assert all(t.device.type == "cpu" for pair in cache.pages for t in pair)
+    # no device means cuda, never the CPU: without a card it raises
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(UnavailableError, match="no CUDA device"):
+        PagedKVCache(**kw)
+
+
 def test_state_dict_keys_match_jax():
     kw = dict(hidden_dropout=0.0, attention_dropout=0.0)
     state = _state(kw)
