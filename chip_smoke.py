@@ -36,14 +36,18 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               generate_workload: B=8, prompt 512, 128 greedy tokens, bf16),
               unfused (use_pallas_attention) and fused (use_fused_block):
               prefill ms, decode-step p50 ms (CUDA events), generated
-              tokens/s.  The counters are zeroed just before each timed
-              call; flash_decode must read 12 x the decode steps, and in
-              the fused run K1-K3 > 0.  Beforehand, a float32 run on a
+              tokens/s, each the median of 3 timed calls after a capturing
+              one.  The counters are zeroed just before the timed calls;
+              flash_decode must read 12 x their decode steps, and in the
+              fused run K1-K3 > 0.  Beforehand, a float32 run on a
               small input is held against the same model on the CPU
               (tokens identical, generate_step logits within 1e-3), and the
               flash decode kernel against its plain version at B=8, H=12,
-              d=64, L=640 (phase b).  Afterwards an eager loop of
-              generate_step must give the CUDA-graph run's tokens;
+              d=64, L=640 (phase b), and K1-K3 at the prefill's 4096 rows;
+              sampled decoding (temperature, top_k, seed) under graph
+              replay is held against an eager loop on the float32 model.
+              Afterwards an eager loop of generate_step must give the
+              CUDA-graph run's tokens;
   (d) the kernel list as one JSON line;
   (e) the card's name and power limit from nvidia-smi.
 
@@ -268,7 +272,9 @@ def check_kernels(torch, np, dev):
 
     results = {}
     shapes = {}
-    for n in (8, 512):                   # decode rows; largest prefill bucket
+    # decode rows; the serving engine's largest prefill bucket; the rows of
+    # the generate prefill (8 prompts x 512 tokens)
+    for n in (8, 512, 4096):
         x_res = t((n, h), torch.bfloat16)          # bf16 residual stream
         attn = t((n, h))                            # float32 attention out
         shapes[n] = {
@@ -821,6 +827,7 @@ def train(torch, np, dev, _kernels):
 # (c3) generate
 # ---------------------------------------------------------------------------
 FUSED_KERNELS = ("ln_linear", "linear_residual", "ffn")
+GENERATE_CALLS = 3      # timed calls per variant; their medians are reported
 
 
 def eager_decode(torch, model, prompts, new_tokens):
@@ -842,9 +849,69 @@ def eager_decode(torch, model, prompts, new_tokens):
                                    in zip(events, events[1:])]
 
 
+SAMPLE_TEMPERATURE, SAMPLE_TOP_K = 0.8, 5
+
+
+def eager_sample(torch, model, prompts, new_tokens, temperature, top_k,
+                 seed):
+    """Sampled decoding by an eager loop of ``generate_step`` with the
+    sampler of ``generate`` and a generator seeded as ``generate`` seeds
+    its own: the tokens, and whether every token was among the ``top_k``
+    largest logits of its step."""
+    from paddle_tpu_torch.models.gpt import _sample
+    b, plen = prompts.shape
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(seed)
+    caches = model.make_caches(b, plen + new_tokens)
+    chunk, out, in_top_k = prompts, [prompts], True
+    for _ in range(new_tokens):
+        logits, caches = model.generate_step(chunk, caches, caches[0][2])
+        step = logits[:, -1].float()
+        nxt = _sample(step, temperature, top_k, gen)
+        kth = torch.topk(step, top_k, dim=-1).values[:, -1]
+        in_top_k &= bool((step.gather(1, nxt.long()[:, None])[:, 0]
+                          >= kth).all())
+        chunk = nxt[:, None]
+        out.append(chunk)
+    return torch.cat(out, dim=1), in_top_k
+
+
+def check_sampling(torch, model, prompts, greedy, fused):
+    """Sampled ``generate`` on the card, where the decode step is a graph
+    replay: the capturing call and a replaying call with one seed give the
+    same tokens, which are those of an eager loop with a generator of that
+    seed (each replay draws fresh noise from the registered generator) and
+    lie among each step's top-k logits; another seed gives other tokens;
+    ``top_k=1`` gives the greedy tokens."""
+    new = greedy.shape[1] - prompts.shape[1]
+    kw = dict(max_new_tokens=new, temperature=SAMPLE_TEMPERATURE,
+              top_k=SAMPLE_TOP_K)
+    first = model.generate(prompts, seed=7, **kw)            # captures
+    again = model.generate(prompts, seed=7, **kw)            # replays
+    other = model.generate(prompts, seed=8, **kw)
+    eager, in_top_k = eager_sample(torch, model, prompts, new,
+                                   SAMPLE_TEMPERATURE, SAMPLE_TOP_K, 7)
+    one = model.generate(prompts, seed=7, **{**kw, "top_k": 1})
+    require(torch.equal(first, again), f"sampling (fused={fused}): the "
+            "capturing and the replaying call differ with one seed")
+    require(torch.equal(first, eager), f"sampling (fused={fused}): graph "
+            f"replays {first.tolist()} != eager loop {eager.tolist()}")
+    require(in_top_k, f"sampling (fused={fused}): a token outside the "
+            f"top {SAMPLE_TOP_K}")
+    require(not torch.equal(first, other), f"sampling (fused={fused}): "
+            "seeds 7 and 8 give the same tokens")
+    require(torch.equal(one, greedy), f"sampling (fused={fused}): top_k=1 "
+            "differs from greedy")
+    log(f"sampling (fused={fused}, float32, temperature "
+        f"{SAMPLE_TEMPERATURE}, top_k {SAMPLE_TOP_K}): capture and replay "
+        "identical per seed and equal to an eager loop, every token in the "
+        "top k, another seed differs, top_k=1 equals greedy")
+
+
 def generate(torch, np, dev, _kernels):
     from paddle_tpu_torch.convert import (GENERATE_NEW_TOKENS,
                                           generate_workload)
+    from paddle_tpu_torch.profile_generate import timed_generate
 
     # reference on a small input: float32 on the card (kernels, CUDA graph)
     # against the same weights on the CPU (plain versions, eager)
@@ -875,6 +942,7 @@ def generate(torch, np, dev, _kernels):
         log(f"generate reference (fused={fused}): float32 card vs CPU, 2 x "
             f"16 prompt, 8 greedy tokens identical; prefill and first "
             f"decode-step logits max_abs_err {err:.3e} <= 1e-3")
+        check_sampling(torch, m_gpu, small.to(dev), toks[0].to(dev), fused)
         del m_gpu, m_cpu
     torch.cuda.empty_cache()
 
@@ -896,14 +964,20 @@ def generate(torch, np, dev, _kernels):
         warm = model.generate(prompts, max_new_tokens=GENERATE_NEW_TOKENS)
         torch.cuda.synchronize()
         _kernels.reset_launches()
-        steps = []
-        t0 = time.perf_counter()
-        out = model.generate(prompts, max_new_tokens=GENERATE_NEW_TOKENS,
-                             step_times=steps)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        calls = []              # (tokens, step ms, wall s) per timed call
+        for _ in range(GENERATE_CALLS):
+            t0 = time.perf_counter()
+            out, steps = timed_generate(model, prompts, GENERATE_NEW_TOKENS)
+            torch.cuda.synchronize()
+            calls.append((out, steps, time.perf_counter() - t0))
         launches = dict(_kernels.launches)
         decode_steps = GENERATE_NEW_TOKENS - 1
+        require(all(torch.equal(c[0], out) for c in calls),
+                f"generate ({tag}): the timed calls disagree")
+        prefill = statistics.median(c[1][0] for c in calls)
+        step_p50 = statistics.median(
+            statistics.median(c[1][1:]) for c in calls)
+        wall = statistics.median(c[2] for c in calls)
         require(tuple(out.shape) == (b, plen + GENERATE_NEW_TOKENS)
                 and bool(((out >= 0) & (out < cfg.vocab_size)).all())
                 and torch.equal(out[:, :plen], prompts),
@@ -911,10 +985,11 @@ def generate(torch, np, dev, _kernels):
         require(torch.equal(out, warm),
                 f"generate ({tag}): the capturing call and the replaying "
                 "call disagree")
-        require(launches["flash_decode"] == cfg.num_layers * decode_steps,
+        require(launches["flash_decode"]
+                == cfg.num_layers * decode_steps * GENERATE_CALLS,
                 f"flash_decode ({tag}): {launches['flash_decode']} launches "
-                f"in {decode_steps} decode steps, not {cfg.num_layers} per "
-                "step")
+                f"in {GENERATE_CALLS} x {decode_steps} decode steps, not "
+                f"{cfg.num_layers} per step")
         for name in FUSED_KERNELS:
             require((launches[name] > 0) == fused,
                     f"{name} ({tag}): {launches[name]} launches")
@@ -927,21 +1002,24 @@ def generate(torch, np, dev, _kernels):
             total[name] += launches[name]
         variants[tag] = {
             "use_fused_block": fused, "use_pallas_attention": not fused,
-            "prefill_ms": steps[0],
-            "decode_step_ms_p50": statistics.median(steps[1:]),
+            "calls": GENERATE_CALLS, "prefill_ms": prefill,
+            "decode_step_ms_p50": step_p50,
             "decode_steps": decode_steps, "wall_s": wall,
+            "per_call": [{"prefill_ms": c[1][0],
+                          "decode_step_ms_p50": statistics.median(c[1][1:]),
+                          "wall_s": c[2]} for c in calls],
             "generated_tokens": b * GENERATE_NEW_TOKENS,
             "generated_tokens_per_s": b * GENERATE_NEW_TOKENS / wall,
             "eager_prefill_ms": eager_steps[0],
             "eager_decode_step_ms_p50": statistics.median(eager_steps[1:]),
             "graph_vs_eager_tokens": "identical",
             "launches": {k: v for k, v in launches.items() if v}}
-        log(f"generate ({tag}): prefill {steps[0]:.3f} ms, decode step p50 "
+        log(f"generate ({tag}): prefill {prefill:.3f} ms, decode step p50 "
             f"{variants[tag]['decode_step_ms_p50']:.4f} ms (CUDA graph) vs "
             f"{variants[tag]['eager_decode_step_ms_p50']:.4f} ms (eager "
             f"loop, same tokens), "
             f"{variants[tag]['generated_tokens_per_s']:.1f} tok/s")
-        del model, warm, out, eager
+        del model, warm, out, eager, calls
         torch.cuda.empty_cache()
     log(json.dumps({"generate": {
         "model": "gpt_125m", "dtype": "bfloat16", "B": 8, "prompt_len": 512,

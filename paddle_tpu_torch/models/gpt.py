@@ -30,8 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -445,8 +444,7 @@ class GPTForCausalLM(nn.Module):
                  temperature: float = 0.0, top_k: int = 0,
                  seed: Optional[int] = None,
                  generator: Optional[torch.Generator] = None,
-                 eos_token_id: Optional[int] = None,
-                 step_times: Optional[List[float]] = None):
+                 eos_token_id: Optional[int] = None):
         """Autoregressive decoding over fixed-shape caches: the prompt as one
         prefill step, then one single-token step per new token (captured
         once as a CUDA graph on the card and replayed, see
@@ -458,8 +456,7 @@ class GPTForCausalLM(nn.Module):
         not JAX's).  Rows that emit ``eos_token_id`` stay pinned to it, and
         decoding stops once every row has; without it the loop makes no
         host sync.  Returns the prompt and the new tokens, int32 ``(b,
-        prompt_len + n)``.  ``step_times``, when given, receives each
-        step's milliseconds, prefill first (CUDA events on the card)."""
+        prompt_len + n)``."""
         c = self.config
         self.eval()
         ids = torch.as_tensor(input_ids).to(device=self.device,
@@ -474,24 +471,11 @@ class GPTForCausalLM(nn.Module):
         loop = self._gen_step(float(temperature), int(top_k), b, total)
         loop.reset(_sampling_seed(seed, generator) if temperature > 0.0
                    else 0)
-        marks: List[Any] = []
-
-        def mark():
-            if step_times is None:
-                return
-            if ids.is_cuda:
-                marks.append(torch.cuda.Event(enable_timing=True))
-                marks[-1].record()
-            else:
-                marks.append(time.perf_counter())
-
-        mark()
-        nxt = loop.prefill(ids)
-        mark()
+        nxt = loop.prefill(self, ids)
         out = [ids, nxt[:, None]]
         finished = None if eos_token_id is None else nxt == eos_token_id
         for _ in range(1, max_new_tokens):
-            nxt = loop.decode()
+            nxt = loop.decode(self)
             if finished is not None:
                 # finished rows stay pinned to EOS, and the pinned token is
                 # what the next step reads
@@ -499,18 +483,9 @@ class GPTForCausalLM(nn.Module):
                                   nxt)
                 loop.tokens.copy_(nxt[:, None])
                 finished = finished | (nxt == eos_token_id)
-            mark()
             out.append(nxt[:, None])
             if finished is not None and bool(finished.all()):
                 break
-        if step_times is not None:
-            if ids.is_cuda:
-                marks[-1].synchronize()
-                step_times.extend(a.elapsed_time(z)
-                                  for a, z in zip(marks, marks[1:]))
-            else:
-                step_times.extend((z - a) * 1e3
-                                  for a, z in zip(marks, marks[1:]))
         return torch.cat(out, dim=1)
 
     def _gen_step(self, temperature: float, top_k: int, batch: int,
@@ -525,7 +500,8 @@ class GPTForCausalLM(nn.Module):
         key = (batch, capacity, temperature, top_k)
         if self._gen_loop is None or self._gen_loop.key != key:
             self._gen_loop = None                   # free the old caches
-            self._gen_loop = _DecodeLoop(self, *key)
+            self._gen_loop = _DecodeLoop(key,
+                                         self.make_caches(batch, capacity))
         return self._gen_loop
 
 
@@ -574,20 +550,26 @@ class _DecodeLoop:
     first decode step runs eagerly on a side stream before the capture
     (it sets up what the capture needs: the kernel libraries, cuBLAS
     workspaces); a capture that fails raises.  Prefill runs eagerly, and
-    on the CPU every step does."""
+    on the CPU every step does.
 
-    def __init__(self, model: GPTForCausalLM, batch: int, capacity: int,
-                 temperature: float, top_k: int):
-        dev = model.device
-        self.key = (batch, capacity, temperature, top_k)
-        self.model = model
-        self.temperature = temperature
-        self.top_k = top_k
-        self.caches = model.make_caches(batch, capacity)
-        self.tokens = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
-        self.generator = torch.Generator(device=dev)
+    The model is passed to each step and never kept: the model owns its
+    loop, so dropping the model frees the caches and the graph's pool.
+    ``marks``, when a list, receives a recorded CUDA event before the
+    prefill and after every step, for measurement scripts."""
+
+    def __init__(self, key: Tuple[int, int, float, int],
+                 caches: List[Tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor]]):
+        self.key = key
+        batch, _, self.temperature, self.top_k = key
+        self.caches = caches
+        device = caches[0][2].device
+        self.tokens = torch.zeros((batch, 1), dtype=torch.int32,
+                                  device=device)
+        self.generator = torch.Generator(device=device)
         self.graph = None
         self.recorded: Dict[str, int] = {}
+        self.marks: Optional[List[torch.cuda.Event]] = None
 
     def reset(self, seed: int) -> None:
         for k_buf, v_buf, used in self.caches:
@@ -596,40 +578,49 @@ class _DecodeLoop:
             used.zero_()
         self.generator.manual_seed(seed)
 
-    def _step(self, chunk: torch.Tensor) -> None:
-        logits, new_caches = self.model.generate_step(
-            chunk, self.caches, self.caches[0][2])
+    def _mark(self) -> None:
+        if self.marks is not None:
+            self.marks.append(torch.cuda.Event(enable_timing=True))
+            self.marks[-1].record()
+
+    def _step(self, model: GPTForCausalLM, chunk: torch.Tensor) -> None:
+        logits, new_caches = model.generate_step(chunk, self.caches,
+                                                 self.caches[0][2])
         nxt = _sample(logits[:, -1].float(), self.temperature, self.top_k,
                       self.generator)
         for (_, _, used), (_, _, new_used) in zip(self.caches, new_caches):
             used.copy_(new_used)
         self.tokens.copy_(nxt[:, None])
 
-    def prefill(self, ids: torch.Tensor) -> torch.Tensor:
-        self._step(ids)
+    def prefill(self, model: GPTForCausalLM,
+                ids: torch.Tensor) -> torch.Tensor:
+        self._mark()
+        self._step(model, ids)
+        self._mark()
         return self.tokens[:, 0].clone()
 
-    def decode(self) -> torch.Tensor:
+    def decode(self, model: GPTForCausalLM) -> torch.Tensor:
         if not self.tokens.is_cuda:
-            self._step(self.tokens)
+            self._step(model, self.tokens)
         elif self.graph is None:
-            self._capture()
+            self._capture(model)
         else:
             _kernels.replay(self.graph, self.recorded)
+        self._mark()
         return self.tokens[:, 0].clone()
 
-    def _capture(self) -> None:
+    def _capture(self, model: GPTForCausalLM) -> None:
         dev = self.tokens.device
         main = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            self._step(self.tokens)            # this step, eagerly
+            self._step(model, self.tokens)     # this step, eagerly
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
-        self.recorded = _kernels.capture(graph,
-                                         lambda: self._step(self.tokens))
+        self.recorded = _kernels.capture(
+            graph, lambda: self._step(model, self.tokens))
         self.graph = graph
 
 

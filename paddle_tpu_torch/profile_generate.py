@@ -10,10 +10,10 @@ without the profiler, then once more under ``torch.profiler`` with CUDA
 activity; first unfused (``use_pallas_attention``), then fused
 (``use_fused_block``).  Prints one JSON line per variant: from the timed
 run, wall time, generated tokens/s, the prefill's and the decode steps'
-CUDA-event milliseconds; from the profiled run (the profiler adds host
-time), its wall time, the device's busy time (the union of kernel
-intervals), the idle share and the device time per kernel name, largest
-first.  Needs a CUDA card.
+CUDA-event milliseconds (:func:`timed_generate`); from the profiled run
+(the profiler adds host time), its wall time, the device's busy time (the
+union of kernel intervals), the idle share and the device time per kernel
+name, largest first.  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -22,30 +22,53 @@ import statistics
 import sys
 import time
 from collections import defaultdict
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 
 from . import _kernels
 from .convert import GENERATE_NEW_TOKENS, generate_workload
+from .framework.errors import enforce
 from .profile_serving import _short, _union_us
+
+
+def timed_generate(model, prompts: torch.Tensor, new_tokens: int
+                   ) -> Tuple[torch.Tensor, List[float]]:
+    """``model.generate(prompts, new_tokens)`` (greedy) with a CUDA event
+    at each step boundary of its decode loop: the tokens and each step's
+    milliseconds, prefill first.  A call with the same batch, length and
+    sampling must have run before (it builds the loop and captures its
+    graph), so that this one only replays."""
+    loop = model._gen_loop
+    b, plen = prompts.shape
+    enforce(loop is not None and loop.key == (b, plen + new_tokens, 0.0, 0),
+            "timed_generate: run generate once first with the same shapes")
+    loop.marks = []
+    try:
+        out = model.generate(prompts, max_new_tokens=new_tokens)
+    finally:
+        marks, loop.marks = loop.marks, None
+    marks[-1].synchronize()
+    return out, [a.elapsed_time(z) for a, z in zip(marks, marks[1:])]
 
 
 def profile(fused: bool) -> Dict[str, object]:
     model, prompts = generate_workload(torch.device("cuda"),
                                        use_fused_block=fused)
 
-    def run(step_times=None):
+    def run():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = model.generate(prompts, max_new_tokens=GENERATE_NEW_TOKENS,
-                             step_times=step_times)
+        out = model.generate(prompts, max_new_tokens=GENERATE_NEW_TOKENS)
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
     run()                                          # warm-up and capture
-    steps: List[float] = []
-    out, wall = run(steps)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, steps = timed_generate(model, prompts, GENERATE_NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:

@@ -300,3 +300,14 @@ def test_generate_guards():
     tm.generate(prompt, max_new_tokens=4)
     tm.generate(prompt[:1], max_new_tokens=4)
     assert tm._gen_loop.key == (1, PROMPT[1] + 4, 0.0, 0)
+
+
+def test_dropping_the_model_frees_its_decode_loop():
+    # the model owns its decode loop and the loop keeps no reference back:
+    # with no cycle, deleting the model frees its caches at once
+    import weakref
+    tm = GPTForCausalLM(GPTConfig(**_cfg_kw()), device="cpu")
+    tm.generate(_prompt(), max_new_tokens=4)
+    model, caches = weakref.ref(tm), weakref.ref(tm._gen_loop.caches[0][0])
+    del tm
+    assert model() is None and caches() is None

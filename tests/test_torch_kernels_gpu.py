@@ -314,3 +314,76 @@ def test_generate_on_card_matches_cpu(dev, variant):
     got = m_gpu.generate(prompt, max_new_tokens=7)    # replays
     assert torch.equal(got.cpu(), want)
     assert _kernels.launches["flash_decode"] == cfg.num_layers * 6
+
+
+def _tiny_on_card(dev, **variant):
+    from paddle_tpu_torch.convert import load_jax_state
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_tiny
+    cfg = gpt_tiny(hidden_dropout=0.0, attention_dropout=0.0, **variant)
+    m = GPTForCausalLM(cfg, device=dev)
+    rng = np.random.default_rng(0)
+    state = {k: (0.1 * rng.standard_normal(tuple(v.shape))).astype(
+        np.float32) for k, v in m.state_dict().items()}
+    return load_jax_state(m, state), rng
+
+
+@pytest.mark.parametrize("variant", [dict(use_pallas_attention=True),
+                                     dict(use_fused_block=True)])
+def test_generate_sampling_under_graph_replay(dev, variant):
+    """Sampled decoding where the decode step is a graph replay: one seed
+    gives the same tokens in the capturing and in a replaying call, and
+    they are those of an eager loop with a generator of that seed (so each
+    replay draws fresh noise); every token is among its step's top-k
+    logits; another seed differs; top_k=1 is greedy."""
+    from paddle_tpu_torch.models.gpt import _sample
+    m, rng = _tiny_on_card(dev, **variant)
+    prompt = torch.from_numpy(
+        rng.integers(0, 1024, (3, 9)).astype(np.int32)).to(dev)
+    new, temperature, top_k = 7, 0.8, 5
+    kw = dict(max_new_tokens=new, temperature=temperature, top_k=top_k)
+    first = m.generate(prompt, seed=11, **kw)                 # captures
+    again = m.generate(prompt, seed=11, **kw)                 # replays
+    assert m._gen_loop.graph is not None
+    assert torch.equal(first, again)
+    assert not torch.equal(first, m.generate(prompt, seed=12, **kw))
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    caches = m.make_caches(3, 9 + new)
+    chunk, eager = prompt, [prompt]
+    for t in range(new):
+        logits, caches = m.generate_step(chunk, caches, caches[0][2])
+        step = logits[:, -1].float()
+        chunk = _sample(step, temperature, top_k, gen)[:, None]
+        eager.append(chunk)
+        kth = torch.topk(step, top_k, dim=-1).values[:, -1]
+        chosen = step.gather(1, first[:, 9 + t].long()[:, None])[:, 0]
+        assert bool((chosen >= kth).all()), t
+    assert torch.equal(first, torch.cat(eager, dim=1))
+
+    greedy = m.generate(prompt, max_new_tokens=new)
+    one = m.generate(prompt, seed=11, **{**kw, "top_k": 1})
+    assert torch.equal(one, greedy)
+
+
+def test_dropping_the_model_frees_its_decode_loop(dev):
+    """The model owns its decode loop (caches and captured graph) and the
+    loop keeps no reference back, so deleting the model frees them at
+    once, with no garbage collection."""
+    import weakref
+    m, rng = _tiny_on_card(dev, use_pallas_attention=True)
+    prompt = rng.integers(0, 1024, (3, 9)).astype(np.int32)
+    m.generate(prompt, max_new_tokens=7)
+    m.generate(prompt, max_new_tokens=7)
+    loop = m._gen_loop
+    assert loop.graph is not None
+    held = sum(t.numel() * t.element_size()
+               for c in loop.caches for t in c) + sum(
+        p.numel() * p.element_size() for p in m.parameters())
+    torch.cuda.synchronize()
+    during = torch.cuda.memory_allocated(dev)
+    ref = weakref.ref(m)
+    del m, loop
+    assert ref() is None
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated(dev) <= during - held
