@@ -8,7 +8,10 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
 ``ok`` line):
 
   (a) build   the CUDA kernels from paddle_tpu_torch/csrc/ (one nvcc per
-              source, in parallel) into build/paddle_tpu_torch/;
+              source, in parallel) into build/paddle_tpu_torch/; the bf16
+              flash forward and dK/dV kernels must hold HMMA (mma.sync)
+              instructions in their SASS (cuobjdump -sass) and ptxas must
+              report no spill stores for their d=64 instantiations;
   (b) kernels each kernel at its path's shapes and dtypes against its
               plain PyTorch version on the card, with a stated tolerance;
               times by CUDA events (median, L2 flushed, the host's launch
@@ -114,13 +117,16 @@ def main() -> int:
     built = _kernels.build()
     log(f"build: {built['seconds']:.2f} s, compiled {built['compiled']}")
     for name in _kernels.KERNELS:
-        for line in _kernels.ptxas_report(name).splitlines():
-            log(f"  {name}: {line.strip()}")
+        for fn, props in _kernels.ptxas_functions(name).items():
+            log(f"  {name}: {fn}: {props}")
+    design = check_design(_kernels)
 
     # -- (b) each kernel against its plain version ---------------------------
     results = check_kernels(torch, np, dev)
 
     results.update(check_flash(torch, np, dev))
+    for name, d in design.items():
+        results[name]["design"] = d
 
     results.update(check_flash_decode(torch, np, dev))
 
@@ -155,6 +161,45 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# ---------------------------------------------------------------------------
+# (a) the tensor-core design of the bf16 flash kernels
+# ---------------------------------------------------------------------------
+# library: the bf16 kernel's name in it (one instantiation per head dim of
+# ops/flash_attention.py _HEAD_DIMS)
+MMA_KERNELS = {"flash_fwd": "flash_fwd_mma", "flash_dkdv": "flash_dkdv_mma"}
+MMA_HEAD_DIMS = 4
+
+
+def check_design(_kernels):
+    """Every bf16 instantiation of the flash forward and dK/dV kernels runs
+    mma.sync on the tensor cores (HMMA in its SASS), and the training
+    path's d=64 instantiation spills no registers."""
+    out = {}
+    for lib, fn in MMA_KERNELS.items():
+        hmma = {f: c for f, c in _kernels.sass_count(lib, "HMMA").items()
+                if fn in f}
+        require(len(hmma) == MMA_HEAD_DIMS and all(hmma.values()),
+                f"{lib}: HMMA per bf16 instantiation {hmma}: not every one "
+                "runs on the tensor cores")
+        d64 = {f: p for f, p in _kernels.ptxas_functions(lib).items()
+               if f"{fn}ILi64E" in f}
+        require(len(d64) == 1, f"{lib}: no ptxas report for {fn}<64>")
+        (props,) = d64.values()
+        require(props.get("spill_stores") == 0
+                and props.get("spill_loads") == 0,
+                f"{lib}: {fn}<64> spills: {props}")
+        (h64,) = [c for f, c in hmma.items() if f"{fn}ILi64E" in f]
+        out[lib] = {"kernel": f"{fn}<64>", "hmma": h64,
+                    "hmma_per_head_dim": sorted(hmma.values()),
+                    "registers": props.get("registers"),
+                    "spill_stores": props["spill_stores"],
+                    "spill_loads": props["spill_loads"]}
+        log(f"design {lib}: {fn}<64> has {h64} HMMA instructions "
+            f"({sorted(hmma.values())} over the {MMA_HEAD_DIMS} head dims), "
+            f"{props.get('registers')} registers, 0 spill stores")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -39,7 +40,8 @@ from .framework.errors import UnavailableError, enforce
 
 __all__ = ["KERNELS", "BUILD_DIR", "launches", "reset_launches", "build",
            "bind", "check", "dtype_code", "ptr", "stream", "sm_count",
-           "ptxas_report", "require_cuda", "capture", "replay"]
+           "ptxas_functions", "sass_count", "require_cuda", "capture",
+           "replay"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parent.parent / "build"
@@ -132,15 +134,55 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, object]:
             "compiled": [j[0] for j in jobs]}
 
 
-def ptxas_report(name: str) -> str:
-    """The ``ptxas -v`` lines (registers, shared memory, spills) of the
-    last compile of ``name``; empty when it was loaded from an old build."""
+def ptxas_functions(name: str) -> Dict[str, Dict[str, int]]:
+    """Per function of the last compile of ``name`` (mangled name), from
+    its ``ptxas -v`` lines: ``registers``, ``spill_stores`` and
+    ``spill_loads`` (bytes).  Empty when it was loaded from an old
+    build."""
     log = _library(name).with_suffix(".log")
     if not log.exists():
-        return ""
-    return "\n".join(line for line in log.read_text().splitlines()
-                     if "ptxas info" in line and ("Used" in line
-                                                  or "spill" in line))
+        return {}
+    funcs: Dict[str, Dict[str, int]] = {}
+    current = None
+    for line in log.read_text().splitlines():
+        m = re.search(r"(?:entry function '|Function properties for )"
+                      r"([^' ]+)", line)
+        if m:
+            current = funcs.setdefault(m.group(1), {})
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            current["spill_stores"] = int(m.group(1))
+            current["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+    return funcs
+
+
+def sass_count(name: str, opcode: str) -> Dict[str, int]:
+    """Per kernel function of the built library ``name`` (mangled name),
+    the number of SASS instructions with ``opcode`` (``HMMA`` for the
+    tensor cores' mma.sync), from ``cuobjdump -sass``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    enforce(os.path.exists(tool), "cuobjdump was not found (PATH or "
+            "/usr/local/cuda/bin)", exc=UnavailableError)
+    sass = subprocess.run([tool, "-sass", str(_library(name))],
+                          capture_output=True, text=True, check=True).stdout
+    counts: Dict[str, int] = {}
+    current = None
+    pattern = re.compile(rf"\b{re.escape(opcode)}\b")
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            current = m.group(1)
+            counts[current] = 0
+        elif current is not None and pattern.search(line):
+            counts[current] += 1
+    return counts
 
 
 def bind(name: str, symbol: str, argtypes: Sequence):

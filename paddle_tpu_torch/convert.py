@@ -17,6 +17,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .device import resolve_device
 from .framework.errors import enforce
 
 __all__ = ["state_dict_from_jax", "load_jax_state", "random_state",
@@ -31,11 +32,15 @@ def state_dict_from_jax(np_state: Dict[str, np.ndarray],
                         device: Optional[Union[str, torch.device]] = None
                         ) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` for a JAX ``state_dict`` held as numpy:
-    same keys, same shapes, same dtypes, on ``device`` (CPU when None)."""
+    same keys, same shapes, same dtypes, on ``device``.  None means
+    ``cuda``, as for every entry point of the port
+    (:func:`device.resolve_device`): without a card it raises
+    ``UnavailableError``; pass ``device="cpu"`` for the CPU."""
+    dev = resolve_device(device)
     out: Dict[str, torch.Tensor] = {}
     for key, value in np_state.items():
         arr = np.ascontiguousarray(np.asarray(value))
-        out[key] = torch.from_numpy(arr.copy()).to(device or "cpu")
+        out[key] = torch.from_numpy(arr.copy()).to(dev)
     return out
 
 

@@ -33,7 +33,9 @@ _SHORT = {"paged_decode_kernel": "paged_decode (ours)",
           "ffn_finalize_kernel": "ffn finalize (ours)",
           "ffn_kernel": "ffn (ours)",
           "flash_fwd_kernel": "flash_fwd (ours)",
+          "flash_fwd_mma": "flash_fwd (ours)",
           "flash_dkdv_kernel": "flash_dkdv (ours)",
+          "flash_dkdv_mma": "flash_dkdv (ours)",
           "flash_dq_kernel": "flash_dq (ours)",
           "flash_decode_kernel": "flash_decode (ours)"}
 

@@ -9,8 +9,8 @@ without the profiler (host clock, each ending in the loss readback), then
 3 steps under ``torch.profiler`` with CUDA activity.  Prints one JSON line:
 the timed steps' ms; from the profiled steps, the device's busy time (the
 union of kernel intervals) per step, the idle share, and the device time
-per step by kernel name, largest first, with the share of each group
-(the three flash kernels, GEMMs, everything else).  Needs a CUDA card.
+per step by kernel name, largest first, and per group (each of the
+three flash kernels, GEMMs, everything else).  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ WARMUP, TIMED, PROFILED = 3, 5, 3
 
 def _group(name: str) -> str:
     if "(ours)" in name:
-        return "flash kernels"
+        return name.replace(" (ours)", "")      # flash_fwd / _dkdv / _dq
     low = name.lower()
     if any(key in low for key in ("gemm", "nvjet", "xmma", "cutlass")):
         return "GEMM (cuBLAS)"

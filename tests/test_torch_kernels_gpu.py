@@ -2,7 +2,9 @@
 shapes with ragged edges.  Marked ``gpu``: they skip where no CUDA device is
 visible and run on an H100 with
 
-    python -m pytest tests/test_torch_kernels_gpu.py -q -m gpu
+    python -m pytest tests/test_torch_kernels_gpu.py -q -m gpu --noconftest
+
+(``--noconftest``: the suite's conftest imports JAX.)
 """
 import numpy as np
 import pytest
@@ -143,6 +145,17 @@ FLASH_CASES = [
     (4, 256, 256, 64, True, 0.1),
     (3, 100, 130, 128, True, 0.2),
     (2, 64, 64, 16, True, 0.0),
+    # both sides of the 64-row tile edges, and one query row against a
+    # ragged run of keys
+    (2, 127, 127, 64, True, 0.0),
+    (2, 128, 128, 64, True, 0.0),
+    (2, 129, 129, 64, True, 0.0),
+    (3, 1, 300, 64, True, 0.0),
+    # causal with sq - sk > 64: whole q tiles see no key
+    (2, 300, 100, 64, True, 0.0),
+    # the smallest and largest head dims under dropout
+    (3, 130, 130, 16, True, 0.1),
+    (2, 150, 140, 128, True, 0.1),
 ]
 
 
@@ -200,6 +213,23 @@ def test_flash_kernels(dev, case, dtype):
         assert float((got.float() - want.float()).abs().max()) <= tol
     for n in before:
         assert _kernels.launches[n] == before[n] + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_repeat_exactly(dev, dtype):
+    # no atomics and no order dependence: two launches on the same inputs
+    # give the same bits
+    q, k, v, do = _flash_inputs(dev, 6, 200, 200, 64, dtype)
+    runs = []
+    for _ in range(2):
+        out, lse = fa.flash_fwd_cuda(q, k, v, 5, None, True, 0.1)
+        delta = (do.float() * out.float()).sum(-1)
+        dk, dv = fa.flash_dkdv_cuda(q, k, v, do, lse, delta, 5, None, True,
+                                    0.1)
+        runs.append((out, lse, dk, dv))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_flash_autograd_on_card_matches_cpu(dev):

@@ -194,13 +194,21 @@ def test_state_dict_keys_match_jax():
     state = _state(kw)
     tm = GPTForCausalLM(gpt_tiny(**kw), device="cpu")
     assert set(tm.state_dict()) == set(state)
-    converted = state_dict_from_jax(state)
+    converted = state_dict_from_jax(state, device="cpu")
     for k, v in state.items():
         assert converted[k].dtype == torch.float32
         np.testing.assert_array_equal(converted[k].numpy(), v)
     with pytest.raises(ValueError, match="missing"):
         load_jax_state(tm, {k: v for k, v in state.items()
                             if k != "gpt.wpe"})
+
+
+def test_state_dict_from_jax_defaults_to_cuda(monkeypatch):
+    # no device means cuda, never the CPU: without a card it raises
+    state = _state(dict(hidden_dropout=0.0, attention_dropout=0.0))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(UnavailableError, match="no CUDA device"):
+        state_dict_from_jax(state)
 
 
 def test_block_allocator_ledger():
