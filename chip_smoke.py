@@ -9,9 +9,11 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
 
   (a) build   the CUDA kernels from paddle_tpu_torch/csrc/ (one nvcc per
               source, in parallel) into build/paddle_tpu_torch/; the bf16
-              flash forward and dK/dV kernels must hold HMMA (mma.sync)
+              flash forward, dK/dV and dQ kernels must hold HMMA (mma.sync)
               instructions in their SASS (cuobjdump -sass) and ptxas must
-              report no spill stores for their d=64 instantiations;
+              report no spill stores or loads for their d=64
+              instantiations; the decode kernel's registers, spills and
+              cluster split at the generate shape are logged;
   (b) kernels each kernel at its path's shapes and dtypes against its
               plain PyTorch version on the card, with a stated tolerance;
               times by CUDA events (median, L2 flushed, the host's launch
@@ -46,7 +48,9 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               small input is held against the same model on the CPU
               (tokens identical, generate_step logits within 1e-3), and the
               flash decode kernel against its plain version at B=8, H=12,
-              d=64, L=640 (phase b), and K1-K3 at the prefill's 4096 rows;
+              d=64, L=640 (phase b: every length, the split edges among
+              them, eagerly and under one captured graph's replays), and
+              K1-K3 at the prefill's 4096 rows;
               sampled decoding (temperature, top_k, seed) under graph
               replay is held against an eager loop on the float32 model.
               Afterwards an eager loop of generate_step must give the
@@ -125,10 +129,9 @@ def main() -> int:
     results = check_kernels(torch, np, dev)
 
     results.update(check_flash(torch, np, dev))
+    results.update(check_flash_decode(torch, np, dev, _kernels))
     for name, d in design.items():
         results[name]["design"] = d
-
-    results.update(check_flash_decode(torch, np, dev))
 
     # -- (c) serving ---------------------------------------------------------
     serving = serve(torch, np, dev, _kernels)
@@ -168,14 +171,21 @@ def main() -> int:
 # ---------------------------------------------------------------------------
 # library: the bf16 kernel's name in it (one instantiation per head dim of
 # ops/flash_attention.py _HEAD_DIMS)
-MMA_KERNELS = {"flash_fwd": "flash_fwd_mma", "flash_dkdv": "flash_dkdv_mma"}
+MMA_KERNELS = {"flash_fwd": "flash_fwd_mma", "flash_dkdv": "flash_dkdv_mma",
+               "flash_dq": "flash_dq_mma"}
 MMA_HEAD_DIMS = 4
+# the decode kernel's instantiation on the generate path: float32 q over a
+# bf16 cache, d=64 (8 vectors of 16 bytes a row)
+DECODE_TIMED_FN = "flash_decode_kernelIf13__nv_bfloat16Li8E"
 
 
 def check_design(_kernels):
-    """Every bf16 instantiation of the flash forward and dK/dV kernels runs
-    mma.sync on the tensor cores (HMMA in its SASS), and the training
-    path's d=64 instantiation spills no registers."""
+    """Every bf16 instantiation of the flash forward, dK/dV and dQ kernels
+    runs mma.sync on the tensor cores (HMMA in its SASS), and the training
+    path's d=64 instantiation spills no registers.  Logs the decode
+    kernel's registers and spills per instantiation and its cluster split
+    at the generate shape's capacity."""
+    from paddle_tpu_torch.ops import flash_attention as fa
     out = {}
     for lib, fn in MMA_KERNELS.items():
         hmma = {f: c for f, c in _kernels.sass_count(lib, "HMMA").items()
@@ -199,6 +209,24 @@ def check_design(_kernels):
         log(f"design {lib}: {fn}<64> has {h64} HMMA instructions "
             f"({sorted(hmma.values())} over the {MMA_HEAD_DIMS} head dims), "
             f"{props.get('registers')} registers, 0 spill stores")
+
+    decode = _kernels.ptxas_functions("flash_decode")
+    for fn, props in decode.items():
+        if "flash_decode_kernel" in fn:
+            log(f"design flash_decode: {fn}: {props}")
+    timed = [p for f, p in decode.items() if DECODE_TIMED_FN in f]
+    splits, chunk = fa.flash_decode_split(DECODE_CAP)
+    out["flash_decode"] = {
+        "kernel": "flash_decode_kernel<float, bf16, 8>",
+        "registers": timed[0].get("registers") if timed else None,
+        "spill_stores": timed[0].get("spill_stores") if timed else None,
+        "spill_loads": timed[0].get("spill_loads") if timed else None,
+        "cap": DECODE_CAP, "cluster": splits, "positions_per_block": chunk,
+        "blocks": 8 * 12 * splits}
+    log(f"design flash_decode: at L={DECODE_CAP} a cluster of {splits} "
+        f"blocks per (batch*head, query row), {chunk} positions each "
+        f"({8 * 12 * splits} blocks at B=8, H=12); timed instantiation "
+        f"{timed[0] if timed else 'not in the ptxas log'}")
     return out
 
 
@@ -584,21 +612,33 @@ def check_flash(torch, np, dev):
     return results
 
 
-DECODE_LENGTHS = (0, 1, 63, 64, 65, 577, 640)
+DECODE_CAP = 640
+# 40: all but the first block idle; 159 / 160 / 161, 319 / 320 / 321 and
+# 479 / 480 / 481: one before, at and one after the first position of each
+# block but the first of the cluster split at L=640 (4 blocks of 160
+# positions; checked against the kernel's split below)
+DECODE_LENGTHS = (0, 1, 40, 63, 64, 65, 159, 160, 161, 319, 320, 321, 479,
+                  480, 481, 577, 640)
 DECODE_TIMED_LENGTH = 576
 
 
-def check_flash_decode(torch, np, dev):
+def check_flash_decode(torch, np, dev, _kernels):
     """(b) the flash decode kernel against its plain version at the generate
     shape (B=8, H=12, d=64, L=640, bf16 cache): every length of
     DECODE_LENGTHS, q in float32 (the main path's: K1 and the unfused qkv
-    projection return float32) and in bf16, sq 1 and 2; timed at length
-    576 with float32 q, with SDPA over the cache prefix as the library
-    yardstick."""
+    projection return float32) and in bf16, sq 1 and 2; the same lengths
+    under replays of one captured launch, bit for bit equal to eager
+    launches; timed at length 576 with float32 q, with SDPA over the cache
+    prefix as the library yardstick."""
     import torch.nn.functional as TF
     from paddle_tpu_torch.ops import flash_attention as fa
     rng = np.random.default_rng(SEED + 3)
-    B, H, D, L = 8, 12, 64, 640
+    B, H, D, L = 8, 12, 64, DECODE_CAP
+    splits, chunk = fa.flash_decode_split(L)
+    edges = {b * chunk + o for b in range(1, splits) for o in (-1, 0, 1)}
+    require(splits > 1 and edges <= set(DECODE_LENGTHS),
+            f"flash_decode: the split at L={L} ({splits} blocks of {chunk}) "
+            f"has edges {sorted(edges)} that DECODE_LENGTHS misses")
 
     def t(shape, dtype):
         a = rng.standard_normal(shape, dtype=np.float32)
@@ -632,7 +672,31 @@ def check_flash_decode(torch, np, dev):
                 if n == 0:
                     require(float(out.abs().max()) == 0.0,
                             f"flash_decode {tag}: length 0 is not zero")
+    # one captured launch serves every length (the kernel reads it from
+    # device memory), and repeats bit for bit
+    q = t((B, H, 1, D), torch.float32)
+    length = torch.zeros((), dtype=torch.int32, device=dev)
+    graph, held = torch.cuda.CUDAGraph(), {}
+    recorded = _kernels.capture(
+        graph, lambda: held.update(out=fa.flash_decode_cuda(q, k, v, length)))
+    require(recorded == {"flash_decode": 1},
+            f"flash_decode: the capture recorded {recorded}")
+    for n in DECODE_LENGTHS:
+        length.fill_(n)
+        _kernels.replay(graph, recorded)
+        replayed = held["out"].clone()
+        _kernels.replay(graph, recorded)
+        eager = fa.flash_decode_cuda(q, k, v, length)
+        torch.cuda.synchronize()
+        require(torch.equal(replayed, held["out"])
+                and torch.equal(replayed, eager),
+                f"flash_decode: len={n}: two replays and an eager launch "
+                "differ")
+    del graph
     worst = max(cases.values(), key=lambda r: r["err_over_tol"])
+    log(f"check flash_decode graph replay: one capture, lengths "
+        f"{list(DECODE_LENGTHS)}, two replays each equal an eager launch "
+        "bit for bit")
     log(f"check flash_decode (B={B}, H={H}, d={D}, L={L}, bf16 cache): "
         f"{len(cases)} cases (q float32 / bf16, sq 1 / 2, lengths "
         f"{list(DECODE_LENGTHS)}), max_abs_err "
@@ -670,6 +734,7 @@ def check_flash_decode(torch, np, dev):
         "peak": PEAK_F32,
         "shape": f"B={B}, H={H}, d={D}, L={L}, length {n}, float32 q over "
                  "a bf16 cache",
+        "cluster": splits, "positions_per_block": chunk,
         "cases": len(cases)}}
 
 

@@ -18,9 +18,9 @@
 // that contract over the tile (P.V, dS.K, P^T.dO, dS^T.Q) the thread owns
 // rows ty + 16 r and the D / 16 contiguous columns from tx * D / 16.
 //
-// The bf16 forward and dK/dV kernels take only the mask, the dropout hash
-// and the tile walk from here; their tensor-core tiles and fragments are
-// in flash_mma.cuh.
+// The bf16 forward, dK/dV and dQ kernels take only the mask, the dropout
+// hash and the tile walk from here; their tensor-core tiles and fragments
+// are in flash_mma.cuh.
 #pragma once
 
 #include <math.h>

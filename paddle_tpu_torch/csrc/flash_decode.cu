@@ -14,37 +14,61 @@
 // What bounds it on the H100: bytes.  Every (batch, head) reads n rows of K
 // and V once (2 x n x D x 2 B in bf16) and does 4 FLOPs per pair of cache
 // elements; at the generate shape (B*H = 96, D = 64, n ~ 576) that is 14 MB,
-// 4.2 us at 3.35 TB/s.
+// 4.2 us at 3.35 TB/s.  With sq <= 2 query rows this is a matrix-vector
+// product: the tensor cores would idle on it, so the kernel is SIMT and its
+// design is about keeping enough bytes in flight on every SM.
 //
 // Design.  The TPU kernel's trip count came from a traced scalar, so one
 // compiled program served every position; here the length is read from a
 // device int32, so one CUDA graph of the decode step serves every position.
-// One block of kWarps warps per (batch*head, query row).  The TPU grid ran
-// (batch*head) programs, each looping over the cache in blocks; here the
-// warps of a block take 32-position chunks in turn (warp w the chunks
-// w, w + kWarps, ...), each keeping its own online softmax (m, l and a
-// float32 accumulator), and the block combines the warps' states in shared
-// memory at the end: the KV range is split inside a block, with no second
-// pass.  In a chunk, lane j scores position base + j over the whole head
-// dimension (q sits in shared memory as float32; K rows are read as 16-byte
-// vectors), the warp reduces the chunk's max and sum, then the value rows
-// are read as 16-byte vectors by W lanes each (W = the row's vectors,
-// rounded up to a power of two, at most 32), 32 / W rows at a time, and the
-// row groups are summed by shuffles at the end.  Only positions below n are
-// read.  Rounding follows the TPU kernel: the score is scaled after the
-// float32 product, l sums the unrounded p and is clamped at 1e-30, p is
-// rounded to the cache dtype before P.V.  q and the cache each take float32
-// or bf16; accumulation is float32; the output takes q's dtype.  With
-// B*H = 96 blocks for 132 SMs, split-KV across blocks (a combine pass) is
-// the next step toward the bound.
+// The cache of one (batch*head, query row) is split across a thread-block
+// cluster of `splits` blocks, block rank r taking positions [r chunk,
+// (r + 1) chunk).  The split depends on the capacity alone (at most
+// kMaxSplits blocks, and at least kMinChunk positions a block), never on
+// the length, so the captured launch fits every length: at the generate
+// shape (L = 640) 4 blocks of 160 positions, 384 blocks for 132 SMs.
+// Inside a block, a cache row is read by W lanes (W = the row's 16-byte
+// vectors, rounded up to a power of two, at most 32: 8 at D = 64 in bf16),
+// so a warp reads 32 / W consecutive rows with coalesced 16-byte loads;
+// lane c keeps the q slice of its vectors in registers, the row's score is
+// reduced over its W lanes by shuffles, and the same lane then multiplies
+// the same slice of the value row.  Each row group takes every G-th row of
+// the block's range (G = row groups of the block) and issues the K and V
+// loads of kUnroll rows before it uses any of them, then updates its own
+// online softmax (m, l and a float32 accumulator of its slice).  The loads
+// are streaming (evict-first): the cache is read once a step, and its
+// lines should not push out what L2 holds for the rest of the step.  The
+// row groups of a warp are combined by shuffles, and every warp pushes its
+// state into block rank 0's shared memory through distributed shared
+// memory; after one cluster barrier rank 0 combines the states in a fixed
+// order and the other blocks leave.  A block whose range starts at or past
+// the length reads nothing and pushes (m = -inf, l = 0).  One launch, no
+// atomics: the same inputs give the same bits on every launch and replay.
+// Rounding follows the TPU kernel: the score is scaled after the float32
+// product, l sums the unrounded p and is clamped at 1e-30, p is rounded to
+// the cache dtype before P.V (each row group against its own running max;
+// the combine rescales by exp(m_w - m), so the relative rounding stays
+// 2^-9).  q and the cache each take float32 or bf16; accumulation is
+// float32; the output takes q's dtype.
+#include <cooperative_groups.h>
 #include <math.h>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kWarps = 8;
+// Measured at the generate shape on the H100 (PERF.md): 4 blocks of 4
+// warps per (batch*head, query row) with 5 rows per row group in flight
+// beat 8 blocks (the DSMEM pushes and the barrier of a larger cluster cost
+// more than the extra SMs give), 2 blocks of 8 warps ran even, and 8-10
+// rows in flight were slower than 5.
+constexpr int kWarps = 4;
+constexpr int kUnroll = 5;         // rows of a row group in flight at once
 constexpr int kMaxHeadDim = 256;
+constexpr int kMaxSplits = 4;      // blocks per cluster at most
+constexpr int kMinChunk = 64;      // cache positions a block takes at least
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -67,8 +91,7 @@ struct Vec {
 };
 
 template <typename KT>
-__device__ __forceinline__ Vec<KT> load_vec(const KT* p) {
-  const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
+__device__ __forceinline__ Vec<KT> widen(uint4 raw) {
   Vec<KT> out;
   if constexpr (sizeof(KT) == 2) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -87,40 +110,83 @@ __device__ __forceinline__ Vec<KT> load_vec(const KT* p) {
   return out;
 }
 
+// E consecutive elements of q (16-byte aligned: q is, and d is a multiple
+// of 8) widened to float32, or zeros when !ok.
+template <typename QT, int E>
+__device__ __forceinline__ void load_q(const QT* p, bool ok, float (&o)[E]) {
+  constexpr int kVecs = E * static_cast<int>(sizeof(QT)) / 16;
+  if constexpr (kVecs >= 1) {
+#pragma unroll
+    for (int j = 0; j < kVecs; ++j) {
+      const uint4 raw = ok ? __ldg(reinterpret_cast<const uint4*>(p) + j)
+                           : make_uint4(0, 0, 0, 0);
+      const Vec<QT> w = widen<QT>(raw);
+#pragma unroll
+      for (int e = 0; e < Vec<QT>::kElems; ++e)
+        o[j * Vec<QT>::kElems + e] = w.f[e];
+    }
+  } else {                   // 4 bf16 beside a float32 cache's vector
+#pragma unroll
+    for (int e = 0; e < E; ++e) o[e] = ok ? to_f(p[e]) : 0.f;
+  }
+}
+
+// The weight exp(m - mx) of a softmax state with running max m against a
+// larger max mx; 0 for a state that saw no position (m = -inf), whatever mx.
+__device__ __forceinline__ float weight(float m, float mx) {
+  return m == -INFINITY ? 0.f : expf(m - mx);
+}
+
+// The splits of a cache of `cap` positions and the positions of each.
+__host__ __device__ __forceinline__ int splits_for(int cap) {
+  const int s = cap / kMinChunk;
+  return s < 1 ? 1 : (s > kMaxSplits ? kMaxSplits : s);
+}
+
 // NVP: the 16-byte vectors of a head row (D / E of them), rounded up to a
-// power of two; vectors at or past nv = D / E are skipped.
+// power of two; vectors at or past nv = D / E are skipped.  Launched as
+// clusters of `splits` blocks along x: grid (bh * splits, sq).
 template <typename QT, typename KT, int NVP>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
                     const KT* __restrict__ v, const int* __restrict__ len_ptr,
-                    QT* __restrict__ out, int sq, int cap, int d,
+                    QT* __restrict__ out, int sq, int cap, int d, int chunk,
                     float scale) {
   constexpr int E = Vec<KT>::kElems;       // elements per 16-byte vector
-  constexpr int W = NVP < 32 ? NVP : 32;   // lanes per value row
-  constexpr int R = 32 / W;                // value rows per warp step
-  constexpr int VPL = NVP / W;             // vectors per lane in P.V
+  constexpr int W = NVP < 32 ? NVP : 32;   // lanes per cache row
+  constexpr int R = 32 / W;                // rows per warp step
+  constexpr int G = kWarps * R;            // row groups of the block
+  constexpr int VPL = NVP / W;             // vectors per lane
   constexpr int DP = NVP * E;              // the padded head dimension
-  __shared__ __align__(16) float qs[DP];
-  __shared__ __align__(16) float wacc[kWarps][DP];
-  __shared__ float wm[kWarps];
-  __shared__ float wl[kWarps];
+  // rank 0's: the softmax state of every warp of the cluster, pushed by
+  // the warps through distributed shared memory
+  __shared__ __align__(16) float sacc[kMaxSplits * kWarps][DP];
+  __shared__ float sm[kMaxSplits * kWarps];
+  __shared__ float sl[kMaxSplits * kWarps];
 
-  const int bh = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int bh = blockIdx.x / splits;
   const int row = blockIdx.y;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int nv = d / E;
-  const int64_t qo = (static_cast<int64_t>(bh) * sq + row) * d;
-  for (int i = threadIdx.x; i < DP; i += blockDim.x) {
-    qs[i] = i < d ? to_f(q[qo + i]) : 0.f;
-  }
-  __syncthreads();
-
-  const int len = min(max(*len_ptr, 0), cap);
-  const KT* kb = k + static_cast<int64_t>(bh) * cap * d;
-  const KT* vb = v + static_cast<int64_t>(bh) * cap * d;
   const int r = lane / W;
   const int c = lane % W;
+  const int nv = d / E;
+  const int64_t qo = (static_cast<int64_t>(bh) * sq + row) * d;
+
+  const int len = min(max(__ldg(len_ptr), 0), cap);
+  float qv[VPL][E];                        // q over this lane's vectors
+#pragma unroll
+  for (int u = 0; u < VPL; ++u) {
+    const int vec = c + u * W;
+    load_q<QT, E>(q + qo + vec * E, vec < nv, qv[u]);
+  }
+
+  const int hi = min((rank + 1) * chunk, len);
+  const KT* kb = k + static_cast<int64_t>(bh) * cap * d;
+  const KT* vb = v + static_cast<int64_t>(bh) * cap * d;
 
   float acc[VPL][E];
 #pragma unroll
@@ -131,115 +197,148 @@ flash_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   float m = -INFINITY;
   float l = 0.f;
 
-  for (int base = warp * 32; base < len; base += kWarps * 32) {
-    const int pos = base + lane;
-    float s = -INFINITY;
-    if (pos < len) {
-      const KT* krow = kb + static_cast<int64_t>(pos) * d;
-      float dot = 0.f;
-#pragma unroll 8
-      for (int j = 0; j < NVP; ++j) {
-        if (j < nv) {
-          const Vec<KT> kv = load_vec(krow + j * E);
-          const float4* qv = reinterpret_cast<const float4*>(qs + j * E);
+  // warp-uniform trip count: row group r of warp w takes rows
+  // base + r + i G, i < kUnroll
+  for (int base = rank * chunk + warp * R; base < hi; base += G * kUnroll) {
+    uint4 kr[kUnroll][VPL], vr[kUnroll][VPL];
 #pragma unroll
-          for (int e4 = 0; e4 < E / 4; ++e4) {
-            const float4 qq = qv[e4];
-            dot = fmaf(qq.x, kv.f[4 * e4], dot);
-            dot = fmaf(qq.y, kv.f[4 * e4 + 1], dot);
-            dot = fmaf(qq.z, kv.f[4 * e4 + 2], dot);
-            dot = fmaf(qq.w, kv.f[4 * e4 + 3], dot);
-          }
-        }
+    for (int i = 0; i < kUnroll; ++i) {
+      const int pos = base + r + i * G;
+#pragma unroll
+      for (int u = 0; u < VPL; ++u) {
+        const int vec = c + u * W;
+        const int64_t o = static_cast<int64_t>(pos) * d + vec * E;
+        const bool ok = pos < hi && vec < nv;
+        kr[i][u] = ok ? __ldcs(reinterpret_cast<const uint4*>(kb + o))
+                      : make_uint4(0, 0, 0, 0);
+        vr[i][u] = ok ? __ldcs(reinterpret_cast<const uint4*>(vb + o))
+                      : make_uint4(0, 0, 0, 0);
       }
-      s = dot * scale;
     }
-    // lane 0 is always valid inside the loop, so m_new is finite
-    const float m_new = fmaxf(m, ptt::warp_max(s));
-    const float p = pos < len ? expf(s - m_new) : 0.f;
-    const float alpha = expf(m - m_new);
-    l = l * alpha + ptt::warp_sum(p);
-    const float pr = to_f(from_f<KT>(p));   // p in the cache dtype for P.V
+    float s[kUnroll];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < kUnroll; ++i) {
+      float dot = 0.f;
+#pragma unroll
+      for (int u = 0; u < VPL; ++u) {
+        const Vec<KT> kv = widen<KT>(kr[i][u]);
+#pragma unroll
+        for (int e = 0; e < E; ++e) dot = fmaf(qv[u][e], kv.f[e], dot);
+      }
+#pragma unroll
+      for (int o = W / 2; o > 0; o >>= 1)
+        dot += __shfl_xor_sync(ptt::kFullMask, dot, o);
+      s[i] = base + r + i * G < hi ? dot * scale : -INFINITY;
+      mx = fmaxf(mx, s[i]);
+    }
+    const float m_new = fmaxf(m, mx);
+    const float alpha = weight(m, m_new);   // the state so far is 0 at -inf
+    l *= alpha;
 #pragma unroll
     for (int u = 0; u < VPL; ++u) {
 #pragma unroll
       for (int e = 0; e < E; ++e) acc[u][e] *= alpha;
     }
-    const int count = min(32, len - base);
 #pragma unroll
-    for (int t = 0; t < 32 / R; ++t) {
-      const int j = t * R + r;               // row of the chunk
-      const float pj = __shfl_sync(ptt::kFullMask, pr, j);
-      if (j < count) {
-        const KT* vrow = vb + static_cast<int64_t>(base + j) * d;
+    for (int i = 0; i < kUnroll; ++i) {
+      const float p = s[i] == -INFINITY ? 0.f : expf(s[i] - m_new);
+      l += p;
+      const float pr = to_f(from_f<KT>(p));  // p in the cache dtype for P.V
 #pragma unroll
-        for (int u = 0; u < VPL; ++u) {
-          const int vec = c + u * W;
-          if (vec < nv) {
-            const Vec<KT> vv = load_vec(vrow + vec * E);
+      for (int u = 0; u < VPL; ++u) {
+        const Vec<KT> vv = widen<KT>(vr[i][u]);
 #pragma unroll
-            for (int e = 0; e < E; ++e) acc[u][e] = fmaf(pj, vv.f[e], acc[u][e]);
-          }
-        }
+        for (int e = 0; e < E; ++e) acc[u][e] = fmaf(pr, vv.f[e], acc[u][e]);
       }
     }
     m = m_new;
   }
 
-  // sum the R row groups of the warp (lanes c, c + W, c + 2W, ...)
+  // combine the R row groups of the warp (lanes c, c + W, c + 2W, ...)
 #pragma unroll
   for (int off = W; off < 32; off <<= 1) {
+    const float mo = __shfl_xor_sync(ptt::kFullMask, m, off);
+    const float lo = __shfl_xor_sync(ptt::kFullMask, l, off);
+    const float mn = fmaxf(m, mo);
+    const float fa = weight(m, mn);
+    const float fb = weight(mo, mn);
+    l = l * fa + lo * fb;
 #pragma unroll
     for (int u = 0; u < VPL; ++u) {
 #pragma unroll
       for (int e = 0; e < E; ++e) {
-        acc[u][e] += __shfl_xor_sync(ptt::kFullMask, acc[u][e], off);
+        const float ao = __shfl_xor_sync(ptt::kFullMask, acc[u][e], off);
+        acc[u][e] = acc[u][e] * fa + ao * fb;
       }
     }
+    m = mn;
   }
+  // push this warp's state into rank 0's slot rank * kWarps + warp; the
+  // cluster barrier (release / acquire) makes it visible to rank 0, and
+  // the other blocks may leave after it
+  const int slot = rank * kWarps + warp;
   if (lane == 0) {
-    wm[warp] = m;
-    wl[warp] = l;
+    cluster.map_shared_rank(sm, 0)[slot] = m;
+    cluster.map_shared_rank(sl, 0)[slot] = l;
   }
   if (r == 0) {
+    float* dst = cluster.map_shared_rank(&sacc[slot][0], 0);
 #pragma unroll
     for (int u = 0; u < VPL; ++u) {
+      float4* d4 = reinterpret_cast<float4*>(dst + (c + u * W) * E);
 #pragma unroll
-      for (int e = 0; e < E; ++e) wacc[warp][(c + u * W) * E + e] = acc[u][e];
+      for (int j = 0; j < E / 4; ++j)
+        d4[j] = make_float4(acc[u][4 * j], acc[u][4 * j + 1],
+                            acc[u][4 * j + 2], acc[u][4 * j + 3]);
     }
   }
-  __syncthreads();
+  cluster.sync();
+  if (rank != 0) return;
 
-  // combine the warps' online-softmax states; a warp that saw no position
-  // has m = -inf and weighs exp(-inf) = 0; with no position at all the
+  // rank 0 combines the warps' states in slot order (a warp that saw no
+  // position has m = -inf and weighs 0); with no position at all the
   // output is 0 (0 / 1e-30), as the TPU kernel's empty loop gives
+  const int slots = splits * kWarps;
   float mx = -INFINITY;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, wm[w]);
+  for (int w = 0; w < slots; ++w) mx = fmaxf(mx, sm[w]);
+  __syncthreads();                         // every thread has read sm
+  if (threadIdx.x < slots) sm[threadIdx.x] = weight(sm[threadIdx.x], mx);
+  __syncthreads();                         // sm holds the weights
+  float lsum = 0.f;
+  for (int w = 0; w < slots; ++w) lsum = fmaf(sl[w], sm[w], lsum);
+  const float inv = 1.f / fmaxf(lsum, 1e-30f);
   for (int i = threadIdx.x; i < d; i += blockDim.x) {
     float o = 0.f;
-    float lsum = 0.f;
-    if (mx != -INFINITY) {
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float f = expf(wm[w] - mx);
-        lsum = fmaf(wl[w], f, lsum);
-        o = fmaf(wacc[w][i], f, o);
-      }
-    }
-    out[qo + i] = from_f<QT>(o / fmaxf(lsum, 1e-30f));
+    for (int w = 0; w < slots; ++w) o = fmaf(sacc[w][i], sm[w], o);
+    out[qo + i] = from_f<QT>(o * inv);
   }
 }
 
 template <typename QT, typename KT, int NVP>
-void launch(const void* q, const void* k, const void* v, const int* len,
-            void* out, int bh, int sq, int cap, int d, float scale,
-            cudaStream_t stream) {
-  const dim3 grid(bh, sq);
-  flash_decode_kernel<QT, KT, NVP><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KT*>(k),
-      static_cast<const KT*>(v), len, static_cast<QT*>(out), sq, cap, d,
-      scale);
+int launch(const void* q, const void* k, const void* v, const int* len,
+           void* out, int bh, int sq, int cap, int d, float scale,
+           cudaStream_t stream) {
+  const int splits = splits_for(cap);
+  const int chunk = (cap + splits - 1) / splits;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(bh * splits, sq);
+  cfg.blockDim = dim3(kWarps * 32);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = splits;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, flash_decode_kernel<QT, KT, NVP>, static_cast<const QT*>(q),
+      static_cast<const KT*>(k), static_cast<const KT*>(v), len,
+      static_cast<QT*>(out), sq, cap, d, chunk, scale);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename QT, typename KT>
@@ -248,23 +347,33 @@ int dispatch(const void* q, const void* k, const void* v, const int* len,
              cudaStream_t s) {
   constexpr int E = Vec<KT>::kElems;
   const int nv = d / E;
-  if (nv <= 2) {
-    launch<QT, KT, 2>(q, k, v, len, out, bh, sq, cap, d, scale, s);
-  } else if (nv <= 4) {
-    launch<QT, KT, 4>(q, k, v, len, out, bh, sq, cap, d, scale, s);
-  } else if (nv <= 8) {
-    launch<QT, KT, 8>(q, k, v, len, out, bh, sq, cap, d, scale, s);
-  } else if (nv <= 16) {
-    launch<QT, KT, 16>(q, k, v, len, out, bh, sq, cap, d, scale, s);
-  } else if (nv <= 32) {
-    launch<QT, KT, 32>(q, k, v, len, out, bh, sq, cap, d, scale, s);
+  if (nv <= 2) return launch<QT, KT, 2>(q, k, v, len, out, bh, sq, cap, d,
+                                        scale, s);
+  if (nv <= 4) return launch<QT, KT, 4>(q, k, v, len, out, bh, sq, cap, d,
+                                        scale, s);
+  if (nv <= 8) return launch<QT, KT, 8>(q, k, v, len, out, bh, sq, cap, d,
+                                        scale, s);
+  if (nv <= 16) return launch<QT, KT, 16>(q, k, v, len, out, bh, sq, cap, d,
+                                          scale, s);
+  if constexpr (E == 8) {                  // bf16: d <= 256 is 32 vectors
+    return launch<QT, KT, 32>(q, k, v, len, out, bh, sq, cap, d, scale, s);
   } else {
-    launch<QT, KT, 64>(q, k, v, len, out, bh, sq, cap, d, scale, s);
+    if (nv <= 32) return launch<QT, KT, 32>(q, k, v, len, out, bh, sq, cap,
+                                            d, scale, s);
+    return launch<QT, KT, 64>(q, k, v, len, out, bh, sq, cap, d, scale, s);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
+
+// The cluster split of a cache of `cap` positions: the blocks per (batch
+// * head, query row) and the positions each takes (the last may take
+// fewer).  It depends on the capacity alone.
+PTT_EXPORT int ptt_flash_decode_split(int cap, int* splits, int* chunk) {
+  *splits = splits_for(cap);
+  *chunk = (cap + *splits - 1) / *splits;
+  return 0;
+}
 
 // q (bh, sq, d) and out in q's dtype; k / v (bh, cap, d) in the cache dtype;
 // len one int32 on the device.  d a multiple of 8 in [16, 256]; every

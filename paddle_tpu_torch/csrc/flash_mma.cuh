@@ -1,4 +1,5 @@
-// Tensor-core pieces of the bf16 flash kernels (flash_fwd.cu, flash_dkdv.cu):
+// Tensor-core pieces of the bf16 flash kernels (flash_fwd.cu, flash_dkdv.cu,
+// flash_dq.cu):
 // 16-byte cp.async staging of bf16 tiles, ldmatrix fragment loads and the
 // m16n8k16 bf16 mma with float32 accumulation.
 //
@@ -129,8 +130,8 @@ __device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* tile,
                  ((lane / 8) % 2) * 8);
 }
 
-// B fragments of two n8 tiles from a tile stored [k][n] (V, dO, Q as the
-// right operand of P.V, pd^T.dO, dS^T.Q): rows k0..k0+15, columns
+// B fragments of two n8 tiles from a tile stored [k][n] (V, dO, Q, K as the
+// right operand of P.V, pd^T.dO, dS^T.Q, dS.K): rows k0..k0+15, columns
 // n0..n0+15, transposed by ldmatrix.
 template <int LD>
 __device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* tile,
@@ -197,7 +198,7 @@ __device__ __forceinline__ void gemm_nt(float (&c)[N8][4],
 
 // c[j] += P . B over the K8 * 8 columns of the accumulator tiles p (packed
 // to bf16 as the A operand) and the rows of a tile stored [k][n] with D
-// columns: P.V, pd^T.dO, dS^T.Q.
+// columns: P.V, pd^T.dO, dS^T.Q, dS.K.
 template <int D, int K8>
 __device__ __forceinline__ void gemm_pv(float (&c)[D / 8][4],
                                         const float (&p)[K8][4],

@@ -55,7 +55,8 @@ from ..framework.errors import enforce
 __all__ = ["flash_attention", "flash_fwd_reference", "flash_fwd_cuda",
            "flash_dkdv_reference", "flash_dkdv_cuda", "flash_dq_reference",
            "flash_dq_cuda", "flash_attention_kvcache",
-           "flash_decode_reference", "flash_decode_cuda"]
+           "flash_decode_reference", "flash_decode_cuda",
+           "flash_decode_split"]
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (16, 32, 64, 128)        # the csrc/flash_*.cu instantiations
@@ -442,6 +443,21 @@ def flash_decode_cuda(q, k_cache, v_cache, cache_seqlen,
     _kernels.check(rc, name)
     _kernels.launches[name] += 1
     return out
+
+
+def flash_decode_split(cap: int) -> Tuple[int, int]:
+    """``(splits, chunk)``: the thread-block cluster the decode kernel
+    splits a cache of ``cap`` positions across (blocks per (batch*head,
+    query row)) and the positions each block takes, the last possibly
+    fewer.  It depends on the capacity alone, never on the length, so one
+    captured launch serves every length.  Asks the built kernel library
+    (needs the CUDA toolkit)."""
+    splits, chunk = ctypes.c_int(), ctypes.c_int()
+    fn = _kernels.bind("flash_decode", "ptt_flash_decode_split",
+                       [_c, ctypes.POINTER(_c), ctypes.POINTER(_c)])
+    _kernels.check(fn(int(cap), ctypes.byref(splits), ctypes.byref(chunk)),
+                   "flash_decode")
+    return splits.value, chunk.value
 
 
 def flash_attention_kvcache(q, k_cache, v_cache, cache_seqlen,

@@ -37,6 +37,7 @@ _SHORT = {"paged_decode_kernel": "paged_decode (ours)",
           "flash_dkdv_kernel": "flash_dkdv (ours)",
           "flash_dkdv_mma": "flash_dkdv (ours)",
           "flash_dq_kernel": "flash_dq (ours)",
+          "flash_dq_mma": "flash_dq (ours)",
           "flash_decode_kernel": "flash_decode (ours)"}
 
 

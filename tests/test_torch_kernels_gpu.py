@@ -226,7 +226,8 @@ def test_flash_kernels_repeat_exactly(dev, dtype):
         delta = (do.float() * out.float()).sum(-1)
         dk, dv = fa.flash_dkdv_cuda(q, k, v, do, lse, delta, 5, None, True,
                                     0.1)
-        runs.append((out, lse, dk, dv))
+        dq = fa.flash_dq_cuda(q, k, v, do, lse, delta, 5, None, True, 0.1)
+        runs.append((out, lse, dk, dv, dq))
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
@@ -246,10 +247,29 @@ def test_flash_autograd_on_card_matches_cpu(dev):
 
 
 
-# flash decode: ragged lengths (0, inside a 32-position chunk, on and past
-# chunk edges, the full capacity), q and the cache in either dtype, head
-# dims that round the row's 16-byte vectors up to a power of two (24, 96)
-DECODE_LENS = (0, 1, 31, 32, 33, 77, 200, 256)
+# flash decode: ragged lengths (0, inside a block's range, on and around
+# the first position of every block of the cluster split of the 256-position
+# cache -- 4 blocks of 64, checked below -- the full capacity), q and the
+# cache in either dtype, head dims that round the row's 16-byte vectors up
+# to a power of two (24, 96)
+DECODE_LENS = (0, 1, 31, 32, 33, 63, 64, 65, 77, 127, 128, 129, 191, 192,
+               193, 200, 255, 256)
+
+
+def _split_edges(cap):
+    """One before, at and one after the first position of every block but
+    the first of the decode kernel's split of a ``cap``-position cache."""
+    splits, chunk = fa.flash_decode_split(cap)
+    return splits, {b * chunk + o for b in range(1, splits)
+                    for o in (-1, 0, 1)}
+
+
+def test_decode_lens_cover_the_split_edges(dev):
+    splits, edges = _split_edges(256)
+    assert splits > 1 and edges <= set(DECODE_LENS)
+    # the split follows the capacity alone
+    assert fa.flash_decode_split(640) == (4, 160)
+    assert fa.flash_decode_split(8)[0] == 1
 
 
 def _decode_inputs(dev, b, h, sq, cap, d, qdtype, kvdtype):
@@ -307,7 +327,9 @@ def test_flash_decode_graph_replay_follows_device_length(dev):
         graph, lambda: holder.update(out=fa.flash_decode_cuda(q, k, v,
                                                               length)))
     assert recorded == {"flash_decode": 1}
-    for n in (1, 5, 64, 65, 128, 0, 100):
+    splits, edges = _split_edges(128)
+    assert splits > 1
+    for n in (1, 5, 64, 65, 128, 0, 100, *sorted(edges)):
         length.fill_(n)
         before = _kernels.launches["flash_decode"]
         _kernels.replay(graph, recorded)
@@ -315,6 +337,31 @@ def test_flash_decode_graph_replay_follows_device_length(dev):
         eager = fa.flash_decode_cuda(q, k, v, length)
         torch.cuda.synchronize()
         assert torch.equal(holder["out"], eager), n
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_repeats_exactly(dev, qdtype):
+    """No atomics and a fixed combine order: two launches, and two replays
+    of one captured launch, give the same bits at every length."""
+    q, k, v = _decode_inputs(dev, 2, 3, 2, 256, 64, qdtype, torch.bfloat16)
+    length = torch.zeros((), dtype=torch.int32, device=dev)
+    fa.flash_decode_cuda(q, k, v, length)            # load the library
+    torch.cuda.synchronize()
+    graph, holder = torch.cuda.CUDAGraph(), {}
+    recorded = _kernels.capture(
+        graph, lambda: holder.update(out=fa.flash_decode_cuda(q, k, v,
+                                                              length)))
+    for n in DECODE_LENS:
+        length.fill_(n)
+        a = fa.flash_decode_cuda(q, k, v, length)
+        b = fa.flash_decode_cuda(q, k, v, length)
+        _kernels.replay(graph, recorded)
+        first = holder["out"].clone()
+        _kernels.replay(graph, recorded)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), n
+        assert torch.equal(first, holder["out"]), n
+        assert torch.equal(first, a), n
 
 
 def test_paged_cache_defaults_to_cuda(dev):
