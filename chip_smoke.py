@@ -215,7 +215,7 @@ def check_design(_kernels):
         if "flash_decode_kernel" in fn:
             log(f"design flash_decode: {fn}: {props}")
     timed = [p for f, p in decode.items() if DECODE_TIMED_FN in f]
-    splits, chunk = fa.flash_decode_split(DECODE_CAP)
+    splits, chunk = fa._flash_decode_split(DECODE_CAP)
     out["flash_decode"] = {
         "kernel": "flash_decode_kernel<float, bf16, 8>",
         "registers": timed[0].get("registers") if timed else None,
@@ -634,7 +634,7 @@ def check_flash_decode(torch, np, dev, _kernels):
     from paddle_tpu_torch.ops import flash_attention as fa
     rng = np.random.default_rng(SEED + 3)
     B, H, D, L = 8, 12, 64, DECODE_CAP
-    splits, chunk = fa.flash_decode_split(L)
+    splits, chunk = fa._flash_decode_split(L)
     edges = {b * chunk + o for b in range(1, splits) for o in (-1, 0, 1)}
     require(splits > 1 and edges <= set(DECODE_LENGTHS),
             f"flash_decode: the split at L={L} ({splits} blocks of {chunk}) "

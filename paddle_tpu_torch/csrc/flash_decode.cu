@@ -40,10 +40,15 @@
 // lines should not push out what L2 holds for the rest of the step.  The
 // row groups of a warp are combined by shuffles, and every warp pushes its
 // state into block rank 0's shared memory through distributed shared
-// memory; after one cluster barrier rank 0 combines the states in a fixed
-// order and the other blocks leave.  A block whose range starts at or past
-// the length reads nothing and pushes (m = -inf, l = 0).  One launch, no
-// atomics: the same inputs give the same bits on every launch and replay.
+// memory.  A block's shared memory may be written by a peer only once the
+// block has started, so every block arrives on the cluster barrier (relaxed)
+// as it starts and waits on it just before its first remote store, by when
+// every peer has long arrived.  After a second cluster barrier, which makes
+// the pushed states visible, rank 0 combines them in a fixed order and the
+// other blocks leave.  A block whose range starts at or past the length
+// reads nothing and pushes (m = -inf, l = 0); every block passes both
+// barriers.  One launch, no atomics: the same inputs give the same bits on
+// every launch and replay.
 // Rounding follows the TPU kernel: the score is scaled after the float32
 // product, l sums the unrounded p and is clamped at 1e-30, p is rounded to
 // the cache dtype before P.V (each row group against its own running max;
@@ -59,11 +64,10 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-// Measured at the generate shape on the H100 (PERF.md): 4 blocks of 4
-// warps per (batch*head, query row) with 5 rows per row group in flight
-// beat 8 blocks (the DSMEM pushes and the barrier of a larger cluster cost
-// more than the extra SMs give), 2 blocks of 8 warps ran even, and 8-10
-// rows in flight were slower than 5.
+// Chosen by `python -m paddle_tpu_torch.sweep_decode`, which builds this
+// file with each constant varied and times it at the generate shape (its
+// rows are in PERF.md, section 6): 4 blocks of 4 warps per (batch*head,
+// query row), 5 rows per row group in flight.
 constexpr int kWarps = 4;
 constexpr int kUnroll = 5;         // rows of a row group in flight at once
 constexpr int kMaxHeadDim = 256;
@@ -175,6 +179,9 @@ flash_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   const int c = lane % W;
   const int nv = d / E;
   const int64_t qo = (static_cast<int64_t>(bh) * sq + row) * d;
+  // this block has started: peers may write its shared memory once they
+  // have waited on this phase (relaxed, it orders no memory access)
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 
   const int len = min(max(__ldg(len_ptr), 0), cap);
   float qv[VPL][E];                        // q over this lane's vectors
@@ -274,9 +281,11 @@ flash_decode_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
     }
     m = mn;
   }
-  // push this warp's state into rank 0's slot rank * kWarps + warp; the
-  // cluster barrier (release / acquire) makes it visible to rank 0, and
-  // the other blocks may leave after it
+  // every block of the cluster has started (rank 0's shared memory can be
+  // written); then push this warp's state into rank 0's slot rank * kWarps
+  // + warp.  The second cluster barrier (release / acquire) makes it
+  // visible to rank 0, and the other blocks may leave after it
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
   const int slot = rank * kWarps + warp;
   if (lane == 0) {
     cluster.map_shared_rank(sm, 0)[slot] = m;

@@ -55,8 +55,7 @@ from ..framework.errors import enforce
 __all__ = ["flash_attention", "flash_fwd_reference", "flash_fwd_cuda",
            "flash_dkdv_reference", "flash_dkdv_cuda", "flash_dq_reference",
            "flash_dq_cuda", "flash_attention_kvcache",
-           "flash_decode_reference", "flash_decode_cuda",
-           "flash_decode_split"]
+           "flash_decode_reference", "flash_decode_cuda"]
 
 _NEG_INF = -1e30
 _HEAD_DIMS = (16, 32, 64, 128)        # the csrc/flash_*.cu instantiations
@@ -445,7 +444,7 @@ def flash_decode_cuda(q, k_cache, v_cache, cache_seqlen,
     return out
 
 
-def flash_decode_split(cap: int) -> Tuple[int, int]:
+def _flash_decode_split(cap: int) -> Tuple[int, int]:
     """``(splits, chunk)``: the thread-block cluster the decode kernel
     splits a cache of ``cap`` positions across (blocks per (batch*head,
     query row)) and the positions each block takes, the last possibly

@@ -259,7 +259,7 @@ DECODE_LENS = (0, 1, 31, 32, 33, 63, 64, 65, 77, 127, 128, 129, 191, 192,
 def _split_edges(cap):
     """One before, at and one after the first position of every block but
     the first of the decode kernel's split of a ``cap``-position cache."""
-    splits, chunk = fa.flash_decode_split(cap)
+    splits, chunk = fa._flash_decode_split(cap)
     return splits, {b * chunk + o for b in range(1, splits)
                     for o in (-1, 0, 1)}
 
@@ -268,8 +268,8 @@ def test_decode_lens_cover_the_split_edges(dev):
     splits, edges = _split_edges(256)
     assert splits > 1 and edges <= set(DECODE_LENS)
     # the split follows the capacity alone
-    assert fa.flash_decode_split(640) == (4, 160)
-    assert fa.flash_decode_split(8)[0] == 1
+    assert fa._flash_decode_split(640) == (4, 160)
+    assert fa._flash_decode_split(8)[0] == 1
 
 
 def _decode_inputs(dev, b, h, sq, cap, d, qdtype, kvdtype):
