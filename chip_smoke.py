@@ -13,14 +13,19 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               instructions in their SASS (cuobjdump -sass) and ptxas must
               report no spill stores or loads for their d=64
               instantiations; the decode kernel's registers, spills and
-              cluster split at the generate shape are logged;
+              cluster split at the generate shape are logged, and the
+              paged-decode kernel's at the serving table width;
   (b) kernels each kernel at its path's shapes and dtypes against its
               plain PyTorch version on the card, with a stated tolerance;
               times by CUDA events (median, L2 flushed, the host's launch
               path hidden behind a spin kernel).  The flash kernels
               at the training shape (B=8, H=12, S=2048, d=64, bf16, causal),
               plus a dropout case (B=2, H=4, S=512, p=0.1) and a ragged one
-              (sq=136, sk=200) that are checked but not timed;
+              (sq=136, sk=200) that are checked but not timed; paged decode
+              at the serving shape (timed), then untimed at every edge of
+              its cluster split, other table widths, all four q / page
+              dtype pairs, d = 32 and 128 and rows that share blocks, and
+              two launches must give the same bits;
   (c) serving GPT-125M at full width (12 layers, h=768, 12 heads, vocab
               50304, bf16 activations, use_fused_block) with seeded random
               weights loaded through convert.py, served by ServingEngine:
@@ -177,6 +182,10 @@ MMA_HEAD_DIMS = 4
 # the decode kernel's instantiation on the generate path: float32 q over a
 # bf16 cache, d=64 (8 vectors of 16 bytes a row)
 DECODE_TIMED_FN = "flash_decode_kernelIf13__nv_bfloat16Li8E"
+# the paged-decode kernel's on the serving path (K1 returns float32 q; the
+# pages are bf16), and the serving shape's block table
+PAGED_TIMED_FN = "paged_decode_kernelIf13__nv_bfloat16Li8E"
+PAGED_WIDTH, PAGED_BS = 64, 16
 
 
 def check_design(_kernels):
@@ -226,6 +235,28 @@ def check_design(_kernels):
     log(f"design flash_decode: at L={DECODE_CAP} a cluster of {splits} "
         f"blocks per (batch*head, query row), {chunk} positions each "
         f"({8 * 12 * splits} blocks at B=8, H=12); timed instantiation "
+        f"{timed[0] if timed else 'not in the ptxas log'}")
+
+    from paddle_tpu_torch.inference.paged_attention import (
+        _paged_decode_split)
+    paged = _kernels.ptxas_functions("paged_decode")
+    for fn, props in paged.items():
+        if "paged_decode_kernel" in fn:
+            log(f"design paged_decode: {fn}: {props}")
+    timed = [p for f, p in paged.items() if PAGED_TIMED_FN in f]
+    splits, per = _paged_decode_split(PAGED_WIDTH, PAGED_BS)
+    out["paged_decode"] = {
+        "kernel": "paged_decode_kernel<float, bf16, 8>",
+        "registers": timed[0].get("registers") if timed else None,
+        "spill_stores": timed[0].get("spill_stores") if timed else None,
+        "spill_loads": timed[0].get("spill_loads") if timed else None,
+        "table_width": PAGED_WIDTH, "block_size": PAGED_BS,
+        "cluster": splits, "entries_per_block": per,
+        "blocks": 8 * 12 * splits}
+    log(f"design paged_decode: a table of {PAGED_WIDTH} entries of "
+        f"{PAGED_BS} positions split across a cluster of {splits} blocks "
+        f"of {per} entries per (row, head) ({8 * 12 * splits} blocks at "
+        f"B=8, H=12); timed instantiation "
         f"{timed[0] if timed else 'not in the ptxas log'}")
     return out
 
@@ -417,7 +448,7 @@ def check_kernels(torch, np, dev):
 
     # paged decode at the 125M serving shape: B=8, H=12, d=64, block 16,
     # 64 blocks per row (1024 positions), ragged lengths with one empty row
-    B, H, D, bs, per_row = 8, 12, 64, 16, 64
+    B, H, D, bs, per_row = 8, 12, 64, PAGED_BS, PAGED_WIDTH
     nblocks = B * per_row
     lens_np = np.array([0, 1, 17, 100, 333, 512, 777, 1024], np.int32)
     perm = rng.permutation(nblocks).astype(np.int32).reshape(B, per_row)
@@ -458,7 +489,95 @@ def check_kernels(torch, np, dev):
         "err_over_tol": r["err_over_tol"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None, "peak": PEAK_F32}
+    results["paged_decode"].update(check_paged_cases(torch, np, dev))
     return results
+
+
+# table widths of the untimed paged cases: the serving width (4 blocks of
+# 16 entries), one split (4 entries), splits that do not divide the width
+# (13 = 5 + 5 + 3); every length one before, at and one after each split
+# edge, 0, 1 and the full width, plus a row sharing the full-width row's
+# blocks up to half its length (a shared prompt prefix)
+PAGED_CASE_WIDTHS = (PAGED_WIDTH, 4, 13)
+PAGED_CASE_DIMS = (64, 32, 128)
+
+
+def check_paged_cases(torch, np, dev):
+    """(b) paged decode, untimed, over the cases of PAGED_CASE_WIDTHS x the
+    four q / page dtype pairs at d=64 and float32 q over bf16 pages at
+    d=32 and 128, under the timed check's tolerance (plus one bf16 unit of
+    the output for bf16 q); then two launches at the serving width must
+    give the same bits."""
+    from paddle_tpu_torch.inference.paged_attention import (
+        _paged_decode_split, paged_attention_cuda, paged_attention_reference)
+    rng = np.random.default_rng(SEED + 5)
+    H, bs = 12, PAGED_BS
+    f32, bf16 = torch.float32, torch.bfloat16
+    splits, per = _paged_decode_split(PAGED_WIDTH, bs)
+    edges = {r * per * bs + o for r in range(1, splits) for o in (-1, 0, 1)}
+    require(splits > 1 and edges == {255, 256, 257, 511, 512, 513, 767, 768,
+                                     769},
+            f"paged_decode: the split at width {PAGED_WIDTH} ({splits} "
+            f"blocks of {per} entries) is not the expected 4 x 16")
+    require(_paged_decode_split(4, bs)[0] == 1
+            and _paged_decode_split(13, bs) == (3, 5),
+            "paged_decode: the split of widths 4 and 13 is not 1 and 3 x 5")
+
+    def inputs(width, d, qdtype, pdtype):
+        sp, pe = _paged_decode_split(width, bs)
+        lens = sorted({0, 1, 17, width * bs} | {
+            r * pe * bs + o for r in range(1, sp) for o in (-1, 0, 1)})
+        b = len(lens) + 1
+        nb = b * width
+        q = torch.from_numpy(rng.standard_normal(
+            (b, H, d), dtype=np.float32)).to(dev).to(qdtype)
+        kp, vp = (torch.from_numpy(rng.standard_normal(
+            (nb * bs + 1, H, d), dtype=np.float32)).to(dev).to(pdtype)
+            for _ in range(2))
+        perm = rng.permutation(nb).astype(np.int32).reshape(b, width)
+        perm[-1] = perm[-2]                  # shares the full-width row's
+        tables = torch.from_numpy(perm).to(dev)
+        lens = torch.tensor([*lens, width * bs // 2 + 3], dtype=torch.int32,
+                            device=dev)
+        return q, kp, vp, tables, lens
+
+    cases = {}
+    combos = [(w, 64, qd, pd) for w in PAGED_CASE_WIDTHS
+              for qd, pd in ((f32, bf16), (bf16, bf16), (f32, f32),
+                             (bf16, f32))]
+    combos += [(PAGED_WIDTH, d, f32, bf16) for d in PAGED_CASE_DIMS[1:]]
+    for width, d, qdtype, pdtype in combos:
+        q, kp, vp, tables, lens = inputs(width, d, qdtype, pdtype)
+        out = paged_attention_cuda(q, kp, vp, tables, lens, bs)
+        ref = paged_attention_reference(q, kp, vp, tables, lens, bs)
+        bound_pv = paged_attention_reference(q.float(), kp, vp.abs(),
+                                             tables, lens, bs)
+        torch.cuda.synchronize()
+        # the timed check's tolerance (2^-8 of the attention over |v|, per
+        # element, for bf16 pages; float32 pages differ by summation order
+        # only), plus one bf16 unit of the output for bf16 q
+        tol = (bound_pv * 2.0 ** -8 if pdtype == bf16 else 0.0) + 1e-5
+        if qdtype == bf16:
+            tol = tol + 2.0 ** -7 * ref.float().abs()
+        tag = (f"width {width}, d={d}, q {str(qdtype).split('.')[-1]}, "
+               f"pages {str(pdtype).split('.')[-1]}")
+        cases[tag] = compare(torch, f"paged_decode {tag}", out.float(),
+                             ref.float(), tol)
+        require(float(out[0].abs().max()) == 0.0,
+                f"paged_decode {tag}: the length-0 row is not zero")
+        if (width, d, qdtype, pdtype) == (PAGED_WIDTH, 64, f32, bf16):
+            again = paged_attention_cuda(q, kp, vp, tables, lens, bs)
+            torch.cuda.synchronize()
+            require(torch.equal(out, again),
+                    "paged_decode: two launches give different bits")
+    worst = max(cases.values(), key=lambda r: r["err_over_tol"])
+    log(f"check paged_decode cases: {len(cases)} (widths "
+        f"{list(PAGED_CASE_WIDTHS)} x 4 dtype pairs at d=64, d "
+        f"{list(PAGED_CASE_DIMS[1:])}; lengths at every split edge, 0, 1, "
+        f"full, a shared-prefix row), worst err/tol "
+        f"{worst['err_over_tol']:.3f}; two launches equal bit for bit")
+    return {"cases": len(cases), "cases_worst_err_over_tol":
+            worst["err_over_tol"], "repeat_bits_equal": True}
 
 
 FLASH_CASES = {

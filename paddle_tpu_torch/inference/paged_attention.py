@@ -18,7 +18,7 @@ head_dim)`` page arrays through ``block_tables[b]`` and cut at
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -77,8 +77,11 @@ def paged_attention_reference(q, k_pages, v_pages, block_tables, seq_lens,
 
 def paged_attention_cuda(q, k_pages, v_pages, block_tables, seq_lens,
                          block_size: int, scale: Optional[float] = None):
-    """The paged-decode kernel: one warp per (row, head) walks the row's
-    block table up to ``seq_lens[b]``.  Returns ``q``'s dtype."""
+    """The paged-decode kernel: each (row, head)'s block table is split
+    across a thread-block cluster (:func:`_paged_decode_split`) whose
+    blocks read their pages up to ``seq_lens[b]`` with 16-byte loads.
+    ``head_dim`` a multiple of 8 in [16, 256]; q and the pages 16-byte
+    aligned.  Returns ``q``'s dtype."""
     name = "paged_decode"
     _check_shapes(q, k_pages, v_pages, block_tables, seq_lens, block_size)
     dev = _kernels.require_cuda(name, q, k_pages, v_pages, block_tables,
@@ -89,7 +92,12 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, seq_lens,
     enforce(k_pages.dtype == v_pages.dtype,
             f"{name}: k and v pages differ in dtype")
     b, h, d = q.shape
-    enforce(d <= _MAX_HEAD_DIM, f"{name}: head_dim {d} > {_MAX_HEAD_DIM}")
+    enforce(d % 8 == 0 and 16 <= d <= _MAX_HEAD_DIM,
+            f"{name}: head_dim {d} must be a multiple of 8 in [16, "
+            f"{_MAX_HEAD_DIM}] (the kernel reads 16-byte vectors)")
+    enforce(all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)),
+            f"{name}: q and the pages must be 16-byte aligned (the kernel "
+            "reads 16-byte vectors)")
     if scale is None:
         scale = d ** -0.5
     out = torch.empty_like(q)
@@ -107,6 +115,22 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, seq_lens,
     _kernels.check(rc, name)
     _kernels.launches[name] += 1
     return out
+
+
+def _paged_decode_split(max_blocks: int, block_size: int) -> Tuple[int, int]:
+    """``(splits, per)``: the thread-block cluster the paged-decode kernel
+    splits a block table ``max_blocks`` entries wide across (blocks per
+    (row, head)) and the table entries each block takes, the last possibly
+    fewer.  It depends on the table width and the block size alone, never
+    on the lengths.  Asks the built kernel library (needs the CUDA
+    toolkit)."""
+    c = ctypes.c_int
+    splits, per = c(), c()
+    fn = _kernels.bind("paged_decode", "ptt_paged_decode_split",
+                       [c, c, ctypes.POINTER(c), ctypes.POINTER(c)])
+    _kernels.check(fn(int(max_blocks), int(block_size), ctypes.byref(splits),
+                      ctypes.byref(per)), "paged_decode")
+    return splits.value, per.value
 
 
 def paged_attention(q, k_pages, v_pages, block_tables, seq_lens,

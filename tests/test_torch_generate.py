@@ -288,6 +288,30 @@ def test_make_caches_match_jax(dtype):
         assert int(tu) == int(ju) == 0 and str(ju.dtype) == "int32"
 
 
+def test_step_past_the_cache_capacity_raises(models):
+    """A direct ``generate_step`` whose ``used + s`` exceeds the cache
+    capacity: the JAX package clamps the write start
+    (``lax.dynamic_update_slice`` keeps the update inside the buffer, so the
+    chunk overwrites the last positions), while the port's ``index_copy_``
+    raises on the out-of-range rows: the port keeps the safer behaviour, and
+    the caller's position count is not advanced."""
+    jm, tm, _ = models("sdpa")
+    prompt = _prompt()
+    cap = PROMPT[1] + 2
+    jc = jm.make_caches(PROMPT[0], cap)
+    tc = tm.make_caches(PROMPT[0], cap)
+    _, jc = jm.generate_step(jnp.asarray(prompt), jc, 0)
+    _, tc = tm.generate_step(torch.from_numpy(prompt), tc, 0)
+    chunk = prompt[:, :3]                       # used 8 + 3 > capacity 10
+    jl, jc2 = jm.generate_step(jnp.asarray(chunk), jc, PROMPT[1])
+    assert np.isfinite(np.asarray(jl)).all()
+    assert [int(u) for _, _, u in jc2] == [PROMPT[1] + 3] * 2
+    with pytest.raises(IndexError, match="out of bounds"):
+        tm.generate_step(torch.from_numpy(chunk), tc,
+                         torch.tensor(PROMPT[1], dtype=torch.int32))
+    assert [int(u) for _, _, u in tc] == [PROMPT[1]] * 2
+
+
 def test_generate_guards():
     tm = GPTForCausalLM(GPTConfig(**_cfg_kw()), device="cpu")
     prompt = _prompt()

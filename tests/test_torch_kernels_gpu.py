@@ -12,7 +12,7 @@ import torch
 
 from paddle_tpu_torch import UnimplementedError, _kernels
 from paddle_tpu_torch.inference.paged_attention import (
-    paged_attention_cuda, paged_attention_reference)
+    _paged_decode_split, paged_attention_cuda, paged_attention_reference)
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_block as fb
 
@@ -90,23 +90,110 @@ def test_ffn(dev, n, h, ffn, xdtype, activation):
     assert float((out.float() - ref.float()).abs().max()) <= _tol(ref, xdtype)
 
 
-@pytest.mark.parametrize("page_dtype", [torch.float32, torch.bfloat16])
-def test_paged_decode(dev, page_dtype):
-    B, H, D, bs, nb, T = 5, 3, 64, 16, 40, 8
-    q = _t(dev, B, H, D)
-    kp = _t(dev, nb * bs + 1, H, D, dtype=page_dtype, seed=1)
-    vp = _t(dev, nb * bs + 1, H, D, dtype=page_dtype, seed=2)
-    perm = np.random.default_rng(3).permutation(nb)[:B * T].reshape(B, T)
+# paged decode: table widths that give 1 split (4 entries of 16), 2 splits
+# (8), splits that do not divide the width (13 = 5 + 5 + 3) and the serving
+# width (64 = 4 x 16); lengths one before, at and one after every split
+# edge, 0, 1 and the full width
+PAGED_WIDTHS = (4, 8, 13, 64)
+PAGED_BS = 16
+
+
+def _paged_split_edges(width):
+    """The paged-decode kernel's split of a ``width``-entry table and the
+    lengths one before, at and one after the first position of every block
+    but the first."""
+    splits, per = _paged_decode_split(width, PAGED_BS)
+    return splits, {b * per * PAGED_BS + o for b in range(1, splits)
+                    for o in (-1, 0, 1)}
+
+
+def _paged_lens(width):
+    return sorted({0, 1, 17, width * PAGED_BS, *_paged_split_edges(width)[1]})
+
+
+def _paged_inputs(dev, width, d, qdtype, page_dtype, h=3):
+    """One row per length of ``_paged_lens(width)`` (the last at the full
+    width) plus a row that shares the full-width row's blocks up to half
+    its length, as a shared prompt prefix does; the tables are otherwise a
+    permutation of the blocks, so no other rows share one."""
+    lens = _paged_lens(width)
+    b = len(lens) + 1
+    nb = b * width
+    q = _t(dev, b, h, d, dtype=qdtype)
+    kp = _t(dev, nb * PAGED_BS + 1, h, d, dtype=page_dtype, seed=1)
+    vp = _t(dev, nb * PAGED_BS + 1, h, d, dtype=page_dtype, seed=2)
+    perm = np.random.default_rng(3).permutation(nb).reshape(b, width)
+    perm[-1] = perm[-2]
     tables = torch.from_numpy(perm.astype(np.int32)).to(dev)
-    lens = torch.tensor([0, 1, 33, 128, 77], dtype=torch.int32, device=dev)
-    out = paged_attention_cuda(q, kp, vp, tables, lens, bs)
-    ref = paged_attention_reference(q, kp, vp, tables, lens, bs)
+    lens = torch.tensor([*lens, width * PAGED_BS // 2 + 3], dtype=torch.int32, device=dev)
+    return q, kp, vp, tables, lens
+
+
+@pytest.mark.parametrize("width", PAGED_WIDTHS)
+@pytest.mark.parametrize("qdtype,page_dtype", [
+    (torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_paged_decode(dev, width, qdtype, page_dtype, d):
+    q, kp, vp, tables, lens = _paged_inputs(dev, width, d, qdtype,
+                                            page_dtype)
+    before = _kernels.launches["paged_decode"]
+    out = paged_attention_cuda(q, kp, vp, tables, lens, PAGED_BS)
+    ref = paged_attention_reference(q, kp, vp, tables, lens, PAGED_BS)
+    assert _kernels.launches["paged_decode"] == before + 1
+    assert out.dtype == qdtype and out.shape == q.shape
     # the kernel rounds p to the page dtype before PV (2^-9 relative for
-    # bf16); float32 pages differ by summation order only
+    # bf16); float32 pages differ by summation order only; a bf16 output is
+    # rounded once more on each side (one bf16 unit, 2^-7 relative)
     tol = 1e-5 if page_dtype == torch.float32 else \
         float(vp.float().abs().max()) * 2.0 ** -8
-    assert float((out - ref).abs().max()) <= tol
-    assert float(out[0].abs().max()) == 0.0
+    if qdtype == torch.bfloat16:
+        tol = tol + 2.0 ** -7 * ref.float().abs()
+    assert bool(((out.float() - ref.float()).abs() <= tol).all())
+    assert float(out[0].abs().max()) == 0.0            # length 0
+
+
+def test_paged_decode_lens_cover_the_split_edges(dev):
+    # the split follows the table width and the block size alone
+    assert _paged_decode_split(64, 16) == (4, 16)
+    assert _paged_decode_split(4, 16) == (1, 4)
+    assert _paged_decode_split(13, 16) == (3, 5)
+    assert _paged_decode_split(8, 16) == (2, 4)
+    splits, edges = _paged_split_edges(64)
+    assert splits == 4 and edges == {255, 256, 257, 511, 512, 513, 767, 768,
+                                     769}
+    assert edges <= set(_paged_lens(64)) and 1024 in _paged_lens(64)
+
+
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_repeats_exactly(dev, qdtype):
+    """No atomics and a fixed combine order: two launches, and two replays
+    of one captured launch, give the same bits."""
+    q, kp, vp, tables, lens = _paged_inputs(dev, 64, 64, qdtype,
+                                            torch.bfloat16)
+    a = paged_attention_cuda(q, kp, vp, tables, lens, PAGED_BS)
+    b = paged_attention_cuda(q, kp, vp, tables, lens, PAGED_BS)
+    torch.cuda.synchronize()
+    graph, holder = torch.cuda.CUDAGraph(), {}
+    recorded = _kernels.capture(graph, lambda: holder.update(
+        out=paged_attention_cuda(q, kp, vp, tables, lens, PAGED_BS)))
+    assert recorded == {"paged_decode": 1}
+    _kernels.replay(graph, recorded)
+    first = holder["out"].clone()
+    _kernels.replay(graph, recorded)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(first, holder["out"]) and torch.equal(first, a)
+
+
+def test_paged_decode_refuses_unaligned_head_dims(dev):
+    q, kp, vp, tables, lens = _paged_inputs(dev, 4, 32, torch.float32,
+                                            torch.bfloat16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        paged_attention_cuda(q[..., :20].contiguous(),
+                             kp[..., :20].contiguous(),
+                             vp[..., :20].contiguous(), tables, lens,
+                             PAGED_BS)
 
 
 def test_dropout_on_card_is_refused(dev):
