@@ -42,6 +42,24 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               steps and must read 12 x 13 after.  Beforehand, a float32
               step of a gpt_tiny-sized model (S=256) on the card is held
               against the same step on the CPU: loss and every gradient;
+  (c2b) fused training  the fused-block leg (convert.
+              fused_training_workload: the same model, weights and data with
+              use_fused_block and hidden / attention dropout 0.1, bf16 O1):
+              each block K1 -> flash (attention dropout in the kernel) -> K2
+              (hidden dropout in the kernel), then K3 (dropout after + b2 in
+              the kernel), backward by recompute of the plain compositions
+              plus the flash backward kernels.  13 steps as in (c2); the
+              counters of the six kernels are zeroed just before and must
+              read 12 x 13 after; the loss must be finite and fall.  The
+              unfused step's p50 of (c2) is printed beside it.  Beforehand,
+              K2 and K3 with dropout against their plain versions at N=8
+              (K3's multi-group exit), 4096 and 16384 (the training shape,
+              timed at p=0.1 and p=0): values within the stated tolerance,
+              and with a residual of 2^-40 of the addend the dropped
+              elements (those equal to the residual) are exactly the hash
+              mask's; K1 timed at N=16384; and a float32 gpt_tiny fused
+              training step on the card against the CPU (loss, every
+              gradient, the loss after one AdamW step);
   (c3) generate GPTForCausalLM.generate at full width (convert.
               generate_workload: B=8, prompt 512, 128 greedy tokens, bf16),
               unfused (use_pallas_attention) and fused (use_fused_block):
@@ -89,6 +107,8 @@ PEAK_BF16 = "bytes at 3.35 TB/s; bf16 operations at 989 TFLOP/s"
 SEED = 1234
 SERVING_KERNELS = ("paged_decode", "ln_linear", "linear_residual", "ffn")
 TRAINING_KERNELS = ("flash_fwd", "flash_dkdv", "flash_dq")
+FUSED_TRAINING_KERNELS = ("ln_linear", "linear_residual", "ffn",
+                          *TRAINING_KERNELS)
 GENERATE_KERNELS = ("flash_decode",)
 
 
@@ -133,6 +153,7 @@ def main() -> int:
     # -- (b) each kernel against its plain version ---------------------------
     results = check_kernels(torch, np, dev)
 
+    check_dropout(torch, np, dev, results)
     results.update(check_flash(torch, np, dev))
     results.update(check_flash_decode(torch, np, dev, _kernels))
     for name, d in design.items():
@@ -145,6 +166,11 @@ def main() -> int:
     training = train(torch, np, dev, _kernels)
     torch.cuda.empty_cache()
 
+    # -- (c2b) fused-block training ------------------------------------------
+    fused_training = train_fused(torch, np, dev, _kernels,
+                                 training["step_ms_p50"])
+    torch.cuda.empty_cache()
+
     # -- (c3) generate -------------------------------------------------------
     generating = generate(torch, np, dev, _kernels)
 
@@ -155,6 +181,9 @@ def main() -> int:
         r["launches"] = path["launches"][r["name"]]
         require(r["launches"] > 0,
                 f"{r['name']}: no launch on its main path")
+        if r["name"] in FUSED_TRAINING_KERNELS:
+            r["launches_fused_training"] = \
+                fused_training["launches"][r["name"]]
         log(json.dumps({"kernel": r["name"], "kernel_ms": r["ms"],
                         **{k: v for k, v in r.items() if k != "name"}}))
     log(json.dumps({"kernels": list(results.values())}))
@@ -400,8 +429,8 @@ def check_kernels(torch, np, dev):
                  2.0 * n * h * h)),
             "ffn": measure(
                 torch, f"ffn N={n}",
-                lambda: fb.ffn_cuda(x_res, w1, b1, w2, b2, g, beta, "gelu",
-                                    eps),
+                lambda: fb.ffn_cuda(x_res, w1, b1, w2, b2, g, beta,
+                                    epsilon=eps),
                 lambda: fb.ffn_reference(x_res, w1, b1, w2, b2, g, beta,
                                          epsilon=eps),
                 bf16_tol,
@@ -582,8 +611,10 @@ def check_paged_cases(torch, np, dev):
 
 FLASH_CASES = {
     # tag: (B, H, sq, sk, d, dropout_p, dtype, timed); "train" is the shape
-    # of the training step and the one timed
+    # of the training step and the one timed; "train-dropout" is the fused
+    # leg's (attention dropout 0.1: hash salts b*h up to 95, rows to 2047)
     "train": (8, 12, 2048, 2048, 64, 0.0, "bfloat16", True),
+    "train-dropout": (8, 12, 2048, 2048, 64, 0.1, "bfloat16", False),
     "dropout": (2, 4, 512, 512, 64, 0.1, "bfloat16", False),
     "ragged": (2, 4, 136, 200, 64, 0.0, "bfloat16", False),
     "ragged-f32": (2, 4, 136, 200, 32, 0.0, "float32", False),
@@ -598,8 +629,9 @@ def visible_pairs(sq: int, sk: int) -> int:
 
 def check_flash(torch, np, dev):
     """(b) the flash kernels against their plain versions: the training
-    shape (timed, with SDPA as the library yardstick), a dropout case and
-    a ragged sq != sk case (checked only)."""
+    shape (timed, with SDPA as the library yardstick), the same shape with
+    the fused leg's attention dropout, a small dropout case and ragged
+    sq != sk cases (checked only)."""
     import torch.nn.functional as TF
     from paddle_tpu_torch.ops import flash_attention as fa
     rng = np.random.default_rng(SEED + 2)
@@ -955,17 +987,12 @@ def serve(torch, np, dev, _kernels):
 WARMUP_STEPS, TIMED_STEPS = 3, 10
 
 
-def train(torch, np, dev, _kernels):
+def tiny_reference(torch, dev, cfg, what):
+    """A float32 gpt_tiny-sized training step (S=256, no autocast) on the
+    card (kernels) against the same weights and data on the CPU (plain
+    versions): the loss, every gradient, and the loss after one AdamW
+    step."""
     from paddle_tpu_torch.convert import training_workload
-    from paddle_tpu_torch.models.gpt import gpt_tiny
-    from paddle_tpu_torch.ops import fused
-    from paddle_tpu_torch.training import train_step
-
-    # reference on a small model: float32 on the card (kernels) against the
-    # same weights and data on the CPU (plain versions), one step (forward,
-    # backward, AdamW) without autocast, then the next step's loss
-    cfg = gpt_tiny(hidden_dropout=0.0, attention_dropout=0.0,
-                   use_pallas_attention=True)
     runs = []
     for device in (dev, "cpu"):
         m, opt, ids, labels = training_workload(device, cfg, batch=2,
@@ -981,31 +1008,32 @@ def train(torch, np, dev, _kernels):
     # float32 end to end with exact products on both sides (TF32 off):
     # summation order only, ~1e-6 relative; the bounds leave a 10x margin
     # and a wrong kernel, mask or product is off by far more
-    for what, a, b in (("loss", l_gpu, l_cpu), ("loss after step", l2_gpu,
-                                                l2_cpu)):
+    for tag, a, b in (("loss", l_gpu, l_cpu), ("loss after step", l2_gpu,
+                                               l2_cpu)):
         require(abs(a - b) <= 1e-5 * abs(b),
-                f"float32 training reference: {what} {a} on the card, {b} "
-                f"on the CPU")
+                f"float32 {what} reference: {tag} {a} on the card, {b} on "
+                "the CPU")
     worst = 0.0
     for name, ref in g_cpu.items():
         tol = 1e-4 * float(ref.abs().max()) + 1e-6
         err = float((g_gpu[name] - ref).abs().max())
-        require(err <= tol, f"float32 training reference: grad {name} "
+        require(err <= tol, f"float32 {what} reference: grad {name} "
                 f"differs by {err} > {tol}")
         worst = max(worst, err / tol)
-    log(f"training reference: float32 gpt_tiny (S=256) card vs CPU, loss "
+    log(f"{what} reference: float32 gpt_tiny (S=256) card vs CPU, loss "
         f"{l_gpu:.6f} vs {l_cpu:.6f}, {len(g_cpu)} gradients within 1e-4 "
         f"of their range + 1e-6 (worst err/tol {worst:.3f}), loss after one "
         f"AdamW step {l2_gpu:.6f} vs {l2_cpu:.6f}")
 
-    model, opt, ids, labels = training_workload(dev)
+
+def timed_steps(torch, np, _kernels, model, opt, ids, labels, kernels,
+                what):
+    """WARMUP_STEPS + TIMED_STEPS training steps on one batch, each ending
+    in the loss readback, with every launch counter zeroed just before:
+    each of ``kernels`` must launch once per layer and step, and the loss
+    must be finite and fall.  Returns the fields of the JSON line."""
+    from paddle_tpu_torch.training import train_step
     cfg = model.config
-    require(cfg.dtype == "bfloat16" and cfg.use_pallas_attention
-            and not cfg.use_fused_block and cfg.fused_lm_loss
-            and cfg.num_layers == 12 and cfg.hidden_size == 768
-            and cfg.num_heads == 12 and cfg.vocab_size == 50304
-            and tuple(ids.shape) == (8, 2048),
-            "not the full-width bf16 GPT-125M training step at B=8, S=2048")
     b, s = ids.shape
     steps = WARMUP_STEPS + TIMED_STEPS
     torch.cuda.synchronize()
@@ -1018,13 +1046,13 @@ def train(torch, np, dev, _kernels):
         losses.append(float(loss))      # the readback ends the step
         times.append(time.perf_counter() - t0)
     launches = dict(_kernels.launches)
-    for name in TRAINING_KERNELS:
+    for name in kernels:
         require(launches[name] == cfg.num_layers * steps,
-                f"{name}: {launches[name]} launches in {steps} steps, not "
-                f"{cfg.num_layers} per step")
-    require(all(np.isfinite(losses)), f"nonfinite loss: {losses}")
+                f"{name}: {launches[name]} launches in {steps} {what} "
+                f"steps, not {cfg.num_layers} per step")
+    require(all(np.isfinite(losses)), f"nonfinite {what} loss: {losses}")
     require(losses[-1] < losses[0],
-            f"the loss did not fall on the repeated batch: {losses}")
+            f"the {what} loss did not fall on the repeated batch: {losses}")
     step_ms = [x * 1e3 for x in times[WARMUP_STEPS:]]
     p50 = statistics.median(step_ms)
     tokens_per_s = b * s / (p50 / 1e3)
@@ -1033,7 +1061,7 @@ def train(torch, np, dev, _kernels):
     # plus the causal attention term 12 L h S / 2
     flops_per_token = (6.0 * n_params
                        + 12.0 * cfg.num_layers * cfg.hidden_size * s / 2.0)
-    line = {"training": {
+    return {
         "model": "gpt_125m", "dtype": "bfloat16", "amp": "O1",
         "optimizer": "AdamW(learning_rate=1e-4, weight_decay=0.01)",
         "B": b, "S": s, "params": n_params,
@@ -1044,12 +1072,240 @@ def train(torch, np, dev, _kernels):
         "mfu": tokens_per_s * flops_per_token / BF16_FLOPS,
         "mfu_peak": "989 TFLOP/s bf16 dense",
         "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
-        "lm_head_products": ("bf16 mm, float32 out" if fused._MM_OUT_DTYPE
-                             else "float32 mm of widened bf16"),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches}}
-    log(json.dumps(line))
-    return {"launches": launches}
+        "launches": launches}
+
+
+def train(torch, np, dev, _kernels):
+    from paddle_tpu_torch.convert import training_workload
+    from paddle_tpu_torch.models.gpt import gpt_tiny
+    from paddle_tpu_torch.ops import fused
+
+    tiny_reference(torch, dev, gpt_tiny(hidden_dropout=0.0,
+                                        attention_dropout=0.0,
+                                        use_pallas_attention=True),
+                   "training")
+    model, opt, ids, labels = training_workload(dev)
+    cfg = model.config
+    require(cfg.dtype == "bfloat16" and cfg.use_pallas_attention
+            and not cfg.use_fused_block and cfg.fused_lm_loss
+            and cfg.num_layers == 12 and cfg.hidden_size == 768
+            and cfg.num_heads == 12 and cfg.vocab_size == 50304
+            and tuple(ids.shape) == (8, 2048),
+            "not the full-width bf16 GPT-125M training step at B=8, S=2048")
+    line = timed_steps(torch, np, _kernels, model, opt, ids, labels,
+                       TRAINING_KERNELS, "training")
+    line["lm_head_products"] = ("bf16 mm, float32 out" if fused._MM_OUT_DTYPE
+                                else "float32 mm of widened bf16")
+    log(json.dumps({"training": line}))
+    return {"launches": line["launches"], "step_ms_p50": line["step_ms_p50"]}
+
+
+# ---------------------------------------------------------------------------
+# (c2b) fused-block training
+# ---------------------------------------------------------------------------
+DROP_ROWS = (8, 4096, 16384)     # decode rows (K3: several cluster groups),
+# the generate prefill's rows, the training shape (B=8 x S=2048; one group,
+# whose float32 sum goes through the finalize kernel, which applies drop2)
+DROP_P = 0.1
+# a residual this small next to the addend (|y| ~ 0.1-1) never absorbs a
+# kept value, and a dropped one leaves it bit for bit; K3's LN is
+# scale-free given an epsilon below such rows' variance (~2^-80)
+TINY, TINY_EPS = 2.0 ** -40, 1e-30
+
+
+def check_dropout(torch, np, dev, results):
+    """(c2b) K2 and K3 with the hash dropout against their plain versions,
+    at the fused training path's dtypes (bf16 O1: bf16 activations and
+    weights, float32 biases and LN parameters; so the bound takes the bf16
+    peak, whatever the kernels multiply in) and p=0.1 (K2's dropout, K3's
+    dropout2); K3's dropout1 (off on the path) in float32 at N=4096.  Per N
+    the values hold within one bf16 unit, and with a residual of 2^-40 the
+    dropped elements are exactly the complement of the hash mask, for the
+    kernel and the plain version.  Timed at N=16384, at p=0.1 and p=0."""
+    from paddle_tpu_torch.ops import fused_block as fb
+    rng = np.random.default_rng(SEED + 7)
+    bf16 = torch.bfloat16
+
+    def t(shape, dtype=torch.float32, std=1.0, mean=0.0):
+        a = rng.standard_normal(shape, dtype=np.float32) * std + mean
+        return torch.from_numpy(a).to(dev).to(dtype)
+
+    h, ffn, eps, seed = 768, 3072, 1e-5, 20260417
+    g, beta = t((h,), std=0.1, mean=1.0), t((h,), std=0.1)
+    w_out, b_out = t((h, h), bf16, std=0.02), t((h,), std=0.02)
+    w1, b1 = t((h, ffn), bf16, std=0.02), t((ffn,), std=0.02)
+    w2, b2 = t((ffn, h), bf16, std=0.02), t((h,), std=0.02)
+    salt = fb._SALT_RESID
+    out = {"linear_residual": {}, "ffn": {}}
+
+    def zero_set(name, n, kernel, plain, base, salt_, p):
+        keep = fb._keep_mask(seed, salt_, torch.arange(n, device=dev)[:, None],
+                             torch.arange(h, device=dev)[None, :], p)
+        for who, fn in (("kernel", kernel), ("plain", plain)):
+            got = fn()
+            torch.cuda.synchronize()
+            require(torch.equal(got == base, ~keep),
+                    f"{name} N={n}: the {who}'s dropped elements are not the "
+                    f"hash mask's ({int(((got == base) != ~keep).sum())} "
+                    "differ)")
+        return int((~keep).sum())
+
+    for n in DROP_ROWS:
+        x_res = t((n, h), bf16)
+        attn = t((n, h), bf16)
+        tiny = (x_res.float() * TINY).to(bf16)
+        timed = n == DROP_ROWS[-1]
+        k2 = measure(
+            torch, f"linear_residual N={n} p={DROP_P}",
+            lambda: fb.linear_residual_cuda(attn, w_out, b_out, x_res, seed,
+                                            DROP_P),
+            lambda: fb.linear_residual_reference(attn, w_out, b_out, x_res,
+                                                 seed, DROP_P),
+            bf16_tol,
+            (nbytes(attn, w_out, b_out, x_res) + n * h * 2, 2.0 * n * h * h),
+            BF16_FLOPS, timed)
+        k2["dropped"] = zero_set(
+            "linear_residual", n,
+            lambda: fb.linear_residual_cuda(attn, w_out, b_out, tiny, seed,
+                                            DROP_P),
+            lambda: fb.linear_residual_reference(attn, w_out, b_out, tiny,
+                                                 seed, DROP_P),
+            tiny, salt, DROP_P)
+        k3 = measure(
+            torch, f"ffn N={n} dropout2={DROP_P}",
+            lambda: fb.ffn_cuda(x_res, w1, b1, w2, b2, g, beta, seed, "gelu",
+                                0.0, DROP_P, eps),
+            lambda: fb.ffn_reference(x_res, w1, b1, w2, b2, g, beta, seed,
+                                     "gelu", 0.0, DROP_P, eps),
+            bf16_tol,
+            (nbytes(x_res, w1, b1, w2, b2, g, beta) + n * h * 2,
+             4.0 * n * h * ffn), BF16_FLOPS, timed)
+        k3["dropped"] = zero_set(
+            "ffn", n,
+            lambda: fb.ffn_cuda(tiny, w1, b1, w2, b2, g, beta, seed, "gelu",
+                                0.0, DROP_P, TINY_EPS),
+            lambda: fb.ffn_reference(tiny, w1, b1, w2, b2, g, beta, seed,
+                                     "gelu", 0.0, DROP_P, TINY_EPS),
+            tiny, fb._SALT_FFN2, DROP_P)
+        k3["groups"], k3["cluster"] = fb._ffn_grid(dev, n, h, ffn)
+        require((k3["groups"] > 1) == (n == 8),
+                f"ffn N={n}: {k3['groups']} cluster groups; the checks need "
+                "several at N=8 and one at the larger shapes")
+        if timed:
+            # what the hash costs: the launch at p=0 and at p, alternated
+            # twice after the timing above; each is the mean of its two
+            for r, p0, p in (
+                    (k2, lambda: fb.linear_residual_cuda(
+                        attn, w_out, b_out, x_res),
+                     lambda: fb.linear_residual_cuda(
+                         attn, w_out, b_out, x_res, seed, DROP_P)),
+                    (k3, lambda: fb.ffn_cuda(
+                        x_res, w1, b1, w2, b2, g, beta, epsilon=eps),
+                     lambda: fb.ffn_cuda(
+                         x_res, w1, b1, w2, b2, g, beta, seed, "gelu", 0.0,
+                         DROP_P, eps))):
+                ab = [time_ms(torch, fn) for fn in (p0, p, p0, p)]
+                r["ms_p0"] = (ab[0] + ab[2]) / 2
+                r["ms_alternated"] = (ab[1] + ab[3]) / 2
+        out["linear_residual"][f"N={n}"] = k2
+        out["ffn"][f"N={n}"] = k3
+        for name in out:
+            r = out[name][f"N={n}"]
+            timing = (f"; {r['ms']:.4f} ms at p={DROP_P} (alternated with "
+                      f"p=0: {r['ms_alternated']:.4f} against "
+                      f"{r['ms_p0']:.4f} ms; plain {r['plain_ms']:.4f} ms, "
+                      f"bound {r['bound_ms']:.4f} ms by {r['bound_by']})"
+                      if timed else "")
+            log(f"check {name} N={n} p={DROP_P} (bf16): max_abs_err "
+                f"{r['max_abs_err']:.3e}, err/tol {r['err_over_tol']:.3f}; "
+                f"{r['dropped']} dropped elements equal to the hash mask's, "
+                f"kernel and plain{timing}")
+        del x_res, attn, tiny
+
+    # K1 at the training shape, for the kernel table beside K2 and K3 (no
+    # dropout; bf16 weights under O1, so a bf16 output)
+    n = DROP_ROWS[-1]
+    x_res = t((n, h), bf16)
+    w_qkv, b_qkv = t((h, 3 * h), bf16, std=0.02), t((3 * h,), std=0.02)
+    k1 = measure(
+        torch, f"ln_linear N={n} (bf16)",
+        lambda: fb.ln_linear_cuda(x_res, w_qkv, b_qkv, g, beta, eps),
+        lambda: fb.ln_linear_reference(x_res, w_qkv, b_qkv, g, beta, eps),
+        bf16_tol, (nbytes(x_res, w_qkv, b_qkv, g, beta) + n * 3 * h * 2,
+                   2.0 * n * h * 3 * h), BF16_FLOPS)
+    log(f"check ln_linear N={n} (bf16): max_abs_err {k1['max_abs_err']:.3e}, "
+        f"err/tol {k1['err_over_tol']:.3f}; {k1['ms']:.4f} ms (plain "
+        f"{k1['plain_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms by "
+        f"{k1['bound_by']})")
+    results["ln_linear"]["training_shape"] = {
+        "shape": f"N={n}, bf16 O1", "peak": PEAK_BF16, **{k: k1[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "err_over_tol")}}
+    del x_res
+
+    # dropout1 (after the activation, over the global ffn column), off on
+    # the training path: float32 operands, where one misplaced element of
+    # the (N, ffn) mask moves the output far past the tolerance
+    n = 4096
+    x32 = t((n, h))
+    f32w = [a.float() for a in (w1, b1, w2, b2)]
+    k3d1 = measure(
+        torch, "ffn N=4096 dropout1=0.2 dropout2=0.1 (float32)",
+        lambda: fb.ffn_cuda(x32, *f32w, g, beta, seed, "gelu", 0.2, DROP_P,
+                            eps),
+        lambda: fb.ffn_reference(x32, *f32w, g, beta, seed, "gelu", 0.2,
+                                 DROP_P, eps),
+        lambda ref: 1e-4, (0, 0), timed=False)
+    log(f"check ffn N={n} dropout1=0.2 dropout2={DROP_P} (float32): "
+        f"max_abs_err {k3d1['max_abs_err']:.3e} <= 1e-4")
+    out["ffn"]["N=4096, dropout1=0.2, float32"] = k3d1
+
+    for name, per in out.items():
+        worst = max(per.values(), key=lambda r: r["err_over_tol"])
+        train_r = per[f"N={DROP_ROWS[-1]}"]
+        results[name]["dropout"] = {
+            "p": DROP_P, "seed": seed,
+            "shapes": per, "worst_err_over_tol": worst["err_over_tol"],
+            "zero_sets": "identical to the hash mask, kernel and plain"}
+        results[name]["training_shape"] = {
+            "shape": f"N={DROP_ROWS[-1]}, bf16 O1, p={DROP_P}",
+            "peak": PEAK_BF16,
+            "ms": train_r["ms"], "ms_p0": train_r["ms_p0"],
+            "ms_alternated": train_r["ms_alternated"],
+            "plain_ms": train_r["plain_ms"], "bound_ms": train_r["bound_ms"],
+            "bound_by": train_r["bound_by"]}
+
+
+def train_fused(torch, np, dev, _kernels, unfused_p50):
+    from paddle_tpu_torch.convert import fused_training_workload
+    from paddle_tpu_torch.models.gpt import gpt_tiny
+
+    # as in (c2), with the card's K1-K3 and flash kernels and the recompute
+    # backward against the CPU's plain versions (the card's attention is the
+    # flash kernel, the CPU's the plain top-left composition: equal when
+    # q_len == kv_len)
+    tiny_reference(torch, dev, gpt_tiny(hidden_dropout=0.0,
+                                        attention_dropout=0.0,
+                                        use_pallas_attention=True,
+                                        use_fused_block=True),
+                   "fused training")
+    model, opt, ids, labels = fused_training_workload(dev)
+    cfg = model.config
+    require(cfg.dtype == "bfloat16" and cfg.use_pallas_attention
+            and cfg.use_fused_block and cfg.hidden_dropout == 0.1
+            and cfg.attention_dropout == 0.1 and cfg.num_layers == 12
+            and cfg.hidden_size == 768 and cfg.num_heads == 12
+            and cfg.vocab_size == 50304 and tuple(ids.shape) == (8, 2048),
+            "not the full-width bf16 fused GPT-125M training leg at B=8, "
+            "S=2048, dropout 0.1")
+    line = timed_steps(torch, np, _kernels, model, opt, ids, labels,
+                       FUSED_TRAINING_KERNELS, "fused training")
+    line = {"use_fused_block": True, "hidden_dropout": cfg.hidden_dropout,
+            "attention_dropout": cfg.attention_dropout, **line,
+            "unfused_step_ms_p50": unfused_p50}
+    log(json.dumps({"fused_training": line}))
+    return {"launches": line["launches"], "step_ms_p50": line["step_ms_p50"]}
 
 
 # ---------------------------------------------------------------------------

@@ -23,7 +23,8 @@ from .framework.errors import enforce
 __all__ = ["state_dict_from_jax", "load_jax_state", "random_state",
            "serving_workload", "SERVING_SEED", "SERVING_ENGINE",
            "SERVING_NEW_TOKENS", "training_workload", "TRAINING_SEED",
-           "TRAINING_BATCH", "TRAINING_SEQ", "generate_workload",
+           "TRAINING_BATCH", "TRAINING_SEQ", "fused_training_workload",
+           "FUSED_TRAINING_DROPOUT", "generate_workload",
            "GENERATE_SEED", "GENERATE_BATCH", "GENERATE_PROMPT",
            "GENERATE_NEW_TOKENS"]
 
@@ -125,6 +126,30 @@ def training_workload(device, config=None, *, batch: int = TRAINING_BATCH,
     labels = torch.from_numpy(rng.randint(0, cfg.vocab_size,
                                           (batch, seq_len))).to(dev)
     return model, optimizer, ids, labels
+
+
+FUSED_TRAINING_DROPOUT = 0.1
+
+
+def fused_training_workload(device, *, batch: int = TRAINING_BATCH,
+                            seq_len: int = TRAINING_SEQ):
+    """The fused-block training workload: the fused leg of the JAX
+    package's fused-block A/B (``bench.py`` ``_bench_fused_block_ab``,
+    ``fused=True``), which it calls its realistic training configuration:
+    GPT-125M at full width and depth, bf16 activations, flash attention,
+    ``use_fused_block``, ``hidden_dropout = attention_dropout = 0.1``,
+    ``max_position_embeddings = seq_len``, trained under bf16 O1 with
+    ``AdamW(1e-4, weight_decay=0.01)``.  The weights, data and optimizer
+    are those of :func:`training_workload`.  Each block runs K1 -> flash
+    -> K2, then K3, under autograd.  Returns ``(model, optimizer, ids,
+    labels)``; run it with ``training.train_step``."""
+    from .models.gpt import gpt_125m
+    cfg = gpt_125m(dtype="bfloat16", use_pallas_attention=True,
+                   use_fused_block=True,
+                   hidden_dropout=FUSED_TRAINING_DROPOUT,
+                   attention_dropout=FUSED_TRAINING_DROPOUT,
+                   max_position_embeddings=seq_len)
+    return training_workload(device, cfg, batch=batch, seq_len=seq_len)
 
 
 GENERATE_SEED = 4321

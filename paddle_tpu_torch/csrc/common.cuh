@@ -40,6 +40,41 @@ __device__ __forceinline__ float round_to(float v, int bf16) {
   return bf16 ? __bfloat162float(__float2bfloat16(v)) : v;
 }
 
+// keep(seed, salt, row, col): murmur3-fmix of the four counters, top 24
+// bits as a uniform in [0, 1) -- bit-identical to `_keep_mask` of the JAX
+// package (paddle_tpu/ops/flash_attention.py:129) in uint32 arithmetic.
+// The flash kernels salt with the flattened batch*head index, the
+// fused-block epilogues (K2, K3) with their own constants.
+__device__ __forceinline__ bool keep(uint32_t seed, uint32_t salt, int row,
+                                     int col, float p) {
+  uint32_t x = static_cast<uint32_t>(row) * 0x85EBCA6Bu ^
+               static_cast<uint32_t>(col) * 0xC2B2AE35u ^ seed ^
+               salt * 0x9E3779B1u;
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  const float u =
+      static_cast<float>(static_cast<int>(x >> 8)) * (1.0f / 16777216.0f);
+  return u >= p;
+}
+
+// Hash dropout of one element as the JAX package's epilogues apply it:
+// jnp.where(keep, y / (1 - p), 0), dividing by the float32 `keep_div`
+// = 1 - p that the host computed in double precision and rounded.
+struct Dropout {
+  uint32_t seed;
+  uint32_t salt;
+  float p;
+  float keep_div;
+  __device__ __forceinline__ float operator()(float y, int64_t row,
+                                              int col) const {
+    return keep(seed, salt, static_cast<int>(row), col, p) ? y / keep_div
+                                                           : 0.f;
+  }
+};
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);

@@ -1,6 +1,7 @@
 // Shared pieces of the three flash-attention kernels (flash_fwd.cu,
-// flash_dkdv.cu, flash_dq.cu): tile shapes, typed loads, the counter-hash
-// dropout mask and the 64 x 64 score tile every kernel recomputes.
+// flash_dkdv.cu, flash_dq.cu): tile shapes, typed loads and the 64 x 64
+// score tile every kernel recomputes.  The counter-hash dropout mask `keep`
+// is in common.cuh, shared with the fused-block kernels.
 //
 // Layout: q (BH, sq, D), k / v (BH, sk, D), contiguous, one dtype T for all
 // of them (float or bf16); per-row statistics lse / delta (BH, sq) float32.
@@ -53,23 +54,7 @@ __device__ __forceinline__ float round_to(float v) {
   return to_f(from_f<T>(v));
 }
 
-// keep(seed, bh, row, col): murmur3-fmix of the four counters, top 24 bits
-// as a uniform in [0, 1) -- bit-identical to `_keep_mask` of the JAX package
-// (paddle_tpu/ops/flash_attention.py:129) in uint32 arithmetic.
-__device__ __forceinline__ bool keep(uint32_t seed, uint32_t bh, int row,
-                                     int col, float p) {
-  uint32_t x = static_cast<uint32_t>(row) * 0x85EBCA6Bu ^
-               static_cast<uint32_t>(col) * 0xC2B2AE35u ^ seed ^
-               bh * 0x9E3779B1u;
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  const float u =
-      static_cast<float>(static_cast<int>(x >> 8)) * (1.0f / 16777216.0f);
-  return u >= p;
-}
+using ptt::keep;
 
 // Rows row0 .. row0 + 63 of a (n, D) matrix into shared memory as float32
 // (stride D + 4); rows at or past n read as zero.

@@ -1,11 +1,15 @@
-// K2: GEMM with a residual epilogue, out = r + (x @ W + b), stored in r's
-// dtype.
+// K2: GEMM with a dropout + residual epilogue,
+//   out = r + drop(x @ W + b),
+// stored in r's dtype.
 //
 // Replaces: paddle_tpu/ops/fused_block.py `_linear_residual_kernel`
 // (launched by `_linear_residual_pallas`), the attention out-projection plus
-// residual add of every decoder layer.  Serving runs it with dropout 0; the
-// in-kernel hash dropout of the training path is not part of this kernel
-// (the Python wrapper refuses dropout > 0 on the card).
+// residual add of every decoder layer.  drop is the counter-hash dropout of
+// the JAX kernel (`keep` in common.cuh) over the global (row, col) of the
+// (n, cols) output, salted by the caller (`_SALT_RESID`): a kept value is
+// divided by the float32 1 - p, a dropped one is 0.  Serving and generate run
+// it with dropout 0, the training path with the block's hidden dropout; the
+// two are separate instantiations, so dropout 0 costs nothing.
 //
 // What bounds it on the H100: at decode (8 x 768 against a 768 x 768 float32
 // weight) the 2.4 MB weight read, so bytes; at a 512-row prefill bucket
@@ -21,10 +25,12 @@
 
 namespace {
 
+template <bool kDrop>
 __global__ void __launch_bounds__(ptt::kThreads)
 linear_residual_kernel(const void* x, int x_bf16, const void* w, int w_bf16,
                        const void* b, int b_bf16, const void* r, int r_bf16,
-                       void* out, int n, int k, int cols, int col_splits) {
+                       void* out, int n, int k, int cols, int col_splits,
+                       ptt::Dropout drop) {
   extern __shared__ float smem[];
   float* xs = smem;                           // kRows x k
   float* slab = smem + ptt::kRows * k;        // kDepth x kCols
@@ -48,7 +54,9 @@ linear_residual_kernel(const void* x, int x_bf16, const void* w, int w_bf16,
         const int rr = ty * 4 + i;
         if (rr < rows) {
           const int64_t o = (row0 + rr) * cols + col;
-          ptt::st(out, o, ptt::ld(r, o, r_bf16) + (acc[i] + bias), r_bf16);
+          float y = acc[i] + bias;
+          if (kDrop) y = drop(y, row0 + rr, col);
+          ptt::st(out, o, ptt::ld(r, o, r_bf16) + y, r_bf16);
         }
       }
     }
@@ -62,18 +70,22 @@ PTT_EXPORT size_t ptt_linear_residual_smem(int k) {
          (static_cast<size_t>(ptt::kRows) * k + ptt::kDepth * ptt::kCols);
 }
 
+// Dropout p > 0 takes the dropout instantiation, with the hash's seed and
+// salt and keep_div = 1 - p rounded to float32 on the host.
 PTT_EXPORT int ptt_linear_residual(const void* x, int x_bf16, const void* w,
                                    int w_bf16, const void* b, int b_bf16,
                                    const void* r, int r_bf16, void* out,
                                    int n, int k, int cols, int col_splits,
-                                   void* stream) {
+                                   unsigned seed, unsigned salt, float p,
+                                   float keep_div, void* stream) {
   const size_t smem = ptt_linear_residual_smem(k);
-  cudaError_t err = ptt::allow_smem(linear_residual_kernel, smem);
+  auto kernel = p > 0.f ? linear_residual_kernel<true>
+                        : linear_residual_kernel<false>;
+  cudaError_t err = ptt::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n + ptt::kRows - 1) / ptt::kRows, col_splits);
-  linear_residual_kernel<<<grid, ptt::kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, ptt::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       x, x_bf16, w, w_bf16, b, b_bf16, r, r_bf16, out, n, k, cols,
-      col_splits);
+      col_splits, ptt::Dropout{seed, salt, p, keep_div});
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,18 +13,19 @@ paths, chosen by ``GPTConfig.use_fused_block`` as in the JAX package:
   ``use_pallas_attention``, paged decode when serving, the flash decode
   kernel for a single-token ``generate`` step with
   ``use_pallas_attention``);
-- fused (decoding only so far): K1 ``fused_ln_linear`` -> paged or
-  fixed-cache decode attention -> K2 ``fused_linear_residual``, then K3
-  ``fused_ffn_block``.
+- fused: K1 ``fused_ln_linear`` -> attention -> K2
+  ``fused_linear_residual``, then K3 ``fused_ffn_block``; the attention is
+  flash attention in the cache-free (training) forward
+  (``fused_attention_block``), paged or fixed-cache decode attention over
+  a cache.
 
 Dtypes follow the JAX package: parameters stay float32; with ``dtype=
 "bfloat16"`` the embeddings are cast to bfloat16 (the residual stream) and
 the KV pages are bfloat16; every op promotes as ``jnp`` does, and under
 ``amp.auto_cast`` the ops cast as the JAX package's do.
 
-Not in these slices (ROADMAP): training with ``use_fused_block``, MoE,
-sequence / context parallelism and recompute; the config fields of the
-last three raise when set.
+Not in these slices (ROADMAP): MoE, sequence / context parallelism and
+recompute; their config fields raise when set.
 """
 from __future__ import annotations
 
@@ -48,7 +49,8 @@ from ..nn import functional as F
 from ..nn.layers import Dropout, LayerNorm
 from ..ops.flash_attention import flash_attention, flash_attention_kvcache
 from ..ops.fused import _lce_chunk, linear_softmax_cross_entropy
-from ..ops.fused_block import (fused_attention_block_kvcache,
+from ..ops.fused_block import (fused_attention_block,
+                               fused_attention_block_kvcache,
                                fused_ffn_block, fused_linear_residual,
                                fused_ln_linear)
 
@@ -275,6 +277,26 @@ class GPTDecoderLayer(nn.Module):
                               device=device)
         self.mlp = GPTMLP(c, device=device)
 
+    def _block_fused(self, x):
+        """The cache-free fused block (training): the attention half as K1
+        -> flash -> K2 with the attention and hidden dropouts, then K3 with
+        the hidden dropout after ``+ b2`` (``dropout2``; ``dropout1``
+        stays 0), as the JAX package's ``_block_fused``."""
+        c = self.config
+        a = self.attn
+        x = fused_attention_block(
+            x, a.qkv_proj.weight, a.qkv_proj.bias, a.out_proj.weight,
+            a.out_proj.bias, self.ln_1.weight, self.ln_1.bias,
+            num_heads=c.num_heads, causal=True,
+            epsilon=c.layer_norm_epsilon, attn_dropout=c.attention_dropout,
+            hidden_dropout=c.hidden_dropout, training=self.training)
+        m = self.mlp
+        return fused_ffn_block(
+            x, m.fc_in.weight, m.fc_in.bias, m.fc_out.weight, m.fc_out.bias,
+            self.ln_2.weight, self.ln_2.bias, activation="gelu",
+            dropout2=c.hidden_dropout, epsilon=c.layer_norm_epsilon,
+            training=self.training)
+
     def _fused_cache_forward(self, x, cache):
         """Fused decode step over either kind of cache: the attention half
         (K1 -> paged or fixed-cache decode -> K2), then K3."""
@@ -300,12 +322,8 @@ class GPTDecoderLayer(nn.Module):
 
     def forward(self, x, cache=None):
         if cache is None:
-            enforce(not self.config.use_fused_block,
-                    "the cache-free (training) forward with use_fused_block "
-                    "is not ported yet (ROADMAP Queue 2, slice 2b: K1 -> "
-                    "flash -> K2 and K3 with their backward and dropout on "
-                    "the card); set use_fused_block=False to train",
-                    exc=UnimplementedError)
+            if self.config.use_fused_block:
+                return self._block_fused(x)
             x = x + self.attn(self.ln_1(x))
             return x + self.mlp(self.ln_2(x))
         if self.config.use_fused_block:

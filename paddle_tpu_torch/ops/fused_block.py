@@ -1,16 +1,20 @@
 """Block-level fused transformer ops: the port of ``paddle_tpu/ops/
-fused_block.py`` that the serving and ``generate`` paths run.
+fused_block.py`` that the serving, ``generate`` and fused-block training
+paths run.
 
 Three fused surfaces, each a CUDA kernel for Hopper beside its plain PyTorch
 version:
 
   [K1 ln_linear]        LN(x) @ W + b          csrc/ln_linear.cu
   [K2 linear_residual]  r + dropout(x @ W + b) csrc/linear_residual.cu
-  [K3 ffn]              x + W2 act(W1 LN(x) + b1) + b2   csrc/ffn.cu
+  [K3 ffn]              x + drop2(W2 drop1(act(W1 LN(x) + b1)) + b2)
+                                                csrc/ffn.cu
 
-and the decode-step attention half over a fixed-shape cache,
+the attention half of a training block, :func:`fused_attention_block`: K1
+-> flash attention (``ops/flash_attention.py``, attention dropout in the
+kernel) -> K2; and the decode-step attention half over a fixed-shape cache,
 :func:`fused_attention_block_kvcache`: K1 -> cache write -> the flash
-decode kernel (``ops/flash_attention.py``) -> K2.
+decode kernel -> K2.
 
 Routing is by the tensor's device: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel (or raises).  The plain versions repeat the
@@ -19,12 +23,20 @@ against the JAX package; the kernels are held against the plain versions on
 the card.  The kernels compute in float32 and store in the dtype the JAX
 function returns, taking float32 or bfloat16 on each operand independently.
 
+Gradients follow the JAX package's ``custom_vjp``s: on the card each
+kernel sits in a ``torch.autograd.Function`` whose backward recomputes the
+plain composition and returns its VJP (the dropout seed gets none); on the
+CPU autograd runs through the plain versions themselves.  Under
+``amp.auto_cast`` each op casts its inputs where the JAX op does, outside
+those Functions, so gradients flow back through the casts.
+
 Dropout is the counter-based hash of the JAX package (murmur3-fmix of seed,
 salt, row, col; ``_keep_mask`` of ``ops/flash_attention.py``), emulated in
-int64 with ``& 0xFFFFFFFF`` so the masks match JAX bit for bit.  Only the
-plain versions apply it: the serving path runs with dropout 0, and a CUDA
-call with dropout > 0 raises until slice 2b (fused-block training, ROADMAP)
-brings the in-kernel hash to the card.
+int64 with ``& 0xFFFFFFFF`` so the masks match JAX bit for bit; the K2 and
+K3 kernels compute the same hash in their epilogues (``keep`` in
+``csrc/common.cuh``).  A seed the caller does not give is drawn from the
+framework's host stream, so the card and the CPU drop the same elements at
+the same ``framework.random.seed``.
 """
 from __future__ import annotations
 
@@ -35,12 +47,14 @@ from typing import Dict, Tuple
 import torch
 
 from .. import _kernels
+from ..amp import state as amp_state
 from ..framework import random as fw_random
 from ..framework.errors import UnimplementedError, enforce
-from .flash_attention import _NEG_INF, _keep_mask, flash_attention_kvcache
+from .flash_attention import (_M32, _NEG_INF, _keep_mask, flash_attention,
+                              flash_attention_kvcache)
 
 __all__ = ["fused_ln_linear", "fused_linear_residual", "fused_ffn_block",
-           "fused_attention_block_kvcache",
+           "fused_attention_block", "fused_attention_block_kvcache",
            "ln_linear_reference", "ln_linear_cuda",
            "linear_residual_reference", "linear_residual_cuda",
            "ffn_reference", "ffn_cuda"]
@@ -54,15 +68,16 @@ _SMEM_LIMIT = 232448          # bytes of shared memory one Hopper block may use
 _TILE_ROWS, _TILE_COLS, _TILE_DEPTH = 16, 64, 32   # csrc/common.cuh tiles
 
 _c = ctypes.c_int
+_f = ctypes.c_float
+_u = ctypes.c_uint
 _p = ctypes.c_void_p
 
 
-def _no_dropout_on_card(p: float, what: str) -> None:
-    if p > 0.0:
-        raise UnimplementedError(
-            f"{what}: dropout > 0 on a CUDA tensor is not ported yet; the "
-            "in-kernel hash dropout of K2/K3 comes with slice 2b, fused-block "
-            "training (serving runs with dropout 0)")
+def _drop_args(p: float):
+    """(p, 1 - p) as the kernels take them: ``1 - p`` is computed in double
+    and rounded to float32, the value a float32 ``y / (1.0 - p)`` of the
+    JAX package divides by."""
+    return float(p), float(1.0 - p)
 
 
 # ---------------------------------------------------------------------------
@@ -107,6 +122,48 @@ def _ln_f32(x, g, beta, epsilon: float) -> torch.Tensor:
     if beta is not None:
         y = y + beta.float()
     return y
+
+
+class _Recompute(torch.autograd.Function):
+    """The JAX package's ``custom_vjp``s of K1-K3 (``_ln_linear_p``,
+    ``_linear_residual_p``, ``_ffn_p``): forward launches ``kernel``;
+    backward recomputes ``plain`` on the saved inputs under autograd and
+    returns its VJP.  ``args`` are the ``n`` tensor inputs, then the
+    static ones (epsilon, the seed, dropout rates, ...), which get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, n, *args):
+        ctx.plain, ctx.n, ctx.static = plain, n, args[n:]
+        ctx.save_for_backward(*args[:n])
+        return kernel(*args)
+
+    @staticmethod
+    def backward(ctx, gout):
+        need = ctx.needs_input_grad[3:3 + ctx.n]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(r)
+                   for t, r in zip(ctx.saved_tensors, need)]
+            out = ctx.plain(*ins, *ctx.static)
+            grads = iter(torch.autograd.grad(
+                out, [t for t, r in zip(ins, need) if r], gout))
+        return (None, None, None, *(next(grads) if r else None
+                                    for r in need),
+                *(None for _ in ctx.static))
+
+
+def _route(kernel, plain, tensors, *static):
+    """``kernel`` on CUDA tensors, differentiable by recompute
+    (:class:`_Recompute`) when a gradient is wanted; ``plain`` on CPU
+    tensors, differentiable by autograd.  Both take ``(*tensors,
+    *static)``."""
+    if not tensors[0].is_cuda:
+        return plain(*tensors, *static)
+    tensors = tuple(t.contiguous() for t in tensors)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        return _Recompute.apply(kernel, plain, len(tensors), *tensors,
+                                *static)
+    return kernel(*tensors, *static)
 
 
 def _splits(device: torch.device, row_tiles: int, tiles: int) -> int:
@@ -157,15 +214,13 @@ def ln_linear_cuda(x, w, b, g, beta, epsilon: float) -> torch.Tensor:
 def fused_ln_linear(x, w, b, ln_scale, ln_bias, *, epsilon: float = 1e-5):
     """``LN(x) @ w + b`` over the last dim of ``x`` — the pre-LN + QKV pair
     as one kernel pass.  LN runs in float32 on the raw activations; the
-    GEMM and the output take ``w``'s dtype."""
+    GEMM and the output take ``w``'s dtype (under ``auto_cast`` only ``w``
+    is cast, as in the JAX package)."""
+    _, w = amp_state.cast_for_op("linear", x, w)
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
-    if x2.is_cuda:
-        out = ln_linear_cuda(x2.contiguous(), w, b, ln_scale, ln_bias,
-                             float(epsilon))
-    else:
-        out = ln_linear_reference(x2, w, b, ln_scale, ln_bias,
-                                  float(epsilon))
+    out = _route(ln_linear_cuda, ln_linear_reference,
+                 (x2, w, b, ln_scale, ln_bias), float(epsilon))
     return out.reshape(*shape[:-1], w.shape[1])
 
 
@@ -181,9 +236,11 @@ def linear_residual_reference(x, w, b, r, seed: int = 0,
     return (r.float() + y).to(r.dtype)
 
 
-def linear_residual_cuda(x, w, b, r) -> torch.Tensor:
-    """K2 on the card (dropout 0): ``x`` (N, k), ``w`` (k, cols), ``r``
-    (N, cols); returns (N, cols) in ``r``'s dtype."""
+def linear_residual_cuda(x, w, b, r, seed: int = 0, dropout_p: float = 0.0,
+                         salt: int = _SALT_RESID) -> torch.Tensor:
+    """K2 on the card: ``x`` (N, k), ``w`` (k, cols), ``r`` (N, cols);
+    returns (N, cols) in ``r``'s dtype, with the hash dropout of ``seed``
+    and ``salt`` over the global (row, col) when ``dropout_p > 0``."""
     name = "linear_residual"
     dev = _kernels.require_cuda(name, x, w, b, r)
     n, k = x.shape
@@ -200,12 +257,13 @@ def linear_residual_cuda(x, w, b, r) -> torch.Tensor:
         return out
     fn = _kernels.bind(name, "ptt_linear_residual",
                        [_p, _c, _p, _c, _p, _c, _p, _c, _p,
-                        _c, _c, _c, _c, _p])
+                        _c, _c, _c, _c, _u, _u, _f, _f, _p])
     row_tiles = -(-n // _TILE_ROWS)
     splits = _splits(dev, row_tiles, -(-cols // _TILE_COLS))
     cd, pt = _kernels.dtype_code, _kernels.ptr
     rc = fn(pt(x), cd(x), pt(w), cd(w), pt(b), cd(b), pt(r), cd(r), pt(out),
-            n, k, cols, splits, _kernels.stream(dev))
+            n, k, cols, splits, int(seed) & _M32, int(salt) & _M32,
+            *_drop_args(dropout_p), _kernels.stream(dev))
     _kernels.check(rc, name)
     _kernels.launches[name] += 1
     return out
@@ -215,19 +273,18 @@ def fused_linear_residual(x, w, b, residual, *, dropout_p: float = 0.0,
                           training: bool = True, seed=None,
                           salt: int = _SALT_RESID):
     """``residual + dropout(x @ w + b)`` — the out-projection epilogue
-    (bias + dropout + residual) in one output pass."""
+    (bias + dropout + residual) in one output pass, the mask regenerated
+    from ``seed`` in backward instead of stored.  Under ``auto_cast``
+    ``x`` and ``w`` are cast, as in the JAX package."""
+    x, w = amp_state.cast_for_op("linear", x, w)
     if not training:
         dropout_p = 0.0
+    seed = _seed_or_draw(seed, dropout_p > 0.0)
     shape = residual.shape
     x2 = x.reshape(-1, x.shape[-1])
     r2 = residual.reshape(-1, shape[-1])
-    if x2.is_cuda:
-        _no_dropout_on_card(dropout_p, "fused_linear_residual")
-        out = linear_residual_cuda(x2.contiguous(), w, b, r2.contiguous())
-    else:
-        out = linear_residual_reference(
-            x2, w, b, r2, _seed_or_draw(seed, dropout_p > 0.0),
-            float(dropout_p), int(salt))
+    out = _route(linear_residual_cuda, linear_residual_reference,
+                 (x2, w, b, r2), seed, float(dropout_p), int(salt))
     return out.reshape(shape)
 
 
@@ -283,13 +340,17 @@ def ffn_reference(x, w1, b1, w2, b2, g, beta, seed: int = 0,
     return (x.float() + y).to(x.dtype)
 
 
-def ffn_cuda(x, w1, b1, w2, b2, g, beta, activation: str = "gelu",
-             epsilon: float = 1e-5) -> torch.Tensor:
-    """K3 on the card (dropout 0): ``x`` (N, h), ``w1`` (h, ffn), ``w2``
-    (ffn, h); returns (N, h) in ``x``'s dtype.  The (N, ffn) intermediate
-    stays in shared memory.  With more than one cluster group per row tile
-    (:func:`_ffn_grid`), each group's float32 (N, h) sum goes to a scratch
-    allocated here, smaller than that intermediate."""
+def ffn_cuda(x, w1, b1, w2, b2, g, beta, seed: int = 0,
+             activation: str = "gelu", dropout1: float = 0.0,
+             dropout2: float = 0.0, epsilon: float = 1e-5) -> torch.Tensor:
+    """K3 on the card: ``x`` (N, h), ``w1`` (h, ffn), ``w2`` (ffn, h);
+    returns (N, h) in ``x``'s dtype, with the hash dropouts of ``seed``
+    (``dropout1`` after the activation, ``dropout2`` after ``+ b2``).  The
+    (N, ffn) intermediate stays in shared memory.  With more than one
+    cluster group per row tile (:func:`_ffn_grid`), or with ``dropout2``,
+    each group's float32 (N, h) sum goes to a scratch allocated here,
+    smaller than that intermediate, and the finalize kernel adds the
+    groups and applies ``dropout2``."""
     name = "ffn"
     dev = _kernels.require_cuda(name, x, w1, b1, w2, b2, g, beta)
     n, h = x.shape
@@ -310,17 +371,18 @@ def ffn_cuda(x, w1, b1, w2, b2, g, beta, activation: str = "gelu",
         return out
     fn = _kernels.bind(name, "ptt_ffn",
                        [_p, _c, _p, _c, _p, _c, _p, _c, _p, _c, _p, _c, _p,
-                        _c, _p, _p, _c, _c, _c, ctypes.c_float, _c, _c, _c,
-                        _p])
+                        _c, _p, _p, _c, _c, _c, _f, _c, _c, _c,
+                        _u, _u, _f, _f, _u, _f, _f, _p])
     groups, cluster = _ffn_grid(dev, n, h, ffn)
     part = (torch.empty((groups, n, h), dtype=torch.float32, device=dev)
-            if groups > 1 else None)
+            if groups > 1 or dropout2 > 0.0 else None)
     cd, pt = _kernels.dtype_code, _kernels.ptr
     rc = fn(pt(x), cd(x), pt(w1), cd(w1), pt(b1), cd(b1), pt(w2), cd(w2),
             pt(b2), cd(b2), pt(g), cd(g), pt(beta), cd(beta),
             None if part is None else pt(part), pt(out), n, h, ffn,
             float(epsilon), 0 if activation == "gelu" else 1, groups,
-            cluster, _kernels.stream(dev))
+            cluster, int(seed) & _M32, _SALT_FFN1, *_drop_args(dropout1),
+            _SALT_FFN2, *_drop_args(dropout2), _kernels.stream(dev))
     _kernels.check(rc, name)
     _kernels.launches[name] += 1
     return out
@@ -334,27 +396,25 @@ def fused_ffn_block(x, w1, b1, w2, b2, ln_scale, ln_bias, *,
 
         out = x + drop2(W2 · act(drop1(W1 · LN(x) + b1)) + b2)
 
-    ``activation`` ∈ {gelu (exact), relu}."""
+    ``activation`` ∈ {gelu (exact), relu}.  Under ``auto_cast`` only
+    ``w1`` and ``w2`` are cast, as in the JAX package."""
     enforce(activation in ("gelu", "relu"),
             f"fused_ffn_block: unsupported activation {activation!r}")
+    _, w1 = amp_state.cast_for_op("linear", x, w1)
+    _, w2 = amp_state.cast_for_op("linear", x, w2)
     if not training:
         dropout1 = dropout2 = 0.0
+    seed = _seed_or_draw(seed, dropout1 > 0.0 or dropout2 > 0.0)
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
-    if x2.is_cuda:
-        _no_dropout_on_card(max(dropout1, dropout2), "fused_ffn_block")
-        out = ffn_cuda(x2.contiguous(), w1, b1, w2, b2, ln_scale, ln_bias,
-                       activation, float(epsilon))
-    else:
-        seed = _seed_or_draw(seed, dropout1 > 0.0 or dropout2 > 0.0)
-        out = ffn_reference(x2, w1, b1, w2, b2, ln_scale, ln_bias, seed,
-                            activation, float(dropout1), float(dropout2),
-                            float(epsilon))
+    out = _route(ffn_cuda, ffn_reference,
+                 (x2, w1, b1, w2, b2, ln_scale, ln_bias), seed, activation,
+                 float(dropout1), float(dropout2), float(epsilon))
     return out.reshape(shape)
 
 
 # ---------------------------------------------------------------------------
-# The attention half of a decode step over a fixed-shape cache
+# The attention half: K1 -> flash -> K2 under one op call
 # ---------------------------------------------------------------------------
 def _split_heads(qkv, b: int, s: int, num_heads: int, head_dim: int):
     """(N, 3h) -> q, k, v as (b, s, heads, d): head-major column order
@@ -362,6 +422,82 @@ def _split_heads(qkv, b: int, s: int, num_heads: int, head_dim: int):
     qkv = qkv.reshape(b, s, num_heads, 3, head_dim)
     return qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
 
+
+def _attention_ref(q, k, v, scale: float, causal: bool, dropout_p: float,
+                   seed: int) -> torch.Tensor:
+    """Attention in (b, s, heads, d) layout, the JAX package's
+    ``_attention_ref``: scores in the inputs' dtype, then float32; a
+    top-left causal mask; float32 softmax; the hash attention dropout over
+    ``(b * heads + h, row, col)``, the flash kernels' indexing, so both
+    routes drop the same elements for one seed; probabilities rounded to
+    v's dtype before P.V."""
+    b, s, nh, _ = q.shape
+    dev = q.device
+    dt = torch.promote_types(q.dtype, k.dtype)
+    scores = (torch.einsum("bqhd,bkhd->bhqk", q.to(dt), k.to(dt))
+              * scale).float()
+    idx = torch.arange(s, device=dev)
+    if causal:
+        scores = torch.where(idx[:, None] >= idx[None, :], scores,
+                             torch.full((), _NEG_INF, device=dev))
+    probs = torch.softmax(scores, dim=-1)
+    if dropout_p > 0.0:
+        bh = torch.arange(b * nh, device=dev).reshape(b, nh, 1, 1)
+        keep = _keep_mask(seed, bh, idx[:, None], idx[None, :], dropout_p)
+        probs = torch.where(keep, probs / (1.0 - dropout_p),
+                            torch.zeros((), device=dev))
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
+
+
+def fused_attention_block(x, qkv_w, qkv_b, out_w, out_b, ln_scale, ln_bias,
+                          *, num_heads: int, causal: bool = True,
+                          epsilon: float = 1e-5, attn_dropout: float = 0.0,
+                          hidden_dropout: float = 0.0, rotary: bool = False,
+                          rope_base: float = 10000.0, scale=None,
+                          training: bool = True, seed=None):
+    """The attention half of a pre-LN decoder block as one fused op:
+
+        out = x + drop(W_out · attention(split(W_qkv · LN(x) + b)) + b)
+
+    K1 (``fused_ln_linear``), then the flash kernels on the card
+    (attention dropout in the kernel; they raise on a head dim they have
+    no instantiation for) or :func:`_attention_ref` on the CPU, then K2
+    (``fused_linear_residual``).  One seed serves the block: the flash
+    dropout (salted by ``b * heads + h``) and K2's (``_SALT_RESID``), as in
+    the JAX package.  ``qkv_w`` is (h, 3h) in head-major column order
+    (head0: q|k|v, head1: ...), the GPTAttention layout."""
+    if rotary:
+        raise UnimplementedError(
+            "fused_attention_block: rotary=True is not ported yet "
+            "(_apply_rope, ROADMAP Queue 1)")
+    b, s, hidden = x.shape
+    enforce(hidden % num_heads == 0,
+            f"hidden {hidden} not divisible by num_heads {num_heads}")
+    head_dim = hidden // num_heads
+    if scale is None:
+        scale = head_dim ** -0.5
+    if not training:
+        attn_dropout = hidden_dropout = 0.0
+    seed = _seed_or_draw(seed, attn_dropout > 0.0 or hidden_dropout > 0.0)
+    qkv = fused_ln_linear(x, qkv_w, qkv_b, ln_scale, ln_bias,
+                          epsilon=epsilon)
+    q, k, v = _split_heads(qkv.reshape(b * s, -1), b, s, num_heads,
+                           head_dim)
+    if x.is_cuda:
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal, scale=scale,
+                              dropout_p=attn_dropout, training=training,
+                              seed=seed).transpose(1, 2)
+    else:
+        out = _attention_ref(q, k, v, scale, causal, attn_dropout, seed)
+    return fused_linear_residual(out.reshape(b, s, hidden), out_w, out_b, x,
+                                 dropout_p=hidden_dropout, training=training,
+                                 seed=seed, salt=_SALT_RESID)
+
+
+# ---------------------------------------------------------------------------
+# The attention half of a decode step over a fixed-shape cache
+# ---------------------------------------------------------------------------
 
 def fused_attention_block_kvcache(x, qkv_w, qkv_b, out_w, out_b, ln_scale,
                                   ln_bias, k_buf, v_buf, used, *,
@@ -383,7 +519,7 @@ def fused_attention_block_kvcache(x, qkv_w, qkv_b, out_w, out_b, ln_scale,
     if rotary:
         raise UnimplementedError(
             "fused_attention_block_kvcache: rotary=True is not ported yet "
-            "(_apply_rope, ROADMAP Queue 1 item 4)")
+            "(_apply_rope, ROADMAP Queue 1)")
     b, s, hidden = x.shape
     head_dim = hidden // num_heads
     if scale is None:

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch import UnimplementedError, _kernels
+from paddle_tpu_torch import _kernels
 from paddle_tpu_torch.inference.paged_attention import (
     _paged_decode_split, paged_attention_cuda, paged_attention_reference)
 from paddle_tpu_torch.ops import flash_attention as fa
@@ -83,7 +83,8 @@ def test_ffn(dev, n, h, ffn, xdtype, activation):
     w1, b1 = _t(dev, h, ffn, std=0.05), _t(dev, ffn, std=0.05)
     w2, b2 = _t(dev, ffn, h, std=0.05), _t(dev, h, std=0.05)
     g, beta = 1 + _t(dev, h, std=0.1), _t(dev, h, std=0.1)
-    out = fb.ffn_cuda(x, w1, b1, w2, b2, g, beta, activation, EPS)
+    out = fb.ffn_cuda(x, w1, b1, w2, b2, g, beta, activation=activation,
+                      epsilon=EPS)
     ref = fb.ffn_reference(x, w1, b1, w2, b2, g, beta,
                            activation=activation, epsilon=EPS)
     assert out.dtype == xdtype
@@ -196,10 +197,153 @@ def test_paged_decode_refuses_unaligned_head_dims(dev):
                              PAGED_BS)
 
 
-def test_dropout_on_card_is_refused(dev):
-    x, w, b = _t(dev, 8, 128), _t(dev, 128, 128), _t(dev, 128)
-    with pytest.raises(UnimplementedError, match="slice 2b"):
-        fb.fused_linear_residual(x, w, b, x, dropout_p=0.1, training=True)
+# K2 / K3 hash dropout: decode rows, a prefill bucket and the generate
+# prefill's rows; at h = 768, ffn = 3072 K3 takes several cluster groups
+# at N=8 and one from 512.  dropout2 is applied by the finalize kernel, which
+# every shape takes when it is on; with dropout2 0 one group stores its
+# output at the cluster's exit (dropout1 alone covers that exit)
+DROP_ROWS = (8, 512, 4096)
+# a residual this small next to the addend (|y| ~ 0.1-1) never absorbs a
+# kept value, and a dropped one leaves it bit for bit: the elements equal
+# to it are the dropped ones.  K3's LN is scale-free, given an epsilon below
+# the tiny rows' variance (~2^-80)
+TINY, TINY_EPS = 2.0 ** -40, 1e-30
+
+
+def _dropped(out, base):
+    return (out == base).cpu()
+
+
+@pytest.mark.parametrize("n", DROP_ROWS)
+@pytest.mark.parametrize("rdtype", [torch.float32, torch.bfloat16])
+def test_linear_residual_dropout(dev, n, rdtype):
+    h = 768
+    x, w, b = _t(dev, n, h), _t(dev, h, h, std=0.02), _t(dev, h, std=0.02)
+    r = _t(dev, n, h, dtype=rdtype, seed=1)
+    args = (77, 0.1, fb._SALT_RESID)
+    out = fb.linear_residual_cuda(x, w, b, r, *args)
+    ref = fb.linear_residual_reference(x, w, b, r, *args)
+    assert out.dtype == rdtype
+    assert float((out.float() - ref.float()).abs().max()) <= _tol(ref, rdtype)
+    tiny = (r.float() * TINY).to(rdtype)
+    got = fb.linear_residual_cuda(x, w, b, tiny, *args)
+    want = fb.linear_residual_reference(x, w, b, tiny, *args)
+    keep = fb._keep_mask(77, fb._SALT_RESID, torch.arange(n)[:, None],
+                         torch.arange(h)[None, :], 0.1)
+    assert torch.equal(_dropped(got, tiny), ~keep)
+    assert torch.equal(_dropped(want, tiny), ~keep)
+    # dropout 0 is the kernel of the serving path, unchanged
+    assert torch.equal(fb.linear_residual_cuda(x, w, b, r, 77, 0.0),
+                       fb.linear_residual_cuda(x, w, b, r))
+
+
+@pytest.mark.parametrize("n", DROP_ROWS)
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("drops", [(0.0, 0.1), (0.2, 0.4), (0.3, 0.0)])
+def test_ffn_dropout(dev, n, xdtype, drops):
+    h, ffn = 768, 3072
+    groups, _ = fb._ffn_grid(dev, n, h, ffn)
+    assert groups > 1 if n == 8 else groups == 1
+    x = _t(dev, n, h, dtype=xdtype)
+    w1, b1 = _t(dev, h, ffn, std=0.02), _t(dev, ffn, std=0.02)
+    w2, b2 = _t(dev, ffn, h, std=0.02), _t(dev, h, std=0.02)
+    g, beta = 1 + _t(dev, h, std=0.1), _t(dev, h, std=0.1)
+    d1, d2 = drops
+    out = fb.ffn_cuda(x, w1, b1, w2, b2, g, beta, 5, "gelu", d1, d2, EPS)
+    ref = fb.ffn_reference(x, w1, b1, w2, b2, g, beta, 5, "gelu", d1, d2,
+                           EPS)
+    assert out.dtype == xdtype
+    assert float((out.float() - ref.float()).abs().max()) <= _tol(ref, xdtype)
+    if d2 == 0.0:
+        return
+    tiny = (x.float() * TINY).to(xdtype)
+    got = fb.ffn_cuda(tiny, w1, b1, w2, b2, g, beta, 5, "gelu", d1, d2,
+                      TINY_EPS)
+    want = fb.ffn_reference(tiny, w1, b1, w2, b2, g, beta, 5, "gelu", d1, d2,
+                            TINY_EPS)
+    keep = fb._keep_mask(5, fb._SALT_FFN2, torch.arange(n)[:, None],
+                         torch.arange(h)[None, :], d2)
+    assert torch.equal(_dropped(got, tiny), ~keep)
+    assert torch.equal(_dropped(want, tiny), ~keep)
+
+
+def _block_params(h, ffn, seed=0, s=64):
+    rng = np.random.default_rng(seed)
+    a = lambda *s: (0.1 * rng.standard_normal(s)).astype(  # noqa: E731
+        np.float32)
+    return [a(h, 3 * h), a(3 * h), a(h, h), a(h), 1 + a(h), a(h),
+            a(h, ffn), a(ffn), a(ffn, h), a(h), 1 + a(h), a(h)], \
+        (2 * rng.standard_normal((2, s, h))).astype(np.float32)
+
+
+@pytest.mark.parametrize("s", [64, 100])
+def test_fused_block_on_card_matches_cpu(dev, s):
+    # one training block, forward and backward, dropout 0.1 everywhere: the
+    # card (K1, flash, K2, K3 kernels under autograd) against the CPU (the
+    # plain versions) at the same seeds, float32.  s = 100 is no multiple
+    # of the Pallas kernel's tile: the card still takes the flash kernels
+    params, x_np = _block_params(128, 512, s=s)
+    results = []
+    for device in (dev, torch.device("cpu")):
+        ps = [torch.from_numpy(p).to(device).requires_grad_()
+              for p in params]
+        x = torch.from_numpy(x_np).to(device).requires_grad_()
+        _kernels.reset_launches()
+        y = fb.fused_attention_block(
+            x, *ps[:6], num_heads=4, attn_dropout=0.1, hidden_dropout=0.1,
+            seed=11)
+        y = fb.fused_ffn_block(y, *ps[6:], dropout2=0.1, seed=12)
+        y.backward(torch.ones_like(y))
+        launched = {k for k, c in _kernels.launches.items() if c}
+        results.append([y.detach().cpu(), x.grad.cpu()]
+                       + [p.grad.cpu() for p in ps])
+        if device == dev:
+            assert launched == {"ln_linear", "linear_residual", "ffn",
+                                "flash_fwd", "flash_dkdv", "flash_dq"}
+        else:
+            assert not launched
+    for i, (a, b) in enumerate(zip(*results)):
+        tol = 1e-4 * float(b.abs().max()) + 1e-6
+        assert float((a - b).abs().max()) <= tol, i
+
+
+def test_fused_attention_block_refuses_head_dims_without_a_kernel(dev):
+    # d = 40: no flash instantiation; the card raises, nothing runs plain
+    params, x_np = _block_params(160, 640, s=16)
+    ps = [torch.from_numpy(p).to(dev) for p in params[:6]]
+    x = torch.from_numpy(x_np).to(dev)
+    with pytest.raises(ValueError, match="head_dim 40"):
+        fb.fused_attention_block(x, *ps, num_heads=4)
+
+
+def test_fused_training_step_on_card_matches_cpu(dev):
+    from paddle_tpu_torch.convert import training_workload
+    from paddle_tpu_torch.models.gpt import gpt_tiny
+    cfg = gpt_tiny(hidden_dropout=0.0, attention_dropout=0.0,
+                   use_pallas_attention=True, use_fused_block=True)
+    runs = []
+    for device in (dev, "cpu"):
+        m, opt, ids, labels = training_workload(device, cfg, batch=2,
+                                                seq_len=128)
+        _kernels.reset_launches()
+        loss, _ = m(ids, labels=labels)
+        loss.backward()
+        launches = dict(_kernels.launches)
+        grads = {k: p.grad.detach().cpu() for k, p in m.named_parameters()}
+        opt.step()
+        with torch.no_grad():
+            loss2, _ = m(ids, labels=labels)
+        runs.append((loss.item(), grads, loss2.item(), launches))
+    (l_gpu, g_gpu, l2_gpu, n_gpu), (l_cpu, g_cpu, l2_cpu, n_cpu) = runs
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    assert abs(l2_gpu - l2_cpu) <= 1e-5 * abs(l2_cpu)
+    for k, ref in g_cpu.items():
+        assert float((g_gpu[k] - ref).abs().max()) <= (
+            1e-4 * float(ref.abs().max()) + 1e-6), k
+    for name in ("ln_linear", "linear_residual", "ffn", "flash_fwd",
+                 "flash_dkdv", "flash_dq"):
+        assert n_gpu[name] == cfg.num_layers, name
+    assert not any(n_cpu.values())
 
 
 def test_serving_on_card_matches_cpu(dev):

@@ -10,8 +10,7 @@ weights and data through one training step of each package.
   trajectory; the bf16 O1 loss;
 - the explicit random streams: a training step with dropout leaves torch's
   global RNG state alone, and one seed gives one mask;
-- what the port refuses: the cache-free fused block, unported config
-  fields.
+- what the port refuses: unported config fields.
 """
 import numpy as np
 import pytest
@@ -308,14 +307,6 @@ def test_shift_labels_matches_jax():
 # ---------------------------------------------------------------------------
 # what the port refuses
 # ---------------------------------------------------------------------------
-def test_cache_free_fused_block_raises():
-    m = GPTForCausalLM(gpt_tiny(use_fused_block=True, hidden_dropout=0.0,
-                                attention_dropout=0.0), device="cpu")
-    ids = torch.zeros(1, 128, dtype=torch.long)
-    with pytest.raises(UnimplementedError, match="slice 2b"):
-        m(ids, labels=ids)
-
-
 @pytest.mark.parametrize("field", ["use_recompute", "sequence_parallel",
                                    "context_parallel", "moe_num_experts"])
 def test_unported_config_fields_raise(field):
