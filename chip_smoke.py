@@ -12,9 +12,13 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               flash forward, dK/dV and dQ kernels must hold HMMA (mma.sync)
               instructions in their SASS (cuobjdump -sass) and ptxas must
               report no spill stores or loads for their d=64
-              instantiations; the decode kernel's registers, spills and
-              cluster split at the generate shape are logged, and the
-              paged-decode kernel's at the serving table width;
+              instantiations; likewise every instantiation of the
+              tensor-core K3 (ffn_mma: two hidden sizes x drop1) must
+              hold HMMA and the h=768 ones must not spill, with their
+              registers and shared memory a block logged; the decode
+              kernel's registers, spills and cluster split at the generate
+              shape are logged, and the paged-decode kernel's at the
+              serving table width;
   (b) kernels each kernel at its path's shapes and dtypes against its
               plain PyTorch version on the card, with a stated tolerance;
               times by CUDA events (median, L2 flushed, the host's launch
@@ -30,7 +34,9 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               50304, bf16 activations, use_fused_block) with seeded random
               weights loaded through convert.py, served by ServingEngine:
               8 ragged prompts x 32 greedy tokens.  Every kernel's launch
-              counter is zeroed just before this run and must be > 0 after.
+              counter is zeroed just before this run and must be > 0 after
+              (ffn_mma, the bf16-weight K3, must not launch: serving
+              multiplies float32 weights).
               Beforehand, a float32 run on a small input is held against
               the same model on the CPU (plain versions): tokens identical,
               logits within 1e-3;
@@ -46,20 +52,27 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               fused_training_workload: the same model, weights and data with
               use_fused_block and hidden / attention dropout 0.1, bf16 O1):
               each block K1 -> flash (attention dropout in the kernel) -> K2
-              (hidden dropout in the kernel), then K3 (dropout after + b2 in
+              (hidden dropout in the kernel), then K3 on the tensor cores
+              (ffn_mma: O1 casts W1 and W2 to bf16; dropout after + b2 in
               the kernel), backward by recompute of the plain compositions
               plus the flash backward kernels.  13 steps as in (c2); the
               counters of the six kernels are zeroed just before and must
-              read 12 x 13 after; the loss must be finite and fall.  The
-              unfused step's p50 of (c2) is printed beside it.  Beforehand,
-              K2 and K3 with dropout against their plain versions at N=8
-              (K3's multi-group exit), 4096 and 16384 (the training shape,
-              timed at p=0.1 and p=0): values within the stated tolerance,
-              and with a residual of 2^-40 of the addend the dropped
-              elements (those equal to the residual) are exactly the hash
-              mask's; K1 timed at N=16384; and a float32 gpt_tiny fused
-              training step on the card against the CPU (loss, every
-              gradient, the loss after one AdamW step);
+              read 12 x 13 after, the SIMT K3's 0; the loss must be finite
+              and fall.  The unfused step's p50 of (c2) is printed beside
+              it.  Beforehand, K2 and K3 (ffn_mma) with dropout against
+              their plain versions at N=8 (K3's multi-group exit through
+              the finalize kernel), 4096 and 16384 (the training shape,
+              timed at p=0.1 and p=0): values within the stated
+              tolerance; with a residual of 2^-40 of the addend, the addend
+              alone (the projection, the FFN; K3 at p=0.1 and p=0) within
+              one bf16 unit of its own range, a K3 with b1 left out
+              rejected by that check, and the dropped elements (those
+              equal to the residual) exactly the hash mask's; ffn_mma's
+              dropout1 mask exact
+              at N=4096 (W2 the identity); K3 timed at N=8, 4096 and 16384;
+              K1 timed at N=16384; the SIMT K3's dropout1 in float32; and a
+              float32 gpt_tiny fused training step on the card against the
+              CPU (loss, every gradient, the loss after one AdamW step);
   (c3) generate GPTForCausalLM.generate at full width (convert.
               generate_workload: B=8, prompt 512, 128 greedy tokens, bf16),
               unfused (use_pallas_attention) and fused (use_fused_block):
@@ -67,7 +80,8 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               tokens/s, each the median of 3 timed calls after a capturing
               one.  The counters are zeroed just before the timed calls;
               flash_decode must read 12 x their decode steps, and in the
-              fused run K1-K3 > 0.  Beforehand, a float32 run on a
+              fused run K1-K3 > 0 (K3 the SIMT kernel: float32 weights;
+              ffn_mma 0).  Beforehand, a float32 run on a
               small input is held against the same model on the CPU
               (tokens identical, generate_step logits within 1e-3), and the
               flash decode kernel against its plain version at B=8, H=12,
@@ -107,8 +121,9 @@ PEAK_BF16 = "bytes at 3.35 TB/s; bf16 operations at 989 TFLOP/s"
 SEED = 1234
 SERVING_KERNELS = ("paged_decode", "ln_linear", "linear_residual", "ffn")
 TRAINING_KERNELS = ("flash_fwd", "flash_dkdv", "flash_dq")
-FUSED_TRAINING_KERNELS = ("ln_linear", "linear_residual", "ffn",
+FUSED_TRAINING_KERNELS = ("ln_linear", "linear_residual", "ffn_mma",
                           *TRAINING_KERNELS)
+FUSED_ONLY_KERNELS = ("ffn_mma",)   # launched by no other path
 GENERATE_KERNELS = ("flash_decode",)
 
 
@@ -177,7 +192,9 @@ def main() -> int:
     # -- (d) kernel list: launches from the path each kernel belongs to ------
     for r in results.values():
         path = (training if r["name"] in TRAINING_KERNELS else
-                generating if r["name"] in GENERATE_KERNELS else serving)
+                generating if r["name"] in GENERATE_KERNELS else
+                fused_training if r["name"] in FUSED_ONLY_KERNELS else
+                serving)
         r["launches"] = path["launches"][r["name"]]
         require(r["launches"] > 0,
                 f"{r['name']}: no launch on its main path")
@@ -215,6 +232,9 @@ DECODE_TIMED_FN = "flash_decode_kernelIf13__nv_bfloat16Li8E"
 # pages are bf16), and the serving shape's block table
 PAGED_TIMED_FN = "paged_decode_kernelIf13__nv_bfloat16Li8E"
 PAGED_WIDTH, PAGED_BS = 64, 16
+# the tensor-core K3: one instantiation per hidden size of
+# ops/fused_block.py _MMA_HIDDEN x drop1; the training path's h
+FFN_MMA_FN, FFN_MMA_H = "ffn_mma_kernel", 768
 
 
 def check_design(_kernels):
@@ -247,6 +267,7 @@ def check_design(_kernels):
         log(f"design {lib}: {fn}<64> has {h64} HMMA instructions "
             f"({sorted(hmma.values())} over the {MMA_HEAD_DIMS} head dims), "
             f"{props.get('registers')} registers, 0 spill stores")
+    out["ffn_mma"] = check_ffn_mma_design(_kernels)
 
     decode = _kernels.ptxas_functions("flash_decode")
     for fn, props in decode.items():
@@ -288,6 +309,41 @@ def check_design(_kernels):
         f"B=8, H=12); timed instantiation "
         f"{timed[0] if timed else 'not in the ptxas log'}")
     return out
+
+
+def check_ffn_mma_design(_kernels):
+    """Every instantiation of the tensor-core K3 holds HMMA (mma.sync) in
+    its SASS, and the h=768 ones (the training path's) spill nothing;
+    their registers and the shared memory a block takes are logged."""
+    import ctypes
+    from paddle_tpu_torch.ops import fused_block as fb
+    hmma = {f: c for f, c in _kernels.sass_count("ffn_mma", "HMMA").items()
+            if FFN_MMA_FN in f}
+    want = len(fb._MMA_HIDDEN) * 2
+    require(len(hmma) == want and all(hmma.values()),
+            f"ffn_mma: HMMA per instantiation {hmma}: not all {want} run on "
+            "the tensor cores")
+    tag = f"{FFN_MMA_FN}ILi{FFN_MMA_H}E"
+    props = {f: p for f, p in _kernels.ptxas_functions("ffn_mma").items()
+             if tag in f}
+    require(len(props) == 2, f"ffn_mma: {len(props)} ptxas reports for "
+            f"h={FFN_MMA_H}, not 2")
+    for f, p in props.items():
+        require(p.get("spill_stores") == 0 and p.get("spill_loads") == 0,
+                f"ffn_mma: {f} spills: {p}")
+    smem_fn = _kernels.bind("ffn_mma", "ptt_ffn_mma_smem", [ctypes.c_int])
+    smem = {h: smem_fn(h) for h in fb._MMA_HIDDEN}
+    regs = sorted(p.get("registers") for p in props.values())
+    h768 = [c for f, c in hmma.items() if tag in f]
+    log(f"design ffn_mma: {len(hmma)} instantiations, HMMA each "
+        f"{sorted(hmma.values())}; h={FFN_MMA_H}: {h768[0]} HMMA, "
+        f"registers {regs} (without and with drop1), 0 spills; dynamic "
+        f"shared memory a block {smem} bytes (h: bytes), a cluster of 2 "
+        "blocks per 64 rows")
+    return {"kernel": f"{FFN_MMA_FN}<{FFN_MMA_H}, drop1>",
+            "hmma": h768[0], "hmma_per_instantiation": sorted(hmma.values()),
+            "registers": regs, "spill_stores": 0, "spill_loads": 0,
+            "smem_bytes": smem, "cluster": 2, "rows_per_cluster": 64}
 
 
 # ---------------------------------------------------------------------------
@@ -960,6 +1016,8 @@ def serve(torch, np, dev, _kernels):
     for name in SERVING_KERNELS:
         require(launches[name] > 0,
                 f"{name}: launched 0 times on the serving path")
+    require(launches["ffn_mma"] == 0, f"ffn_mma: {launches['ffn_mma']} "
+            "launches on the serving path (float32 weights take ffn)")
     st = eng.stats()
     require(st["kv_blocks"]["used"] == 0 and st["kv_blocks"]["leaked"] == 0,
             f"KV blocks not returned: {st['kv_blocks']}")
@@ -1104,9 +1162,9 @@ def train(torch, np, dev, _kernels):
 # ---------------------------------------------------------------------------
 # (c2b) fused-block training
 # ---------------------------------------------------------------------------
-DROP_ROWS = (8, 4096, 16384)     # decode rows (K3: several cluster groups),
-# the generate prefill's rows, the training shape (B=8 x S=2048; one group,
-# whose float32 sum goes through the finalize kernel, which applies drop2)
+DROP_ROWS = (8, 4096, 16384)     # decode rows (K3: several cluster groups,
+# summed by the finalize kernel), the generate prefill's rows, the training
+# shape (B=8 x S=2048; one group)
 DROP_P = 0.1
 # a residual this small next to the addend (|y| ~ 0.1-1) never absorbs a
 # kept value, and a dropped one leaves it bit for bit; K3's LN is
@@ -1114,15 +1172,28 @@ DROP_P = 0.1
 TINY, TINY_EPS = 2.0 ** -40, 1e-30
 
 
+def alternate(torch, fns):
+    """Each of ``fns`` timed twice in turns (a, b, ..., a, b, ...): the mean
+    of its two medians, in the order given."""
+    times = [time_ms(torch, fn) for fn in (*fns, *fns)]
+    k = len(fns)
+    return [(times[i] + times[i + k]) / 2 for i in range(k)]
+
+
 def check_dropout(torch, np, dev, results):
     """(c2b) K2 and K3 with the hash dropout against their plain versions,
     at the fused training path's dtypes (bf16 O1: bf16 activations and
     weights, float32 biases and LN parameters; so the bound takes the bf16
-    peak, whatever the kernels multiply in) and p=0.1 (K2's dropout, K3's
-    dropout2); K3's dropout1 (off on the path) in float32 at N=4096.  Per N
-    the values hold within one bf16 unit, and with a residual of 2^-40 the
-    dropped elements are exactly the complement of the hash mask, for the
-    kernel and the plain version.  Timed at N=16384, at p=0.1 and p=0."""
+    peak), so K3 takes its tensor-core kernel (ffn_mma), at p=0.1 (K2's
+    dropout, K3's dropout2; K3 at p=0 too).  Per N the outputs hold within
+    one bf16 unit of their range; then, with a residual of 2^-40 of the
+    addend, the addend alone (the projection, the FFN) holds within one
+    bf16 unit of its own range, and the dropped elements (equal to the
+    residual) are exactly the complement of the hash mask, for the kernel
+    and the plain version.  That addend check must reject K3 with b1 left
+    out (a planted fault).  K2 timed at N=16384, K3 at every N; at N=16384
+    both alternated with p=0.  ffn_mma's dropout1 mask exactly at N=4096;
+    the SIMT K3's dropout1 (float32 weights) within float32 sums."""
     from paddle_tpu_torch.ops import fused_block as fb
     rng = np.random.default_rng(SEED + 7)
     bf16 = torch.bfloat16
@@ -1136,20 +1207,41 @@ def check_dropout(torch, np, dev, results):
     w_out, b_out = t((h, h), bf16, std=0.02), t((h,), std=0.02)
     w1, b1 = t((h, ffn), bf16, std=0.02), t((ffn,), std=0.02)
     w2, b2 = t((ffn, h), bf16, std=0.02), t((h,), std=0.02)
+    require(fb.ffn_route(w1, w2) == "ffn_mma",
+            "K3 with bf16 O1 weights does not route to ffn_mma")
     salt = fb._SALT_RESID
-    out = {"linear_residual": {}, "ffn": {}}
+    out = {"linear_residual": {}, "ffn_mma": {}}
 
-    def zero_set(name, n, kernel, plain, base, salt_, p):
-        keep = fb._keep_mask(seed, salt_, torch.arange(n, device=dev)[:, None],
-                             torch.arange(h, device=dev)[None, :], p)
-        for who, fn in (("kernel", kernel), ("plain", plain)):
-            got = fn()
-            torch.cuda.synchronize()
-            require(torch.equal(got == base, ~keep),
-                    f"{name} N={n}: the {who}'s dropped elements are not the "
-                    f"hash mask's ({int(((got == base) != ~keep).sum())} "
-                    "differ)")
-        return int((~keep).sum())
+    def addend_check(name, n, kernel, plain, base, salt_, p):
+        """Kernel and plain with the residual ``base`` of 2^-40: their
+        outputs are the addend rounded to bf16, held within one bf16 unit
+        of its own range (a residual of unit size would set that unit 5-10
+        times larger); with p > 0 the elements equal to ``base`` are
+        exactly the dropped ones of the hash mask."""
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        res = compare(torch, f"{name} N={n} p={p} (the addend)", got, want,
+                      bf16_tol(want))
+        if p > 0.0:
+            keep = fb._keep_mask(seed, salt_,
+                                 torch.arange(n, device=dev)[:, None],
+                                 torch.arange(h, device=dev)[None, :], p)
+            for who, o in (("kernel", got), ("plain", want)):
+                dropped = o == base
+                require(torch.equal(dropped, ~keep),
+                        f"{name} N={n}: the {who}'s dropped elements are not "
+                        f"the hash mask's ({int((dropped != ~keep).sum())} "
+                        "differ)")
+            res["dropped"] = int((~keep).sum())
+        return res
+
+    def k3(x, p=DROP_P, e=eps, b1_=b1):
+        return lambda: fb.ffn_cuda(x, w1, b1_, w2, b2, g, beta, seed, "gelu",
+                                   0.0, p, e)
+
+    def k3_plain(x, p=DROP_P, e=eps):
+        return lambda: fb.ffn_reference(x, w1, b1, w2, b2, g, beta, seed,
+                                        "gelu", 0.0, p, e)
 
     for n in DROP_ROWS:
         x_res = t((n, h), bf16)
@@ -1165,63 +1257,90 @@ def check_dropout(torch, np, dev, results):
             bf16_tol,
             (nbytes(attn, w_out, b_out, x_res) + n * h * 2, 2.0 * n * h * h),
             BF16_FLOPS, timed)
-        k2["dropped"] = zero_set(
+        k2["addend"] = addend_check(
             "linear_residual", n,
             lambda: fb.linear_residual_cuda(attn, w_out, b_out, tiny, seed,
                                             DROP_P),
             lambda: fb.linear_residual_reference(attn, w_out, b_out, tiny,
                                                  seed, DROP_P),
             tiny, salt, DROP_P)
-        k3 = measure(
-            torch, f"ffn N={n} dropout2={DROP_P}",
-            lambda: fb.ffn_cuda(x_res, w1, b1, w2, b2, g, beta, seed, "gelu",
-                                0.0, DROP_P, eps),
-            lambda: fb.ffn_reference(x_res, w1, b1, w2, b2, g, beta, seed,
-                                     "gelu", 0.0, DROP_P, eps),
-            bf16_tol,
+        k3r = measure(
+            torch, f"ffn_mma N={n} dropout2={DROP_P}", k3(x_res),
+            k3_plain(x_res), bf16_tol,
             (nbytes(x_res, w1, b1, w2, b2, g, beta) + n * h * 2,
-             4.0 * n * h * ffn), BF16_FLOPS, timed)
-        k3["dropped"] = zero_set(
-            "ffn", n,
-            lambda: fb.ffn_cuda(tiny, w1, b1, w2, b2, g, beta, seed, "gelu",
-                                0.0, DROP_P, TINY_EPS),
-            lambda: fb.ffn_reference(tiny, w1, b1, w2, b2, g, beta, seed,
-                                     "gelu", 0.0, DROP_P, TINY_EPS),
+             4.0 * n * h * ffn), BF16_FLOPS)
+        k3r["addend"] = addend_check(
+            "ffn_mma", n, k3(tiny, e=TINY_EPS), k3_plain(tiny, e=TINY_EPS),
             tiny, fb._SALT_FFN2, DROP_P)
-        k3["groups"], k3["cluster"] = fb._ffn_grid(dev, n, h, ffn)
-        require((k3["groups"] > 1) == (n == 8),
-                f"ffn N={n}: {k3['groups']} cluster groups; the checks need "
-                "several at N=8 and one at the larger shapes")
+        k3r["addend_p0"] = addend_check(
+            "ffn_mma", n, k3(tiny, 0.0, TINY_EPS),
+            k3_plain(tiny, 0.0, TINY_EPS), tiny, None, 0.0)
+        # a planted fault the addend check must reject: b1 left out
+        want = k3_plain(tiny, e=TINY_EPS)()
+        bad = k3(tiny, e=TINY_EPS, b1_=torch.zeros_like(b1))()
+        k3r["b1_fault_err_over_tol"] = float(
+            (bad.float() - want.float()).abs().max()) / bf16_tol(want)
+        require(k3r["b1_fault_err_over_tol"] > 1.0,
+                f"ffn_mma N={n}: the addend check passes K3 with b1 left out "
+                f"(err/tol {k3r['b1_fault_err_over_tol']:.3f})")
+        del want, bad
+        k3r["groups"] = fb._ffn_mma_groups(dev, n, h, ffn)
+        require((k3r["groups"] > 1) == (n == 8),
+                f"ffn_mma N={n}: {k3r['groups']} cluster groups; the checks "
+                "need several at N=8 and one at the larger shapes")
         if timed:
-            # what the hash costs: the launch at p=0 and at p, alternated
-            # twice after the timing above; each is the mean of its two
-            for r, p0, p in (
-                    (k2, lambda: fb.linear_residual_cuda(
-                        attn, w_out, b_out, x_res),
-                     lambda: fb.linear_residual_cuda(
-                         attn, w_out, b_out, x_res, seed, DROP_P)),
-                    (k3, lambda: fb.ffn_cuda(
-                        x_res, w1, b1, w2, b2, g, beta, epsilon=eps),
-                     lambda: fb.ffn_cuda(
-                         x_res, w1, b1, w2, b2, g, beta, seed, "gelu", 0.0,
-                         DROP_P, eps))):
-                ab = [time_ms(torch, fn) for fn in (p0, p, p0, p)]
-                r["ms_p0"] = (ab[0] + ab[2]) / 2
-                r["ms_alternated"] = (ab[1] + ab[3]) / 2
+            # what the hash costs: p=0 against p, alternated twice after the
+            # timing above; each is the mean of its two
+            k2["ms_p0"], k2["ms_alternated"] = alternate(torch, (
+                lambda: fb.linear_residual_cuda(attn, w_out, b_out, x_res),
+                lambda: fb.linear_residual_cuda(attn, w_out, b_out, x_res,
+                                                seed, DROP_P)))
+            k3r["ms_p0"], k3r["ms_alternated"] = alternate(
+                torch, (k3(x_res, 0.0), k3(x_res)))
         out["linear_residual"][f"N={n}"] = k2
-        out["ffn"][f"N={n}"] = k3
+        out["ffn_mma"][f"N={n}"] = k3r
         for name in out:
             r = out[name][f"N={n}"]
-            timing = (f"; {r['ms']:.4f} ms at p={DROP_P} (alternated with "
-                      f"p=0: {r['ms_alternated']:.4f} against "
-                      f"{r['ms_p0']:.4f} ms; plain {r['plain_ms']:.4f} ms, "
-                      f"bound {r['bound_ms']:.4f} ms by {r['bound_by']})"
-                      if timed else "")
+            timing = (f"; {r['ms']:.4f} ms at p={DROP_P} (plain "
+                      f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                      f"by {r['bound_by']})" if r["ms"] is not None else "")
+            if timed:
+                timing += (f"; alternated with p=0: {r['ms_alternated']:.4f}"
+                           f" against {r['ms_p0']:.4f} ms")
+            addend = (f"; the addend alone (residual 2^-40): max_abs_err "
+                      f"{r['addend']['max_abs_err']:.3e}, err/tol "
+                      f"{r['addend']['err_over_tol']:.3f}")
+            if name == "ffn_mma":
+                addend += (f" (p=0: {r['addend_p0']['err_over_tol']:.3f}; "
+                           "with b1 left out: "
+                           f"{r['b1_fault_err_over_tol']:.3f}, rejected)")
             log(f"check {name} N={n} p={DROP_P} (bf16): max_abs_err "
-                f"{r['max_abs_err']:.3e}, err/tol {r['err_over_tol']:.3f}; "
-                f"{r['dropped']} dropped elements equal to the hash mask's, "
-                f"kernel and plain{timing}")
+                f"{r['max_abs_err']:.3e}, err/tol {r['err_over_tol']:.3f}"
+                f"{addend}; {r['addend']['dropped']} dropped elements equal "
+                f"to the hash mask's, kernel and plain{timing}")
         del x_res, attn, tiny
+
+    # ffn_mma's dropout1 (after the activation, over the global ffn column;
+    # off on the training path): with W2 the (ffn, h) identity and b2 = 0
+    # the output is x + the activation of the ffn columns below h, so with
+    # a tiny residual the elements equal to it are exactly the dropped ones
+    # (gelu is 0 only at 0)
+    n = 4096
+    tiny = (t((n, h)) * TINY).to(bf16)
+    eye, zero = torch.eye(ffn, h, dtype=bf16, device=dev), torch.zeros(
+        h, device=dev)
+    d1 = addend_check(
+        "ffn_mma dropout1", n,
+        lambda: fb.ffn_cuda(tiny, w1, b1, eye, zero, g, beta, seed, "gelu",
+                            0.2, 0.0, TINY_EPS),
+        lambda: fb.ffn_reference(tiny, w1, b1, eye, zero, g, beta, seed,
+                                 "gelu", 0.2, 0.0, TINY_EPS),
+        tiny, fb._SALT_FFN1, 0.2)
+    log(f"check ffn_mma N={n} dropout1=0.2 (bf16, W2 the identity): "
+        f"err/tol {d1['err_over_tol']:.3f}; {d1['dropped']} dropped "
+        f"activations of the first {h} ffn columns equal to the hash mask's, "
+        "kernel and plain")
+    del tiny, eye
 
     # K1 at the training shape, for the kernel table beside K2 and K3 (no
     # dropout; bf16 weights under O1, so a bf16 output)
@@ -1244,12 +1363,14 @@ def check_dropout(torch, np, dev, results):
             "err_over_tol")}}
     del x_res
 
-    # dropout1 (after the activation, over the global ffn column), off on
-    # the training path: float32 operands, where one misplaced element of
-    # the (N, ffn) mask moves the output far past the tolerance
+    # the SIMT K3's dropout1 (float32 weights, as serving and generate
+    # multiply), where one misplaced element of the (N, ffn) mask moves the
+    # output far past the tolerance
     n = 4096
     x32 = t((n, h))
     f32w = [a.float() for a in (w1, b1, w2, b2)]
+    require(fb.ffn_route(f32w[0], f32w[2]) == "ffn",
+            "K3 with float32 weights does not route to the SIMT kernel")
     k3d1 = measure(
         torch, "ffn N=4096 dropout1=0.2 dropout2=0.1 (float32)",
         lambda: fb.ffn_cuda(x32, *f32w, g, beta, seed, "gelu", 0.2, DROP_P,
@@ -1259,22 +1380,39 @@ def check_dropout(torch, np, dev, results):
         lambda ref: 1e-4, (0, 0), timed=False)
     log(f"check ffn N={n} dropout1=0.2 dropout2={DROP_P} (float32): "
         f"max_abs_err {k3d1['max_abs_err']:.3e} <= 1e-4")
-    out["ffn"]["N=4096, dropout1=0.2, float32"] = k3d1
+    results["ffn"]["dropout"] = {
+        "p": DROP_P, "seed": seed,
+        "shapes": {"N=4096, dropout1=0.2, float32": k3d1}}
 
-    for name, per in out.items():
-        worst = max(per.values(), key=lambda r: r["err_over_tol"])
-        train_r = per[f"N={DROP_ROWS[-1]}"]
-        results[name]["dropout"] = {
-            "p": DROP_P, "seed": seed,
-            "shapes": per, "worst_err_over_tol": worst["err_over_tol"],
-            "zero_sets": "identical to the hash mask, kernel and plain"}
-        results[name]["training_shape"] = {
-            "shape": f"N={DROP_ROWS[-1]}, bf16 O1, p={DROP_P}",
-            "peak": PEAK_BF16,
-            "ms": train_r["ms"], "ms_p0": train_r["ms_p0"],
-            "ms_alternated": train_r["ms_alternated"],
-            "plain_ms": train_r["plain_ms"], "bound_ms": train_r["bound_ms"],
-            "bound_by": train_r["bound_by"]}
+    k2 = out["linear_residual"]
+    train_r = k2[f"N={DROP_ROWS[-1]}"]
+    results["linear_residual"]["dropout"] = {
+        "p": DROP_P, "seed": seed, "shapes": k2,
+        "worst_err_over_tol": max(r["err_over_tol"] for r in k2.values()),
+        "zero_sets": "identical to the hash mask, kernel and plain"}
+    results["linear_residual"]["training_shape"] = {
+        "shape": f"N={DROP_ROWS[-1]}, bf16 O1, p={DROP_P}",
+        "peak": PEAK_BF16, **{k: train_r[k] for k in (
+            "ms", "ms_p0", "ms_alternated", "plain_ms", "bound_ms",
+            "bound_by")}}
+
+    per = out["ffn_mma"]
+    worst = max(per.values(), key=lambda r: r["err_over_tol"])
+    train_r = per[f"N={DROP_ROWS[-1]}"]
+    results["ffn_mma"] = {
+        "name": "ffn_mma", "route": "cuda",
+        "source": "paddle_tpu_torch/csrc/ffn_mma.cu",
+        "replaces": "paddle_tpu/ops/fused_block.py:363",
+        "launches": 0, "max_abs_err": worst["max_abs_err"],
+        "tol": worst["tol"], "err_over_tol": worst["err_over_tol"],
+        "ms": train_r["ms"], "plain_ms": train_r["plain_ms"],
+        "bound_ms": train_r["bound_ms"], "bound_by": train_r["bound_by"],
+        "library_ms": None, "peak": PEAK_BF16,
+        "shape": f"N={DROP_ROWS[-1]}, h={h}, ffn={ffn}, bf16 O1 (bf16 x, "
+                 f"W1, W2; float32 b1, b2, g, beta), dropout2={DROP_P}",
+        **{k: train_r[k] for k in ("ms_p0", "ms_alternated")},
+        "shapes": per, "dropout1": d1,
+        "zero_sets": "identical to the hash mask, kernel and plain"}
 
 
 def train_fused(torch, np, dev, _kernels, unfused_p50):
@@ -1301,6 +1439,9 @@ def train_fused(torch, np, dev, _kernels, unfused_p50):
             "S=2048, dropout 0.1")
     line = timed_steps(torch, np, _kernels, model, opt, ids, labels,
                        FUSED_TRAINING_KERNELS, "fused training")
+    require(line["launches"]["ffn"] == 0, f"fused training: the SIMT K3 "
+            f"launched {line['launches']['ffn']} times; under O1 its bf16 "
+            "weights take ffn_mma")
     line = {"use_fused_block": True, "hidden_dropout": cfg.hidden_dropout,
             "attention_dropout": cfg.attention_dropout, **line,
             "unfused_step_ms_p50": unfused_p50}
@@ -1478,6 +1619,8 @@ def generate(torch, np, dev, _kernels):
         for name in FUSED_KERNELS:
             require((launches[name] > 0) == fused,
                     f"{name} ({tag}): {launches[name]} launches")
+        require(launches["ffn_mma"] == 0, f"ffn_mma ({tag}): "
+                f"{launches['ffn_mma']} launches (float32 weights take ffn)")
         eager, eager_steps = eager_decode(torch, model, prompts,
                                           GENERATE_NEW_TOKENS)
         require(torch.equal(eager, out),

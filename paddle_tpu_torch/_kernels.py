@@ -48,7 +48,7 @@ BUILD_DIR = (Path(__file__).resolve().parent.parent / "build"
              / "paddle_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("paged_decode", "ln_linear", "linear_residual", "ffn",
+KERNELS = ("paged_decode", "ln_linear", "linear_residual", "ffn", "ffn_mma",
            "flash_fwd", "flash_dkdv", "flash_dq", "flash_decode")
 
 launches: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -152,7 +152,8 @@ ffn_kernel(const void* x, int x_bf16, const void* w1, int w1_bf16,
 }
 
 // out = x + drop2(sum over groups of the partials + b2), the groups summed
-// in a fixed order.
+// in a fixed order.  It finishes both K3 routes: this file's kernel and the
+// tensor-core kernel of ffn_mma.cu (through ptt_ffn_finalize).
 template <bool kDrop2>
 __global__ void ffn_finalize_kernel(const float* part, int groups,
                                     const void* x, int x_bf16, const void* b2,
@@ -184,6 +185,20 @@ cudaLaunchConfig_t launch_config(dim3 grid, size_t smem, int cluster,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cfg;
+}
+
+cudaError_t finalize(const float* part, int groups, const void* x,
+                     int x_bf16, const void* b2, int b2_bf16, void* out,
+                     int n, int h, const ptt::Dropout& drop2,
+                     cudaStream_t s) {
+  const int64_t total = static_cast<int64_t>(n) * h;
+  const int blocks =
+      static_cast<int>(std::min<int64_t>((total + 255) / 256, 4096));
+  auto kernel = drop2.p > 0.f ? ffn_finalize_kernel<true>
+                              : ffn_finalize_kernel<false>;
+  kernel<<<blocks, 256, 0, s>>>(part, groups, x, x_bf16, b2, b2_bf16, out, n,
+                                h, drop2);
+  return cudaGetLastError();
 }
 
 using FfnKernel = decltype(&ffn_kernel<false>);
@@ -259,12 +274,22 @@ PTT_EXPORT int ptt_ffn(const void* x, int x_bf16, const void* w1,
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaGetLastError();
   if (err != cudaSuccess || part == nullptr) return static_cast<int>(err);
-  const int64_t total = static_cast<int64_t>(n) * h;
-  const int blocks =
-      static_cast<int>(std::min<int64_t>((total + 255) / 256, 4096));
-  auto finalize = p2 > 0.f ? ffn_finalize_kernel<true>
-                           : ffn_finalize_kernel<false>;
-  finalize<<<blocks, 256, 0, s>>>(part, groups, x, x_bf16, b2, b2_bf16, out,
-                                  n, h, drop2);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      finalize(part, groups, x, x_bf16, b2, b2_bf16, out, n, h, drop2, s));
+}
+
+// The finalize kernel alone, for the tensor-core K3 (ffn_mma.cu), whose
+// main kernel stored groups x n x h float32 sums to `part`: out = x +
+// drop2(the groups' sum + b2), dropout2 as in ptt_ffn.
+PTT_EXPORT int ptt_ffn_finalize(const float* part, int groups, const void* x,
+                                int x_bf16, const void* b2, int b2_bf16,
+                                void* out, int n, int h, unsigned seed,
+                                unsigned salt2, float p2, float keep_div2,
+                                void* stream) {
+  if (part == nullptr || groups < 1 || n <= 0 || h <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(finalize(part, groups, x, x_bf16, b2, b2_bf16,
+                                   out, n, h,
+                                   ptt::Dropout{seed, salt2, p2, keep_div2},
+                                   static_cast<cudaStream_t>(stream)));
 }

@@ -8,7 +8,8 @@ version:
   [K1 ln_linear]        LN(x) @ W + b          csrc/ln_linear.cu
   [K2 linear_residual]  r + dropout(x @ W + b) csrc/linear_residual.cu
   [K3 ffn]              x + drop2(W2 drop1(act(W1 LN(x) + b1)) + b2)
-                                                csrc/ffn.cu
+                                                csrc/ffn.cu (float32 weights)
+                                                csrc/ffn_mma.cu (bf16 weights)
 
 the attention half of a training block, :func:`fused_attention_block`: K1
 -> flash attention (``ops/flash_attention.py``, attention dropout in the
@@ -57,7 +58,7 @@ __all__ = ["fused_ln_linear", "fused_linear_residual", "fused_ffn_block",
            "fused_attention_block", "fused_attention_block_kvcache",
            "ln_linear_reference", "ln_linear_cuda",
            "linear_residual_reference", "linear_residual_cuda",
-           "ffn_reference", "ffn_cuda"]
+           "ffn_reference", "ffn_cuda", "ffn_mma_cuda", "ffn_route"]
 
 # distinct dropout sub-streams per epilogue (the bh slot of the flash hash)
 _SALT_RESID = 0x52455344
@@ -340,19 +341,7 @@ def ffn_reference(x, w1, b1, w2, b2, g, beta, seed: int = 0,
     return (x.float() + y).to(x.dtype)
 
 
-def ffn_cuda(x, w1, b1, w2, b2, g, beta, seed: int = 0,
-             activation: str = "gelu", dropout1: float = 0.0,
-             dropout2: float = 0.0, epsilon: float = 1e-5) -> torch.Tensor:
-    """K3 on the card: ``x`` (N, h), ``w1`` (h, ffn), ``w2`` (ffn, h);
-    returns (N, h) in ``x``'s dtype, with the hash dropouts of ``seed``
-    (``dropout1`` after the activation, ``dropout2`` after ``+ b2``).  The
-    (N, ffn) intermediate stays in shared memory.  With more than one
-    cluster group per row tile (:func:`_ffn_grid`), or with ``dropout2``,
-    each group's float32 (N, h) sum goes to a scratch allocated here,
-    smaller than that intermediate, and the finalize kernel adds the
-    groups and applies ``dropout2``."""
-    name = "ffn"
-    dev = _kernels.require_cuda(name, x, w1, b1, w2, b2, g, beta)
+def _check_ffn_shapes(name, x, w1, b1, w2, b2, g, beta):
     n, h = x.shape
     enforce(w1.dim() == 2 and w1.shape[0] == h,
             f"{name}: w1 {tuple(w1.shape)} does not take x {tuple(x.shape)}")
@@ -360,6 +349,123 @@ def ffn_cuda(x, w1, b1, w2, b2, g, beta, seed: int = 0,
     enforce(w2.shape == (ffn, h) and b1.shape == (ffn,) and b2.shape == (h,)
             and g.shape == (h,) and beta.shape == (h,),
             f"{name}: parameter shapes disagree with h={h}, ffn={ffn}")
+    return n, h, ffn
+
+
+# K3's tensor-core kernel (csrc/ffn_mma.cu): its hidden sizes (one
+# instantiation each: gpt_tiny's and GPT-125M's; 96 accumulator floats a
+# thread at 768), its ffn tile and row tile (a cluster of two blocks per 64
+# rows)
+_MMA_HIDDEN = (128, 768)
+_MMA_FFN_TILE, _MMA_ROWS = 256, 64
+
+
+def ffn_route(w1: torch.Tensor, w2: torch.Tensor) -> str:
+    """The K3 kernel a CUDA call of :func:`ffn_cuda` launches, decided on
+    the host before any launch from the weights' dtypes, shapes and
+    addresses: ``"ffn_mma"`` (``csrc/ffn_mma.cu``, bf16 tensor cores) when
+    ``w1`` (h, ffn) and ``w2`` (ffn, h) are both bfloat16, h is one of
+    ``_MMA_HIDDEN``, ffn is a multiple of 8 (16-byte rows of ``w1``) and
+    both weights start on a 16-byte boundary; ``"ffn"``
+    (``csrc/ffn.cu``, float32 on the CUDA cores) for every other call.
+    ``x`` may be float32 or bfloat16 on either."""
+    if (w1.dtype == torch.bfloat16 and w2.dtype == torch.bfloat16
+            and w1.dim() == 2 and w1.shape[0] in _MMA_HIDDEN
+            and w1.shape[1] % 8 == 0 and w1.data_ptr() % 16 == 0
+            and w2.data_ptr() % 16 == 0):
+        return "ffn_mma"
+    return "ffn"
+
+
+def _ffn_mma_groups(device: torch.device, n: int, h: int, ffn: int) -> int:
+    """Cluster groups the ffn tiles of a 64-row tile are dealt to: enough
+    clusters of two blocks to give every SM one, at most one per ffn tile,
+    and ``groups * h < ffn``, so that the float32 (N, h) partials stay
+    smaller than the (N, ffn) intermediate.  One at the training and
+    prefill shapes; several for a few rows."""
+    tiles = -(-ffn // _MMA_FFN_TILE)
+    want = _kernels.sm_count(device) // (2 * -(-n // _MMA_ROWS))
+    return max(1, min(tiles, want, (ffn - 1) // h))
+
+
+def _ffn_scratch(dev, groups: int, n: int, h: int, dropout2: float):
+    """The float32 (groups, N, h) scratch of K3's partial sums, which both
+    K3 kernels take when the ffn tiles are split across several cluster
+    groups or when ``dropout2`` is on (the finalize kernel of
+    ``csrc/ffn.cu`` then adds the groups, ``b2``, ``dropout2`` and ``x``);
+    None otherwise."""
+    if groups > 1 or dropout2 > 0.0:
+        return torch.empty((groups, n, h), dtype=torch.float32, device=dev)
+    return None
+
+
+def ffn_mma_cuda(x, w1, b1, w2, b2, g, beta, seed: int = 0,
+                 activation: str = "gelu", dropout1: float = 0.0,
+                 dropout2: float = 0.0,
+                 epsilon: float = 1e-5) -> torch.Tensor:
+    """K3 on the tensor cores (``csrc/ffn_mma.cu``), for the calls that
+    :func:`ffn_route` sends there; as :func:`ffn_cuda`.  With several
+    cluster groups (:func:`_ffn_mma_groups`) or with ``dropout2``, the
+    kernel stores its float32 sums to the scratch of :func:`_ffn_scratch`
+    and the finalize kernel of ``csrc/ffn.cu`` finishes: at the training
+    shape a drop2 in this kernel's epilogue ran 5% slower than that round
+    trip (PERF.md, findings)."""
+    name = "ffn_mma"
+    dev = _kernels.require_cuda(name, x, w1, b1, w2, b2, g, beta)
+    n, h, ffn = _check_ffn_shapes(name, x, w1, b1, w2, b2, g, beta)
+    enforce(ffn_route(w1, w2) == name,
+            f"{name}: takes bf16 weights with h in {_MMA_HIDDEN}, ffn a "
+            f"multiple of 8 and 16-byte aligned rows; got {w1.dtype} "
+            f"{tuple(w1.shape)}, {w2.dtype}")
+    enforce(activation in ("gelu", "relu"),
+            f"{name}: unsupported activation {activation!r}")
+    out = torch.empty_like(x)
+    if n == 0:
+        return out
+    fn = _kernels.bind(name, "ptt_ffn_mma",
+                       [_p, _c, _p, _p, _c, _p, _p, _c, _p, _c, _p, _c,
+                        _p, _p, _c, _c, _c, _f, _c, _c, _u, _u, _f, _f, _p])
+    groups = _ffn_mma_groups(dev, n, h, ffn)
+    part = _ffn_scratch(dev, groups, n, h, dropout2)
+    cd, pt = _kernels.dtype_code, _kernels.ptr
+    stream = _kernels.stream(dev)
+    rc = fn(pt(x), cd(x), pt(w1), pt(b1), cd(b1), pt(w2), pt(b2), cd(b2),
+            pt(g), cd(g), pt(beta), cd(beta),
+            None if part is None else pt(part), pt(out), n, h, ffn,
+            float(epsilon), 0 if activation == "gelu" else 1, groups,
+            int(seed) & _M32, _SALT_FFN1, *_drop_args(dropout1), stream)
+    _kernels.check(rc, name)
+    _kernels.launches[name] += 1
+    if part is not None:
+        fin = _kernels.bind("ffn", "ptt_ffn_finalize",
+                            [_p, _c, _p, _c, _p, _c, _p, _c, _c,
+                             _u, _u, _f, _f, _p])
+        rc = fin(pt(part), groups, pt(x), cd(x), pt(b2), cd(b2), pt(out), n,
+                 h, int(seed) & _M32, _SALT_FFN2, *_drop_args(dropout2),
+                 stream)
+        _kernels.check(rc, "ffn")
+    return out
+
+
+def ffn_cuda(x, w1, b1, w2, b2, g, beta, seed: int = 0,
+             activation: str = "gelu", dropout1: float = 0.0,
+             dropout2: float = 0.0, epsilon: float = 1e-5) -> torch.Tensor:
+    """K3 on the card: ``x`` (N, h), ``w1`` (h, ffn), ``w2`` (ffn, h);
+    returns (N, h) in ``x``'s dtype, with the hash dropouts of ``seed``
+    (``dropout1`` after the activation, ``dropout2`` after ``+ b2``).  The
+    (N, ffn) intermediate stays in shared memory.  bf16 weights of the
+    shapes that :func:`ffn_route` names go to the tensor-core kernel
+    (:func:`ffn_mma_cuda`); every other call runs the float32 kernel of
+    ``csrc/ffn.cu``.  There, with more than one cluster group per row tile
+    (:func:`_ffn_grid`), or with ``dropout2``, each group's float32 (N, h)
+    sum goes to a scratch allocated here, smaller than that intermediate,
+    and the finalize kernel adds the groups and applies ``dropout2``."""
+    if ffn_route(w1, w2) == "ffn_mma":
+        return ffn_mma_cuda(x, w1, b1, w2, b2, g, beta, seed, activation,
+                            dropout1, dropout2, epsilon)
+    name = "ffn"
+    dev = _kernels.require_cuda(name, x, w1, b1, w2, b2, g, beta)
+    n, h, ffn = _check_ffn_shapes(name, x, w1, b1, w2, b2, g, beta)
     enforce(4 * (2 * _TILE_ROWS * h + _TILE_ROWS * _TILE_COLS
                  + _TILE_DEPTH * _TILE_COLS) <= _SMEM_LIMIT,
             f"{name}: hidden size {h} does not fit a block's shared memory "
@@ -374,8 +480,7 @@ def ffn_cuda(x, w1, b1, w2, b2, g, beta, seed: int = 0,
                         _c, _p, _p, _c, _c, _c, _f, _c, _c, _c,
                         _u, _u, _f, _f, _u, _f, _f, _p])
     groups, cluster = _ffn_grid(dev, n, h, ffn)
-    part = (torch.empty((groups, n, h), dtype=torch.float32, device=dev)
-            if groups > 1 or dropout2 > 0.0 else None)
+    part = _ffn_scratch(dev, groups, n, h, dropout2)
     cd, pt = _kernels.dtype_code, _kernels.ptr
     rc = fn(pt(x), cd(x), pt(w1), cd(w1), pt(b1), cd(b1), pt(w2), cd(w2),
             pt(b2), cd(b2), pt(g), cd(g), pt(beta), cd(beta),

@@ -30,6 +30,7 @@ from .inference import ServingEngine
 _SHORT = {"paged_decode_kernel": "paged_decode (ours)",
           "ln_linear_kernel": "ln_linear (ours)",
           "linear_residual_kernel": "linear_residual (ours)",
+          "ffn_mma_kernel": "ffn_mma (ours)",
           "ffn_finalize_kernel": "ffn finalize (ours)",
           "ffn_kernel": "ffn (ours)",
           "flash_fwd_kernel": "flash_fwd (ours)",

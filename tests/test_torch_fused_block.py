@@ -9,9 +9,11 @@ import torch
 
 import jax.numpy as jnp
 
+from paddle_tpu import amp as jamp
 from paddle_tpu.ops import fused_block as jfb
 from paddle_tpu.ops.flash_attention import _keep_mask as jax_keep_mask
 from paddle_tpu_torch import _kernels
+from paddle_tpu_torch import amp as tamp
 from paddle_tpu_torch.ops import fused_block as tfb
 
 EPS = 1e-5
@@ -112,6 +114,69 @@ def test_ffn_matches_jax(route, xdtype):
                                atol=tol)
 
 
+@pytest.mark.parametrize("cast", ["auto_cast", "bf16_weights"])
+@pytest.mark.parametrize("drops", [(0.0, 0.0), (0.0, 0.1), (0.2, 0.1)])
+def test_ffn_o1_bf16_flow_matches_jax(route, cast, drops):
+    # the dtype flow of fused training under O1, which on the card takes
+    # the tensor-core K3: a bf16 residual x, w1 and w2 in bf16 (cast by
+    # auto_cast, or given so), float32 biases and LN parameters, a bf16
+    # output; at gpt_tiny's widths (h = 128, ffn = 512), the dropout of the
+    # fused training leg (dropout2) and both
+    x, p = _x(seed=11), _params(seed=11)
+    d1, d2 = drops
+    names = ("w1", "b1", "w2", "b2", "g", "beta")
+    wdt = {"w1", "w2"} if cast == "bf16_weights" else set()
+    args_j = [_j(p[k], jnp.bfloat16 if k in wdt else jnp.float32)
+              for k in names]
+    args_t = [_t(p[k], torch.bfloat16 if k in wdt else torch.float32)
+              for k in names]
+    on = cast == "auto_cast"
+    with jamp.auto_cast(enable=on, level="O1", dtype="bfloat16"):
+        ref = jfb.fused_ffn_block(_j(x, jnp.bfloat16), *args_j, dropout1=d1,
+                                  dropout2=d2, epsilon=EPS, training=True,
+                                  seed=jnp.asarray(13, jnp.int32))
+    with tamp.auto_cast(enable=on, level="O1", dtype="bfloat16"):
+        got = tfb.fused_ffn_block(_t(x, torch.bfloat16), *args_t,
+                                  dropout1=d1, dropout2=d2, epsilon=EPS,
+                                  training=True, seed=13)
+    assert got.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32), rtol=0,
+                               atol=_bf16_ulp_tol(ref))
+
+
+# (w1 dtype, w2 dtype, h, ffn, byte offset of w1's data, route)
+ROUTES = [
+    (torch.bfloat16, torch.bfloat16, 768, 3072, 0, "ffn_mma"),  # training
+    (torch.bfloat16, torch.bfloat16, 128, 512, 0, "ffn_mma"),   # gpt_tiny
+    (torch.bfloat16, torch.bfloat16, 768, 200, 0, "ffn_mma"),
+    (torch.bfloat16, torch.bfloat16, 128, 8, 0, "ffn_mma"),
+    (torch.float32, torch.float32, 768, 3072, 0, "ffn"),    # serving, generate
+    (torch.bfloat16, torch.float32, 768, 3072, 0, "ffn"),
+    (torch.float32, torch.bfloat16, 768, 3072, 0, "ffn"),
+    (torch.float16, torch.float16, 768, 3072, 0, "ffn"),
+    (torch.bfloat16, torch.bfloat16, 64, 256, 0, "ffn"),     # h not built
+    (torch.bfloat16, torch.bfloat16, 1024, 4096, 0, "ffn"),
+    (torch.bfloat16, torch.bfloat16, 256, 1024, 0, "ffn"),
+    (torch.bfloat16, torch.bfloat16, 512, 2048, 0, "ffn"),
+    (torch.bfloat16, torch.bfloat16, 128, 100, 0, "ffn"),    # ffn % 8 != 0
+    (torch.bfloat16, torch.bfloat16, 128, 512, 2, "ffn"),    # misaligned
+]
+
+
+@pytest.mark.parametrize("w1dtype,w2dtype,h,ffn,offset,want", ROUTES)
+def test_ffn_route(w1dtype, w2dtype, h, ffn, offset, want):
+    # the host-side rule that sends a CUDA call to ffn_mma or ffn, from
+    # dtypes, shapes and addresses alone (CPU tensors stand in for the
+    # card's: the rule reads no device)
+    size = torch.empty((), dtype=w1dtype).element_size()
+    flat = torch.zeros(h * ffn + offset // size, dtype=w1dtype)
+    w1 = flat[offset // size:].view(h, ffn)
+    w2 = torch.zeros(ffn, h, dtype=w2dtype)
+    assert (w1.data_ptr() % 16 == 0) == (offset == 0)
+    assert tfb.ffn_route(w1, w2) == want
+
+
 @pytest.mark.parametrize("seed", [0, 7, 123456789, -5, 2 ** 31 - 1])
 @pytest.mark.parametrize("salt", [tfb._SALT_RESID, tfb._SALT_FFN1,
                                   tfb._SALT_FFN2, 3])
@@ -165,15 +230,24 @@ def test_cpu_tensors_take_plain_versions():
     assert _kernels.launches == before
 
 
-@pytest.mark.parametrize("wrapper", ["ln_linear", "linear_residual", "ffn"])
+@pytest.mark.parametrize("wrapper", ["ln_linear", "linear_residual", "ffn",
+                                     "ffn_bf16", "ffn_mma"])
 def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     x, p = _t(_x().reshape(-1, 128)), {k: _t(v) for k, v in
                                        _params().items()}
+    w1b, w2b = p["w1"].bfloat16(), p["w2"].bfloat16()
     call = {"ln_linear": lambda: tfb.ln_linear_cuda(
                 x, p["qkv_w"], p["qkv_b"], p["g"], p["beta"], EPS),
             "linear_residual": lambda: tfb.linear_residual_cuda(
                 x, p["out_w"], p["out_b"], x),
             "ffn": lambda: tfb.ffn_cuda(x, p["w1"], p["b1"], p["w2"],
-                                        p["b2"], p["g"], p["beta"])}[wrapper]
+                                        p["b2"], p["g"], p["beta"]),
+            # bf16 weights: routed to the tensor-core kernel, which refuses
+            # a CPU tensor as well
+            "ffn_bf16": lambda: tfb.ffn_cuda(x, w1b, p["b1"], w2b, p["b2"],
+                                             p["g"], p["beta"]),
+            "ffn_mma": lambda: tfb.ffn_mma_cuda(x, w1b, p["b1"], w2b,
+                                                p["b2"], p["g"],
+                                                p["beta"])}[wrapper]
     with pytest.raises(ValueError, match="must be on"):
         call()

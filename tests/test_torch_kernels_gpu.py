@@ -267,6 +267,176 @@ def test_ffn_dropout(dev, n, xdtype, drops):
     assert torch.equal(_dropped(want, tiny), ~keep)
 
 
+# K3's tensor-core route (csrc/ffn_mma.cu): bf16 W1 / W2, h in
+# fb._MMA_HIDDEN.  Rows: one, a few (several cluster groups), ragged edges
+# of the 64-row tile, a prefill's rows.  The plain version rounds each
+# product to bf16 where torch's bf16 matmul returns bf16, the kernel keeps
+# float32 sums as the TPU kernel does: one bf16 unit of the range, for x in
+# float32 too.  The residual x (std 1) sets that range; so each case also
+# runs with a residual of 2^-40 (LN is scale-free), where the output is the
+# FFN's own contribution, held within one bf16 unit of its range
+MMA_ROWS = (1, 8, 37, 300, 4096)
+
+
+def _bf16_tol(ref):
+    return _tol(ref, torch.bfloat16)
+
+
+def _mma_params(dev, h, ffn, std=0.02):
+    w1 = _t(dev, h, ffn, dtype=torch.bfloat16, std=std)
+    w2 = _t(dev, ffn, h, dtype=torch.bfloat16, std=std, seed=1)
+    b1, b2 = _t(dev, ffn, std=0.02), _t(dev, h, std=0.02, seed=2)
+    g, beta = 1 + _t(dev, h, std=0.1, seed=3), _t(dev, h, std=0.1, seed=4)
+    return w1, b1, w2, b2, g, beta
+
+
+def _ffn_addend(x, params, *args):
+    """K3's kernel and plain outputs with a residual of 2^-40 of ``x``:
+    the FFN's own contribution, rounded to x's dtype."""
+    tiny = (x.float() * TINY).to(x.dtype)
+    got = fb.ffn_cuda(tiny, *params, *args, TINY_EPS)
+    want = fb.ffn_reference(tiny, *params, *args, TINY_EPS)
+    return tiny, got, want
+
+
+@pytest.mark.parametrize("n", MMA_ROWS)
+@pytest.mark.parametrize("h", [128, 768])
+@pytest.mark.parametrize("ffn", [512, 3072])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("activation", ["gelu", "relu"])
+def test_ffn_mma(dev, n, h, ffn, xdtype, activation):
+    x = _t(dev, n, h, dtype=xdtype, seed=5)
+    params = _mma_params(dev, h, ffn)
+    assert fb.ffn_route(params[0], params[2]) == "ffn_mma"
+    before = dict(_kernels.launches)
+    out = fb.ffn_cuda(x, *params, activation=activation, epsilon=EPS)
+    assert _kernels.launches["ffn_mma"] == before["ffn_mma"] + 1
+    assert _kernels.launches["ffn"] == before["ffn"]
+    ref = fb.ffn_reference(x, *params, activation=activation, epsilon=EPS)
+    assert out.dtype == xdtype
+    assert float((out.float() - ref.float()).abs().max()) <= _bf16_tol(ref)
+    _, got, want = _ffn_addend(x, params, 0, activation, 0.0, 0.0)
+    assert float((got.float() - want.float()).abs().max()) <= _bf16_tol(want)
+
+
+@pytest.mark.parametrize("n", MMA_ROWS)
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("drops", [(0.0, 0.1), (0.2, 0.4), (0.3, 0.0)])
+def test_ffn_mma_dropout(dev, n, xdtype, drops):
+    # dropout2 in the finalize kernel (one cluster group, or several up to
+    # 300 rows): values within one bf16 unit, the FFN's own contribution
+    # too; with a residual of 2^-40 the dropped elements are exactly the
+    # hash mask's
+    h, ffn = 768, 3072
+    groups = fb._ffn_mma_groups(dev, n, h, ffn)
+    assert groups > 1 if n <= 300 else groups == 1
+    x = _t(dev, n, h, dtype=xdtype, seed=6)
+    params = _mma_params(dev, h, ffn)
+    d1, d2 = drops
+    before = _kernels.launches["ffn_mma"]
+    out = fb.ffn_cuda(x, *params, 5, "gelu", d1, d2, EPS)
+    assert _kernels.launches["ffn_mma"] == before + 1
+    ref = fb.ffn_reference(x, *params, 5, "gelu", d1, d2, EPS)
+    assert out.dtype == xdtype
+    assert float((out.float() - ref.float()).abs().max()) <= _bf16_tol(ref)
+    tiny, got, want = _ffn_addend(x, params, 5, "gelu", d1, d2)
+    assert float((got.float() - want.float()).abs().max()) <= _bf16_tol(want)
+    if d2 == 0.0:
+        return
+    keep = fb._keep_mask(5, fb._SALT_FFN2, torch.arange(n)[:, None],
+                         torch.arange(h)[None, :], d2)
+    assert torch.equal(_dropped(got, tiny), ~keep)
+    assert torch.equal(_dropped(want, tiny), ~keep)
+
+
+@pytest.mark.parametrize("n", [8, 4096])
+def test_ffn_mma_addend_check_rejects_b1_left_out(dev, n):
+    # the check above sees a fault of the FFN's size: K3 without b1 (std
+    # 0.02, about 0.01 at the output) lies outside one bf16 unit of the
+    # FFN's range
+    x = _t(dev, n, 768, dtype=torch.bfloat16, seed=10)
+    w1, b1, w2, b2, g, beta = _mma_params(dev, 768, 3072)
+    tiny, _, want = _ffn_addend(x, (w1, b1, w2, b2, g, beta), 0, "gelu",
+                                0.0, 0.1)
+    bad = fb.ffn_cuda(tiny, w1, torch.zeros_like(b1), w2, b2, g, beta, 0,
+                      "gelu", 0.0, 0.1, TINY_EPS)
+    assert float((bad.float() - want.float()).abs().max()) > _bf16_tol(want)
+
+
+@pytest.mark.parametrize("n", [8, 300, 4096])
+@pytest.mark.parametrize("h,ffn", [(768, 3072), (128, 128), (128, 200)])
+def test_ffn_mma_dropout1_mask(dev, n, h, ffn):
+    # W2 = the (ffn, h) identity and b2 = 0 make the output x + the
+    # activation of ffn columns below h: with a residual of 2^-40 the
+    # elements equal to it are exactly drop1's dropped ones (gelu is 0 only
+    # at 0).  ffn = 128 and 200 leave a block's half of the 256-column ffn
+    # tile empty or ragged: zero-filled W1 columns and W2 rows
+    w1, b1, _, _, g, beta = _mma_params(dev, h, ffn)
+    w2 = torch.eye(ffn, h, dtype=torch.bfloat16, device=dev)
+    b2 = torch.zeros(h, device=dev)
+    tiny = (_t(dev, n, h, seed=7) * TINY).to(torch.bfloat16)
+    got = fb.ffn_cuda(tiny, w1, b1, w2, b2, g, beta, 21, "gelu", 0.3, 0.0,
+                      TINY_EPS)
+    want = fb.ffn_reference(tiny, w1, b1, w2, b2, g, beta, 21, "gelu", 0.3,
+                            0.0, TINY_EPS)
+    cols = min(h, ffn)
+    keep = fb._keep_mask(21, fb._SALT_FFN1, torch.arange(n)[:, None],
+                         torch.arange(cols)[None, :], 0.3)
+    assert torch.equal(_dropped(got, tiny)[:, :cols], ~keep)
+    assert torch.equal(_dropped(want, tiny)[:, :cols], ~keep)
+    assert float((got.float() - want.float()).abs().max()) <= _bf16_tol(want)
+
+
+@pytest.mark.parametrize("n,d2", [(8, 0.1), (300, 0.0), (4096, 0.1)])
+def test_ffn_mma_repeats_exactly(dev, n, d2):
+    x = _t(dev, n, 768, dtype=torch.bfloat16, seed=8)
+    params = _mma_params(dev, 768, 3072)
+    runs = [fb.ffn_cuda(x, *params, 9, "gelu", 0.1, d2, EPS)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("wdtype,h,ffn", [
+    (torch.float32, 768, 3072),       # serving and generate: float32
+    (torch.bfloat16, 96, 200),        # h without an instantiation
+    (torch.bfloat16, 128, 100)])      # ffn rows of w1 not 16-byte aligned
+def test_ffn_route_keeps_the_simt_kernel(dev, wdtype, h, ffn):
+    x = _t(dev, 37, h, dtype=torch.bfloat16, seed=9)
+    w1, b1, w2, b2, g, beta = _mma_params(dev, h, ffn)
+    w1, w2 = w1.to(wdtype), w2.to(wdtype)
+    assert fb.ffn_route(w1, w2) == "ffn"
+    before = dict(_kernels.launches)
+    out = fb.ffn_cuda(x, w1, b1, w2, b2, g, beta, epsilon=EPS)
+    assert _kernels.launches["ffn"] == before["ffn"] + 1
+    assert _kernels.launches["ffn_mma"] == before["ffn_mma"]
+    ref = fb.ffn_reference(x, w1, b1, w2, b2, g, beta, epsilon=EPS)
+    assert float((out.float() - ref.float()).abs().max()) <= _bf16_tol(ref)
+
+
+def test_ffn_mma_refuses_what_it_cannot_take(dev):
+    x = _t(dev, 8, 96, dtype=torch.bfloat16)
+    w1, b1, w2, b2, g, beta = _mma_params(dev, 96, 256)
+    with pytest.raises(ValueError, match="ffn_mma: takes bf16 weights"):
+        fb.ffn_mma_cuda(x, w1, b1, w2, b2, g, beta)
+
+
+def test_o1_fused_training_step_takes_ffn_mma(dev):
+    # gpt_tiny (h = 128, ffn = 512) fused, under O1: K3 runs on the tensor
+    # cores once per layer; the float32 step above keeps the SIMT kernel
+    from paddle_tpu_torch.convert import training_workload
+    from paddle_tpu_torch.models.gpt import gpt_tiny
+    from paddle_tpu_torch.training import train_step
+    cfg = gpt_tiny(hidden_dropout=0.0, attention_dropout=0.0,
+                   use_pallas_attention=True, use_fused_block=True)
+    m, opt, ids, labels = training_workload(dev, cfg, batch=2, seq_len=128)
+    _kernels.reset_launches()
+    losses = [float(train_step(m, opt, ids, labels)) for _ in range(3)]
+    assert _kernels.launches["ffn_mma"] == 3 * cfg.num_layers
+    assert _kernels.launches["ffn"] == 0
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+
+
 def _block_params(h, ffn, seed=0, s=64):
     rng = np.random.default_rng(seed)
     a = lambda *s: (0.1 * rng.standard_normal(s)).astype(  # noqa: E731
