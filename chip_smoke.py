@@ -13,9 +13,11 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               instructions in their SASS (cuobjdump -sass) and ptxas must
               report no spill stores or loads for their d=64
               instantiations; likewise every instantiation of the
-              tensor-core K3 (ffn_mma: two hidden sizes x drop1) must
-              hold HMMA and the h=768 ones must not spill, with their
-              registers and shared memory a block logged; the decode
+              tensor-core K1-K3 of bf16 weights (ln_linear_mma: two
+              hidden sizes; linear_residual_mma: two hidden sizes x
+              dropout; ffn_mma: two hidden sizes x drop1) must hold HMMA
+              and the h=768 ones must not spill, with their registers and
+              shared memory a block logged; the decode
               kernel's registers, spills and cluster split at the generate
               shape are logged, and the paged-decode kernel's at the
               serving table width;
@@ -35,8 +37,9 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               weights loaded through convert.py, served by ServingEngine:
               8 ragged prompts x 32 greedy tokens.  Every kernel's launch
               counter is zeroed just before this run and must be > 0 after
-              (ffn_mma, the bf16-weight K3, must not launch: serving
-              multiplies float32 weights).
+              (ln_linear_mma, linear_residual_mma and ffn_mma, the
+              bf16-weight K1-K3, must not launch: serving multiplies
+              float32 weights).
               Beforehand, a float32 run on a small input is held against
               the same model on the CPU (plain versions): tokens identical,
               logits within 1e-3;
@@ -52,27 +55,31 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               fused_training_workload: the same model, weights and data with
               use_fused_block and hidden / attention dropout 0.1, bf16 O1):
               each block K1 -> flash (attention dropout in the kernel) -> K2
-              (hidden dropout in the kernel), then K3 on the tensor cores
-              (ffn_mma: O1 casts W1 and W2 to bf16; dropout after + b2 in
-              the kernel), backward by recompute of the plain compositions
-              plus the flash backward kernels.  13 steps as in (c2); the
-              counters of the six kernels are zeroed just before and must
-              read 12 x 13 after, the SIMT K3's 0; the loss must be finite
-              and fall.  The unfused step's p50 of (c2) is printed beside
-              it.  Beforehand, K2 and K3 (ffn_mma) with dropout against
+              (hidden dropout in the kernel), then K3, all three on the
+              tensor cores (ln_linear_mma, linear_residual_mma, ffn_mma:
+              O1 casts their GEMM operands to bf16; K3's dropout after
+              + b2 in the kernel), backward by recompute of the plain
+              compositions plus the flash backward kernels.  13 steps as
+              in (c2); the counters of the six kernels are zeroed just
+              before and must read 12 x 13 after, the SIMT ln_linear,
+              linear_residual and ffn 0; the loss must be finite and fall.
+              The unfused step's p50 of (c2) is printed beside it.
+              Beforehand, K1 (ln_linear_mma, h=768, 2304 columns), K2
+              (linear_residual_mma) and K3 (ffn_mma) with dropout against
               their plain versions at N=8 (K3's multi-group exit through
-              the finalize kernel), 4096 and 16384 (the training shape,
-              timed at p=0.1 and p=0): values within the stated
-              tolerance; with a residual of 2^-40 of the addend, the addend
-              alone (the projection, the FFN; K3 at p=0.1 and p=0) within
-              one bf16 unit of its own range, a K3 with b1 left out
-              rejected by that check, and the dropped elements (those
-              equal to the residual) exactly the hash mask's; ffn_mma's
-              dropout1 mask exact
-              at N=4096 (W2 the identity); K3 timed at N=8, 4096 and 16384;
-              K1 timed at N=16384; the SIMT K3's dropout1 in float32; and a
-              float32 gpt_tiny fused training step on the card against the
-              CPU (loss, every gradient, the loss after one AdamW step);
+              the finalize kernel), 4096 and 16384 (the training shape),
+              each timed, K2 and K3 at N=16384 also at p=0: values within
+              one bf16 unit of their range, K1 with b left out rejected by
+              that check; with a residual of 2^-40 of the addend, the
+              addend alone (the projection, the FFN; K2 and K3 at p=0.1
+              and p=0) within one bf16 unit of its own range, a K2 with b
+              and a K3 with b1 left out rejected by that check, and the
+              dropped elements (those equal to the residual) exactly the
+              hash mask's; ffn_mma's dropout1 mask exact at N=4096 (W2 the
+              identity); the SIMT K2's dropout and K3's dropout1 in
+              float32; and a float32 gpt_tiny fused training step on the
+              card against the CPU (loss, every gradient, the loss after
+              one AdamW step);
   (c3) generate GPTForCausalLM.generate at full width (convert.
               generate_workload: B=8, prompt 512, 128 greedy tokens, bf16),
               unfused (use_pallas_attention) and fused (use_fused_block):
@@ -80,8 +87,9 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               tokens/s, each the median of 3 timed calls after a capturing
               one.  The counters are zeroed just before the timed calls;
               flash_decode must read 12 x their decode steps, and in the
-              fused run K1-K3 > 0 (K3 the SIMT kernel: float32 weights;
-              ffn_mma 0).  Beforehand, a float32 run on a
+              fused run K1-K3 > 0 (the SIMT kernels: float32 weights;
+              ln_linear_mma, linear_residual_mma and ffn_mma 0).
+              Beforehand, a float32 run on a
               small input is held against the same model on the CPU
               (tokens identical, generate_step logits within 1e-3), and the
               flash decode kernel against its plain version at B=8, H=12,
@@ -121,9 +129,9 @@ PEAK_BF16 = "bytes at 3.35 TB/s; bf16 operations at 989 TFLOP/s"
 SEED = 1234
 SERVING_KERNELS = ("paged_decode", "ln_linear", "linear_residual", "ffn")
 TRAINING_KERNELS = ("flash_fwd", "flash_dkdv", "flash_dq")
-FUSED_TRAINING_KERNELS = ("ln_linear", "linear_residual", "ffn_mma",
-                          *TRAINING_KERNELS)
-FUSED_ONLY_KERNELS = ("ffn_mma",)   # launched by no other path
+# the tensor-core K1-K3 of bf16 weights: launched by no other path
+FUSED_ONLY_KERNELS = ("ln_linear_mma", "linear_residual_mma", "ffn_mma")
+FUSED_TRAINING_KERNELS = (*FUSED_ONLY_KERNELS, *TRAINING_KERNELS)
 GENERATE_KERNELS = ("flash_decode",)
 
 
@@ -232,9 +240,19 @@ DECODE_TIMED_FN = "flash_decode_kernelIf13__nv_bfloat16Li8E"
 # pages are bf16), and the serving shape's block table
 PAGED_TIMED_FN = "paged_decode_kernelIf13__nv_bfloat16Li8E"
 PAGED_WIDTH, PAGED_BS = 64, 16
-# the tensor-core K3: one instantiation per hidden size of
-# ops/fused_block.py _MMA_HIDDEN x drop1; the training path's h
-FFN_MMA_FN, FFN_MMA_H = "ffn_mma_kernel", 768
+# the tensor-core K1-K3 of bf16 weights: library (its kernel is
+# <library>_kernel, its shared memory a block ptt_<library>_smem) ->
+# (instantiations per hidden size of ops/fused_block.py _MMA_HIDDEN, what
+# the log says of the grid); the training path's h
+MMA_FUSED = {
+    "ln_linear_mma": (1, "one block per 64-row tile and SM, column tiles "
+                         "of 256"),
+    "linear_residual_mma": (2, "128 x 128 tiles, two blocks an SM; without "
+                               "and with dropout"),
+    "ffn_mma": (2, "a cluster of 2 blocks per 64 rows; without and with "
+                   "drop1"),
+}
+MMA_FUSED_H = 768
 
 
 def check_design(_kernels):
@@ -267,7 +285,8 @@ def check_design(_kernels):
         log(f"design {lib}: {fn}<64> has {h64} HMMA instructions "
             f"({sorted(hmma.values())} over the {MMA_HEAD_DIMS} head dims), "
             f"{props.get('registers')} registers, 0 spill stores")
-    out["ffn_mma"] = check_ffn_mma_design(_kernels)
+    for lib in MMA_FUSED:
+        out[lib] = check_mma_fused_design(_kernels, lib)
 
     decode = _kernels.ptxas_functions("flash_decode")
     for fn, props in decode.items():
@@ -311,39 +330,41 @@ def check_design(_kernels):
     return out
 
 
-def check_ffn_mma_design(_kernels):
-    """Every instantiation of the tensor-core K3 holds HMMA (mma.sync) in
-    its SASS, and the h=768 ones (the training path's) spill nothing;
-    their registers and the shared memory a block takes are logged."""
+def check_mma_fused_design(_kernels, lib):
+    """Every instantiation of a tensor-core K1-K3 library holds HMMA
+    (mma.sync) in its SASS, and the h=768 ones (the training path's) spill
+    nothing; their registers and the shared memory a block takes are
+    logged."""
     import ctypes
     from paddle_tpu_torch.ops import fused_block as fb
-    hmma = {f: c for f, c in _kernels.sass_count("ffn_mma", "HMMA").items()
-            if FFN_MMA_FN in f}
-    want = len(fb._MMA_HIDDEN) * 2
+    per_h, grid = MMA_FUSED[lib]
+    fn = f"{lib}_kernel"
+    hmma = {f: c for f, c in _kernels.sass_count(lib, "HMMA").items()
+            if fn in f}
+    want = len(fb._MMA_HIDDEN) * per_h
     require(len(hmma) == want and all(hmma.values()),
-            f"ffn_mma: HMMA per instantiation {hmma}: not all {want} run on "
+            f"{lib}: HMMA per instantiation {hmma}: not all {want} run on "
             "the tensor cores")
-    tag = f"{FFN_MMA_FN}ILi{FFN_MMA_H}E"
-    props = {f: p for f, p in _kernels.ptxas_functions("ffn_mma").items()
+    tag = f"{fn}ILi{MMA_FUSED_H}E"
+    props = {f: p for f, p in _kernels.ptxas_functions(lib).items()
              if tag in f}
-    require(len(props) == 2, f"ffn_mma: {len(props)} ptxas reports for "
-            f"h={FFN_MMA_H}, not 2")
+    require(len(props) == per_h, f"{lib}: {len(props)} ptxas reports for "
+            f"h={MMA_FUSED_H}, not {per_h}")
     for f, p in props.items():
         require(p.get("spill_stores") == 0 and p.get("spill_loads") == 0,
-                f"ffn_mma: {f} spills: {p}")
-    smem_fn = _kernels.bind("ffn_mma", "ptt_ffn_mma_smem", [ctypes.c_int])
+                f"{lib}: {f} spills: {p}")
+    smem_fn = _kernels.bind(lib, f"ptt_{lib}_smem", [ctypes.c_int])
     smem = {h: smem_fn(h) for h in fb._MMA_HIDDEN}
     regs = sorted(p.get("registers") for p in props.values())
-    h768 = [c for f, c in hmma.items() if tag in f]
-    log(f"design ffn_mma: {len(hmma)} instantiations, HMMA each "
-        f"{sorted(hmma.values())}; h={FFN_MMA_H}: {h768[0]} HMMA, "
-        f"registers {regs} (without and with drop1), 0 spills; dynamic "
-        f"shared memory a block {smem} bytes (h: bytes), a cluster of 2 "
-        "blocks per 64 rows")
-    return {"kernel": f"{FFN_MMA_FN}<{FFN_MMA_H}, drop1>",
-            "hmma": h768[0], "hmma_per_instantiation": sorted(hmma.values()),
+    h768 = sorted(c for f, c in hmma.items() if tag in f)
+    log(f"design {lib}: {len(hmma)} instantiations, HMMA each "
+        f"{sorted(hmma.values())}; h={MMA_FUSED_H}: {h768} HMMA, "
+        f"registers {regs}, 0 spills; dynamic shared memory a block "
+        f"{smem} bytes (h: bytes); {grid}")
+    return {"kernel": f"{fn}<{MMA_FUSED_H}>", "hmma": h768[0],
+            "hmma_per_instantiation": sorted(hmma.values()),
             "registers": regs, "spill_stores": 0, "spill_loads": 0,
-            "smem_bytes": smem, "cluster": 2, "rows_per_cluster": 64}
+            "smem_bytes": smem, "grid": grid}
 
 
 # ---------------------------------------------------------------------------
@@ -1016,8 +1037,9 @@ def serve(torch, np, dev, _kernels):
     for name in SERVING_KERNELS:
         require(launches[name] > 0,
                 f"{name}: launched 0 times on the serving path")
-    require(launches["ffn_mma"] == 0, f"ffn_mma: {launches['ffn_mma']} "
-            "launches on the serving path (float32 weights take ffn)")
+    for name in FUSED_ONLY_KERNELS:
+        require(launches[name] == 0, f"{name}: {launches[name]} launches on "
+                "the serving path (float32 weights take the SIMT kernels)")
     st = eng.stats()
     require(st["kv_blocks"]["used"] == 0 and st["kv_blocks"]["leaked"] == 0,
             f"KV blocks not returned: {st['kv_blocks']}")
@@ -1181,19 +1203,21 @@ def alternate(torch, fns):
 
 
 def check_dropout(torch, np, dev, results):
-    """(c2b) K2 and K3 with the hash dropout against their plain versions,
-    at the fused training path's dtypes (bf16 O1: bf16 activations and
-    weights, float32 biases and LN parameters; so the bound takes the bf16
-    peak), so K3 takes its tensor-core kernel (ffn_mma), at p=0.1 (K2's
-    dropout, K3's dropout2; K3 at p=0 too).  Per N the outputs hold within
-    one bf16 unit of their range; then, with a residual of 2^-40 of the
-    addend, the addend alone (the projection, the FFN) holds within one
-    bf16 unit of its own range, and the dropped elements (equal to the
-    residual) are exactly the complement of the hash mask, for the kernel
-    and the plain version.  That addend check must reject K3 with b1 left
-    out (a planted fault).  K2 timed at N=16384, K3 at every N; at N=16384
-    both alternated with p=0.  ffn_mma's dropout1 mask exactly at N=4096;
-    the SIMT K3's dropout1 (float32 weights) within float32 sums."""
+    """(c2b) the tensor-core K1-K3 of the fused training path's dtypes (bf16
+    O1: bf16 activations and weights, float32 biases and LN parameters; so
+    the bound takes the bf16 peak) against their plain versions at every N
+    of DROP_ROWS, timed: K1 (ln_linear_mma) at h=768, 2304 columns; K2
+    (linear_residual_mma) and K3 (ffn_mma) with their hash dropout at
+    p=0.1.  Per N the outputs hold within one bf16 unit of their range;
+    then, with a residual of 2^-40 of the addend, the addend alone (the
+    projection, the FFN; K2 and K3 at p=0.1 and p=0) holds within one bf16
+    unit of its own range, and the dropped elements (equal to the residual)
+    are exactly the complement of the hash mask, for the kernel and the
+    plain version.  Planted faults the checks must reject: K1 with b left
+    out (the value check), K2 with b and K3 with b1 left out (the addend
+    check).  At N=16384 K2 and K3 alternated with p=0.  ffn_mma's dropout1
+    mask exactly at N=4096; the SIMT K2's dropout and K3's dropout1
+    (float32 weights) within float32 sums."""
     from paddle_tpu_torch.ops import fused_block as fb
     rng = np.random.default_rng(SEED + 7)
     bf16 = torch.bfloat16
@@ -1207,12 +1231,15 @@ def check_dropout(torch, np, dev, results):
     w_out, b_out = t((h, h), bf16, std=0.02), t((h,), std=0.02)
     w1, b1 = t((h, ffn), bf16, std=0.02), t((ffn,), std=0.02)
     w2, b2 = t((ffn, h), bf16, std=0.02), t((h,), std=0.02)
+    w_qkv, b_qkv = t((h, 3 * h), bf16, std=0.02), t((3 * h,), std=0.02)
     require(fb.ffn_route(w1, w2) == "ffn_mma",
             "K3 with bf16 O1 weights does not route to ffn_mma")
+    require(fb.ln_linear_route(w_qkv) == "ln_linear_mma",
+            "K1 with bf16 O1 weights does not route to ln_linear_mma")
     salt = fb._SALT_RESID
-    out = {"linear_residual": {}, "ffn_mma": {}}
+    out = {"ln_linear_mma": {}, "linear_residual_mma": {}, "ffn_mma": {}}
 
-    def addend_check(name, n, kernel, plain, base, salt_, p):
+    def addend_check(name, n, kernel, plain, base, salt_, p, cols=h):
         """Kernel and plain with the residual ``base`` of 2^-40: their
         outputs are the addend rounded to bf16, held within one bf16 unit
         of its own range (a residual of unit size would set that unit 5-10
@@ -1225,7 +1252,7 @@ def check_dropout(torch, np, dev, results):
         if p > 0.0:
             keep = fb._keep_mask(seed, salt_,
                                  torch.arange(n, device=dev)[:, None],
-                                 torch.arange(h, device=dev)[None, :], p)
+                                 torch.arange(cols, device=dev)[None, :], p)
             for who, o in (("kernel", got), ("plain", want)):
                 dropped = o == base
                 require(torch.equal(dropped, ~keep),
@@ -1234,6 +1261,21 @@ def check_dropout(torch, np, dev, results):
                         "differ)")
             res["dropped"] = int((~keep).sum())
         return res
+
+    def rejected(name, n, bad, want, what):
+        """err/tol of a planted fault against the plain output; it must
+        exceed 1."""
+        r = float((bad.float() - want.float()).abs().max()) / bf16_tol(want)
+        require(r > 1.0, f"{name} N={n}: the check passes {name} with {what} "
+                f"left out (err/tol {r:.3f})")
+        return r
+
+    def k2(x, r, p=DROP_P, b=b_out):
+        return lambda: fb.linear_residual_cuda(x, w_out, b, r, seed, p)
+
+    def k2_plain(x, r, p=DROP_P):
+        return lambda: fb.linear_residual_reference(x, w_out, b_out, r, seed,
+                                                    p)
 
     def k3(x, p=DROP_P, e=eps, b1_=b1):
         return lambda: fb.ffn_cuda(x, w1, b1_, w2, b2, g, beta, seed, "gelu",
@@ -1248,22 +1290,37 @@ def check_dropout(torch, np, dev, results):
         attn = t((n, h), bf16)
         tiny = (x_res.float() * TINY).to(bf16)
         timed = n == DROP_ROWS[-1]
-        k2 = measure(
-            torch, f"linear_residual N={n} p={DROP_P}",
-            lambda: fb.linear_residual_cuda(attn, w_out, b_out, x_res, seed,
-                                            DROP_P),
-            lambda: fb.linear_residual_reference(attn, w_out, b_out, x_res,
-                                                 seed, DROP_P),
-            bf16_tol,
+        require(fb.linear_residual_route(attn, w_out)
+                == "linear_residual_mma", "K2 with bf16 O1 operands does "
+                "not route to linear_residual_mma")
+        k1r = measure(
+            torch, f"ln_linear_mma N={n}",
+            lambda: fb.ln_linear_cuda(x_res, w_qkv, b_qkv, g, beta, eps),
+            lambda: fb.ln_linear_reference(x_res, w_qkv, b_qkv, g, beta,
+                                           eps),
+            bf16_tol, (nbytes(x_res, w_qkv, b_qkv, g, beta) + n * 3 * h * 2,
+                       2.0 * n * h * 3 * h), BF16_FLOPS)
+        k1r["b_fault_err_over_tol"] = rejected(
+            "ln_linear_mma", n,
+            fb.ln_linear_cuda(x_res, w_qkv, torch.zeros_like(b_qkv), g, beta,
+                              eps),
+            fb.ln_linear_reference(x_res, w_qkv, b_qkv, g, beta, eps), "b")
+        k1r["splits"] = fb._mma_splits(dev, -(-n // fb._MMA_LN_ROWS),
+                                       -(-3 * h // fb._MMA_LN_COLS))
+        k2r = measure(
+            torch, f"linear_residual_mma N={n} p={DROP_P}", k2(attn, x_res),
+            k2_plain(attn, x_res), bf16_tol,
             (nbytes(attn, w_out, b_out, x_res) + n * h * 2, 2.0 * n * h * h),
-            BF16_FLOPS, timed)
-        k2["addend"] = addend_check(
-            "linear_residual", n,
-            lambda: fb.linear_residual_cuda(attn, w_out, b_out, tiny, seed,
-                                            DROP_P),
-            lambda: fb.linear_residual_reference(attn, w_out, b_out, tiny,
-                                                 seed, DROP_P),
+            BF16_FLOPS)
+        k2r["addend"] = addend_check(
+            "linear_residual_mma", n, k2(attn, tiny), k2_plain(attn, tiny),
             tiny, salt, DROP_P)
+        k2r["addend_p0"] = addend_check(
+            "linear_residual_mma", n, k2(attn, tiny, 0.0),
+            k2_plain(attn, tiny, 0.0), tiny, None, 0.0)
+        k2r["b_fault_err_over_tol"] = rejected(
+            "linear_residual_mma", n, k2(attn, tiny, b=torch.zeros_like(
+                b_out))(), k2_plain(attn, tiny)(), "b")
         k3r = measure(
             torch, f"ffn_mma N={n} dropout2={DROP_P}", k3(x_res),
             k3_plain(x_res), bf16_tol,
@@ -1275,15 +1332,9 @@ def check_dropout(torch, np, dev, results):
         k3r["addend_p0"] = addend_check(
             "ffn_mma", n, k3(tiny, 0.0, TINY_EPS),
             k3_plain(tiny, 0.0, TINY_EPS), tiny, None, 0.0)
-        # a planted fault the addend check must reject: b1 left out
-        want = k3_plain(tiny, e=TINY_EPS)()
-        bad = k3(tiny, e=TINY_EPS, b1_=torch.zeros_like(b1))()
-        k3r["b1_fault_err_over_tol"] = float(
-            (bad.float() - want.float()).abs().max()) / bf16_tol(want)
-        require(k3r["b1_fault_err_over_tol"] > 1.0,
-                f"ffn_mma N={n}: the addend check passes K3 with b1 left out "
-                f"(err/tol {k3r['b1_fault_err_over_tol']:.3f})")
-        del want, bad
+        k3r["b1_fault_err_over_tol"] = rejected(
+            "ffn_mma", n, k3(tiny, e=TINY_EPS, b1_=torch.zeros_like(b1))(),
+            k3_plain(tiny, e=TINY_EPS)(), "b1")
         k3r["groups"] = fb._ffn_mma_groups(dev, n, h, ffn)
         require((k3r["groups"] > 1) == (n == 8),
                 f"ffn_mma N={n}: {k3r['groups']} cluster groups; the checks "
@@ -1291,33 +1342,38 @@ def check_dropout(torch, np, dev, results):
         if timed:
             # what the hash costs: p=0 against p, alternated twice after the
             # timing above; each is the mean of its two
-            k2["ms_p0"], k2["ms_alternated"] = alternate(torch, (
-                lambda: fb.linear_residual_cuda(attn, w_out, b_out, x_res),
-                lambda: fb.linear_residual_cuda(attn, w_out, b_out, x_res,
-                                                seed, DROP_P)))
+            k2r["ms_p0"], k2r["ms_alternated"] = alternate(
+                torch, (k2(attn, x_res, 0.0), k2(attn, x_res)))
             k3r["ms_p0"], k3r["ms_alternated"] = alternate(
                 torch, (k3(x_res, 0.0), k3(x_res)))
-        out["linear_residual"][f"N={n}"] = k2
+        out["ln_linear_mma"][f"N={n}"] = k1r
+        out["linear_residual_mma"][f"N={n}"] = k2r
         out["ffn_mma"][f"N={n}"] = k3r
         for name in out:
             r = out[name][f"N={n}"]
-            timing = (f"; {r['ms']:.4f} ms at p={DROP_P} (plain "
-                      f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                      f"by {r['bound_by']})" if r["ms"] is not None else "")
-            if timed:
+            timing = (f"; {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
+                      f"bound {r['bound_ms']:.4f} ms by {r['bound_by']})")
+            if timed and name != "ln_linear_mma":
                 timing += (f"; alternated with p=0: {r['ms_alternated']:.4f}"
                            f" against {r['ms_p0']:.4f} ms")
-            addend = (f"; the addend alone (residual 2^-40): max_abs_err "
-                      f"{r['addend']['max_abs_err']:.3e}, err/tol "
-                      f"{r['addend']['err_over_tol']:.3f}")
-            if name == "ffn_mma":
-                addend += (f" (p=0: {r['addend_p0']['err_over_tol']:.3f}; "
-                           "with b1 left out: "
-                           f"{r['b1_fault_err_over_tol']:.3f}, rejected)")
-            log(f"check {name} N={n} p={DROP_P} (bf16): max_abs_err "
-                f"{r['max_abs_err']:.3e}, err/tol {r['err_over_tol']:.3f}"
-                f"{addend}; {r['addend']['dropped']} dropped elements equal "
-                f"to the hash mask's, kernel and plain{timing}")
+            if name == "ln_linear_mma":
+                checks = (f"; with b left out: err/tol "
+                          f"{r['b_fault_err_over_tol']:.3f}, rejected; "
+                          f"{r['splits']} blocks per 64-row tile")
+            else:
+                fault = "b1" if name == "ffn_mma" else "b"
+                checks = (
+                    f"; the addend alone (residual 2^-40): max_abs_err "
+                    f"{r['addend']['max_abs_err']:.3e}, err/tol "
+                    f"{r['addend']['err_over_tol']:.3f} (p=0: "
+                    f"{r['addend_p0']['err_over_tol']:.3f}; with {fault} "
+                    f"left out: {r[fault + '_fault_err_over_tol']:.3f}, "
+                    f"rejected); {r['addend']['dropped']} dropped elements "
+                    "equal to the hash mask's, kernel and plain")
+            log(f"check {name} N={n} (bf16"
+                f"{'' if name == 'ln_linear_mma' else f', p={DROP_P}'}): "
+                f"max_abs_err {r['max_abs_err']:.3e}, err/tol "
+                f"{r['err_over_tol']:.3f}{checks}{timing}")
         del x_res, attn, tiny
 
     # ffn_mma's dropout1 (after the activation, over the global ffn column;
@@ -1342,35 +1398,23 @@ def check_dropout(torch, np, dev, results):
         "kernel and plain")
     del tiny, eye
 
-    # K1 at the training shape, for the kernel table beside K2 and K3 (no
-    # dropout; bf16 weights under O1, so a bf16 output)
-    n = DROP_ROWS[-1]
-    x_res = t((n, h), bf16)
-    w_qkv, b_qkv = t((h, 3 * h), bf16, std=0.02), t((3 * h,), std=0.02)
-    k1 = measure(
-        torch, f"ln_linear N={n} (bf16)",
-        lambda: fb.ln_linear_cuda(x_res, w_qkv, b_qkv, g, beta, eps),
-        lambda: fb.ln_linear_reference(x_res, w_qkv, b_qkv, g, beta, eps),
-        bf16_tol, (nbytes(x_res, w_qkv, b_qkv, g, beta) + n * 3 * h * 2,
-                   2.0 * n * h * 3 * h), BF16_FLOPS)
-    log(f"check ln_linear N={n} (bf16): max_abs_err {k1['max_abs_err']:.3e}, "
-        f"err/tol {k1['err_over_tol']:.3f}; {k1['ms']:.4f} ms (plain "
-        f"{k1['plain_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms by "
-        f"{k1['bound_by']})")
-    results["ln_linear"]["training_shape"] = {
-        "shape": f"N={n}, bf16 O1", "peak": PEAK_BF16, **{k: k1[k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
-            "err_over_tol")}}
-    del x_res
-
-    # the SIMT K3's dropout1 (float32 weights, as serving and generate
-    # multiply), where one misplaced element of the (N, ffn) mask moves the
-    # output far past the tolerance
+    # the SIMT K2's dropout and K3's dropout1 (float32 operands, as a
+    # float32 training step multiplies), where one misplaced element of the
+    # mask moves the output far past the tolerance
     n = 4096
     x32 = t((n, h))
     f32w = [a.float() for a in (w1, b1, w2, b2)]
-    require(fb.ffn_route(f32w[0], f32w[2]) == "ffn",
-            "K3 with float32 weights does not route to the SIMT kernel")
+    require(fb.ffn_route(f32w[0], f32w[2]) == "ffn"
+            and fb.linear_residual_route(x32, w_out.float())
+            == "linear_residual",
+            "K2 / K3 with float32 operands do not route to the SIMT kernels")
+    k2d = measure(
+        torch, f"linear_residual N={n} p={DROP_P} (float32)",
+        lambda: fb.linear_residual_cuda(x32, w_out.float(), b_out, x32, seed,
+                                        DROP_P),
+        lambda: fb.linear_residual_reference(x32, w_out.float(), b_out, x32,
+                                             seed, DROP_P),
+        lambda ref: 1e-4, (0, 0), timed=False)
     k3d1 = measure(
         torch, "ffn N=4096 dropout1=0.2 dropout2=0.1 (float32)",
         lambda: fb.ffn_cuda(x32, *f32w, g, beta, seed, "gelu", 0.2, DROP_P,
@@ -1378,41 +1422,50 @@ def check_dropout(torch, np, dev, results):
         lambda: fb.ffn_reference(x32, *f32w, g, beta, seed, "gelu", 0.2,
                                  DROP_P, eps),
         lambda ref: 1e-4, (0, 0), timed=False)
-    log(f"check ffn N={n} dropout1=0.2 dropout2={DROP_P} (float32): "
-        f"max_abs_err {k3d1['max_abs_err']:.3e} <= 1e-4")
+    log(f"check linear_residual N={n} p={DROP_P} (float32): max_abs_err "
+        f"{k2d['max_abs_err']:.3e} <= 1e-4; ffn N={n} dropout1=0.2 "
+        f"dropout2={DROP_P} (float32): max_abs_err "
+        f"{k3d1['max_abs_err']:.3e} <= 1e-4")
+    results["linear_residual"]["dropout"] = {
+        "p": DROP_P, "seed": seed,
+        "shapes": {f"N={n}, float32": k2d}}
     results["ffn"]["dropout"] = {
         "p": DROP_P, "seed": seed,
         "shapes": {"N=4096, dropout1=0.2, float32": k3d1}}
 
-    k2 = out["linear_residual"]
-    train_r = k2[f"N={DROP_ROWS[-1]}"]
-    results["linear_residual"]["dropout"] = {
-        "p": DROP_P, "seed": seed, "shapes": k2,
-        "worst_err_over_tol": max(r["err_over_tol"] for r in k2.values()),
-        "zero_sets": "identical to the hash mask, kernel and plain"}
-    results["linear_residual"]["training_shape"] = {
-        "shape": f"N={DROP_ROWS[-1]}, bf16 O1, p={DROP_P}",
-        "peak": PEAK_BF16, **{k: train_r[k] for k in (
-            "ms", "ms_p0", "ms_alternated", "plain_ms", "bound_ms",
-            "bound_by")}}
+    train = f"N={DROP_ROWS[-1]}"
+    shapes = {
+        "ln_linear_mma": f"{train}, h={h}, cols={3 * h}, bf16 O1 (bf16 x, W; "
+                         "float32 b, g, beta)",
+        "linear_residual_mma": f"{train}, {h} x {h}, bf16 O1 (bf16 x, W, r; "
+                               f"float32 b), p={DROP_P}",
+        "ffn_mma": f"{train}, h={h}, ffn={ffn}, bf16 O1 (bf16 x, W1, W2; "
+                   f"float32 b1, b2, g, beta), dropout2={DROP_P}"}
+    for name, per in out.items():
+        worst = max(per.values(), key=lambda r: r["err_over_tol"])
+        train_r = per[train]
+        results[name] = {
+            "name": name, "route": "cuda",
+            "source": f"paddle_tpu_torch/csrc/{name}.cu",
+            "replaces": MMA_REPLACES[name], "launches": 0,
+            "max_abs_err": worst["max_abs_err"], "tol": worst["tol"],
+            "err_over_tol": worst["err_over_tol"],
+            "ms": train_r["ms"], "plain_ms": train_r["plain_ms"],
+            "bound_ms": train_r["bound_ms"], "bound_by": train_r["bound_by"],
+            "library_ms": None, "peak": PEAK_BF16, "shape": shapes[name],
+            **{k: train_r[k] for k in ("ms_p0", "ms_alternated")
+               if k in train_r},
+            "shapes": per}
+        if name != "ln_linear_mma":
+            results[name]["zero_sets"] = ("identical to the hash mask, "
+                                          "kernel and plain")
+    results["ffn_mma"]["dropout1"] = d1
 
-    per = out["ffn_mma"]
-    worst = max(per.values(), key=lambda r: r["err_over_tol"])
-    train_r = per[f"N={DROP_ROWS[-1]}"]
-    results["ffn_mma"] = {
-        "name": "ffn_mma", "route": "cuda",
-        "source": "paddle_tpu_torch/csrc/ffn_mma.cu",
-        "replaces": "paddle_tpu/ops/fused_block.py:363",
-        "launches": 0, "max_abs_err": worst["max_abs_err"],
-        "tol": worst["tol"], "err_over_tol": worst["err_over_tol"],
-        "ms": train_r["ms"], "plain_ms": train_r["plain_ms"],
-        "bound_ms": train_r["bound_ms"], "bound_by": train_r["bound_by"],
-        "library_ms": None, "peak": PEAK_BF16,
-        "shape": f"N={DROP_ROWS[-1]}, h={h}, ffn={ffn}, bf16 O1 (bf16 x, "
-                 f"W1, W2; float32 b1, b2, g, beta), dropout2={DROP_P}",
-        **{k: train_r[k] for k in ("ms_p0", "ms_alternated")},
-        "shapes": per, "dropout1": d1,
-        "zero_sets": "identical to the hash mask, kernel and plain"}
+
+# the TPU kernel each tensor-core K1-K3 replaces where its weights are bf16
+MMA_REPLACES = {"ln_linear_mma": "paddle_tpu/ops/fused_block.py:178",
+                "linear_residual_mma": "paddle_tpu/ops/fused_block.py:267",
+                "ffn_mma": "paddle_tpu/ops/fused_block.py:363"}
 
 
 def train_fused(torch, np, dev, _kernels, unfused_p50):
@@ -1439,9 +1492,10 @@ def train_fused(torch, np, dev, _kernels, unfused_p50):
             "S=2048, dropout 0.1")
     line = timed_steps(torch, np, _kernels, model, opt, ids, labels,
                        FUSED_TRAINING_KERNELS, "fused training")
-    require(line["launches"]["ffn"] == 0, f"fused training: the SIMT K3 "
-            f"launched {line['launches']['ffn']} times; under O1 its bf16 "
-            "weights take ffn_mma")
+    for name in FUSED_KERNELS:
+        require(line["launches"][name] == 0, f"fused training: the SIMT "
+                f"{name} launched {line['launches'][name]} times; under O1 "
+                "its bf16 operands take the tensor-core kernel")
     line = {"use_fused_block": True, "hidden_dropout": cfg.hidden_dropout,
             "attention_dropout": cfg.attention_dropout, **line,
             "unfused_step_ms_p50": unfused_p50}
@@ -1619,8 +1673,9 @@ def generate(torch, np, dev, _kernels):
         for name in FUSED_KERNELS:
             require((launches[name] > 0) == fused,
                     f"{name} ({tag}): {launches[name]} launches")
-        require(launches["ffn_mma"] == 0, f"ffn_mma ({tag}): "
-                f"{launches['ffn_mma']} launches (float32 weights take ffn)")
+        for name in FUSED_ONLY_KERNELS:
+            require(launches[name] == 0, f"{name} ({tag}): {launches[name]} "
+                    "launches (float32 weights take the SIMT kernels)")
         eager, eager_steps = eager_decode(torch, model, prompts,
                                           GENERATE_NEW_TOKENS)
         require(torch.equal(eager, out),

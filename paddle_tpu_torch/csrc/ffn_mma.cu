@@ -25,7 +25,8 @@
 // accumulator of the tile, (64, h), is split across the pair: (64, h / 2)
 // in the registers of a block's 8 warps, h / 8 floats a thread (96 at
 // h = 768), each warp owning 32 rows x h / 8 columns.  Both blocks compute
-// LN(x) of the tile once into shared memory as bf16 (64 x (h + 8)).  Then,
+// LN(x) of the tile once into shared memory as bf16 (64 x (h + 8);
+// ln_tile of gemm_mma.cuh, shared with ln_linear_mma.cu).  Then,
 // for each ffn tile of 256 columns, each block computes its half of the
 // activation, (64, 128) = LN(x) @ W1[:, its 128 columns] (warp tiles of
 // 32 x 32), adds b1, applies act and drop1, rounds to bf16 and stores the
@@ -86,6 +87,7 @@
 
 #include "common.cuh"
 #include "flash_mma.cuh"
+#include "gemm_mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -149,50 +151,6 @@ __device__ __forceinline__ void cluster_arrive() {
 }
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
-// LN of the tile's 64 rows into shared memory as bf16, in the order of the
-// JAX kernel: mean, the mean of the squared deviations, rsqrt(var + eps),
-// gain, bias.  One warp per row, the row's H / 32 values in registers; rows
-// at or past n are zero.
-template <int H>
-__device__ __forceinline__ void ln_tile(const void* x, int x_bf16,
-                                        int64_t row0, int n, const void* g,
-                                        int g_bf16, const void* beta,
-                                        int beta_bf16, float eps, bf16* lnx) {
-  constexpr int kPer = H / 32;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int r = warp; r < kBM; r += kWarps) {
-    bf16* d = lnx + r * Shape<H>::kLdLn;
-    const int64_t row = row0 + r;
-    if (row >= n) {
-#pragma unroll
-      for (int u = 0; u < kPer; ++u) d[lane + 32 * u] = __float2bfloat16(0.f);
-      continue;
-    }
-    float v[kPer];
-    float sum = 0.f;
-#pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      v[u] = ptt::ld(x, row * H + lane + 32 * u, x_bf16);
-      sum += v[u];
-    }
-    const float mean = ptt::warp_sum(sum) / H;
-    float sq = 0.f;
-#pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const float dv = v[u] - mean;
-      sq += dv * dv;
-    }
-    const float rstd = rsqrtf(ptt::warp_sum(sq) / H + eps);
-#pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const int c = lane + 32 * u;
-      d[c] = __float2bfloat16((v[u] - mean) * rstd * ptt::ld(g, c, g_bf16) +
-                              ptt::ld(beta, c, beta_bf16));
-    }
-  }
 }
 
 // Chunk q of a block's sequence into ring stage q % kStages: each of its
@@ -280,7 +238,8 @@ ffn_mma_kernel(const void* __restrict__ x, int x_bf16,
     if (q < chunks) issue_chunk<H>(q, group, groups, rank, ffn, w1, w2, ring);
     cp_commit();
   }
-  ln_tile<H>(x, x_bf16, row0, n, g, g_bf16, beta, beta_bf16, eps, lnx);
+  ptt_gemm::ln_tile<H, kBM, kWarps>(x, x_bf16, row0, n, g, g_bf16, beta,
+                                    beta_bf16, eps, lnx);
 
   float acc1[2][S::kN1][4];
   float acc2[S::kM2][S::kN2][4] = {};

@@ -5,11 +5,20 @@ paths run.
 Three fused surfaces, each a CUDA kernel for Hopper beside its plain PyTorch
 version:
 
-  [K1 ln_linear]        LN(x) @ W + b          csrc/ln_linear.cu
+  [K1 ln_linear]        LN(x) @ W + b          csrc/ln_linear.cu (float32 W)
+                                               csrc/ln_linear_mma.cu (bf16 W)
   [K2 linear_residual]  r + dropout(x @ W + b) csrc/linear_residual.cu
+                                               (float32 operands)
+                                               csrc/linear_residual_mma.cu
+                                               (bf16 x and W)
   [K3 ffn]              x + drop2(W2 drop1(act(W1 LN(x) + b1)) + b2)
                                                 csrc/ffn.cu (float32 weights)
                                                 csrc/ffn_mma.cu (bf16 weights)
+
+Each bf16 kernel (``*_mma``: mma.sync on the tensor cores) takes the calls
+that its route function (``ln_linear_route``, ``linear_residual_route``,
+``ffn_route``) names from dtypes, shapes and addresses on the host; every
+other CUDA call runs the SIMT float32 kernel beside it.
 
 the attention half of a training block, :func:`fused_attention_block`: K1
 -> flash attention (``ops/flash_attention.py``, attention dropout in the
@@ -56,8 +65,10 @@ from .flash_attention import (_M32, _NEG_INF, _keep_mask, flash_attention,
 
 __all__ = ["fused_ln_linear", "fused_linear_residual", "fused_ffn_block",
            "fused_attention_block", "fused_attention_block_kvcache",
-           "ln_linear_reference", "ln_linear_cuda",
-           "linear_residual_reference", "linear_residual_cuda",
+           "ln_linear_reference", "ln_linear_cuda", "ln_linear_mma_cuda",
+           "ln_linear_route", "linear_residual_reference",
+           "linear_residual_cuda", "linear_residual_mma_cuda",
+           "linear_residual_route",
            "ffn_reference", "ffn_cuda", "ffn_mma_cuda", "ffn_route"]
 
 # distinct dropout sub-streams per epilogue (the bh slot of the flash hash)
@@ -67,6 +78,10 @@ _SALT_FFN2 = 0x46464E32
 
 _SMEM_LIMIT = 232448          # bytes of shared memory one Hopper block may use
 _TILE_ROWS, _TILE_COLS, _TILE_DEPTH = 16, 64, 32   # csrc/common.cuh tiles
+
+# The hidden sizes (K1's and K2's depth, K3's h) with an instantiation in
+# the tensor-core kernels (csrc/*_mma.cu): gpt_tiny's and GPT-125M's
+_MMA_HIDDEN = (128, 768)
 
 _c = ctypes.c_int
 _f = ctypes.c_float
@@ -174,6 +189,22 @@ def _splits(device: torch.device, row_tiles: int, tiles: int) -> int:
     return max(1, min(tiles, want))
 
 
+def _bf16_operand(t: torch.Tensor) -> bool:
+    """A bf16 GEMM operand that the tensor-core kernels stage in 16-byte
+    copies: 2-d, rows a multiple of 8 elements, 16-byte aligned."""
+    return (t.dtype == torch.bfloat16 and t.dim() == 2
+            and t.shape[1] % 8 == 0 and t.data_ptr() % 16 == 0)
+
+
+def _check_smem(name: str, h: int) -> None:
+    """The dynamic shared memory a block of ``name``'s instantiation for
+    ``h`` takes (``ptt_<name>_smem`` of its library says; 0 for no
+    instantiation) fits a block."""
+    smem = _kernels.bind(name, f"ptt_{name}_smem", [_c])(h)
+    enforce(0 < smem <= _SMEM_LIMIT,
+            f"{name}: {smem} bytes of shared memory a block at h={h}")
+
+
 # ---------------------------------------------------------------------------
 # K1: LN(x) @ W + b
 # ---------------------------------------------------------------------------
@@ -182,17 +213,87 @@ def ln_linear_reference(x, w, b, g, beta, epsilon: float) -> torch.Tensor:
     return torch.matmul(y, w) + b.to(w.dtype)
 
 
-def ln_linear_cuda(x, w, b, g, beta, epsilon: float) -> torch.Tensor:
-    """K1 on the card: ``x`` (N, h), ``w`` (h, cols); returns (N, cols) in
-    ``w``'s dtype, as the JAX kernel does."""
-    name = "ln_linear"
-    dev = _kernels.require_cuda(name, x, w, b, g, beta)
+def _check_ln_linear_shapes(name, x, w, b, g, beta):
     n, k = x.shape
     enforce(w.dim() == 2 and w.shape[0] == k,
             f"{name}: w {tuple(w.shape)} does not take x {tuple(x.shape)}")
     cols = w.shape[1]
     enforce(b.shape == (cols,) and g.shape == (k,) and beta.shape == (k,),
             f"{name}: bias / LN parameter shapes disagree with w")
+    return n, k, cols
+
+
+def ln_linear_route(w: torch.Tensor) -> str:
+    """The K1 kernel a CUDA call of :func:`ln_linear_cuda` launches, decided
+    on the host from the weight alone: ``"ln_linear_mma"``
+    (``csrc/ln_linear_mma.cu``, bf16 tensor cores) when ``w`` (h, cols) is
+    bfloat16, h is one of ``_MMA_HIDDEN``, cols is a multiple of 8 and
+    ``w`` starts on a 16-byte boundary; ``"ln_linear"``
+    (``csrc/ln_linear.cu``, float32 on the CUDA cores) for every other
+    call.  ``x`` may be float32 or bfloat16 on either."""
+    if _bf16_operand(w) and w.shape[0] in _MMA_HIDDEN:
+        return "ln_linear_mma"
+    return "ln_linear"
+
+
+# K1's tensor-core kernel: a 64-row tile a block, column tiles of 256, one
+# block an SM (csrc/ln_linear_mma.cu)
+_MMA_LN_ROWS, _MMA_LN_COLS = 64, 256
+
+
+def _mma_splits(device: torch.device, row_tiles: int, tiles: int) -> int:
+    """Blocks per 64-row tile that ``ln_linear_mma`` deals its column tiles
+    to, one block an SM: the fewest that minimise the whole waves of blocks
+    times a block's work, its column tiles plus its LN of the row tile
+    (counted as half a column tile).  1 at the training shape (256 row
+    tiles, 2 waves of 9 tiles), 2 at N=4096, every tile its own block at
+    N=8."""
+    sms = _kernels.sm_count(device)
+    return min(range(1, tiles + 1),
+               key=lambda s: (-(-row_tiles * s // sms)
+                              * (2 * -(-tiles // s) + 1), s))
+
+
+def ln_linear_mma_cuda(x, w, b, g, beta, epsilon: float) -> torch.Tensor:
+    """K1 on the tensor cores (``csrc/ln_linear_mma.cu``), for the calls
+    that :func:`ln_linear_route` sends there; as :func:`ln_linear_cuda`.
+    LN(x) is computed once per 64-row tile and kept in shared memory as
+    bf16; the bias is added in float32 and the sum rounded once to bf16."""
+    name = "ln_linear_mma"
+    dev = _kernels.require_cuda(name, x, w, b, g, beta)
+    n, k, cols = _check_ln_linear_shapes(name, x, w, b, g, beta)
+    enforce(ln_linear_route(w) == name,
+            f"{name}: takes a bf16 w with h in {_MMA_HIDDEN}, cols a "
+            f"multiple of 8 and 16-byte aligned rows; got {w.dtype} "
+            f"{tuple(w.shape)}")
+    _check_smem(name, k)
+    out = torch.empty((n, cols), dtype=w.dtype, device=dev)
+    if n == 0:
+        return out
+    fn = _kernels.bind(name, "ptt_ln_linear_mma",
+                       [_p, _c, _p, _p, _c, _p, _c, _p, _c, _p, _c, _c, _c,
+                        _f, _c, _p])
+    splits = _mma_splits(dev, -(-n // _MMA_LN_ROWS), -(-cols // _MMA_LN_COLS))
+    cd, pt = _kernels.dtype_code, _kernels.ptr
+    rc = fn(pt(x), cd(x), pt(w), pt(b), cd(b), pt(g), cd(g), pt(beta),
+            cd(beta), pt(out), n, k, cols, float(epsilon), splits,
+            _kernels.stream(dev))
+    _kernels.check(rc, name)
+    _kernels.launches[name] += 1
+    return out
+
+
+def ln_linear_cuda(x, w, b, g, beta, epsilon: float) -> torch.Tensor:
+    """K1 on the card: ``x`` (N, h), ``w`` (h, cols); returns (N, cols) in
+    ``w``'s dtype, as the JAX kernel does.  A bf16 ``w`` of the shapes that
+    :func:`ln_linear_route` names goes to the tensor-core kernel
+    (:func:`ln_linear_mma_cuda`); every other call runs the float32 kernel
+    of ``csrc/ln_linear.cu``."""
+    if ln_linear_route(w) == "ln_linear_mma":
+        return ln_linear_mma_cuda(x, w, b, g, beta, epsilon)
+    name = "ln_linear"
+    dev = _kernels.require_cuda(name, x, w, b, g, beta)
+    n, k, cols = _check_ln_linear_shapes(name, x, w, b, g, beta)
     enforce(4 * (_TILE_ROWS * k + _TILE_DEPTH * _TILE_COLS) <= _SMEM_LIMIT,
             f"{name}: hidden size {k} does not fit a block's shared memory")
     out = torch.empty((n, cols), dtype=w.dtype, device=dev)
@@ -237,13 +338,7 @@ def linear_residual_reference(x, w, b, r, seed: int = 0,
     return (r.float() + y).to(r.dtype)
 
 
-def linear_residual_cuda(x, w, b, r, seed: int = 0, dropout_p: float = 0.0,
-                         salt: int = _SALT_RESID) -> torch.Tensor:
-    """K2 on the card: ``x`` (N, k), ``w`` (k, cols), ``r`` (N, cols);
-    returns (N, cols) in ``r``'s dtype, with the hash dropout of ``seed``
-    and ``salt`` over the global (row, col) when ``dropout_p > 0``."""
-    name = "linear_residual"
-    dev = _kernels.require_cuda(name, x, w, b, r)
+def _check_linear_residual_shapes(name, x, w, b, r):
     n, k = x.shape
     enforce(w.dim() == 2 and w.shape[0] == k,
             f"{name}: w {tuple(w.shape)} does not take x {tuple(x.shape)}")
@@ -251,6 +346,67 @@ def linear_residual_cuda(x, w, b, r, seed: int = 0, dropout_p: float = 0.0,
     enforce(b.shape == (cols,) and r.shape == (n, cols),
             f"{name}: bias {tuple(b.shape)} / residual {tuple(r.shape)} "
             f"disagree with ({n}, {cols})")
+    return n, k, cols
+
+
+def linear_residual_route(x: torch.Tensor, w: torch.Tensor) -> str:
+    """The K2 kernel a CUDA call of :func:`linear_residual_cuda` launches,
+    decided on the host: ``"linear_residual_mma"``
+    (``csrc/linear_residual_mma.cu``, bf16 tensor cores) when ``w`` (k,
+    cols) is bfloat16 with k one of ``_MMA_HIDDEN``, cols a multiple of 8
+    and a 16-byte aligned start, and ``x`` (N, k) is bfloat16 and 16-byte
+    aligned; ``"linear_residual"`` (``csrc/linear_residual.cu``, float32
+    on the CUDA cores) for every other call.  ``r`` may be float32 or
+    bfloat16 on either."""
+    if (_bf16_operand(w) and w.shape[0] in _MMA_HIDDEN
+            and _bf16_operand(x)):
+        return "linear_residual_mma"
+    return "linear_residual"
+
+
+def linear_residual_mma_cuda(x, w, b, r, seed: int = 0,
+                             dropout_p: float = 0.0,
+                             salt: int = _SALT_RESID) -> torch.Tensor:
+    """K2 on the tensor cores (``csrc/linear_residual_mma.cu``), for the
+    calls that :func:`linear_residual_route` sends there; as
+    :func:`linear_residual_cuda`.  b, the dropout and r are applied in
+    float32 and the sum rounded once to ``r``'s dtype."""
+    name = "linear_residual_mma"
+    dev = _kernels.require_cuda(name, x, w, b, r)
+    n, k, cols = _check_linear_residual_shapes(name, x, w, b, r)
+    enforce(linear_residual_route(x, w) == name,
+            f"{name}: takes bf16 x and w with k in {_MMA_HIDDEN}, cols a "
+            f"multiple of 8 and 16-byte aligned rows; got x {x.dtype}, w "
+            f"{w.dtype} {tuple(w.shape)}")
+    _check_smem(name, k)
+    out = torch.empty((n, cols), dtype=r.dtype, device=dev)
+    if n == 0:
+        return out
+    fn = _kernels.bind(name, "ptt_linear_residual_mma",
+                       [_p, _p, _p, _c, _p, _c, _p, _c, _c, _c,
+                        _u, _u, _f, _f, _p])
+    cd, pt = _kernels.dtype_code, _kernels.ptr
+    rc = fn(pt(x), pt(w), pt(b), cd(b), pt(r), cd(r), pt(out), n, k, cols,
+            int(seed) & _M32, int(salt) & _M32, *_drop_args(dropout_p),
+            _kernels.stream(dev))
+    _kernels.check(rc, name)
+    _kernels.launches[name] += 1
+    return out
+
+
+def linear_residual_cuda(x, w, b, r, seed: int = 0, dropout_p: float = 0.0,
+                         salt: int = _SALT_RESID) -> torch.Tensor:
+    """K2 on the card: ``x`` (N, k), ``w`` (k, cols), ``r`` (N, cols);
+    returns (N, cols) in ``r``'s dtype, with the hash dropout of ``seed``
+    and ``salt`` over the global (row, col) when ``dropout_p > 0``.  bf16
+    ``x`` and ``w`` of the shapes that :func:`linear_residual_route` names
+    go to the tensor-core kernel (:func:`linear_residual_mma_cuda`); every
+    other call runs the float32 kernel of ``csrc/linear_residual.cu``."""
+    if linear_residual_route(x, w) == "linear_residual_mma":
+        return linear_residual_mma_cuda(x, w, b, r, seed, dropout_p, salt)
+    name = "linear_residual"
+    dev = _kernels.require_cuda(name, x, w, b, r)
+    n, k, cols = _check_linear_residual_shapes(name, x, w, b, r)
     enforce(4 * (_TILE_ROWS * k + _TILE_DEPTH * _TILE_COLS) <= _SMEM_LIMIT,
             f"{name}: depth {k} does not fit a block's shared memory")
     out = torch.empty((n, cols), dtype=r.dtype, device=dev)
@@ -352,11 +508,9 @@ def _check_ffn_shapes(name, x, w1, b1, w2, b2, g, beta):
     return n, h, ffn
 
 
-# K3's tensor-core kernel (csrc/ffn_mma.cu): its hidden sizes (one
-# instantiation each: gpt_tiny's and GPT-125M's; 96 accumulator floats a
-# thread at 768), its ffn tile and row tile (a cluster of two blocks per 64
-# rows)
-_MMA_HIDDEN = (128, 768)
+# K3's tensor-core kernel (csrc/ffn_mma.cu; an instantiation for each of
+# _MMA_HIDDEN, 96 accumulator floats a thread at 768): its ffn tile and row
+# tile (a cluster of two blocks per 64 rows)
 _MMA_FFN_TILE, _MMA_ROWS = 256, 64
 
 
@@ -369,10 +523,8 @@ def ffn_route(w1: torch.Tensor, w2: torch.Tensor) -> str:
     both weights start on a 16-byte boundary; ``"ffn"``
     (``csrc/ffn.cu``, float32 on the CUDA cores) for every other call.
     ``x`` may be float32 or bfloat16 on either."""
-    if (w1.dtype == torch.bfloat16 and w2.dtype == torch.bfloat16
-            and w1.dim() == 2 and w1.shape[0] in _MMA_HIDDEN
-            and w1.shape[1] % 8 == 0 and w1.data_ptr() % 16 == 0
-            and w2.data_ptr() % 16 == 0):
+    if (_bf16_operand(w1) and w1.shape[0] in _MMA_HIDDEN
+            and w2.dtype == torch.bfloat16 and w2.data_ptr() % 16 == 0):
         return "ffn_mma"
     return "ffn"
 

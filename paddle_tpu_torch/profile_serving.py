@@ -29,7 +29,9 @@ from .inference import ServingEngine
 
 _SHORT = {"paged_decode_kernel": "paged_decode (ours)",
           "ln_linear_kernel": "ln_linear (ours)",
+          "ln_linear_mma_kernel": "ln_linear_mma (ours)",
           "linear_residual_kernel": "linear_residual (ours)",
+          "linear_residual_mma_kernel": "linear_residual_mma (ours)",
           "ffn_mma_kernel": "ffn_mma (ours)",
           "ffn_finalize_kernel": "ffn finalize (ours)",
           "ffn_kernel": "ffn (ours)",

@@ -177,6 +177,94 @@ def test_ffn_route(w1dtype, w2dtype, h, ffn, offset, want):
     assert tfb.ffn_route(w1, w2) == want
 
 
+def _weight(dtype, rows, cols, offset):
+    """A (rows, cols) weight whose data starts ``offset`` bytes into a
+    fresh buffer (CPU tensors stand in for the card's: the route rules
+    read no device)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    flat = torch.zeros(rows * cols + offset // size, dtype=dtype)
+    w = flat[offset // size:].view(rows, cols)
+    assert (w.data_ptr() % 16 == 0) == (offset == 0)
+    return w
+
+
+# (w dtype, h, cols, byte offset of w's data, route)
+LN_LINEAR_ROUTES = [
+    (torch.bfloat16, 768, 2304, 0, "ln_linear_mma"),   # fused training QKV
+    (torch.bfloat16, 128, 384, 0, "ln_linear_mma"),    # gpt_tiny
+    (torch.bfloat16, 768, 200, 0, "ln_linear_mma"),    # ragged column tile
+    (torch.bfloat16, 128, 8, 0, "ln_linear_mma"),
+    (torch.float32, 768, 2304, 0, "ln_linear"),        # serving, generate
+    (torch.float16, 768, 2304, 0, "ln_linear"),
+    (torch.bfloat16, 64, 192, 0, "ln_linear"),         # h not built
+    (torch.bfloat16, 256, 768, 0, "ln_linear"),
+    (torch.bfloat16, 1024, 3072, 0, "ln_linear"),
+    (torch.bfloat16, 768, 100, 0, "ln_linear"),        # cols % 8 != 0
+    (torch.bfloat16, 768, 2304, 2, "ln_linear"),       # misaligned
+    (torch.bfloat16, 128, 384, 8, "ln_linear"),
+]
+
+
+@pytest.mark.parametrize("wdtype,h,cols,offset,want", LN_LINEAR_ROUTES)
+def test_ln_linear_route(wdtype, h, cols, offset, want):
+    # the host-side rule that sends a CUDA call of K1 to ln_linear_mma or
+    # ln_linear, from w's dtype, shape and address alone
+    assert tfb.ln_linear_route(_weight(wdtype, h, cols, offset)) == want
+
+
+# (x dtype, w dtype, k, cols, byte offset of x's data, of w's data, route)
+LINEAR_RESIDUAL_ROUTES = [
+    (torch.bfloat16, torch.bfloat16, 768, 768, 0, 0,
+     "linear_residual_mma"),                              # fused training
+    (torch.bfloat16, torch.bfloat16, 128, 128, 0, 0,
+     "linear_residual_mma"),                              # gpt_tiny
+    (torch.bfloat16, torch.bfloat16, 768, 200, 0, 0, "linear_residual_mma"),
+    (torch.float32, torch.float32, 768, 768, 0, 0,
+     "linear_residual"),                                  # serving, generate
+    (torch.float32, torch.bfloat16, 768, 768, 0, 0, "linear_residual"),
+    (torch.bfloat16, torch.float32, 768, 768, 0, 0, "linear_residual"),
+    (torch.float16, torch.float16, 768, 768, 0, 0, "linear_residual"),
+    (torch.bfloat16, torch.bfloat16, 96, 96, 0, 0,
+     "linear_residual"),                                  # k not built
+    (torch.bfloat16, torch.bfloat16, 512, 512, 0, 0, "linear_residual"),
+    (torch.bfloat16, torch.bfloat16, 768, 100, 0, 0,
+     "linear_residual"),                                  # cols % 8 != 0
+    (torch.bfloat16, torch.bfloat16, 768, 768, 0, 2,
+     "linear_residual"),                                  # w misaligned
+    (torch.bfloat16, torch.bfloat16, 768, 768, 2, 0,
+     "linear_residual"),                                  # x misaligned
+    (torch.bfloat16, torch.bfloat16, 128, 128, 8, 0, "linear_residual"),
+]
+
+
+@pytest.mark.parametrize("xdtype,wdtype,k,cols,xoff,woff,want",
+                         LINEAR_RESIDUAL_ROUTES)
+def test_linear_residual_route(xdtype, wdtype, k, cols, xoff, woff, want):
+    # the host-side rule that sends a CUDA call of K2 to linear_residual_mma
+    # or linear_residual, from x's and w's dtypes, shapes and addresses
+    x = _weight(xdtype, 37, k, xoff)
+    assert tfb.linear_residual_route(x, _weight(wdtype, k, cols, woff)) \
+        == want
+
+
+# (row tiles, column tiles, SMs, splits): the fewest blocks per row tile
+# that minimise whole waves x (column tiles + LN) a block
+MMA_SPLITS = [
+    (256, 9, 132, 1),      # N=16384, 2304 columns: 2 waves of 9 tiles
+    (64, 9, 132, 2),       # N=4096: one wave of 5 tiles
+    (1, 9, 132, 9),        # N=8: every tile its own block
+    (1, 2, 132, 2),        # gpt_tiny's 384 columns
+    (132, 9, 132, 1),      # one whole wave
+    (133, 9, 132, 3),      # 4 waves of 3 tiles, not 2 of 9
+]
+
+
+@pytest.mark.parametrize("row_tiles,tiles,sms,want", MMA_SPLITS)
+def test_ln_linear_mma_splits(monkeypatch, row_tiles, tiles, sms, want):
+    monkeypatch.setattr(_kernels, "sm_count", lambda device: sms)
+    assert tfb._mma_splits(torch.device("cpu"), row_tiles, tiles) == want
+
+
 @pytest.mark.parametrize("seed", [0, 7, 123456789, -5, 2 ** 31 - 1])
 @pytest.mark.parametrize("salt", [tfb._SALT_RESID, tfb._SALT_FFN1,
                                   tfb._SALT_FFN2, 3])
@@ -231,7 +319,8 @@ def test_cpu_tensors_take_plain_versions():
 
 
 @pytest.mark.parametrize("wrapper", ["ln_linear", "linear_residual", "ffn",
-                                     "ffn_bf16", "ffn_mma"])
+                                     "ffn_bf16", "ffn_mma", "ln_linear_mma",
+                                     "linear_residual_mma"])
 def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     x, p = _t(_x().reshape(-1, 128)), {k: _t(v) for k, v in
                                        _params().items()}
@@ -248,6 +337,11 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
                                              p["g"], p["beta"]),
             "ffn_mma": lambda: tfb.ffn_mma_cuda(x, w1b, p["b1"], w2b,
                                                 p["b2"], p["g"],
-                                                p["beta"])}[wrapper]
+                                                p["beta"]),
+            "ln_linear_mma": lambda: tfb.ln_linear_mma_cuda(
+                x, p["qkv_w"].bfloat16(), p["qkv_b"], p["g"], p["beta"],
+                EPS),
+            "linear_residual_mma": lambda: tfb.linear_residual_mma_cuda(
+                x.bfloat16(), p["out_w"].bfloat16(), p["out_b"], x)}[wrapper]
     with pytest.raises(ValueError, match="must be on"):
         call()

@@ -421,9 +421,185 @@ def test_ffn_mma_refuses_what_it_cannot_take(dev):
         fb.ffn_mma_cuda(x, w1, b1, w2, b2, g, beta)
 
 
+# K1's and K2's tensor-core routes (csrc/ln_linear_mma.cu,
+# csrc/linear_residual_mma.cu): bf16 W (K2: and x), h in fb._MMA_HIDDEN.
+# Rows as for ffn_mma; columns: a whole number of tiles (K1: 3h, the QKV
+# projection, in tiles of 256; K2: h, in tiles of 128), a ragged last tile
+# (200) and a single chunk (8).  The plain versions round the bf16 product
+# before + b where the kernels keep float32 sums, as the TPU kernels do:
+# one bf16 unit of the range.
+LINEAR_SHAPES = [(128, 384), (768, 2304), (768, 200), (128, 8)]
+
+
+def _ln_linear_params(dev, h, cols):
+    w = _t(dev, h, cols, dtype=torch.bfloat16, std=0.02, seed=11)
+    b = _t(dev, cols, std=0.02, seed=12)
+    g, beta = 1 + _t(dev, h, std=0.1, seed=13), _t(dev, h, std=0.1, seed=14)
+    return w, b, g, beta
+
+
+@pytest.mark.parametrize("n", MMA_ROWS)
+@pytest.mark.parametrize("h,cols", LINEAR_SHAPES)
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_ln_linear_mma(dev, n, h, cols, xdtype):
+    x = _t(dev, n, h, dtype=xdtype, seed=15)
+    w, b, g, beta = _ln_linear_params(dev, h, cols)
+    assert fb.ln_linear_route(w) == "ln_linear_mma"
+    before = dict(_kernels.launches)
+    out = fb.ln_linear_cuda(x, w, b, g, beta, EPS)
+    assert _kernels.launches["ln_linear_mma"] == before["ln_linear_mma"] + 1
+    assert _kernels.launches["ln_linear"] == before["ln_linear"]
+    ref = fb.ln_linear_reference(x, w, b, g, beta, EPS)
+    assert out.dtype == ref.dtype == torch.bfloat16
+    assert out.shape == (n, cols)
+    assert float((out.float() - ref.float()).abs().max()) <= _bf16_tol(ref)
+
+
+def test_ln_linear_mma_rejects_b_left_out(dev):
+    # the check above sees a fault of the bias's size (std 0.02 against an
+    # output of ~0.5): K1 without b lies outside one bf16 unit of the range
+    x = _t(dev, 300, 768, dtype=torch.bfloat16, seed=16)
+    w, b, g, beta = _ln_linear_params(dev, 768, 2304)
+    ref = fb.ln_linear_reference(x, w, b, g, beta, EPS)
+    bad = fb.ln_linear_mma_cuda(x, w, torch.zeros_like(b), g, beta, EPS)
+    assert float((bad.float() - ref.float()).abs().max()) > _bf16_tol(ref)
+
+
+def _linear_residual_inputs(dev, n, k, cols, rdtype):
+    x = _t(dev, n, k, dtype=torch.bfloat16, seed=17)
+    w = _t(dev, k, cols, dtype=torch.bfloat16, std=0.02, seed=18)
+    b = _t(dev, cols, std=0.02, seed=19)
+    r = _t(dev, n, cols, dtype=rdtype, seed=20)
+    return x, w, b, r
+
+
+def _linear_residual_addend(x, w, b, r, *args):
+    """K2's kernel and plain outputs with a residual of 2^-40 of ``r``: the
+    projection's own contribution, rounded to r's dtype."""
+    tiny = (r.float() * TINY).to(r.dtype)
+    return (tiny, fb.linear_residual_cuda(x, w, b, tiny, *args),
+            fb.linear_residual_reference(x, w, b, tiny, *args))
+
+
+@pytest.mark.parametrize("n", MMA_ROWS)
+@pytest.mark.parametrize("k,cols", [(128, 128), (768, 768), (768, 200),
+                                    (128, 8)])
+@pytest.mark.parametrize("rdtype", [torch.float32, torch.bfloat16])
+def test_linear_residual_mma(dev, n, k, cols, rdtype):
+    x, w, b, r = _linear_residual_inputs(dev, n, k, cols, rdtype)
+    assert fb.linear_residual_route(x, w) == "linear_residual_mma"
+    before = dict(_kernels.launches)
+    out = fb.linear_residual_cuda(x, w, b, r)
+    assert (_kernels.launches["linear_residual_mma"]
+            == before["linear_residual_mma"] + 1)
+    assert _kernels.launches["linear_residual"] == before["linear_residual"]
+    ref = fb.linear_residual_reference(x, w, b, r)
+    assert out.dtype == rdtype and out.shape == (n, cols)
+    assert float((out.float() - ref.float()).abs().max()) <= _bf16_tol(ref)
+    _, got, want = _linear_residual_addend(x, w, b, r)
+    assert float((got.float() - want.float()).abs().max()) <= _bf16_tol(want)
+
+
+@pytest.mark.parametrize("n", MMA_ROWS)
+@pytest.mark.parametrize("rdtype", [torch.float32, torch.bfloat16])
+def test_linear_residual_mma_dropout(dev, n, rdtype):
+    # p = 0.1 as fused training drops: values and the projection's own
+    # contribution within one bf16 unit; with a residual of 2^-40 the
+    # dropped elements are exactly the hash mask's
+    x, w, b, r = _linear_residual_inputs(dev, n, 768, 768, rdtype)
+    args = (77, 0.1, fb._SALT_RESID)
+    before = _kernels.launches["linear_residual_mma"]
+    out = fb.linear_residual_cuda(x, w, b, r, *args)
+    assert _kernels.launches["linear_residual_mma"] == before + 1
+    ref = fb.linear_residual_reference(x, w, b, r, *args)
+    assert out.dtype == rdtype
+    assert float((out.float() - ref.float()).abs().max()) <= _bf16_tol(ref)
+    tiny, got, want = _linear_residual_addend(x, w, b, r, *args)
+    assert float((got.float() - want.float()).abs().max()) <= _bf16_tol(want)
+    keep = fb._keep_mask(77, fb._SALT_RESID, torch.arange(n)[:, None],
+                         torch.arange(768)[None, :], 0.1)
+    assert torch.equal(_dropped(got, tiny), ~keep)
+    assert torch.equal(_dropped(want, tiny), ~keep)
+    # p = 0 takes the instantiation without dropout, as no seed does
+    assert torch.equal(fb.linear_residual_cuda(x, w, b, r, 77, 0.0),
+                       fb.linear_residual_cuda(x, w, b, r))
+
+
+@pytest.mark.parametrize("n", [8, 4096])
+def test_linear_residual_mma_addend_check_rejects_b_left_out(dev, n):
+    x, w, b, r = _linear_residual_inputs(dev, n, 768, 768, torch.bfloat16)
+    args = (3, 0.1, fb._SALT_RESID)
+    tiny, _, want = _linear_residual_addend(x, w, b, r, *args)
+    bad = fb.linear_residual_cuda(x, w, torch.zeros_like(b), tiny, *args)
+    assert float((bad.float() - want.float()).abs().max()) > _bf16_tol(want)
+
+
+@pytest.mark.parametrize("n", [8, 300, 4096])
+def test_ln_linear_and_linear_residual_mma_repeat_exactly(dev, n):
+    x = _t(dev, n, 768, dtype=torch.bfloat16, seed=21)
+    w, b, g, beta = _ln_linear_params(dev, 768, 2304)
+    k1 = [fb.ln_linear_cuda(x, w, b, g, beta, EPS) for _ in range(2)]
+    xa, wo, bo, r = _linear_residual_inputs(dev, n, 768, 768, torch.bfloat16)
+    k2 = [fb.linear_residual_cuda(xa, wo, bo, r, 9, 0.1) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(k1[0], k1[1]) and torch.equal(k2[0], k2[1])
+
+
+@pytest.mark.parametrize("case", ["float32", "bf16-h96", "bf16-misaligned"])
+def test_ln_linear_route_keeps_the_simt_kernel(dev, case):
+    h, cols = (96, 288) if case == "bf16-h96" else (128, 384)
+    w, b, g, beta = _ln_linear_params(dev, h, cols)
+    if case == "float32":                 # serving and generate
+        w = w.float()
+    elif case == "bf16-misaligned":       # starts 2 bytes into its buffer
+        w = torch.empty(h * cols + 1, dtype=torch.bfloat16,
+                        device=dev)[1:].view(h, cols).copy_(w)
+    assert fb.ln_linear_route(w) == "ln_linear"
+    x = _t(dev, 37, h, dtype=torch.bfloat16, seed=22)
+    before = dict(_kernels.launches)
+    out = fb.ln_linear_cuda(x, w, b, g, beta, EPS)
+    assert _kernels.launches["ln_linear"] == before["ln_linear"] + 1
+    assert _kernels.launches["ln_linear_mma"] == before["ln_linear_mma"]
+    ref = fb.ln_linear_reference(x, w, b, g, beta, EPS)
+    assert float((out.float() - ref.float()).abs().max()) <= _tol(ref,
+                                                                  w.dtype)
+
+
+@pytest.mark.parametrize("xdtype,wdtype,k", [
+    (torch.float32, torch.float32, 768),      # serving and generate
+    (torch.float32, torch.bfloat16, 768),     # x not bf16
+    (torch.bfloat16, torch.float32, 768),
+    (torch.bfloat16, torch.bfloat16, 96)])    # k without an instantiation
+def test_linear_residual_route_keeps_the_simt_kernel(dev, xdtype, wdtype, k):
+    x, w, b, r = _linear_residual_inputs(dev, 37, k, k, torch.bfloat16)
+    x, w = x.to(xdtype), w.to(wdtype)
+    assert fb.linear_residual_route(x, w) == "linear_residual"
+    before = dict(_kernels.launches)
+    out = fb.linear_residual_cuda(x, w, b, r)
+    assert _kernels.launches["linear_residual"] == before["linear_residual"] + 1
+    assert (_kernels.launches["linear_residual_mma"]
+            == before["linear_residual_mma"])
+    ref = fb.linear_residual_reference(x, w, b, r)
+    assert float((out.float() - ref.float()).abs().max()) <= _bf16_tol(ref)
+
+
+def test_ln_linear_and_linear_residual_mma_refuse_what_they_cannot_take(dev):
+    x = _t(dev, 8, 96, dtype=torch.bfloat16)
+    w, b, g, beta = _ln_linear_params(dev, 96, 288)
+    with pytest.raises(ValueError, match="ln_linear_mma: takes a bf16 w"):
+        fb.ln_linear_mma_cuda(x, w, b, g, beta, EPS)
+    xa, wo, bo, r = _linear_residual_inputs(dev, 8, 768, 768, torch.bfloat16)
+    with pytest.raises(ValueError, match="linear_residual_mma: takes bf16"):
+        fb.linear_residual_mma_cuda(xa.float(), wo, bo, r)
+    with pytest.raises(ValueError, match="linear_residual_mma: takes bf16"):
+        fb.linear_residual_mma_cuda(xa, wo[:, :100].contiguous(), bo[:100],
+                                    r[:, :100].contiguous())
+
+
 def test_o1_fused_training_step_takes_ffn_mma(dev):
-    # gpt_tiny (h = 128, ffn = 512) fused, under O1: K3 runs on the tensor
-    # cores once per layer; the float32 step above keeps the SIMT kernel
+    # gpt_tiny (h = 128, ffn = 512) fused, under O1: K1, K2 and K3 run on
+    # the tensor cores once per layer; the float32 step above keeps the
+    # SIMT kernels
     from paddle_tpu_torch.convert import training_workload
     from paddle_tpu_torch.models.gpt import gpt_tiny
     from paddle_tpu_torch.training import train_step
@@ -432,8 +608,10 @@ def test_o1_fused_training_step_takes_ffn_mma(dev):
     m, opt, ids, labels = training_workload(dev, cfg, batch=2, seq_len=128)
     _kernels.reset_launches()
     losses = [float(train_step(m, opt, ids, labels)) for _ in range(3)]
-    assert _kernels.launches["ffn_mma"] == 3 * cfg.num_layers
-    assert _kernels.launches["ffn"] == 0
+    for name in ("ffn_mma", "ln_linear_mma", "linear_residual_mma"):
+        assert _kernels.launches[name] == 3 * cfg.num_layers, name
+    for name in ("ffn", "ln_linear", "linear_residual"):
+        assert _kernels.launches[name] == 0, name
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
 
