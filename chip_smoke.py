@@ -17,7 +17,13 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               hidden sizes; linear_residual_mma: two hidden sizes x
               dropout; ffn_mma: two hidden sizes x drop1) must hold HMMA
               and the h=768 ones must not spill, with their registers and
-              shared memory a block logged; the decode
+              shared memory a block logged; both instantiations of the
+              weight-streaming K2 / K3 of float32 weights
+              (linear_residual_stream, ffn_stream) must neither spill nor
+              keep a stack frame, and their grid at GPT-125M for N = 1,
+              8, 16, 32, 64 is logged (cluster size, blocks, bytes in flight
+              and shared memory a block, K3's scratch, the clusters the
+              card holds at once); the decode
               kernel's registers, spills and cluster split at the generate
               shape are logged, and the paged-decode kernel's at the
               serving table width;
@@ -31,7 +37,15 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               at the serving shape (timed), then untimed at every edge of
               its cluster split, other table widths, all four q / page
               dtype pairs, d = 32 and 128 and rows that share blocks, and
-              two launches must give the same bits;
+              two launches must give the same bits; the weight-streaming
+              K3 (ffn_stream) and K2 (linear_residual_stream) of float32
+              weights at every N from 1 to fused_block._STREAM_MAX_ROWS
+              (the route's rows), at N=8 also with float32 x / r and with
+              dropout (dropped elements the hash mask's, a bias left out
+              rejected, two calls bit-identical), timed at N = 1, 8, 16,
+              32, 64 against the SIMT kernel they replace there and the
+              plain version, alternated (each faster than both at N=8, or
+              the phase fails);
   (c) serving GPT-125M at full width (12 layers, h=768, 12 heads, vocab
               50304, bf16 activations, use_fused_block) with seeded random
               weights loaded through convert.py, served by ServingEngine:
@@ -39,7 +53,10 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               counter is zeroed just before this run and must be > 0 after
               (ln_linear_mma, linear_residual_mma and ffn_mma, the
               bf16-weight K1-K3, must not launch: serving multiplies
-              float32 weights).
+              float32 weights); the rows of every K2 / K3 call are
+              recorded: the decode steps' 8 rows take ffn_stream and
+              linear_residual_stream once per layer, the SIMT ffn and
+              linear_residual only prefill buckets above the bound.
               Beforehand, a float32 run on a small input is held against
               the same model on the CPU (plain versions): tokens identical,
               logits within 1e-3;
@@ -62,7 +79,8 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               compositions plus the flash backward kernels.  13 steps as
               in (c2); the counters of the six kernels are zeroed just
               before and must read 12 x 13 after, the SIMT ln_linear,
-              linear_residual and ffn 0; the loss must be finite and fall.
+              linear_residual and ffn and the stream K2 / K3 0; the loss
+              must be finite and fall.
               The unfused step's p50 of (c2) is printed beside it.
               Beforehand, K1 (ln_linear_mma, h=768, 2304 columns), K2
               (linear_residual_mma) and K3 (ffn_mma) with dropout against
@@ -87,8 +105,10 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               tokens/s, each the median of 3 timed calls after a capturing
               one.  The counters are zeroed just before the timed calls;
               flash_decode must read 12 x their decode steps, and in the
-              fused run K1-K3 > 0 (the SIMT kernels: float32 weights;
-              ln_linear_mma, linear_residual_mma and ffn_mma 0).
+              fused run ln_linear > 0, ffn_stream and linear_residual_stream
+              12 x the decode steps, the SIMT ffn and linear_residual 12 x
+              the prefills (float32 weights; ln_linear_mma,
+              linear_residual_mma and ffn_mma 0).
               Beforehand, a float32 run on a
               small input is held against the same model on the CPU
               (tokens identical, generate_step logits within 1e-3), and the
@@ -127,7 +147,12 @@ PEAK_F32 = "bytes at 3.35 TB/s; float32 operations at 67 TFLOP/s"
 PEAK_BF16 = "bytes at 3.35 TB/s; bf16 operations at 989 TFLOP/s"
 
 SEED = 1234
-SERVING_KERNELS = ("paged_decode", "ln_linear", "linear_residual", "ffn")
+SERVING_KERNELS = ("paged_decode", "ln_linear", "linear_residual", "ffn",
+                   "linear_residual_stream", "ffn_stream")
+# the weight-streaming K2 / K3 of float32 weights at a few rows: serving's
+# and generate's decode steps, and serving's prefill buckets up to
+# fused_block._STREAM_MAX_ROWS
+STREAM_ONLY_KERNELS = ("linear_residual_stream", "ffn_stream")
 TRAINING_KERNELS = ("flash_fwd", "flash_dkdv", "flash_dq")
 # the tensor-core K1-K3 of bf16 weights: launched by no other path
 FUSED_ONLY_KERNELS = ("ln_linear_mma", "linear_residual_mma", "ffn_mma")
@@ -172,11 +197,13 @@ def main() -> int:
         for fn, props in _kernels.ptxas_functions(name).items():
             log(f"  {name}: {fn}: {props}")
     design = check_design(_kernels)
+    design.update(check_stream_design(torch, _kernels, dev))
 
     # -- (b) each kernel against its plain version ---------------------------
     results = check_kernels(torch, np, dev)
 
     check_dropout(torch, np, dev, results)
+    check_stream(torch, np, dev, results)
     results.update(check_flash(torch, np, dev))
     results.update(check_flash_decode(torch, np, dev, _kernels))
     for name, d in design.items():
@@ -209,6 +236,10 @@ def main() -> int:
         if r["name"] in FUSED_TRAINING_KERNELS:
             r["launches_fused_training"] = \
                 fused_training["launches"][r["name"]]
+        if r["name"] in STREAM_ONLY_KERNELS:
+            r["launches_generate"] = generating["launches"][r["name"]]
+            require(r["launches_generate"] > 0,
+                    f"{r['name']}: no launch on the generate path")
         log(json.dumps({"kernel": r["name"], "kernel_ms": r["ms"],
                         **{k: v for k, v in r.items() if k != "name"}}))
     log(json.dumps({"kernels": list(results.values())}))
@@ -483,10 +514,19 @@ def check_kernels(torch, np, dev):
     results = {}
     shapes = {}
     # decode rows; the serving engine's largest prefill bucket; the rows of
-    # the generate prefill (8 prompts x 512 tokens)
+    # the generate prefill (8 prompts x 512 tokens).  K2 and K3 through
+    # their SIMT wrappers: the decode rows take the weight-streaming
+    # kernels (check_stream), and N=8 here is the SIMT kernel they replace
+    # there
     for n in (8, 512, 4096):
         x_res = t((n, h), torch.bfloat16)          # bf16 residual stream
         attn = t((n, h))                            # float32 attention out
+        require(fb.ffn_route(w1, w2, n)
+                == ("ffn_stream" if n <= fb._STREAM_MAX_ROWS else "ffn")
+                and fb.linear_residual_route(attn, w_out)
+                == ("linear_residual_stream" if n <= fb._STREAM_MAX_ROWS
+                    else "linear_residual"),
+                f"K2 / K3 with float32 weights at N={n} take another route")
         shapes[n] = {
             "ln_linear": measure(
                 torch, f"ln_linear N={n}",
@@ -498,7 +538,8 @@ def check_kernels(torch, np, dev):
                  2.0 * n * h * 3 * h)),
             "linear_residual": measure(
                 torch, f"linear_residual N={n}",
-                lambda: fb.linear_residual_cuda(attn, w_out, b_out, x_res),
+                lambda: fb.linear_residual_simt_cuda(attn, w_out, b_out,
+                                                     x_res),
                 lambda: fb.linear_residual_reference(attn, w_out, b_out,
                                                      x_res),
                 bf16_tol,
@@ -506,8 +547,8 @@ def check_kernels(torch, np, dev):
                  2.0 * n * h * h)),
             "ffn": measure(
                 torch, f"ffn N={n}",
-                lambda: fb.ffn_cuda(x_res, w1, b1, w2, b2, g, beta,
-                                    epsilon=eps),
+                lambda: fb.ffn_simt_cuda(x_res, w1, b1, w2, b2, g, beta,
+                                         epsilon=eps),
                 lambda: fb.ffn_reference(x_res, w1, b1, w2, b2, g, beta,
                                          epsilon=eps),
                 bf16_tol,
@@ -537,7 +578,9 @@ def check_kernels(torch, np, dev):
         "ffn": "paddle_tpu/ops/fused_block.py:363",
     }
     for name, line in replaces.items():
-        dec = shapes[8][name]
+        # K1 at the decode rows; K2 and K3 at the serving prefill bucket,
+        # the smallest N of this list that they still take
+        dec = shapes[8 if name == "ln_linear" else 512][name]
         # the error of the shape nearest its limit, beside its tolerance
         worst = max((shapes[n][name] for n in shapes),
                     key=lambda r: r["err_over_tol"])
@@ -597,6 +640,280 @@ def check_kernels(torch, np, dev):
         "bound_by": r["bound_by"], "library_ms": None, "peak": PEAK_F32}
     results["paged_decode"].update(check_paged_cases(torch, np, dev))
     return results
+
+
+# ---------------------------------------------------------------------------
+# (b) the weight-streaming K2 / K3 of float32 weights at the decode rows
+# ---------------------------------------------------------------------------
+# library -> its kernel function (two instantiations: without and with
+# dropout) and the TPU kernel it replaces at a few rows
+STREAM_KERNELS = {
+    "ffn_stream": ("ffn_stream_kernel", "paddle_tpu/ops/fused_block.py:363"),
+    "linear_residual_stream": ("linear_residual_stream_kernel",
+                               "paddle_tpu/ops/fused_block.py:267"),
+}
+STREAM_TIMED = 8                    # the decode rows of serving and generate
+STREAM_SWEEP = (1, 8, 16, 32, 64)   # rows alternated against the SIMT kernels
+STREAM_DROP = (0.2, 0.1)            # K3's dropout1 / dropout2; K2's is the 2nd
+
+
+def check_stream_design(torch, _kernels, dev):
+    """ptxas's registers and spills of both instantiations of each stream
+    kernel (none may spill or keep a stack frame), and the grid of each at
+    GPT-125M's widths for every N of STREAM_SWEEP: cluster size, blocks,
+    bytes in flight a block (its whole weight share), dynamic shared memory
+    a block (the library's count, which must equal the wrapper's) and K3's
+    scratch."""
+    import ctypes
+    from paddle_tpu_torch.ops import fused_block as fb
+    h, ffn = 768, 3072
+    out = {}
+    for lib, (fn, _) in STREAM_KERNELS.items():
+        props = {f: p for f, p in _kernels.ptxas_functions(lib).items()
+                 if fn in f}
+        require(len(props) == 2, f"{lib}: {len(props)} ptxas reports for "
+                f"{fn}, not 2")
+        for f, p in props.items():
+            # a stack frame is an array the compiler left in local memory
+            require(p.get("spill_stores") == 0 and p.get("spill_loads") == 0
+                    and p.get("stack_frame") == 0,
+                    f"{lib}: {f} spills or keeps a stack frame: {p}")
+        out[lib] = {"kernel": f"{fn}<dropout: false, true>",
+                    "registers": sorted(p.get("registers")
+                                        for p in props.values()),
+                    "spill_stores": 0, "spill_loads": 0, "stack_frame": 0,
+                    "grids": {}}
+    resident = fb._ffn_stream_resident(dev)
+    k3_smem = _kernels.bind("ffn_stream", "ptt_ffn_stream_smem",
+                            [ctypes.c_int, ctypes.c_int])
+    k2_smem = _kernels.bind("linear_residual_stream",
+                            "ptt_linear_residual_stream_smem",
+                            [ctypes.c_int, ctypes.c_int, ctypes.c_int])
+    sms = _kernels.sm_count(dev)
+    for n in STREAM_SWEEP:
+        cluster, groups, per, rows = fb._ffn_stream_grid(resident, n, h, ffn)
+        smem = k3_smem(h, per)
+        require(smem == fb._ffn_stream_smem(h, per),
+                f"ffn_stream: the library's {smem} bytes of shared memory "
+                f"a block, the wrapper's {fb._ffn_stream_smem(h, per)}")
+        out["ffn_stream"]["grids"][f"N={n}"] = {
+            "cluster": cluster, "groups": groups, "ffn_columns_a_block": per,
+            "rows_a_launch": rows, "launches": -(-n // rows),
+            "blocks": -(-ffn // per),
+            "bytes_in_flight_a_block": 2 * h * per * 4,
+            "smem_bytes": smem, "scratch_bytes": groups * rows * h * 4,
+            "weight_bytes": 2 * h * ffn * 4}
+        cl, width, depth = fb._linear_residual_stream_grid(sms, n, h, h)
+        smem = k2_smem(n, width, depth)
+        require(smem == fb._linear_residual_stream_smem(n, width, depth),
+                "linear_residual_stream: the library's and the wrapper's "
+                "shared memory a block differ")
+        out["linear_residual_stream"]["grids"][f"N={n}"] = {
+            "cluster": cl, "columns_a_tile": width, "depth_a_block": depth,
+            "blocks": cl * -(-h // width),
+            "bytes_in_flight_a_block": depth * width * 4, "smem_bytes": smem}
+    out["ffn_stream"]["resident_clusters"] = dict(resident)
+    for lib, d in out.items():
+        log(f"design {lib}: registers {d['registers']}, 0 spills; "
+            + "; ".join(f"{k}: {v}" for k, v in d["grids"].items()))
+    log(f"design ffn_stream: clusters the card holds at once, one block an "
+        f"SM, by cluster size: {dict(resident)}")
+    return out
+
+
+def check_stream(torch, np, dev, results):
+    """The weight-streaming K3 (ffn_stream) and K2 (linear_residual_stream)
+    of float32 weights at GPT-125M's widths, on serving's dtypes (a bf16
+    residual stream; K2's x the float32 attention output), against their
+    plain versions at every N from 1 to _STREAM_MAX_ROWS (the route's N)
+    and at the rows of STREAM_SWEEP: float32 tolerance for a float32
+    output, one bf16 unit for a bf16 one.  At N=8 also with float32 x / r,
+    with dropout (the addend with a residual of 2^-40 within one bf16 unit
+    of its range, its dropped elements exactly the hash mask's, and a K3
+    without b1 / a K2 without b rejected by that check), two calls
+    bit-identical, and the launches counted per call.  Timed: at every N
+    of STREAM_SWEEP the stream kernel, the SIMT kernel and the plain
+    version alternated (the numbers that set _STREAM_MAX_ROWS)."""
+    from paddle_tpu_torch import _kernels
+    from paddle_tpu_torch.ops import fused_block as fb
+    rng = np.random.default_rng(SEED + 12)
+    bf16 = torch.bfloat16
+
+    def t(shape, dtype=torch.float32, std=1.0, mean=0.0):
+        a = rng.standard_normal(shape, dtype=np.float32) * std + mean
+        return torch.from_numpy(a).to(dev).to(dtype)
+
+    h, ffn, eps, seed = 768, 3072, 1e-5, 20260512
+    g, beta = t((h,), std=0.1, mean=1.0), t((h,), std=0.1)
+    w_out, b_out = t((h, h), std=0.02), t((h,), std=0.02)
+    w1, b1 = t((h, ffn), std=0.02), t((ffn,), std=0.02)
+    w2, b2 = t((ffn, h), std=0.02), t((h,), std=0.02)
+    tol = lambda ref: 1e-4 if ref.dtype == torch.float32 else \
+        bf16_tol(ref)  # noqa: E731
+    limit = fb._STREAM_MAX_ROWS
+
+    def k3(x, d=(0.0, 0.0), e=eps, b1_=b1, kernel=fb.ffn_cuda):
+        return lambda: kernel(x, w1, b1_, w2, b2, g, beta, seed, "gelu",
+                              *d, e)
+
+    def k3_plain(x, d=(0.0, 0.0), e=eps):
+        return lambda: fb.ffn_reference(x, w1, b1, w2, b2, g, beta, seed,
+                                        "gelu", *d, e)
+
+    def k2(x, r, p=0.0, b=b_out, kernel=fb.linear_residual_cuda):
+        return lambda: kernel(x, w_out, b, r, seed, p)
+
+    def k2_plain(x, r, p=0.0):
+        return lambda: fb.linear_residual_reference(x, w_out, b_out, r, seed,
+                                                    p)
+
+    def k3_work(n, x):
+        return (nbytes(x, w1, b1, w2, b2, g, beta) + n * h * x.element_size(),
+                4.0 * n * h * ffn)
+
+    def k2_work(n, x, r):
+        return (nbytes(x, w_out, b_out, r) + n * h * r.element_size(),
+                2.0 * n * h * h)
+
+    def values(name, kernel, plain):
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        return compare(torch, name, out, ref, tol(ref))
+
+    # every N the route takes, ragged rows and launches included
+    worst = {"ffn_stream": None, "linear_residual_stream": None}
+    for n in range(1, limit + 1):
+        x_res, attn = t((n, h), bf16), t((n, h))
+        require(fb.ffn_route(w1, w2, n) == "ffn_stream"
+                and fb.linear_residual_route(attn, w_out)
+                == "linear_residual_stream",
+                f"float32 weights at N={n} do not take the stream kernels")
+        for name, r in (("ffn_stream", values(f"ffn_stream N={n}", k3(x_res),
+                                              k3_plain(x_res))),
+                        ("linear_residual_stream", values(
+                            f"linear_residual_stream N={n}",
+                            k2(attn, x_res), k2_plain(attn, x_res)))):
+            if worst[name] is None or r["err_over_tol"] > \
+                    worst[name]["err_over_tol"]:
+                worst[name] = dict(r, N=n)
+    log(f"check ffn_stream / linear_residual_stream: every N in 1..{limit}"
+        f" (bf16 residual) within tolerance; worst err/tol "
+        f"{worst['ffn_stream']['err_over_tol']:.3f} at N="
+        f"{worst['ffn_stream']['N']} / "
+        f"{worst['linear_residual_stream']['err_over_tol']:.3f} at N="
+        f"{worst['linear_residual_stream']['N']}")
+
+    out = {"ffn_stream": {}, "linear_residual_stream": {}}
+    n = STREAM_TIMED
+    x_res, attn = t((n, h), bf16), t((n, h))
+    x32, r32 = t((n, h)), t((n, h))
+    tiny = (x_res.float() * TINY).to(bf16)
+    d1, d2 = STREAM_DROP
+    # values with float32 x / r, and with dropout
+    k3r = {"f32": values("ffn_stream N=8 float32", k3(x32), k3_plain(x32)),
+           "dropout": values(f"ffn_stream N=8 dropout {d1}/{d2}",
+                             k3(x_res, (d1, d2)), k3_plain(x_res, (d1, d2)))}
+    k2r = {"f32": values("linear_residual_stream N=8 float32", k2(attn, r32),
+                         k2_plain(attn, r32)),
+           "dropout": values(f"linear_residual_stream N=8 p={d2}",
+                             k2(attn, x_res, d2), k2_plain(attn, x_res, d2))}
+    # the addend with a residual of 2^-40: its dropped elements are the hash
+    # mask's; a K3 without b1 and a K2 without b fall outside one bf16 unit
+    rows_t, cols_t = (torch.arange(n, device=dev)[:, None],
+                      torch.arange(h, device=dev)[None, :])
+    for name, got, want, salt, p, bad in (
+            ("ffn_stream", k3(tiny, (d1, d2), TINY_EPS)(),
+             k3_plain(tiny, (d1, d2), TINY_EPS)(), fb._SALT_FFN2, d2,
+             k3(tiny, (d1, d2), TINY_EPS, torch.zeros_like(b1))()),
+            ("linear_residual_stream", k2(attn, tiny, d2)(),
+             k2_plain(attn, tiny, d2)(), fb._SALT_RESID, d2,
+             k2(attn, tiny, d2, torch.zeros_like(b_out))())):
+        torch.cuda.synchronize()
+        res = compare(torch, f"{name} N={n} (the addend)", got, want,
+                      bf16_tol(want))
+        keep = fb._keep_mask(seed, salt, rows_t, cols_t, p)
+        for who, o in (("kernel", got), ("plain", want)):
+            require(torch.equal(o == tiny, ~keep), f"{name}: the {who}'s "
+                    "dropped elements are not the hash mask's")
+        res["dropped"] = int((~keep).sum())
+        fault = float((bad.float() - want.float()).abs().max()) \
+            / bf16_tol(want)
+        require(fault > 1.0, f"{name}: the addend check passes a kernel "
+                f"without its bias (err/tol {fault:.3f})")
+        res["bias_fault_err_over_tol"] = fault
+        (k3r if name == "ffn_stream" else k2r)["addend"] = res
+    # two calls give the same bits, one launch each at 8 rows
+    for name, fn in (("ffn_stream", k3(x_res, (d1, d2))),
+                     ("linear_residual_stream", k2(attn, x_res, d2))):
+        before = _kernels.launches[name]
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        require(torch.equal(a, b), f"{name}: two calls differ")
+        require(_kernels.launches[name] == before + 2,
+                f"{name}: {_kernels.launches[name] - before} launches in "
+                "two calls")
+    log(f"check ffn_stream N={n}: float32 x err/tol "
+        f"{k3r['f32']['err_over_tol']:.3f}; dropout {d1}/{d2} err/tol "
+        f"{k3r['dropout']['err_over_tol']:.3f}; the addend err/tol "
+        f"{k3r['addend']['err_over_tol']:.3f}, {k3r['addend']['dropped']} "
+        "dropped elements equal to the hash mask's, kernel and plain; "
+        f"without b1: {k3r['addend']['bias_fault_err_over_tol']:.3f}, "
+        "rejected; two calls bit-identical")
+    log(f"check linear_residual_stream N={n}: float32 r err/tol "
+        f"{k2r['f32']['err_over_tol']:.3f}; p={d2} err/tol "
+        f"{k2r['dropout']['err_over_tol']:.3f}; the addend err/tol "
+        f"{k2r['addend']['err_over_tol']:.3f}, {k2r['addend']['dropped']} "
+        "dropped elements equal to the hash mask's, kernel and plain; "
+        f"without b: {k2r['addend']['bias_fault_err_over_tol']:.3f}, "
+        "rejected; two calls bit-identical")
+
+    # timings: stream against SIMT (and plain at N=8), alternated
+    sweep = {"ffn_stream": {}, "linear_residual_stream": {}}
+    for n in STREAM_SWEEP:
+        xn, an = t((n, h), bf16), t((n, h))
+        fns = {"ffn_stream": (k3(xn, kernel=fb.ffn_stream_cuda),
+                              k3(xn, kernel=fb.ffn_simt_cuda),
+                              k3_plain(xn)),
+               "linear_residual_stream": (
+                   k2(an, xn, kernel=fb.linear_residual_stream_cuda),
+                   k2(an, xn, kernel=fb.linear_residual_simt_cuda),
+                   k2_plain(an, xn))}
+        for name, fns_n in fns.items():
+            row = dict(zip(("ms", "simt_ms", "plain_ms"),
+                           alternate(torch, fns_n)))
+            work = (k3_work(n, xn) if name == "ffn_stream"
+                    else k2_work(n, an, xn))
+            row["bound_ms"], row["bound_by"] = bound(*work)
+            row["route_takes_it"] = n <= limit
+            sweep[name][f"N={n}"] = row
+            log(f"time {name} N={n}: {row['ms']:.4f} ms against the SIMT "
+                f"kernel's {row['simt_ms']:.4f} ms and the plain version's "
+                f"{row['plain_ms']:.4f} ms (alternated; bound "
+                f"{row['bound_ms']:.4f} ms by {row['bound_by']}); the route "
+                f"takes it: {n <= limit}")
+    for name, r in (("ffn_stream", k3r), ("linear_residual_stream", k2r)):
+        line = STREAM_KERNELS[name][1]
+        timed = sweep[name][f"N={STREAM_TIMED}"]
+        require(timed["ms"] < min(timed["simt_ms"], timed["plain_ms"]),
+                f"{name}: {timed['ms']:.4f} ms at N={STREAM_TIMED}, not "
+                f"faster than the SIMT kernel's {timed['simt_ms']:.4f} and "
+                f"the plain version's {timed['plain_ms']:.4f}")
+        err = max((worst[name], r["f32"], r["dropout"]),
+                  key=lambda v: v["err_over_tol"])
+        results[name] = {
+            "name": name, "route": "cuda",
+            "source": f"paddle_tpu_torch/csrc/{name}.cu", "replaces": line,
+            "launches": 0, "max_abs_err": err["max_abs_err"],
+            "tol": err["tol"], "err_over_tol": err["err_over_tol"],
+            "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+            "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+            "library_ms": None, "peak": PEAK_F32,
+            "simt_ms": timed["simt_ms"],
+            "shape": f"N={STREAM_TIMED}, h={h}"
+                     + (f", ffn={ffn}" if name == "ffn_stream" else "")
+                     + ", float32 weights, bf16 residual",
+            "checks": r, "sweep": sweep[name],
+            "max_rows": limit}
 
 
 # table widths of the untimed paged cases: the serving width (4 blocks of
@@ -969,10 +1286,38 @@ def check_flash_decode(torch, np, dev, _kernels):
 # ---------------------------------------------------------------------------
 # (c) serving
 # ---------------------------------------------------------------------------
+# the K2 / K3 wrappers of float32 weights whose calls' rows the serving run
+# records: the SIMT kernels must take only N > fused_block._STREAM_MAX_ROWS,
+# the weight-streaming kernels the rest
+ROW_RECORDED = ("ffn_simt_cuda", "linear_residual_simt_cuda",
+                "ffn_stream_cuda", "linear_residual_stream_cuda")
+
+
+def record_rows(module, names):
+    """Wrap ``module``'s functions ``names`` so that each call's rows (its
+    first argument's first dimension) are recorded: ``(rows, restore)``,
+    rows a dict of lists by name, restore() putting the functions back.
+    The wrappers launch what they launched; the launch counters are
+    untouched."""
+    rows = {name: [] for name in names}
+    originals = {name: getattr(module, name) for name in names}
+
+    def recorder(name, fn):
+        def call(x, *args, **kwargs):
+            rows[name].append(int(x.shape[0]))
+            return fn(x, *args, **kwargs)
+        return call
+
+    for name, fn in originals.items():
+        setattr(module, name, recorder(name, fn))
+    return rows, lambda: [setattr(module, n, f) for n, f in originals.items()]
+
+
 def serve(torch, np, dev, _kernels):
     from paddle_tpu_torch.convert import (SERVING_ENGINE, SERVING_NEW_TOKENS,
                                           serving_workload)
     from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.ops import fused_block as fb
 
     # reference on a small input: float32 on the card (kernels) against the
     # same weights on the CPU (plain versions)
@@ -1019,15 +1364,19 @@ def serve(torch, np, dev, _kernels):
                     "bf16 warm-up: logits not finite / wrong shape")
 
     eng = ServingEngine(model, **SERVING_ENGINE)
-    _kernels.reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    rids = [eng.submit(p, max_new_tokens=SERVING_NEW_TOKENS)
-            for p in prompts]
-    steps = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(_kernels.launches)
+    rows, restore = record_rows(fb, ROW_RECORDED)
+    try:
+        _kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [eng.submit(p, max_new_tokens=SERVING_NEW_TOKENS)
+                for p in prompts]
+        steps = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_kernels.launches)
+    finally:
+        restore()
     results = [eng.collect(r) for r in rids]
     for res in results:
         require(len(res["tokens"]) == SERVING_NEW_TOKENS,
@@ -1043,6 +1392,22 @@ def serve(torch, np, dev, _kernels):
     st = eng.stats()
     require(st["kv_blocks"]["used"] == 0 and st["kv_blocks"]["leaked"] == 0,
             f"KV blocks not returned: {st['kv_blocks']}")
+    # the decode steps ((max_seqs, 1): 8 rows) take the stream kernels, once
+    # per layer each; the SIMT ones take only prefill buckets above the bound
+    limit, decodes = fb._STREAM_MAX_ROWS, st["step_ms"]["decode"]["count"]
+    for simt, stream in (("ffn_simt_cuda", "ffn_stream_cuda"),
+                         ("linear_residual_simt_cuda",
+                          "linear_residual_stream_cuda")):
+        require(rows[simt] and min(rows[simt]) > limit,
+                f"serving: {simt} took rows {sorted(set(rows[simt]))}, not "
+                f"only N > {limit}")
+        require(rows[stream] and max(rows[stream]) <= limit
+                and rows[stream].count(
+                    SERVING_ENGINE["max_seqs"]) == cfg.num_layers * decodes,
+                f"serving: {stream} took rows {sorted(set(rows[stream]))}; "
+                f"{cfg.num_layers} x {decodes} decode steps expected")
+    row_counts = {name: {str(n): r.count(n) for n in sorted(set(r))}
+                  for name, r in rows.items()}
     generated = sum(len(r["tokens"]) for r in results)
     line = {"serving": {
         "model": "gpt_125m", "dtype": "bfloat16", "use_fused_block": True,
@@ -1056,7 +1421,7 @@ def serve(torch, np, dev, _kernels):
         "prefills": st["step_ms"]["prefill"]["count"],
         "ttft_ms_p50": st["slo"]["ttft_ms"]["p50"],
         "tpot_ms_p50": st["slo"]["tpot_ms"]["p50"],
-        "launches": launches}}
+        "launches": launches, "k2_k3_calls_by_rows": row_counts}}
     log(json.dumps(line))
     return {"launches": launches}
 
@@ -1232,7 +1597,7 @@ def check_dropout(torch, np, dev, results):
     w1, b1 = t((h, ffn), bf16, std=0.02), t((ffn,), std=0.02)
     w2, b2 = t((ffn, h), bf16, std=0.02), t((h,), std=0.02)
     w_qkv, b_qkv = t((h, 3 * h), bf16, std=0.02), t((3 * h,), std=0.02)
-    require(fb.ffn_route(w1, w2) == "ffn_mma",
+    require(fb.ffn_route(w1, w2, DROP_ROWS[0]) == "ffn_mma",
             "K3 with bf16 O1 weights does not route to ffn_mma")
     require(fb.ln_linear_route(w_qkv) == "ln_linear_mma",
             "K1 with bf16 O1 weights does not route to ln_linear_mma")
@@ -1404,7 +1769,7 @@ def check_dropout(torch, np, dev, results):
     n = 4096
     x32 = t((n, h))
     f32w = [a.float() for a in (w1, b1, w2, b2)]
-    require(fb.ffn_route(f32w[0], f32w[2]) == "ffn"
+    require(fb.ffn_route(f32w[0], f32w[2], n) == "ffn"
             and fb.linear_residual_route(x32, w_out.float())
             == "linear_residual",
             "K2 / K3 with float32 operands do not route to the SIMT kernels")
@@ -1492,10 +1857,10 @@ def train_fused(torch, np, dev, _kernels, unfused_p50):
             "S=2048, dropout 0.1")
     line = timed_steps(torch, np, _kernels, model, opt, ids, labels,
                        FUSED_TRAINING_KERNELS, "fused training")
-    for name in FUSED_KERNELS:
-        require(line["launches"][name] == 0, f"fused training: the SIMT "
-                f"{name} launched {line['launches'][name]} times; under O1 "
-                "its bf16 operands take the tensor-core kernel")
+    for name in (*FUSED_KERNELS, *STREAM_ONLY_KERNELS):
+        require(line["launches"][name] == 0, f"fused training: {name} "
+                f"launched {line['launches'][name]} times; under O1 the bf16 "
+                "operands of K1-K3 take the tensor-core kernels")
     line = {"use_fused_block": True, "hidden_dropout": cfg.hidden_dropout,
             "attention_dropout": cfg.attention_dropout, **line,
             "unfused_step_ms_p50": unfused_p50}
@@ -1673,6 +2038,14 @@ def generate(torch, np, dev, _kernels):
         for name in FUSED_KERNELS:
             require((launches[name] > 0) == fused,
                     f"{name} ({tag}): {launches[name]} launches")
+        # fused: the decode steps' 8 rows take the stream K2 / K3, the
+        # prefill's 4096 the SIMT ones, once per layer each
+        for name, per_call in (("ffn_stream", decode_steps),
+                               ("linear_residual_stream", decode_steps),
+                               ("ffn", 1), ("linear_residual", 1)):
+            want = cfg.num_layers * per_call * GENERATE_CALLS if fused else 0
+            require(launches[name] == want, f"{name} ({tag}): "
+                    f"{launches[name]} launches, not {want}")
         for name in FUSED_ONLY_KERNELS:
             require(launches[name] == 0, f"{name} ({tag}): {launches[name]} "
                     "launches (float32 weights take the SIMT kernels)")

@@ -49,8 +49,9 @@ BUILD_DIR = (Path(__file__).resolve().parent.parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("paged_decode", "ln_linear", "ln_linear_mma", "linear_residual",
-           "linear_residual_mma", "ffn", "ffn_mma", "flash_fwd", "flash_dkdv",
-           "flash_dq", "flash_decode")
+           "linear_residual_mma", "linear_residual_stream", "ffn", "ffn_mma",
+           "ffn_stream", "flash_fwd", "flash_dkdv", "flash_dq",
+           "flash_decode")
 
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -137,8 +138,8 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, object]:
 
 def ptxas_functions(name: str) -> Dict[str, Dict[str, int]]:
     """Per function of the last compile of ``name`` (mangled name), from
-    its ``ptxas -v`` lines: ``registers``, ``spill_stores`` and
-    ``spill_loads`` (bytes).  Empty when it was loaded from an old
+    its ``ptxas -v`` lines: ``registers``, ``stack_frame``, ``spill_stores``
+    and ``spill_loads`` (bytes).  Empty when it was loaded from an old
     build."""
     log = _library(name).with_suffix(".log")
     if not log.exists():
@@ -153,6 +154,9 @@ def ptxas_functions(name: str) -> Dict[str, Dict[str, int]]:
             continue
         if current is None:
             continue
+        m = re.search(r"(\d+) bytes stack frame", line)
+        if m:
+            current["stack_frame"] = int(m.group(1))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:

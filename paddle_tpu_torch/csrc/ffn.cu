@@ -152,13 +152,15 @@ ffn_kernel(const void* x, int x_bf16, const void* w1, int w1_bf16,
 }
 
 // out = x + drop2(sum over groups of the partials + b2), the groups summed
-// in a fixed order.  It finishes both K3 routes: this file's kernel and the
-// tensor-core kernel of ffn_mma.cu (through ptt_ffn_finalize).
+// in a fixed order; drop2's row is row0 + the row in `part`.  It finishes
+// every K3 route: this file's kernel, the tensor-core kernel of ffn_mma.cu
+// and the weight-streaming kernel of ffn_stream.cu (those two through
+// ptt_ffn_finalize).
 template <bool kDrop2>
 __global__ void ffn_finalize_kernel(const float* part, int groups,
                                     const void* x, int x_bf16, const void* b2,
                                     int b2_bf16, void* out, int n, int h,
-                                    ptt::Dropout drop2) {
+                                    int row0, ptt::Dropout drop2) {
   const int64_t total = static_cast<int64_t>(n) * h;
   for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
                    threadIdx.x;
@@ -166,7 +168,7 @@ __global__ void ffn_finalize_kernel(const float* part, int groups,
     float s = 0.f;
     for (int gi = 0; gi < groups; ++gi) s += part[gi * total + i];
     float y = s + ptt::ld(b2, i % h, b2_bf16);
-    if (kDrop2) y = drop2(y, i / h, static_cast<int>(i % h));
+    if (kDrop2) y = drop2(y, row0 + i / h, static_cast<int>(i % h));
     ptt::st(out, i, ptt::ld(x, i, x_bf16) + y, x_bf16);
   }
 }
@@ -189,7 +191,7 @@ cudaLaunchConfig_t launch_config(dim3 grid, size_t smem, int cluster,
 
 cudaError_t finalize(const float* part, int groups, const void* x,
                      int x_bf16, const void* b2, int b2_bf16, void* out,
-                     int n, int h, const ptt::Dropout& drop2,
+                     int n, int h, int row0, const ptt::Dropout& drop2,
                      cudaStream_t s) {
   const int64_t total = static_cast<int64_t>(n) * h;
   const int blocks =
@@ -197,7 +199,7 @@ cudaError_t finalize(const float* part, int groups, const void* x,
   auto kernel = drop2.p > 0.f ? ffn_finalize_kernel<true>
                               : ffn_finalize_kernel<false>;
   kernel<<<blocks, 256, 0, s>>>(part, groups, x, x_bf16, b2, b2_bf16, out, n,
-                                h, drop2);
+                                h, row0, drop2);
   return cudaGetLastError();
 }
 
@@ -275,21 +277,23 @@ PTT_EXPORT int ptt_ffn(const void* x, int x_bf16, const void* w1,
   err = cudaGetLastError();
   if (err != cudaSuccess || part == nullptr) return static_cast<int>(err);
   return static_cast<int>(
-      finalize(part, groups, x, x_bf16, b2, b2_bf16, out, n, h, drop2, s));
+      finalize(part, groups, x, x_bf16, b2, b2_bf16, out, n, h, 0, drop2, s));
 }
 
-// The finalize kernel alone, for the tensor-core K3 (ffn_mma.cu), whose
-// main kernel stored groups x n x h float32 sums to `part`: out = x +
-// drop2(the groups' sum + b2), dropout2 as in ptt_ffn.
+// The finalize kernel alone, for the tensor-core K3 (ffn_mma.cu) and the
+// weight-streaming K3 (ffn_stream.cu), whose main kernels stored groups x n
+// x h float32 sums to `part`: out = x + drop2(the groups' sum + b2),
+// dropout2 as in ptt_ffn over rows row0 .. row0 + n - 1 of the caller's
+// tensor (x and out point at row row0).
 PTT_EXPORT int ptt_ffn_finalize(const float* part, int groups, const void* x,
                                 int x_bf16, const void* b2, int b2_bf16,
-                                void* out, int n, int h, unsigned seed,
-                                unsigned salt2, float p2, float keep_div2,
-                                void* stream) {
-  if (part == nullptr || groups < 1 || n <= 0 || h <= 0)
+                                void* out, int n, int h, int row0,
+                                unsigned seed, unsigned salt2, float p2,
+                                float keep_div2, void* stream) {
+  if (part == nullptr || groups < 1 || n <= 0 || h <= 0 || row0 < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(finalize(part, groups, x, x_bf16, b2, b2_bf16,
-                                   out, n, h,
+                                   out, n, h, row0,
                                    ptt::Dropout{seed, salt2, p2, keep_div2},
                                    static_cast<cudaStream_t>(stream)));
 }

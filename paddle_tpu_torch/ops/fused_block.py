@@ -11,14 +11,21 @@ version:
                                                (float32 operands)
                                                csrc/linear_residual_mma.cu
                                                (bf16 x and W)
+                                               csrc/linear_residual_stream.cu
+                                               (float32 W, a few rows)
   [K3 ffn]              x + drop2(W2 drop1(act(W1 LN(x) + b1)) + b2)
                                                 csrc/ffn.cu (float32 weights)
                                                 csrc/ffn_mma.cu (bf16 weights)
+                                                csrc/ffn_stream.cu (float32
+                                                weights, a few rows)
 
-Each bf16 kernel (``*_mma``: mma.sync on the tensor cores) takes the calls
-that its route function (``ln_linear_route``, ``linear_residual_route``,
-``ffn_route``) names from dtypes, shapes and addresses on the host; every
-other CUDA call runs the SIMT float32 kernel beside it.
+Each bf16 kernel (``*_mma``: mma.sync on the tensor cores) and each
+weight-streaming kernel (``*_stream``: float32 weights at no more than
+``_STREAM_MAX_ROWS`` rows, the decode steps of serving and ``generate``)
+takes the calls that its route function (``ln_linear_route``,
+``linear_residual_route``, ``ffn_route``) names from dtypes, shapes and
+addresses on the host; every other CUDA call runs the SIMT float32 kernel
+beside it.
 
 the attention half of a training block, :func:`fused_attention_block`: K1
 -> flash attention (``ops/flash_attention.py``, attention dropout in the
@@ -51,8 +58,9 @@ the same ``framework.random.seed``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -68,8 +76,9 @@ __all__ = ["fused_ln_linear", "fused_linear_residual", "fused_ffn_block",
            "ln_linear_reference", "ln_linear_cuda", "ln_linear_mma_cuda",
            "ln_linear_route", "linear_residual_reference",
            "linear_residual_cuda", "linear_residual_mma_cuda",
-           "linear_residual_route",
-           "ffn_reference", "ffn_cuda", "ffn_mma_cuda", "ffn_route"]
+           "linear_residual_stream_cuda", "linear_residual_simt_cuda",
+           "linear_residual_route", "ffn_reference", "ffn_cuda",
+           "ffn_mma_cuda", "ffn_stream_cuda", "ffn_simt_cuda", "ffn_route"]
 
 # distinct dropout sub-streams per epilogue (the bh slot of the flash hash)
 _SALT_RESID = 0x52455344
@@ -82,6 +91,14 @@ _TILE_ROWS, _TILE_COLS, _TILE_DEPTH = 16, 64, 32   # csrc/common.cuh tiles
 # The hidden sizes (K1's and K2's depth, K3's h) with an instantiation in
 # the tensor-core kernels (csrc/*_mma.cu): gpt_tiny's and GPT-125M's
 _MMA_HIDDEN = (128, 768)
+
+# The weight-streaming kernels (csrc/*_stream.cu) take float32-weight calls
+# of at most this many rows: the largest N at which they beat the SIMT
+# kernels in the card's alternated timings (PERF.md, findings).
+# Their widths (K2's depth and columns, K3's h) are at most _STREAM_MAX_H:
+# a thread owns one quad of K3's output columns (256 threads).
+_STREAM_MAX_ROWS = 64
+_STREAM_MAX_H = 1024
 
 _c = ctypes.c_int
 _f = ctypes.c_float
@@ -349,18 +366,33 @@ def _check_linear_residual_shapes(name, x, w, b, r):
     return n, k, cols
 
 
+def _stream_weight(w: torch.Tensor) -> bool:
+    """A float32 weight that the weight-streaming kernels stage in 16-byte
+    copies: 2-d, rows a multiple of 4 elements, 16-byte aligned."""
+    return (w.dtype == torch.float32 and w.dim() == 2
+            and w.shape[1] % 4 == 0 and w.data_ptr() % 16 == 0)
+
+
 def linear_residual_route(x: torch.Tensor, w: torch.Tensor) -> str:
     """The K2 kernel a CUDA call of :func:`linear_residual_cuda` launches,
     decided on the host: ``"linear_residual_mma"``
     (``csrc/linear_residual_mma.cu``, bf16 tensor cores) when ``w`` (k,
     cols) is bfloat16 with k one of ``_MMA_HIDDEN``, cols a multiple of 8
     and a 16-byte aligned start, and ``x`` (N, k) is bfloat16 and 16-byte
-    aligned; ``"linear_residual"`` (``csrc/linear_residual.cu``, float32
-    on the CUDA cores) for every other call.  ``r`` may be float32 or
-    bfloat16 on either."""
+    aligned; ``"linear_residual_stream"``
+    (``csrc/linear_residual_stream.cu``, float32 weight streaming) when
+    ``w`` is float32 with k and cols at most ``_STREAM_MAX_H``, cols a
+    multiple of 4 and a 16-byte aligned start, and N is at most
+    ``_STREAM_MAX_ROWS``; ``"linear_residual"``
+    (``csrc/linear_residual.cu``, float32 on the CUDA cores) for every
+    other call.  ``x`` and ``r`` may be float32 or bfloat16 on the last
+    two."""
     if (_bf16_operand(w) and w.shape[0] in _MMA_HIDDEN
             and _bf16_operand(x)):
         return "linear_residual_mma"
+    if (x.shape[0] <= _STREAM_MAX_ROWS and _stream_weight(w)
+            and max(w.shape) <= _STREAM_MAX_H):
+        return "linear_residual_stream"
     return "linear_residual"
 
 
@@ -394,16 +426,102 @@ def linear_residual_mma_cuda(x, w, b, r, seed: int = 0,
     return out
 
 
+# The weight-streaming kernels' most blocks of a cluster (portable size)
+_STREAM_MAX_CLUSTER = 8
+
+
+def _linear_residual_stream_smem(n: int, width: int, depth: int) -> int:
+    """Bytes of dynamic shared memory a ``linear_residual_stream`` block
+    takes (``ptt_linear_residual_stream_smem``): its W chunk, x's rows over
+    its depth (rounded up to 8 rows) and its (n, width) partial."""
+    return 4 * (depth * width + -(-n // 8) * 8 * depth + n * width)
+
+
+@functools.lru_cache(maxsize=None)
+def _linear_residual_stream_grid(sms: int, n: int, k: int,
+                                 cols: int) -> Optional[Tuple[int, int, int]]:
+    """(cluster, width, depth) of ``linear_residual_stream`` for N=n rows of
+    a (k, cols) weight on a card of ``sms`` SMs: column tiles of ``width``
+    columns (a multiple of 4; 32 or more where cols allows: rows of 128
+    bytes or more), each split by depth into ``cluster`` chunks of ``depth``
+    rows, one chunk a block.  Of the cluster sizes up to 8 whose blocks fit
+    in shared memory, the one with the most blocks, at most one an SM; the
+    smaller cluster on a tie.  None when no size fits."""
+    best = None
+    for cluster in range(1, _STREAM_MAX_CLUSTER + 1):
+        tiles = max(1, sms // cluster)
+        width = max(min(32, 4 * -(-cols // 4)), 4 * -(-cols // (4 * tiles)))
+        depth = -(-k // cluster)
+        if (depth * (cluster - 1) >= k
+                or _linear_residual_stream_smem(n, width, depth)
+                > _SMEM_LIMIT):
+            continue
+        blocks = cluster * -(-cols // width)
+        if best is None or blocks > best[0]:
+            best = (blocks, (cluster, width, depth))
+    return None if best is None else best[1]
+
+
+def linear_residual_stream_cuda(x, w, b, r, seed: int = 0,
+                                dropout_p: float = 0.0,
+                                salt: int = _SALT_RESID) -> torch.Tensor:
+    """K2 by weight streaming (``csrc/linear_residual_stream.cu``), for the
+    calls that :func:`linear_residual_route` sends there; as
+    :func:`linear_residual_cuda`.  One launch: each block holds its whole
+    chunk of W in flight at once, a cluster sums its depth chunks through
+    distributed shared memory, and b, the dropout and r are applied in
+    float32 with one rounding to ``r``'s dtype.  Any N whose grid fits
+    (:func:`_linear_residual_stream_grid`): the route adds the bound on
+    N."""
+    name = "linear_residual_stream"
+    dev = _kernels.require_cuda(name, x, w, b, r)
+    n, k, cols = _check_linear_residual_shapes(name, x, w, b, r)
+    enforce(_stream_weight(w) and max(w.shape) <= _STREAM_MAX_H,
+            f"{name}: takes a float32 w with k and cols at most "
+            f"{_STREAM_MAX_H}, cols a multiple of 4 and a 16-byte aligned "
+            f"start; got {w.dtype} {tuple(w.shape)}")
+    out = torch.empty((n, cols), dtype=r.dtype, device=dev)
+    if n == 0:
+        return out
+    grid = _linear_residual_stream_grid(_kernels.sm_count(dev), n, k, cols)
+    enforce(grid is not None,
+            f"{name}: no grid fits shared memory at N={n}, k={k}")
+    cluster, width, depth = grid
+    fn = _kernels.bind(name, "ptt_linear_residual_stream",
+                       [_p, _c, _p, _p, _c, _p, _c, _p, _c, _c, _c, _c, _c,
+                        _c, _u, _u, _f, _f, _p])
+    cd, pt = _kernels.dtype_code, _kernels.ptr
+    rc = fn(pt(x), cd(x), pt(w), pt(b), cd(b), pt(r), cd(r), pt(out), n, k,
+            cols, width, depth, cluster, int(seed) & _M32, int(salt) & _M32,
+            *_drop_args(dropout_p), _kernels.stream(dev))
+    _kernels.check(rc, name)
+    _kernels.launches[name] += 1
+    return out
+
+
 def linear_residual_cuda(x, w, b, r, seed: int = 0, dropout_p: float = 0.0,
                          salt: int = _SALT_RESID) -> torch.Tensor:
     """K2 on the card: ``x`` (N, k), ``w`` (k, cols), ``r`` (N, cols);
     returns (N, cols) in ``r``'s dtype, with the hash dropout of ``seed``
-    and ``salt`` over the global (row, col) when ``dropout_p > 0``.  bf16
-    ``x`` and ``w`` of the shapes that :func:`linear_residual_route` names
-    go to the tensor-core kernel (:func:`linear_residual_mma_cuda`); every
-    other call runs the float32 kernel of ``csrc/linear_residual.cu``."""
-    if linear_residual_route(x, w) == "linear_residual_mma":
+    and ``salt`` over the global (row, col) when ``dropout_p > 0``.  The
+    kernel is the one :func:`linear_residual_route` names: the tensor-core
+    kernel (:func:`linear_residual_mma_cuda`), the weight-streaming one
+    (:func:`linear_residual_stream_cuda`) or the SIMT float32 one
+    (:func:`linear_residual_simt_cuda`)."""
+    route = linear_residual_route(x, w)
+    if route == "linear_residual_mma":
         return linear_residual_mma_cuda(x, w, b, r, seed, dropout_p, salt)
+    if route == "linear_residual_stream":
+        return linear_residual_stream_cuda(x, w, b, r, seed, dropout_p, salt)
+    return linear_residual_simt_cuda(x, w, b, r, seed, dropout_p, salt)
+
+
+def linear_residual_simt_cuda(x, w, b, r, seed: int = 0,
+                              dropout_p: float = 0.0,
+                              salt: int = _SALT_RESID) -> torch.Tensor:
+    """K2 by the float32 kernel of ``csrc/linear_residual.cu`` (CUDA
+    cores), for the calls that :func:`linear_residual_route` sends there
+    (and any other it can take); as :func:`linear_residual_cuda`."""
     name = "linear_residual"
     dev = _kernels.require_cuda(name, x, w, b, r)
     n, k, cols = _check_linear_residual_shapes(name, x, w, b, r)
@@ -514,18 +632,47 @@ def _check_ffn_shapes(name, x, w1, b1, w2, b2, g, beta):
 _MMA_FFN_TILE, _MMA_ROWS = 256, 64
 
 
-def ffn_route(w1: torch.Tensor, w2: torch.Tensor) -> str:
-    """The K3 kernel a CUDA call of :func:`ffn_cuda` launches, decided on
-    the host before any launch from the weights' dtypes, shapes and
-    addresses: ``"ffn_mma"`` (``csrc/ffn_mma.cu``, bf16 tensor cores) when
-    ``w1`` (h, ffn) and ``w2`` (ffn, h) are both bfloat16, h is one of
-    ``_MMA_HIDDEN``, ffn is a multiple of 8 (16-byte rows of ``w1``) and
-    both weights start on a 16-byte boundary; ``"ffn"``
-    (``csrc/ffn.cu``, float32 on the CUDA cores) for every other call.
-    ``x`` may be float32 or bfloat16 on either."""
+# K3's weight-streaming kernel (csrc/ffn_stream.cu): rows a pass, the most
+# ffn columns a block (one 4-column quad a warp) and the rows a launch it
+# may take (the scratch rule below bounds them)
+_STREAM_ROWS, _STREAM_MAX_PER, _STREAM_LAUNCH_ROWS = 8, 32, (16, 8)
+
+
+def _ffn_stream_scratch_fits(groups: int, rows: int, h: int,
+                             ffn: int) -> bool:
+    """ffn_stream's float32 (groups, rows, h) scratch stays under 5% of the
+    float32 W1 and W2 bytes."""
+    return 20 * groups * rows * h * 4 < 2 * h * ffn * 4
+
+
+def _ffn_stream_takes(w1: torch.Tensor, w2: torch.Tensor, n: int) -> bool:
+    """What ``ffn_stream`` can take: float32 ``w1`` (h, ffn) and ``w2``
+    (ffn, h) with h at most ``_STREAM_MAX_H``, h and ffn multiples of 4,
+    both 16-byte aligned, and a scratch rule that admits one cluster group
+    at 8 rows a launch (so a grid exists, :func:`_ffn_stream_grid`)."""
+    h, ffn = w1.shape
+    return (_stream_weight(w1) and w2.dtype == torch.float32
+            and h % 4 == 0 and h <= _STREAM_MAX_H and w2.data_ptr() % 16 == 0
+            and _ffn_stream_scratch_fits(1, min(n, _STREAM_ROWS), h, ffn))
+
+
+def ffn_route(w1: torch.Tensor, w2: torch.Tensor, n: int) -> str:
+    """The K3 kernel a CUDA call of :func:`ffn_cuda` of N=``n`` rows
+    launches, decided on the host before any launch from the weights'
+    dtypes, shapes and addresses and the row count: ``"ffn_mma"``
+    (``csrc/ffn_mma.cu``, bf16 tensor cores) when ``w1`` (h, ffn) and
+    ``w2`` (ffn, h) are both bfloat16, h is one of ``_MMA_HIDDEN``, ffn is
+    a multiple of 8 (16-byte rows of ``w1``) and both weights start on a
+    16-byte boundary; ``"ffn_stream"`` (``csrc/ffn_stream.cu``, float32
+    weight streaming) for float32 weights that :func:`_ffn_stream_takes`
+    at N at most ``_STREAM_MAX_ROWS``; ``"ffn"`` (``csrc/ffn.cu``, float32
+    on the CUDA cores) for every other call.  ``x`` may be float32 or
+    bfloat16 on each."""
     if (_bf16_operand(w1) and w1.shape[0] in _MMA_HIDDEN
             and w2.dtype == torch.bfloat16 and w2.data_ptr() % 16 == 0):
         return "ffn_mma"
+    if n <= _STREAM_MAX_ROWS and _ffn_stream_takes(w1, w2, n):
+        return "ffn_stream"
     return "ffn"
 
 
@@ -565,7 +712,7 @@ def ffn_mma_cuda(x, w1, b1, w2, b2, g, beta, seed: int = 0,
     name = "ffn_mma"
     dev = _kernels.require_cuda(name, x, w1, b1, w2, b2, g, beta)
     n, h, ffn = _check_ffn_shapes(name, x, w1, b1, w2, b2, g, beta)
-    enforce(ffn_route(w1, w2) == name,
+    enforce(ffn_route(w1, w2, n) == name,
             f"{name}: takes bf16 weights with h in {_MMA_HIDDEN}, ffn a "
             f"multiple of 8 and 16-byte aligned rows; got {w1.dtype} "
             f"{tuple(w1.shape)}, {w2.dtype}")
@@ -589,12 +736,131 @@ def ffn_mma_cuda(x, w1, b1, w2, b2, g, beta, seed: int = 0,
     _kernels.check(rc, name)
     _kernels.launches[name] += 1
     if part is not None:
-        fin = _kernels.bind("ffn", "ptt_ffn_finalize",
-                            [_p, _c, _p, _c, _p, _c, _p, _c, _c,
-                             _u, _u, _f, _f, _p])
-        rc = fin(pt(part), groups, pt(x), cd(x), pt(b2), cd(b2), pt(out), n,
-                 h, int(seed) & _M32, _SALT_FFN2, *_drop_args(dropout2),
-                 stream)
+        rc = _ffn_finalize()(pt(part), groups, pt(x), cd(x), pt(b2), cd(b2),
+                             pt(out), n, h, 0, int(seed) & _M32, _SALT_FFN2,
+                             *_drop_args(dropout2), stream)
+        _kernels.check(rc, "ffn")
+    return out
+
+
+def _ffn_finalize():
+    """``ptt_ffn_finalize`` of ``csrc/ffn.cu``: out = x + dropout2(the
+    scratch's groups summed in order + b2), over rows row0 .. of the
+    caller's tensor; it finishes ``ffn_mma`` and ``ffn_stream``."""
+    return _kernels.bind("ffn", "ptt_ffn_finalize",
+                         [_p, _c, _p, _c, _p, _c, _p, _c, _c, _c,
+                          _u, _u, _f, _f, _p])
+
+
+def _ffn_stream_smem(h: int, per: int) -> int:
+    """Bytes of dynamic shared memory an ``ffn_stream`` block takes
+    (``ptt_ffn_stream_smem``): its W1 columns and W2 rows, LN(x) of 8 rows
+    (then their partial) and the activation."""
+    return 4 * (h * per + per * h + _STREAM_ROWS * h + per * _STREAM_ROWS)
+
+
+_ffn_resident: Dict[int, Tuple[Tuple[int, int], ...]] = {}
+
+
+def _ffn_stream_resident(device: torch.device) -> Tuple[Tuple[int, int],
+                                                        ...]:
+    """((cluster, clusters), ...): how many thread-block clusters of 1, 2,
+    4 and 8 ``ffn_stream`` blocks the card holds at once, one block an SM
+    (``cudaOccupancyMaxActiveClusters``; GPCs of uneven size hold fewer
+    than SMs / cluster).  Asked once per device."""
+    key = device.index
+    if key not in _ffn_resident:
+        fn = _kernels.bind("ffn_stream", "ptt_ffn_stream_resident",
+                           [_c, ctypes.POINTER(_c)])
+        held = []
+        with torch.cuda.device(device):
+            for cluster in (1, 2, 4, _STREAM_MAX_CLUSTER):
+                count = _c(0)
+                _kernels.check(fn(cluster, ctypes.byref(count)),
+                               "ffn_stream")
+                held.append((cluster, count.value))
+        _ffn_resident[key] = tuple(held)
+    return _ffn_resident[key]
+
+
+@functools.lru_cache(maxsize=None)
+def _ffn_stream_grid(resident: Tuple[Tuple[int, int], ...], n: int, h: int,
+                     ffn: int) -> Optional[Tuple[int, int, int, int]]:
+    """(cluster, groups, per, rows) of ``ffn_stream`` for N=n rows at
+    widths (h, ffn), given ``resident`` ((cluster size, clusters the card
+    holds at once), ...): ``groups`` clusters of ``cluster`` blocks, each
+    block ``per`` ffn columns (a multiple of 4, at most
+    ``_STREAM_MAX_PER``, with shared memory that fits), ``rows`` rows a
+    launch.  Every ffn column (W1 column, W2 row) lies in exactly one
+    block and every cluster has one; the scratch (groups, rows, h) stays
+    under 5% of the weights.  Of those grids: the fewest waves of clusters,
+    then the most blocks, the most rows a launch, the fewest groups.  None
+    when none exists."""
+    best = None
+    for rows in sorted({min(n, r) for r in _STREAM_LAUNCH_ROWS}):
+        for cluster, held in resident:
+            groups = 1
+            while _ffn_stream_scratch_fits(groups, rows, h, ffn):
+                per = 4 * -(-ffn // (4 * cluster * groups))
+                blocks = -(-ffn // per)
+                if (held > 0 and per <= _STREAM_MAX_PER
+                        and -(-blocks // cluster) == groups
+                        and _ffn_stream_smem(h, per) <= _SMEM_LIMIT):
+                    key = (-(-groups // held), -blocks, -rows, groups)
+                    if best is None or key < best[0]:
+                        best = (key, (cluster, groups, per, rows))
+                groups += 1
+    return None if best is None else best[1]
+
+
+def ffn_stream_cuda(x, w1, b1, w2, b2, g, beta, seed: int = 0,
+                    activation: str = "gelu", dropout1: float = 0.0,
+                    dropout2: float = 0.0,
+                    epsilon: float = 1e-5) -> torch.Tensor:
+    """K3 by weight streaming (``csrc/ffn_stream.cu``), for the calls that
+    :func:`ffn_route` sends there; as :func:`ffn_cuda`.  Each block holds
+    its whole share of W1 and W2 in flight at once; each cluster of the
+    grid (:func:`_ffn_stream_grid`) stores one float32 (rows, h) partial
+    to a scratch, and the finalize kernel of ``csrc/ffn.cu`` adds the
+    groups, ``b2``, ``dropout2`` and ``x``.  N is walked in launches of
+    ``rows`` rows (the scratch rule bounds them), each with its finalize.
+    Any N that :func:`_ffn_stream_takes`: the route adds the bound on
+    N."""
+    name = "ffn_stream"
+    dev = _kernels.require_cuda(name, x, w1, b1, w2, b2, g, beta)
+    n, h, ffn = _check_ffn_shapes(name, x, w1, b1, w2, b2, g, beta)
+    enforce(_ffn_stream_takes(w1, w2, n),
+            f"{name}: takes float32 weights with h at most {_STREAM_MAX_H}, "
+            "h and ffn multiples of 4, 16-byte aligned starts and ffn above "
+            f"10 x min(N, 8); got {w1.dtype} {tuple(w1.shape)}, "
+            f"{w2.dtype}, N={n}")
+    enforce(activation in ("gelu", "relu"),
+            f"{name}: unsupported activation {activation!r}")
+    out = torch.empty_like(x)
+    if n == 0:
+        return out
+    grid = _ffn_stream_grid(_ffn_stream_resident(dev), n, h, ffn)
+    enforce(grid is not None, f"{name}: no grid at N={n}, h={h}, ffn={ffn}")
+    cluster, groups, per, rows = grid
+    fn = _kernels.bind(name, "ptt_ffn_stream",
+                       [_p, _c, _p, _p, _c, _p, _p, _c, _p, _c, _p, _c, _c,
+                        _c, _c, _c, _c, _c, _f, _c, _u, _u, _f, _f, _p])
+    fin = _ffn_finalize()
+    part = torch.empty((groups, rows, h), dtype=torch.float32, device=dev)
+    cd, pt = _kernels.dtype_code, _kernels.ptr
+    stream = _kernels.stream(dev)
+    seed = int(seed) & _M32
+    for r0 in range(0, n, rows):
+        m = min(rows, n - r0)
+        xs, outs = x[r0:r0 + m], out[r0:r0 + m]
+        rc = fn(pt(xs), cd(x), pt(w1), pt(b1), cd(b1), pt(w2), pt(g), cd(g),
+                pt(beta), cd(beta), pt(part), m, r0, h, ffn, per, cluster,
+                groups, float(epsilon), 0 if activation == "gelu" else 1,
+                seed, _SALT_FFN1, *_drop_args(dropout1), stream)
+        _kernels.check(rc, name)
+        _kernels.launches[name] += 1
+        rc = fin(pt(part), groups, pt(xs), cd(x), pt(b2), cd(b2), pt(outs),
+                 m, h, r0, seed, _SALT_FFN2, *_drop_args(dropout2), stream)
         _kernels.check(rc, "ffn")
     return out
 
@@ -605,16 +871,31 @@ def ffn_cuda(x, w1, b1, w2, b2, g, beta, seed: int = 0,
     """K3 on the card: ``x`` (N, h), ``w1`` (h, ffn), ``w2`` (ffn, h);
     returns (N, h) in ``x``'s dtype, with the hash dropouts of ``seed``
     (``dropout1`` after the activation, ``dropout2`` after ``+ b2``).  The
-    (N, ffn) intermediate stays in shared memory.  bf16 weights of the
-    shapes that :func:`ffn_route` names go to the tensor-core kernel
-    (:func:`ffn_mma_cuda`); every other call runs the float32 kernel of
-    ``csrc/ffn.cu``.  There, with more than one cluster group per row tile
+    (N, ffn) intermediate stays on chip.  The kernel is the one
+    :func:`ffn_route` names: the tensor-core kernel (:func:`ffn_mma_cuda`),
+    the weight-streaming one (:func:`ffn_stream_cuda`) or the SIMT float32
+    one (:func:`ffn_simt_cuda`)."""
+    args = (x, w1, b1, w2, b2, g, beta, seed, activation, dropout1, dropout2,
+            epsilon)
+    route = ffn_route(w1, w2, x.shape[0])
+    if route == "ffn_mma":
+        return ffn_mma_cuda(*args)
+    if route == "ffn_stream":
+        return ffn_stream_cuda(*args)
+    return ffn_simt_cuda(*args)
+
+
+def ffn_simt_cuda(x, w1, b1, w2, b2, g, beta, seed: int = 0,
+                  activation: str = "gelu", dropout1: float = 0.0,
+                  dropout2: float = 0.0,
+                  epsilon: float = 1e-5) -> torch.Tensor:
+    """K3 by the float32 kernel of ``csrc/ffn.cu`` (CUDA cores), for the
+    calls that :func:`ffn_route` sends there (and any other it can take);
+    as :func:`ffn_cuda`.  With more than one cluster group per row tile
     (:func:`_ffn_grid`), or with ``dropout2``, each group's float32 (N, h)
-    sum goes to a scratch allocated here, smaller than that intermediate,
-    and the finalize kernel adds the groups and applies ``dropout2``."""
-    if ffn_route(w1, w2) == "ffn_mma":
-        return ffn_mma_cuda(x, w1, b1, w2, b2, g, beta, seed, activation,
-                            dropout1, dropout2, epsilon)
+    sum goes to a scratch allocated here, smaller than the (N, ffn)
+    intermediate, and the finalize kernel adds the groups and applies
+    ``dropout2``."""
     name = "ffn"
     dev = _kernels.require_cuda(name, x, w1, b1, w2, b2, g, beta)
     n, h, ffn = _check_ffn_shapes(name, x, w1, b1, w2, b2, g, beta)

@@ -145,36 +145,62 @@ def test_ffn_o1_bf16_flow_matches_jax(route, cast, drops):
                                atol=_bf16_ulp_tol(ref))
 
 
-# (w1 dtype, w2 dtype, h, ffn, byte offset of w1's data, route)
+# (w1 dtype, w2 dtype, h, ffn, byte offset of w1's data, rows N, route):
+# the prefill's 4096 rows, then the decode rows and N around the stream
+# kernel's bound
+_T = tfb._STREAM_MAX_ROWS
 ROUTES = [
-    (torch.bfloat16, torch.bfloat16, 768, 3072, 0, "ffn_mma"),  # training
-    (torch.bfloat16, torch.bfloat16, 128, 512, 0, "ffn_mma"),   # gpt_tiny
-    (torch.bfloat16, torch.bfloat16, 768, 200, 0, "ffn_mma"),
-    (torch.bfloat16, torch.bfloat16, 128, 8, 0, "ffn_mma"),
-    (torch.float32, torch.float32, 768, 3072, 0, "ffn"),    # serving, generate
-    (torch.bfloat16, torch.float32, 768, 3072, 0, "ffn"),
-    (torch.float32, torch.bfloat16, 768, 3072, 0, "ffn"),
-    (torch.float16, torch.float16, 768, 3072, 0, "ffn"),
-    (torch.bfloat16, torch.bfloat16, 64, 256, 0, "ffn"),     # h not built
-    (torch.bfloat16, torch.bfloat16, 1024, 4096, 0, "ffn"),
-    (torch.bfloat16, torch.bfloat16, 256, 1024, 0, "ffn"),
-    (torch.bfloat16, torch.bfloat16, 512, 2048, 0, "ffn"),
-    (torch.bfloat16, torch.bfloat16, 128, 100, 0, "ffn"),    # ffn % 8 != 0
-    (torch.bfloat16, torch.bfloat16, 128, 512, 2, "ffn"),    # misaligned
+    (torch.bfloat16, torch.bfloat16, 768, 3072, 0, 4096,
+     "ffn_mma"),                                              # training
+    (torch.bfloat16, torch.bfloat16, 128, 512, 0, 4096, "ffn_mma"),  # tiny
+    (torch.bfloat16, torch.bfloat16, 768, 200, 0, 4096, "ffn_mma"),
+    (torch.bfloat16, torch.bfloat16, 128, 8, 0, 4096, "ffn_mma"),
+    (torch.float32, torch.float32, 768, 3072, 0, 4096,
+     "ffn"),                                      # serving, generate prefill
+    (torch.bfloat16, torch.float32, 768, 3072, 0, 4096, "ffn"),
+    (torch.float32, torch.bfloat16, 768, 3072, 0, 4096, "ffn"),
+    (torch.float16, torch.float16, 768, 3072, 0, 4096, "ffn"),
+    (torch.bfloat16, torch.bfloat16, 64, 256, 0, 4096, "ffn"),  # h not built
+    (torch.bfloat16, torch.bfloat16, 1024, 4096, 0, 4096, "ffn"),
+    (torch.bfloat16, torch.bfloat16, 256, 1024, 0, 4096, "ffn"),
+    (torch.bfloat16, torch.bfloat16, 512, 2048, 0, 4096, "ffn"),
+    (torch.bfloat16, torch.bfloat16, 128, 100, 0, 4096,
+     "ffn"),                                                  # ffn % 8 != 0
+    (torch.bfloat16, torch.bfloat16, 128, 512, 2, 4096, "ffn"),  # misaligned
+    # the weight-streaming arm: float32 weights at N <= _STREAM_MAX_ROWS
+    (torch.float32, torch.float32, 768, 3072, 0, 8,
+     "ffn_stream"),                               # serving, generate decode
+    (torch.float32, torch.float32, 768, 3072, 0, 1, "ffn_stream"),
+    (torch.float32, torch.float32, 768, 3072, 0, _T, "ffn_stream"),
+    (torch.float32, torch.float32, 768, 3072, 0, _T + 1, "ffn"),
+    (torch.float32, torch.float32, 128, 512, 0, 8, "ffn_stream"),  # tiny
+    (torch.float32, torch.float32, 96, 200, 0, 3, "ffn_stream"),
+    (torch.bfloat16, torch.bfloat16, 768, 3072, 0, 8,
+     "ffn_mma"),                                  # bf16 keeps the tensor cores
+    (torch.bfloat16, torch.float32, 768, 3072, 0, 8, "ffn"),
+    (torch.float32, torch.bfloat16, 768, 3072, 0, 8, "ffn"),
+    (torch.float32, torch.float32, 768, 3070, 0, 8, "ffn"),  # ffn % 4 != 0
+    (torch.float32, torch.float32, 766, 3072, 0, 8, "ffn"),  # h % 4 != 0
+    (torch.float32, torch.float32, 1280, 5120, 0, 8, "ffn"),  # h > 1024
+    (torch.float32, torch.float32, 768, 3072, 4, 8, "ffn"),  # misaligned
+    (torch.float32, torch.float32, 768, 3072, 8, 8, "ffn"),
+    (torch.float32, torch.float32, 32, 64, 0, 8,
+     "ffn"),                                      # one group's scratch > 5%
+    (torch.float32, torch.float32, 32, 64, 0, 6, "ffn_stream"),
 ]
 
 
-@pytest.mark.parametrize("w1dtype,w2dtype,h,ffn,offset,want", ROUTES)
-def test_ffn_route(w1dtype, w2dtype, h, ffn, offset, want):
-    # the host-side rule that sends a CUDA call to ffn_mma or ffn, from
-    # dtypes, shapes and addresses alone (CPU tensors stand in for the
-    # card's: the rule reads no device)
+@pytest.mark.parametrize("w1dtype,w2dtype,h,ffn,offset,n,want", ROUTES)
+def test_ffn_route(w1dtype, w2dtype, h, ffn, offset, n, want):
+    # the host-side rule that sends a CUDA call to ffn_mma, ffn_stream or
+    # ffn, from dtypes, shapes, addresses and the row count alone (CPU
+    # tensors stand in for the card's: the rule reads no device)
     size = torch.empty((), dtype=w1dtype).element_size()
     flat = torch.zeros(h * ffn + offset // size, dtype=w1dtype)
     w1 = flat[offset // size:].view(h, ffn)
     w2 = torch.zeros(ffn, h, dtype=w2dtype)
     assert (w1.data_ptr() % 16 == 0) == (offset == 0)
-    assert tfb.ffn_route(w1, w2) == want
+    assert tfb.ffn_route(w1, w2, n) == want
 
 
 def _weight(dtype, rows, cols, offset):
@@ -212,37 +238,65 @@ def test_ln_linear_route(wdtype, h, cols, offset, want):
     assert tfb.ln_linear_route(_weight(wdtype, h, cols, offset)) == want
 
 
-# (x dtype, w dtype, k, cols, byte offset of x's data, of w's data, route)
+# (x dtype, w dtype, k, cols, byte offset of x's data, of w's data, rows
+# N of x, route): a prefill bucket's 512 rows, then the decode rows and N
+# around the stream kernel's bound
 LINEAR_RESIDUAL_ROUTES = [
-    (torch.bfloat16, torch.bfloat16, 768, 768, 0, 0,
+    (torch.bfloat16, torch.bfloat16, 768, 768, 0, 0, 512,
      "linear_residual_mma"),                              # fused training
-    (torch.bfloat16, torch.bfloat16, 128, 128, 0, 0,
+    (torch.bfloat16, torch.bfloat16, 128, 128, 0, 0, 512,
      "linear_residual_mma"),                              # gpt_tiny
-    (torch.bfloat16, torch.bfloat16, 768, 200, 0, 0, "linear_residual_mma"),
-    (torch.float32, torch.float32, 768, 768, 0, 0,
-     "linear_residual"),                                  # serving, generate
-    (torch.float32, torch.bfloat16, 768, 768, 0, 0, "linear_residual"),
-    (torch.bfloat16, torch.float32, 768, 768, 0, 0, "linear_residual"),
-    (torch.float16, torch.float16, 768, 768, 0, 0, "linear_residual"),
-    (torch.bfloat16, torch.bfloat16, 96, 96, 0, 0,
+    (torch.bfloat16, torch.bfloat16, 768, 200, 0, 0, 512,
+     "linear_residual_mma"),
+    (torch.float32, torch.float32, 768, 768, 0, 0, 512,
+     "linear_residual"),                         # serving, generate prefill
+    (torch.float32, torch.bfloat16, 768, 768, 0, 0, 512, "linear_residual"),
+    (torch.bfloat16, torch.float32, 768, 768, 0, 0, 512, "linear_residual"),
+    (torch.float16, torch.float16, 768, 768, 0, 0, 512, "linear_residual"),
+    (torch.bfloat16, torch.bfloat16, 96, 96, 0, 0, 512,
      "linear_residual"),                                  # k not built
-    (torch.bfloat16, torch.bfloat16, 512, 512, 0, 0, "linear_residual"),
-    (torch.bfloat16, torch.bfloat16, 768, 100, 0, 0,
+    (torch.bfloat16, torch.bfloat16, 512, 512, 0, 0, 512, "linear_residual"),
+    (torch.bfloat16, torch.bfloat16, 768, 100, 0, 0, 512,
      "linear_residual"),                                  # cols % 8 != 0
-    (torch.bfloat16, torch.bfloat16, 768, 768, 0, 2,
+    (torch.bfloat16, torch.bfloat16, 768, 768, 0, 2, 512,
      "linear_residual"),                                  # w misaligned
-    (torch.bfloat16, torch.bfloat16, 768, 768, 2, 0,
+    (torch.bfloat16, torch.bfloat16, 768, 768, 2, 0, 512,
      "linear_residual"),                                  # x misaligned
-    (torch.bfloat16, torch.bfloat16, 128, 128, 8, 0, "linear_residual"),
+    (torch.bfloat16, torch.bfloat16, 128, 128, 8, 0, 512, "linear_residual"),
+    # the weight-streaming arm: a float32 w at N <= _STREAM_MAX_ROWS, x and
+    # r of either dtype
+    (torch.float32, torch.float32, 768, 768, 0, 0, 8,
+     "linear_residual_stream"),                   # serving, generate decode
+    (torch.float32, torch.float32, 768, 768, 0, 0, 1,
+     "linear_residual_stream"),
+    (torch.float32, torch.float32, 768, 768, 0, 0, _T,
+     "linear_residual_stream"),
+    (torch.float32, torch.float32, 768, 768, 0, 0, _T + 1, "linear_residual"),
+    (torch.bfloat16, torch.float32, 768, 768, 2, 0, 8,
+     "linear_residual_stream"),                   # x is read element-wise
+    (torch.float32, torch.float32, 96, 200, 4, 0, 3,
+     "linear_residual_stream"),
+    (torch.bfloat16, torch.bfloat16, 768, 768, 0, 0, 8,
+     "linear_residual_mma"),                      # bf16 keeps the tensor cores
+    (torch.float32, torch.bfloat16, 768, 768, 0, 0, 8, "linear_residual"),
+    (torch.float32, torch.float32, 768, 766, 0, 0, 8,
+     "linear_residual"),                                  # cols % 4 != 0
+    (torch.float32, torch.float32, 768, 768, 0, 4, 8,
+     "linear_residual"),                                  # w misaligned
+    (torch.float32, torch.float32, 2048, 768, 0, 0, 8,
+     "linear_residual"),                                  # k > 1024
+    (torch.float32, torch.float32, 768, 2048, 0, 0, 8,
+     "linear_residual"),                                  # cols > 1024
 ]
 
 
-@pytest.mark.parametrize("xdtype,wdtype,k,cols,xoff,woff,want",
+@pytest.mark.parametrize("xdtype,wdtype,k,cols,xoff,woff,n,want",
                          LINEAR_RESIDUAL_ROUTES)
-def test_linear_residual_route(xdtype, wdtype, k, cols, xoff, woff, want):
-    # the host-side rule that sends a CUDA call of K2 to linear_residual_mma
-    # or linear_residual, from x's and w's dtypes, shapes and addresses
-    x = _weight(xdtype, 37, k, xoff)
+def test_linear_residual_route(xdtype, wdtype, k, cols, xoff, woff, n, want):
+    # the host-side rule that sends a CUDA call of K2 to linear_residual_mma,
+    # linear_residual_stream or linear_residual, from x's and w's dtypes,
+    # shapes and addresses
+    x = _weight(xdtype, n, k, xoff)
     assert tfb.linear_residual_route(x, _weight(wdtype, k, cols, woff)) \
         == want
 
@@ -263,6 +317,94 @@ MMA_SPLITS = [
 def test_ln_linear_mma_splits(monkeypatch, row_tiles, tiles, sms, want):
     monkeypatch.setattr(_kernels, "sm_count", lambda device: sms)
     assert tfb._mma_splits(torch.device("cpu"), row_tiles, tiles) == want
+
+
+# clusters of 1, 2, 4 and 8 blocks that a card holds at once, one block an
+# SM: GPCs that all take whole clusters (132 SMs), and uneven ones that
+# leave SMs over at 4 and 8 (as cudaOccupancyMaxActiveClusters may report)
+RESIDENT = {"even": ((1, 132), (2, 66), (4, 33), (8, 16)),
+            "uneven": ((1, 132), (2, 66), (4, 30), (8, 14)),
+            "few": ((1, 114), (2, 57), (4, 26), (8, 12))}
+# GPT-125M, gpt_tiny, a ragged small width and one whose scratch bounds
+# the groups hard
+FFN_WIDTHS = [(768, 3072), (128, 512), (96, 200), (64, 1000)]
+
+
+@pytest.mark.parametrize("resident", sorted(RESIDENT))
+@pytest.mark.parametrize("n", [1, 3, 8, 16, 32, 64])
+@pytest.mark.parametrize("h,ffn", FFN_WIDTHS)
+def test_ffn_stream_grid(resident, n, h, ffn):
+    # ffn_stream's grid, a pure function of (the card's resident clusters,
+    # N, h, ffn): every W1 column and W2 row lies in exactly one block,
+    # every cluster has work, the blocks fit in shared memory, no cluster
+    # exceeds what the card holds, and the scratch stays under 5% of the
+    # weight bytes
+    held = dict(RESIDENT[resident])
+    grid = tfb._ffn_stream_grid(RESIDENT[resident], n, h, ffn)
+    assert grid is not None
+    cluster, groups, per, rows = grid
+    assert cluster in held and cluster <= tfb._STREAM_MAX_CLUSTER
+    assert per % 4 == 0 and 0 < per <= tfb._STREAM_MAX_PER
+    blocks = -(-ffn // per)                  # the blocks that own columns
+    owned = [set(range(b * per, min(ffn, (b + 1) * per)))
+             for b in range(groups * cluster)]
+    assert set().union(*owned) == set(range(ffn))
+    assert sum(map(len, owned)) == ffn       # no column in two blocks
+    assert (groups - 1) * cluster < blocks <= groups * cluster
+    assert tfb._ffn_stream_smem(h, per) <= tfb._SMEM_LIMIT
+    assert 0 < rows <= 16 and rows <= n
+    scratch, weights = groups * rows * h * 4, 2 * h * ffn * 4
+    assert scratch < 0.05 * weights
+    if (h, ffn) == (768, 3072) and resident != "few":
+        # GPT-125M on a 132-SM card: one wave of clusters over most of it
+        assert groups <= held[cluster]
+        assert blocks >= 110 and rows == min(n, 16)
+    elif (h, ffn) == (768, 3072):
+        # 114 SMs hold no grid whose share fits: two waves, not more
+        assert groups <= 2 * held[cluster]
+
+
+def test_ffn_stream_grid_at_decode():
+    # at generate's and serving's decode step (8 rows, GPT-125M) on a card
+    # whose GPCs take whole clusters: 16 clusters of 8 blocks of 24 ffn
+    # columns, 128 blocks; the scratch is 2.1% of the 18.9 MB of weights
+    assert tfb._ffn_stream_grid(RESIDENT["even"], 8, 768, 3072) == \
+        (8, 16, 24, 8)
+    assert tfb._ffn_stream_grid(RESIDENT["uneven"], 8, 768, 3072) == \
+        (8, 14, 28, 8)
+    # W1's 24 columns, W2's 24 rows, LN(x) of 8 rows, the activation
+    assert tfb._ffn_stream_smem(768, 24) == 4 * (768 * 24 + 24 * 768
+                                                 + 8 * 768 + 24 * 8)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n", [1, 8, 33, 64])
+@pytest.mark.parametrize("k,cols", [(768, 768), (128, 128), (96, 200),
+                                    (1024, 1024), (768, 20)])
+def test_linear_residual_stream_grid(sms, n, k, cols):
+    # linear_residual_stream's grid, a pure function of (SMs, N, k, cols):
+    # every (depth row, column) of W lies in exactly one block's chunk, at
+    # most one block an SM, clusters of at most 8, rows of 32 columns or
+    # more where cols allows, and the blocks fit in shared memory
+    grid = tfb._linear_residual_stream_grid(sms, n, k, cols)
+    assert grid is not None
+    cluster, width, depth = grid
+    assert 1 <= cluster <= tfb._STREAM_MAX_CLUSTER
+    assert width % 4 == 0 and width >= min(32, cols)
+    tiles = -(-cols // width)
+    assert (tiles - 1) * width < cols <= tiles * width
+    assert (cluster - 1) * depth < k <= cluster * depth
+    assert cluster * tiles <= sms
+    assert tfb._linear_residual_stream_smem(n, width, depth) \
+        <= tfb._SMEM_LIMIT
+    if (k, cols) == (768, 768):
+        assert cluster * tiles >= 0.9 * sms
+
+
+def test_linear_residual_stream_grid_at_decode():
+    # GPT-125M's out-projection at 8 rows on 132 SMs: 22 column tiles of 36
+    # (144-byte rows) x 6 depth chunks of 128 rows, 132 blocks of 18 KB
+    assert tfb._linear_residual_stream_grid(132, 8, 768, 768) == (6, 36, 128)
 
 
 @pytest.mark.parametrize("seed", [0, 7, 123456789, -5, 2 ** 31 - 1])
@@ -305,6 +447,51 @@ def test_ffn_dropout_matches_jax(route):
                                atol=F32_TOL)
 
 
+# the decode rows of serving and generate, which the weight-streaming
+# kernels take on the card: one row, and eight; float32 weights (as there)
+# with a float32 or bf16 residual stream, with and without dropout
+@pytest.mark.parametrize("n", [1, 8])
+@pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("drops", [(0.0, 0.0), (0.2, 0.4)])
+def test_ffn_decode_rows_match_jax(route, n, xdtype, drops):
+    x, p = _x(b=n, s=1, seed=12), _params(seed=12)
+    d1, d2 = drops
+    names = ("w1", "b1", "w2", "b2", "g", "beta")
+    ref = jfb.fused_ffn_block(_j(x, xdtype), *[_j(p[k]) for k in names],
+                              dropout1=d1, dropout2=d2, epsilon=EPS,
+                              training=True, seed=jnp.asarray(17, jnp.int32))
+    got = tfb.fused_ffn_block(_t(x, getattr(torch, xdtype)),
+                              *[_t(p[k]) for k in names], dropout1=d1,
+                              dropout2=d2, epsilon=EPS, training=True,
+                              seed=17)
+    assert got.shape == (n, 1, 128) and str(got.dtype) == f"torch.{xdtype}"
+    tol = F32_TOL if xdtype == "float32" else _bf16_ulp_tol(
+        np.asarray(ref, np.float32))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32), rtol=F32_TOL,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("n", [1, 8])
+@pytest.mark.parametrize("rdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("p_drop", [0.0, 0.3])
+def test_linear_residual_decode_rows_match_jax(route, n, rdtype, p_drop):
+    x, p, r = _x(b=n, s=1, seed=13), _params(seed=13), _x(b=n, s=1, seed=14)
+    ref = jfb.fused_linear_residual(_j(x), _j(p["out_w"]), _j(p["out_b"]),
+                                    _j(r, rdtype), dropout_p=p_drop,
+                                    training=True,
+                                    seed=jnp.asarray(19, jnp.int32))
+    got = tfb.fused_linear_residual(_t(x), _t(p["out_w"]), _t(p["out_b"]),
+                                    _t(r, getattr(torch, rdtype)),
+                                    dropout_p=p_drop, training=True, seed=19)
+    assert got.shape == (n, 1, 128) and str(got.dtype) == f"torch.{rdtype}"
+    tol = F32_TOL if rdtype == "float32" else _bf16_ulp_tol(
+        np.asarray(ref, np.float32))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref, np.float32), rtol=F32_TOL,
+                               atol=tol)
+
+
 def test_cpu_tensors_take_plain_versions():
     x, p = _x(seed=10), _params(seed=10)
     before = dict(_kernels.launches)
@@ -320,7 +507,9 @@ def test_cpu_tensors_take_plain_versions():
 
 @pytest.mark.parametrize("wrapper", ["ln_linear", "linear_residual", "ffn",
                                      "ffn_bf16", "ffn_mma", "ln_linear_mma",
-                                     "linear_residual_mma"])
+                                     "linear_residual_mma", "ffn_stream",
+                                     "ffn_simt", "linear_residual_stream",
+                                     "linear_residual_simt"])
 def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     x, p = _t(_x().reshape(-1, 128)), {k: _t(v) for k, v in
                                        _params().items()}
@@ -342,6 +531,15 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
                 x, p["qkv_w"].bfloat16(), p["qkv_b"], p["g"], p["beta"],
                 EPS),
             "linear_residual_mma": lambda: tfb.linear_residual_mma_cuda(
-                x.bfloat16(), p["out_w"].bfloat16(), p["out_b"], x)}[wrapper]
+                x.bfloat16(), p["out_w"].bfloat16(), p["out_b"], x),
+            "ffn_stream": lambda: tfb.ffn_stream_cuda(
+                x[:8], p["w1"], p["b1"], p["w2"], p["b2"], p["g"],
+                p["beta"]),
+            "ffn_simt": lambda: tfb.ffn_simt_cuda(
+                x, p["w1"], p["b1"], p["w2"], p["b2"], p["g"], p["beta"]),
+            "linear_residual_stream": lambda: tfb.linear_residual_stream_cuda(
+                x[:8], p["out_w"], p["out_b"], x[:8]),
+            "linear_residual_simt": lambda: tfb.linear_residual_simt_cuda(
+                x, p["out_w"], p["out_b"], x)}[wrapper]
     with pytest.raises(ValueError, match="must be on"):
         call()

@@ -63,14 +63,16 @@ def test_ln_linear(dev, n, h, cols, xdtype):
 def test_linear_residual(dev, n, k, cols, rdtype):
     x, w, b = _t(dev, n, k), _t(dev, k, cols, std=0.05), _t(dev, cols)
     r = _t(dev, n, cols, dtype=rdtype, seed=1)
-    out = fb.linear_residual_cuda(x, w, b, r)
+    out = fb.linear_residual_simt_cuda(x, w, b, r)
     ref = fb.linear_residual_reference(x, w, b, r)
     assert out.dtype == rdtype
     assert float((out.float() - ref.float()).abs().max()) <= _tol(ref, rdtype)
 
 
-# one cluster group per row tile (the result stored by the cluster) and, at
-# ffn = 2200, two groups (partials summed by the finalize kernel)
+# the SIMT kernel, through its own wrapper (the route sends float32 weights
+# at few rows to the stream kernel); one cluster group per row tile (the
+# result stored by the cluster) and, at ffn = 2200, two groups (partials
+# summed by the finalize kernel)
 @pytest.mark.parametrize("n,h,ffn", [(8, 128, 512), (37, 96, 200),
                                      (37, 96, 2200)])
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
@@ -83,8 +85,8 @@ def test_ffn(dev, n, h, ffn, xdtype, activation):
     w1, b1 = _t(dev, h, ffn, std=0.05), _t(dev, ffn, std=0.05)
     w2, b2 = _t(dev, ffn, h, std=0.05), _t(dev, h, std=0.05)
     g, beta = 1 + _t(dev, h, std=0.1), _t(dev, h, std=0.1)
-    out = fb.ffn_cuda(x, w1, b1, w2, b2, g, beta, activation=activation,
-                      epsilon=EPS)
+    out = fb.ffn_simt_cuda(x, w1, b1, w2, b2, g, beta,
+                           activation=activation, epsilon=EPS)
     ref = fb.ffn_reference(x, w1, b1, w2, b2, g, beta,
                            activation=activation, epsilon=EPS)
     assert out.dtype == xdtype
@@ -197,11 +199,12 @@ def test_paged_decode_refuses_unaligned_head_dims(dev):
                              PAGED_BS)
 
 
-# K2 / K3 hash dropout: decode rows, a prefill bucket and the generate
-# prefill's rows; at h = 768, ffn = 3072 K3 takes several cluster groups
-# at N=8 and one from 512.  dropout2 is applied by the finalize kernel, which
-# every shape takes when it is on; with dropout2 0 one group stores its
-# output at the cluster's exit (dropout1 alone covers that exit)
+# The SIMT K2 / K3's hash dropout: decode rows, a prefill bucket and the
+# generate prefill's rows; at h = 768, ffn = 3072 K3 takes several cluster
+# groups at N=8 and one from 512.  dropout2 is applied by the finalize
+# kernel, which every shape takes when it is on; with dropout2 0 one group
+# stores its output at the cluster's exit (dropout1 alone covers that
+# exit)
 DROP_ROWS = (8, 512, 4096)
 # a residual this small next to the addend (|y| ~ 0.1-1) never absorbs a
 # kept value, and a dropped one leaves it bit for bit: the elements equal
@@ -221,20 +224,20 @@ def test_linear_residual_dropout(dev, n, rdtype):
     x, w, b = _t(dev, n, h), _t(dev, h, h, std=0.02), _t(dev, h, std=0.02)
     r = _t(dev, n, h, dtype=rdtype, seed=1)
     args = (77, 0.1, fb._SALT_RESID)
-    out = fb.linear_residual_cuda(x, w, b, r, *args)
+    out = fb.linear_residual_simt_cuda(x, w, b, r, *args)
     ref = fb.linear_residual_reference(x, w, b, r, *args)
     assert out.dtype == rdtype
     assert float((out.float() - ref.float()).abs().max()) <= _tol(ref, rdtype)
     tiny = (r.float() * TINY).to(rdtype)
-    got = fb.linear_residual_cuda(x, w, b, tiny, *args)
+    got = fb.linear_residual_simt_cuda(x, w, b, tiny, *args)
     want = fb.linear_residual_reference(x, w, b, tiny, *args)
     keep = fb._keep_mask(77, fb._SALT_RESID, torch.arange(n)[:, None],
                          torch.arange(h)[None, :], 0.1)
     assert torch.equal(_dropped(got, tiny), ~keep)
     assert torch.equal(_dropped(want, tiny), ~keep)
     # dropout 0 is the kernel of the serving path, unchanged
-    assert torch.equal(fb.linear_residual_cuda(x, w, b, r, 77, 0.0),
-                       fb.linear_residual_cuda(x, w, b, r))
+    assert torch.equal(fb.linear_residual_simt_cuda(x, w, b, r, 77, 0.0),
+                       fb.linear_residual_simt_cuda(x, w, b, r))
 
 
 @pytest.mark.parametrize("n", DROP_ROWS)
@@ -249,7 +252,8 @@ def test_ffn_dropout(dev, n, xdtype, drops):
     w2, b2 = _t(dev, ffn, h, std=0.02), _t(dev, h, std=0.02)
     g, beta = 1 + _t(dev, h, std=0.1), _t(dev, h, std=0.1)
     d1, d2 = drops
-    out = fb.ffn_cuda(x, w1, b1, w2, b2, g, beta, 5, "gelu", d1, d2, EPS)
+    out = fb.ffn_simt_cuda(x, w1, b1, w2, b2, g, beta, 5, "gelu", d1, d2,
+                           EPS)
     ref = fb.ffn_reference(x, w1, b1, w2, b2, g, beta, 5, "gelu", d1, d2,
                            EPS)
     assert out.dtype == xdtype
@@ -257,8 +261,8 @@ def test_ffn_dropout(dev, n, xdtype, drops):
     if d2 == 0.0:
         return
     tiny = (x.float() * TINY).to(xdtype)
-    got = fb.ffn_cuda(tiny, w1, b1, w2, b2, g, beta, 5, "gelu", d1, d2,
-                      TINY_EPS)
+    got = fb.ffn_simt_cuda(tiny, w1, b1, w2, b2, g, beta, 5, "gelu", d1, d2,
+                           TINY_EPS)
     want = fb.ffn_reference(tiny, w1, b1, w2, b2, g, beta, 5, "gelu", d1, d2,
                             TINY_EPS)
     keep = fb._keep_mask(5, fb._SALT_FFN2, torch.arange(n)[:, None],
@@ -307,7 +311,7 @@ def _ffn_addend(x, params, *args):
 def test_ffn_mma(dev, n, h, ffn, xdtype, activation):
     x = _t(dev, n, h, dtype=xdtype, seed=5)
     params = _mma_params(dev, h, ffn)
-    assert fb.ffn_route(params[0], params[2]) == "ffn_mma"
+    assert fb.ffn_route(params[0], params[2], n) == "ffn_mma"
     before = dict(_kernels.launches)
     out = fb.ffn_cuda(x, *params, activation=activation, epsilon=EPS)
     assert _kernels.launches["ffn_mma"] == before["ffn_mma"] + 1
@@ -402,10 +406,13 @@ def test_ffn_mma_repeats_exactly(dev, n, d2):
     (torch.bfloat16, 96, 200),        # h without an instantiation
     (torch.bfloat16, 128, 100)])      # ffn rows of w1 not 16-byte aligned
 def test_ffn_route_keeps_the_simt_kernel(dev, wdtype, h, ffn):
-    x = _t(dev, 37, h, dtype=torch.bfloat16, seed=9)
+    # rows above the stream kernels' bound (below it float32 weights take
+    # ffn_stream)
+    n = fb._STREAM_MAX_ROWS + 1
+    x = _t(dev, n, h, dtype=torch.bfloat16, seed=9)
     w1, b1, w2, b2, g, beta = _mma_params(dev, h, ffn)
     w1, w2 = w1.to(wdtype), w2.to(wdtype)
-    assert fb.ffn_route(w1, w2) == "ffn"
+    assert fb.ffn_route(w1, w2, n) == "ffn"
     before = dict(_kernels.launches)
     out = fb.ffn_cuda(x, w1, b1, w2, b2, g, beta, epsilon=EPS)
     assert _kernels.launches["ffn"] == before["ffn"] + 1
@@ -571,7 +578,10 @@ def test_ln_linear_route_keeps_the_simt_kernel(dev, case):
     (torch.bfloat16, torch.float32, 768),
     (torch.bfloat16, torch.bfloat16, 96)])    # k without an instantiation
 def test_linear_residual_route_keeps_the_simt_kernel(dev, xdtype, wdtype, k):
-    x, w, b, r = _linear_residual_inputs(dev, 37, k, k, torch.bfloat16)
+    # rows above the stream kernels' bound (below it a float32 w takes
+    # linear_residual_stream)
+    x, w, b, r = _linear_residual_inputs(dev, fb._STREAM_MAX_ROWS + 1, k, k,
+                                         torch.bfloat16)
     x, w = x.to(xdtype), w.to(wdtype)
     assert fb.linear_residual_route(x, w) == "linear_residual"
     before = dict(_kernels.launches)
@@ -594,6 +604,199 @@ def test_ln_linear_and_linear_residual_mma_refuse_what_they_cannot_take(dev):
     with pytest.raises(ValueError, match="linear_residual_mma: takes bf16"):
         fb.linear_residual_mma_cuda(xa, wo[:, :100].contiguous(), bo[:100],
                                     r[:, :100].contiguous())
+
+
+# The weight-streaming K3 and K2 (csrc/ffn_stream.cu,
+# csrc/linear_residual_stream.cu): float32 weights at a few rows, GPT-125M's
+# widths and a ragged small one.  Rows: one, a few, the decode rows, 17 (a
+# second launch of K3 and a ragged 8-row pass), the route's bound and 64
+# (4 launches of K3); the wrappers take each, the route those up to the
+# bound.  Values within float32 sums (a float32 output) or one bf16 unit
+# (a bf16 one), with and without dropout; with a residual of 2^-40 the
+# addend alone within the same tolerance of its own range and its dropped
+# elements exactly the hash mask's
+STREAM_ROWS = sorted({1, 3, 8, 17, fb._STREAM_MAX_ROWS, 64})
+STREAM_WIDTHS = [(768, 3072), (96, 200)]
+
+
+def _stream_params(dev, h, ffn):
+    return (_t(dev, h, ffn, std=0.02, seed=31), _t(dev, ffn, std=0.02,
+                                                   seed=32),
+            _t(dev, ffn, h, std=0.02, seed=33), _t(dev, h, std=0.02, seed=34),
+            1 + _t(dev, h, std=0.1, seed=35), _t(dev, h, std=0.1, seed=36))
+
+
+def _stream_launches(dev, name, n, h, ffn):
+    """Launches of one ``name`` call at N=n: ffn_stream walks N in launches
+    of its grid's rows."""
+    if name == "linear_residual_stream":
+        return 1
+    rows = fb._ffn_stream_grid(fb._ffn_stream_resident(dev), n, h, ffn)[3]
+    return -(-n // rows)
+
+
+@pytest.mark.parametrize("n", STREAM_ROWS)
+@pytest.mark.parametrize("h,ffn", STREAM_WIDTHS)
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("drops", [(0.0, 0.0), (0.2, 0.1)])
+def test_ffn_stream(dev, n, h, ffn, xdtype, drops):
+    x = _t(dev, n, h, dtype=xdtype, seed=37)
+    params = _stream_params(dev, h, ffn)
+    assert (fb.ffn_route(params[0], params[2], n) == "ffn_stream") == (
+        n <= fb._STREAM_MAX_ROWS)
+    before = dict(_kernels.launches)
+    out = fb.ffn_stream_cuda(x, *params, 5, "gelu", *drops, EPS)
+    assert _kernels.launches["ffn_stream"] == (
+        before["ffn_stream"] + _stream_launches(dev, "ffn_stream", n, h, ffn))
+    assert all(_kernels.launches[k] == before[k] for k in ("ffn", "ffn_mma"))
+    ref = fb.ffn_reference(x, *params, 5, "gelu", *drops, EPS)
+    assert out.dtype == xdtype and out.shape == (n, h)
+    assert float((out.float() - ref.float()).abs().max()) <= _tol(ref, xdtype)
+    tiny = (x.float() * TINY).to(xdtype)
+    got = fb.ffn_stream_cuda(tiny, *params, 5, "gelu", *drops, TINY_EPS)
+    want = fb.ffn_reference(tiny, *params, 5, "gelu", *drops, TINY_EPS)
+    assert float((got.float() - want.float()).abs().max()) <= _tol(want,
+                                                                   xdtype)
+    if drops[1] > 0.0:
+        keep = fb._keep_mask(5, fb._SALT_FFN2, torch.arange(n)[:, None],
+                             torch.arange(h)[None, :], drops[1])
+        assert torch.equal(_dropped(got, tiny), ~keep)
+        assert torch.equal(_dropped(want, tiny), ~keep)
+
+
+@pytest.mark.parametrize("n", STREAM_ROWS)
+@pytest.mark.parametrize("h,ffn", [(768, 3072), (128, 128), (128, 200)])
+def test_ffn_stream_dropout1_mask(dev, n, h, ffn):
+    # W2 = the (ffn, h) identity and b2 = 0: the output is x + the
+    # activation of the ffn columns below h, so with a residual of 2^-40 the
+    # elements equal to it are exactly drop1's dropped ones, over the global
+    # (row, ffn column) in every block's slice and launch
+    w1, b1, _, _, g, beta = _stream_params(dev, h, ffn)
+    w2 = torch.eye(ffn, h, device=dev)
+    b2 = torch.zeros(h, device=dev)
+    tiny = (_t(dev, n, h, seed=38) * TINY).to(torch.bfloat16)
+    got = fb.ffn_stream_cuda(tiny, w1, b1, w2, b2, g, beta, 21, "gelu", 0.3,
+                             0.0, TINY_EPS)
+    want = fb.ffn_reference(tiny, w1, b1, w2, b2, g, beta, 21, "gelu", 0.3,
+                            0.0, TINY_EPS)
+    cols = min(h, ffn)
+    keep = fb._keep_mask(21, fb._SALT_FFN1, torch.arange(n)[:, None],
+                         torch.arange(cols)[None, :], 0.3)
+    assert torch.equal(_dropped(got, tiny)[:, :cols], ~keep)
+    assert torch.equal(_dropped(want, tiny)[:, :cols], ~keep)
+    assert float((got.float() - want.float()).abs().max()) <= _bf16_tol(want)
+
+
+@pytest.mark.parametrize("n", STREAM_ROWS)
+@pytest.mark.parametrize("k,cols", [(768, 768), (96, 200), (128, 20)])
+@pytest.mark.parametrize("xdtype,rdtype", [
+    (torch.float32, torch.bfloat16),          # serving and generate
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_linear_residual_stream(dev, n, k, cols, xdtype, rdtype, p):
+    x = _t(dev, n, k, dtype=xdtype, seed=39)
+    w, b = _t(dev, k, cols, std=0.02, seed=40), _t(dev, cols, std=0.02,
+                                                   seed=41)
+    r = _t(dev, n, cols, dtype=rdtype, seed=42)
+    assert (fb.linear_residual_route(x, w) == "linear_residual_stream") == (
+        n <= fb._STREAM_MAX_ROWS)
+    args = (77, p, fb._SALT_RESID)
+    before = dict(_kernels.launches)
+    out = fb.linear_residual_stream_cuda(x, w, b, r, *args)
+    assert (_kernels.launches["linear_residual_stream"]
+            == before["linear_residual_stream"] + 1)
+    assert all(_kernels.launches[q] == before[q]
+               for q in ("linear_residual", "linear_residual_mma"))
+    ref = fb.linear_residual_reference(x, w, b, r, *args)
+    assert out.dtype == rdtype and out.shape == (n, cols)
+    assert float((out.float() - ref.float()).abs().max()) <= _tol(ref, rdtype)
+    tiny = (r.float() * TINY).to(rdtype)
+    got = fb.linear_residual_stream_cuda(x, w, b, tiny, *args)
+    want = fb.linear_residual_reference(x, w, b, tiny, *args)
+    assert float((got.float() - want.float()).abs().max()) <= _tol(want,
+                                                                   rdtype)
+    if p > 0.0:
+        keep = fb._keep_mask(77, fb._SALT_RESID, torch.arange(n)[:, None],
+                             torch.arange(cols)[None, :], p)
+        assert torch.equal(_dropped(got, tiny), ~keep)
+        assert torch.equal(_dropped(want, tiny), ~keep)
+
+
+@pytest.mark.parametrize("n", [8, 64])
+def test_stream_addend_checks_reject_a_bias_left_out(dev, n):
+    # the addend checks above see a fault of the bias's size: K3 without b1
+    # and K2 without b lie outside one bf16 unit of the addend's range
+    h, ffn = 768, 3072
+    w1, b1, w2, b2, g, beta = _stream_params(dev, h, ffn)
+    tiny = (_t(dev, n, h, seed=43) * TINY).to(torch.bfloat16)
+    want = fb.ffn_reference(tiny, w1, b1, w2, b2, g, beta, 3, "gelu", 0.0,
+                            0.1, TINY_EPS)
+    bad = fb.ffn_stream_cuda(tiny, w1, torch.zeros_like(b1), w2, b2, g, beta,
+                             3, "gelu", 0.0, 0.1, TINY_EPS)
+    assert float((bad.float() - want.float()).abs().max()) > _bf16_tol(want)
+    x, w = _t(dev, n, h, seed=44), _t(dev, h, h, std=0.02, seed=45)
+    b = _t(dev, h, std=0.02, seed=46)
+    want = fb.linear_residual_reference(x, w, b, tiny, 3, 0.1)
+    bad = fb.linear_residual_stream_cuda(x, w, torch.zeros_like(b), tiny, 3,
+                                         0.1)
+    assert float((bad.float() - want.float()).abs().max()) > _bf16_tol(want)
+
+
+@pytest.mark.parametrize("n", [8, 64])
+def test_stream_kernels_repeat_exactly_and_under_graph_replay(dev, n):
+    # no atomics and fixed summation orders: two calls, and two replays of
+    # one captured call (the decode step of generate is a graph replay),
+    # give the same bits
+    h, ffn = 768, 3072
+    params = _stream_params(dev, h, ffn)
+    x = _t(dev, n, h, dtype=torch.bfloat16, seed=47)
+    attn, w = _t(dev, n, h, seed=48), _t(dev, h, h, std=0.02, seed=49)
+    b = _t(dev, h, std=0.02, seed=50)
+
+    def step():
+        return (fb.ffn_stream_cuda(x, *params, 9, "gelu", 0.1, 0.1, EPS),
+                fb.linear_residual_stream_cuda(attn, w, b, x, 9, 0.1))
+    eager = [step() for _ in range(2)]
+    torch.cuda.synchronize()
+    graph, holder = torch.cuda.CUDAGraph(), {}
+    recorded = _kernels.capture(graph, lambda: holder.update(out=step()))
+    assert recorded == {
+        "ffn_stream": _stream_launches(dev, "ffn_stream", n, h, ffn),
+        "linear_residual_stream": 1}
+    _kernels.replay(graph, recorded)
+    first = [o.clone() for o in holder["out"]]
+    _kernels.replay(graph, recorded)
+    torch.cuda.synchronize()
+    for a, b_, c, d in zip(eager[0], eager[1], first, holder["out"]):
+        assert torch.equal(a, b_) and torch.equal(a, c) and torch.equal(a, d)
+
+
+def test_stream_smem_counts_match_the_libraries(dev):
+    # the wrappers size the grid from their own count of a block's shared
+    # memory; the libraries launch with theirs
+    import ctypes
+    k3 = _kernels.bind("ffn_stream", "ptt_ffn_stream_smem",
+                       [ctypes.c_int, ctypes.c_int])
+    k2 = _kernels.bind("linear_residual_stream",
+                       "ptt_linear_residual_stream_smem",
+                       [ctypes.c_int, ctypes.c_int, ctypes.c_int])
+    for h, per in [(768, 24), (768, 28), (96, 16), (128, 4)]:
+        assert k3(h, per) == fb._ffn_stream_smem(h, per)
+    for n, width, depth in [(8, 36, 128), (64, 48, 96), (3, 20, 31)]:
+        assert k2(n, width, depth) == fb._linear_residual_stream_smem(
+            n, width, depth)
+    held = dict(fb._ffn_stream_resident(dev))
+    assert held[1] >= held[2] >= held[4] >= held[8] > 0
+
+
+def test_stream_kernels_refuse_what_they_cannot_take(dev):
+    w1, b1, w2, b2, g, beta = _stream_params(dev, 768, 3072)
+    x = _t(dev, 8, 768, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="ffn_stream: takes float32"):
+        fb.ffn_stream_cuda(x, w1.bfloat16(), b1, w2.bfloat16(), b2, g, beta)
+    w = torch.empty(768 * 768 + 1, device=dev)[1:].view(768, 768)
+    with pytest.raises(ValueError, match="linear_residual_stream: takes"):
+        fb.linear_residual_stream_cuda(x.float(), w, b2, x)
 
 
 def test_o1_fused_training_step_takes_ffn_mma(dev):
