@@ -23,7 +23,11 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               keep a stack frame, and their grid at GPT-125M for N = 1,
               8, 16, 32, 64 is logged (cluster size, blocks, bytes in flight
               and shared memory a block, K3's scratch, the clusters the
-              card holds at once); the decode
+              card holds at once); K1's float32 kernels
+              (ln_linear_stream, ln_linear_tiled) must neither spill nor
+              keep a stack frame, with the stream grid at N = 8 and 64 and
+              the tiled kernel's shared memory and depth split logged; the
+              decode
               kernel's registers, spills and cluster split at the generate
               shape are logged, and the paged-decode kernel's at the
               serving table width;
@@ -45,18 +49,29 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               rejected, two calls bit-identical), timed at N = 1, 8, 16,
               32, 64 against the SIMT kernel they replace there and the
               plain version, alternated (each faster than both at N=8, or
-              the phase fails);
+              the phase fails); K1 of float32 weights (h=768, 2304
+              columns, bf16 x) through its route: ln_linear_stream at every
+              N from 1 to _LN_STREAM_MAX_ROWS, ln_linear_tiled at N = 128,
+              512, 4096 and a ragged tile (300 rows x 200 columns), both
+              with float32 x too, within 1e-4 of the plain version, b left
+              out rejected, two calls bit-identical; timed at N = 1, 8, 16,
+              32, 48, 64, 128, 512, 4096 alternated with the SIMT ln_linear
+              and the plain version (both float32 routes at 16-128: the
+              numbers that set the route's bound), the route's kernel
+              faster than the SIMT one at N=8 and 4096, or the phase
+              fails;
   (c) serving GPT-125M at full width (12 layers, h=768, 12 heads, vocab
               50304, bf16 activations, use_fused_block) with seeded random
               weights loaded through convert.py, served by ServingEngine:
               8 ragged prompts x 32 greedy tokens.  Every kernel's launch
               counter is zeroed just before this run and must be > 0 after
               (ln_linear_mma, linear_residual_mma and ffn_mma, the
-              bf16-weight K1-K3, must not launch: serving multiplies
-              float32 weights); the rows of every K2 / K3 call are
-              recorded: the decode steps' 8 rows take ffn_stream and
-              linear_residual_stream once per layer, the SIMT ffn and
-              linear_residual only prefill buckets above the bound.
+              bf16-weight K1-K3, and the SIMT ln_linear must not launch:
+              serving multiplies float32 weights); the rows of every K1-K3
+              call are recorded: the decode steps' 8 rows take ffn_stream,
+              linear_residual_stream and ln_linear_stream once per layer,
+              the SIMT ffn and linear_residual and ln_linear_tiled only
+              prefill buckets above the bound.
               Beforehand, a float32 run on a small input is held against
               the same model on the CPU (plain versions): tokens identical,
               logits within 1e-3;
@@ -79,8 +94,9 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               compositions plus the flash backward kernels.  13 steps as
               in (c2); the counters of the six kernels are zeroed just
               before and must read 12 x 13 after, the SIMT ln_linear,
-              linear_residual and ffn and the stream K2 / K3 0; the loss
-              must be finite and fall.
+              linear_residual and ffn and the float32 routes
+              (ln_linear_stream, ln_linear_tiled and the stream K2 / K3)
+              0; the loss must be finite and fall.
               The unfused step's p50 of (c2) is printed beside it.
               Beforehand, K1 (ln_linear_mma, h=768, 2304 columns), K2
               (linear_residual_mma) and K3 (ffn_mma) with dropout against
@@ -105,9 +121,10 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               tokens/s, each the median of 3 timed calls after a capturing
               one.  The counters are zeroed just before the timed calls;
               flash_decode must read 12 x their decode steps, and in the
-              fused run ln_linear > 0, ffn_stream and linear_residual_stream
-              12 x the decode steps, the SIMT ffn and linear_residual 12 x
-              the prefills (float32 weights; ln_linear_mma,
+              fused run ffn_stream, linear_residual_stream and
+              ln_linear_stream 12 x the decode steps, the SIMT ffn and
+              linear_residual and ln_linear_tiled 12 x the prefills
+              (float32 weights; the SIMT ln_linear, ln_linear_mma,
               linear_residual_mma and ffn_mma 0).
               Beforehand, a float32 run on a
               small input is held against the same model on the CPU
@@ -147,12 +164,16 @@ PEAK_F32 = "bytes at 3.35 TB/s; float32 operations at 67 TFLOP/s"
 PEAK_BF16 = "bytes at 3.35 TB/s; bf16 operations at 989 TFLOP/s"
 
 SEED = 1234
-SERVING_KERNELS = ("paged_decode", "ln_linear", "linear_residual", "ffn",
-                   "linear_residual_stream", "ffn_stream")
-# the weight-streaming K2 / K3 of float32 weights at a few rows: serving's
-# and generate's decode steps, and serving's prefill buckets up to
-# fused_block._STREAM_MAX_ROWS
-STREAM_ONLY_KERNELS = ("linear_residual_stream", "ffn_stream")
+SERVING_KERNELS = ("paged_decode", "linear_residual", "ffn",
+                   "linear_residual_stream", "ffn_stream", "ln_linear_stream",
+                   "ln_linear_tiled")
+# the redesigned kernels of float32 weights, launched by serving and
+# generate and by no training path: the weight-streaming K1-K3 at a few
+# rows (the decode steps, and serving's prefill buckets up to
+# fused_block._STREAM_MAX_ROWS, K1's up to _LN_STREAM_MAX_ROWS) and K1's
+# register-blocked kernel above them
+F32_KERNELS = ("linear_residual_stream", "ffn_stream", "ln_linear_stream",
+               "ln_linear_tiled")
 TRAINING_KERNELS = ("flash_fwd", "flash_dkdv", "flash_dq")
 # the tensor-core K1-K3 of bf16 weights: launched by no other path
 FUSED_ONLY_KERNELS = ("ln_linear_mma", "linear_residual_mma", "ffn_mma")
@@ -198,12 +219,14 @@ def main() -> int:
             log(f"  {name}: {fn}: {props}")
     design = check_design(_kernels)
     design.update(check_stream_design(torch, _kernels, dev))
+    design.update(check_ln_linear_design(_kernels, dev))
 
     # -- (b) each kernel against its plain version ---------------------------
     results = check_kernels(torch, np, dev)
 
     check_dropout(torch, np, dev, results)
     check_stream(torch, np, dev, results)
+    check_ln_linear(torch, np, dev, results)
     results.update(check_flash(torch, np, dev))
     results.update(check_flash_decode(torch, np, dev, _kernels))
     for name, d in design.items():
@@ -236,7 +259,7 @@ def main() -> int:
         if r["name"] in FUSED_TRAINING_KERNELS:
             r["launches_fused_training"] = \
                 fused_training["launches"][r["name"]]
-        if r["name"] in STREAM_ONLY_KERNELS:
+        if r["name"] in F32_KERNELS:
             r["launches_generate"] = generating["launches"][r["name"]]
             require(r["launches_generate"] > 0,
                     f"{r['name']}: no launch on the generate path")
@@ -502,14 +525,9 @@ def check_kernels(torch, np, dev):
 
     h, ffn, eps = 768, 3072, 1e-5
     g, beta = t((h,), std=0.1, mean=1.0), t((h,), std=0.1)
-    w_qkv, b_qkv = t((h, 3 * h), std=0.02), t((3 * h,), std=0.02)
     w_out, b_out = t((h, h), std=0.02), t((h,), std=0.02)
     w1, b1 = t((h, ffn), std=0.02), t((ffn,), std=0.02)
     w2, b2 = t((ffn, h), std=0.02), t((h,), std=0.02)
-    # float32 sums of 768-3072 products in another order than cuBLAS: the
-    # kernel and plain results differ by ~1e-6; 1e-4 leaves margin while a
-    # wrong tile, index or epilogue is off by 1e-2 or more
-    f32_tol = lambda ref: 1e-4  # noqa: E731
 
     results = {}
     shapes = {}
@@ -517,7 +535,7 @@ def check_kernels(torch, np, dev):
     # the generate prefill (8 prompts x 512 tokens).  K2 and K3 through
     # their SIMT wrappers: the decode rows take the weight-streaming
     # kernels (check_stream), and N=8 here is the SIMT kernel they replace
-    # there
+    # there.  K1's float32 routes and its SIMT kernel: check_ln_linear
     for n in (8, 512, 4096):
         x_res = t((n, h), torch.bfloat16)          # bf16 residual stream
         attn = t((n, h))                            # float32 attention out
@@ -528,14 +546,6 @@ def check_kernels(torch, np, dev):
                     else "linear_residual"),
                 f"K2 / K3 with float32 weights at N={n} take another route")
         shapes[n] = {
-            "ln_linear": measure(
-                torch, f"ln_linear N={n}",
-                lambda: fb.ln_linear_cuda(x_res, w_qkv, b_qkv, g, beta, eps),
-                lambda: fb.ln_linear_reference(x_res, w_qkv, b_qkv, g, beta,
-                                               eps),
-                f32_tol,
-                (nbytes(x_res, w_qkv, b_qkv, g, beta) + n * 3 * h * 4,
-                 2.0 * n * h * 3 * h)),
             "linear_residual": measure(
                 torch, f"linear_residual N={n}",
                 lambda: fb.linear_residual_simt_cuda(attn, w_out, b_out,
@@ -573,14 +583,13 @@ def check_kernels(torch, np, dev):
                 f"by {r['bound_by']})")
 
     replaces = {
-        "ln_linear": "paddle_tpu/ops/fused_block.py:178",
         "linear_residual": "paddle_tpu/ops/fused_block.py:267",
         "ffn": "paddle_tpu/ops/fused_block.py:363",
     }
     for name, line in replaces.items():
-        # K1 at the decode rows; K2 and K3 at the serving prefill bucket,
-        # the smallest N of this list that they still take
-        dec = shapes[8 if name == "ln_linear" else 512][name]
+        # at the serving prefill bucket, the smallest N of this list that
+        # they still take
+        dec = shapes[512][name]
         # the error of the shape nearest its limit, beside its tolerance
         worst = max((shapes[n][name] for n in shapes),
                     key=lambda r: r["err_over_tol"])
@@ -703,9 +712,9 @@ def check_stream_design(torch, _kernels, dev):
             "bytes_in_flight_a_block": 2 * h * per * 4,
             "smem_bytes": smem, "scratch_bytes": groups * rows * h * 4,
             "weight_bytes": 2 * h * ffn * 4}
-        cl, width, depth = fb._linear_residual_stream_grid(sms, n, h, h)
+        cl, width, depth = fb._stream_gemm_grid(sms, n, h, h)
         smem = k2_smem(n, width, depth)
-        require(smem == fb._linear_residual_stream_smem(n, width, depth),
+        require(smem == fb._stream_gemm_smem(n, width, depth),
                 "linear_residual_stream: the library's and the wrapper's "
                 "shared memory a block differ")
         out["linear_residual_stream"]["grids"][f"N={n}"] = {
@@ -913,6 +922,238 @@ def check_stream(torch, np, dev, results):
                      + (f", ffn={ffn}" if name == "ffn_stream" else "")
                      + ", float32 weights, bf16 residual",
             "checks": r, "sweep": sweep[name],
+            "max_rows": limit}
+
+
+# ---------------------------------------------------------------------------
+# (a), (b) K1's float32 routes: ln_linear_stream at the decode rows,
+# ln_linear_tiled above them
+# ---------------------------------------------------------------------------
+# library -> its kernel function and instantiations (the tiled kernel's:
+# float32 and bf16 x)
+LN_KERNELS = {"ln_linear_stream": ("ln_linear_stream_kernel", 1),
+              "ln_linear_tiled": ("ln_linear_tiled_kernel", 2)}
+LN_REPLACES = "paddle_tpu/ops/fused_block.py:178"
+LN_SWEEP = (1, 8, 16, 32, 48, 64, 128, 512, 4096)   # rows timed, alternated
+# rows at which both float32 routes are timed: the numbers that set the
+# route's bound (fused_block._LN_STREAM_MAX_ROWS)
+LN_CROSSOVER = (16, 32, 48, 64, 128)
+LN_TILED_CHECKED = (128, 512, 4096)           # the tiled kernel's values
+# the rows of each kernel's entry in the kernel line: the decode rows,
+# serving's largest prefill bucket
+LN_TIMED = {"ln_linear_stream": 8, "ln_linear_tiled": 512}
+
+
+def check_ln_linear_design(_kernels, dev):
+    """ptxas's registers, spills and stack frame of K1's two float32 kernels
+    (neither may spill or keep a stack frame); ln_linear_stream's grid at
+    GPT-125M's QKV projection for N = 8 and 64 (cluster, blocks, bulk
+    copies and bytes in flight a block, shared memory: the library's count,
+    which must equal the wrapper's), ln_linear_tiled's shared memory a
+    block and its depth split at the rows of LN_SWEEP that it takes."""
+    import ctypes
+    from paddle_tpu_torch.ops import fused_block as fb
+    h, cols = 768, 2304
+    out = {}
+    for lib, (fn, count) in LN_KERNELS.items():
+        props = {f: p for f, p in _kernels.ptxas_functions(lib).items()
+                 if fn in f}
+        require(len(props) == count, f"{lib}: {len(props)} ptxas reports "
+                f"for {fn}, not {count}")
+        for f, p in props.items():
+            require(p.get("spill_stores") == 0 and p.get("spill_loads") == 0
+                    and p.get("stack_frame") == 0,
+                    f"{lib}: {f} spills or keeps a stack frame: {p}")
+        out[lib] = {"kernel": fn,
+                    "registers": sorted(p.get("registers")
+                                        for p in props.values()),
+                    "spill_stores": 0, "spill_loads": 0, "stack_frame": 0}
+    sms = _kernels.sm_count(dev)
+    smem_fn = _kernels.bind("ln_linear_stream", "ptt_ln_linear_stream_smem",
+                            [ctypes.c_int] * 3)
+    grids = {}
+    for n in sorted({8, fb._LN_STREAM_MAX_ROWS, 64}):
+        cluster, width, depth = fb._stream_gemm_grid(sms, n, h, cols)
+        smem = smem_fn(n, width, depth)
+        require(smem == fb._stream_gemm_smem(n, width, depth),
+                f"ln_linear_stream: the library's {smem} bytes of shared "
+                "memory a block, not the wrapper's")
+        grids[f"N={n}"] = {
+            "cluster": cluster, "columns_a_tile": width,
+            "depth_a_block": depth, "blocks": cluster * -(-cols // width),
+            "bulk_copies_a_block": depth,
+            "bytes_in_flight_a_block": depth * width * 4, "smem_bytes": smem}
+    out["ln_linear_stream"]["grids"] = grids
+    smem = _kernels.bind("ln_linear_tiled", "ptt_ln_linear_tiled_smem",
+                         [ctypes.c_int])(h)
+    require(smem == fb._tiled_smem(h), f"ln_linear_tiled: the library's "
+            f"{smem} bytes of shared memory a block, the wrapper's "
+            f"{fb._tiled_smem(h)}")
+    out["ln_linear_tiled"].update(
+        smem_bytes=smem,
+        tile=f"{fb._TILED_ROWS} x {fb._TILED_COLS} a block of 128 threads, "
+             f"8 x 8 a thread, {fb._TILED_DEPTH}-deep slabs of W and x in a "
+             "3-stage cp.async ring, 3 blocks an SM",
+        depth_split={f"N={n}": fb._tiled_splits(sms, n, h, cols)
+                     for n in LN_SWEEP if n > fb._LN_STREAM_MAX_ROWS})
+    for lib, d in out.items():
+        log(f"design {lib}: {d['registers']} registers, 0 spills, no stack "
+            "frame; " + "; ".join(f"{k}: {v}" for k, v in d.items()
+                                   if k in ("grids", "smem_bytes", "tile",
+                                            "depth_split")))
+    return out
+
+
+def check_ln_linear(torch, np, dev, results):
+    """K1 on float32 weights at GPT-125M's QKV projection (h=768, 2304
+    columns; serving's dtypes: a bf16 residual stream, float32 w, b, g,
+    beta) against its plain version within 1e-4 (float32 sums in another
+    order than cuBLAS, ~1e-6 apart; a wrong tile, index or epilogue is off
+    by 1e-2 or more): ln_linear_stream, through the route, at every N from
+    1 to _LN_STREAM_MAX_ROWS, one launch a call, and at N=8 with float32 x;
+    ln_linear_tiled through the route at the rows of LN_TILED_CHECKED, at
+    300 rows x 200 columns (ragged row and column tiles) and with float32 x;
+    b left out rejected by that check (err/tol above 1); two calls
+    bit-identical.  Timed at every N of LN_SWEEP: the route's kernel, the
+    SIMT ln_linear and the plain version (and at LN_CROSSOVER both float32
+    routes) alternated, each checked against the plain version first; the
+    route's kernel must beat the SIMT one at N=8 and at N=4096."""
+    from paddle_tpu_torch import _kernels
+    from paddle_tpu_torch.ops import fused_block as fb
+    rng = np.random.default_rng(SEED + 13)
+    bf16 = torch.bfloat16
+
+    def t(shape, dtype=torch.float32, std=1.0, mean=0.0):
+        a = rng.standard_normal(shape, dtype=np.float32) * std + mean
+        return torch.from_numpy(a).to(dev).to(dtype)
+
+    h, cols, eps, tol = 768, 2304, 1e-5, 1e-4
+    limit = fb._LN_STREAM_MAX_ROWS
+    g, beta = t((h,), std=0.1, mean=1.0), t((h,), std=0.1)
+    w, b = t((h, cols), std=0.02), t((cols,), std=0.02)
+
+    def k1(kernel, x, w_=w, b_=b):
+        return lambda: kernel(x, w_, b_, g, beta, eps)
+
+    def plain(x, w_=w, b_=b):
+        return lambda: fb.ln_linear_reference(x, w_, b_, g, beta, eps)
+
+    def values(name, fn, ref):
+        out = fn()
+        torch.cuda.synchronize()
+        return compare(torch, name, out, ref, tol)
+
+    def routed(name, x, w_=w, b_=b):
+        """One call through ln_linear_cuda: the route's kernel, launched
+        once, within tol of the plain version."""
+        require(fb.ln_linear_route(w_, x.shape[0]) == name,
+                f"{name}: float32 w at N={x.shape[0]}, {tuple(w_.shape)} "
+                "takes another route")
+        before = dict(_kernels.launches)
+        r = values(f"{name} N={x.shape[0]} {x.dtype} {tuple(w_.shape)}",
+                   k1(fb.ln_linear_cuda, x, w_, b_), plain(x, w_, b_)())
+        launched = {q: _kernels.launches[q] - before[q]
+                    for q in (*LN_KERNELS, "ln_linear", "ln_linear_mma")}
+        require(launched == {q: int(q == name) for q in launched},
+                f"{name}: launches {launched} in one call")
+        return r
+
+    checks = {"ln_linear_stream": {}, "ln_linear_tiled": {}}
+    worst = {}
+
+    def keep(name, key, r):
+        checks[name][key] = r
+        if name not in worst or r["err_over_tol"] > \
+                worst[name]["err_over_tol"]:
+            worst[name] = dict(r, case=key)
+
+    for n in range(1, limit + 1):
+        keep("ln_linear_stream", f"N={n}", routed("ln_linear_stream",
+                                                  t((n, h), bf16)))
+    keep("ln_linear_stream", "N=8 float32 x",
+         routed("ln_linear_stream", t((8, h))))
+    for n in LN_TILED_CHECKED:
+        keep("ln_linear_tiled", f"N={n}", routed("ln_linear_tiled",
+                                                 t((n, h), bf16)))
+    keep("ln_linear_tiled", "N=512 float32 x",
+         routed("ln_linear_tiled", t((512, h))))
+    w200, b200 = w[:, :200].contiguous(), b[:200].contiguous()
+    keep("ln_linear_tiled", "N=300, 200 columns",
+         routed("ln_linear_tiled", t((300, h), bf16), w200, b200))
+    for name, n in (("ln_linear_stream", 8), ("ln_linear_stream", limit),
+                    ("ln_linear_tiled", 128), ("ln_linear_tiled", 512)):
+        x = t((n, h), bf16)
+        kernel = getattr(fb, f"{name}_cuda")
+        ref = plain(x)()
+        bad = k1(kernel, x, b_=torch.zeros_like(b))()
+        fault = float((bad - ref).abs().max()) / tol
+        require(fault > 1.0, f"{name} N={n}: the check passes a kernel "
+                f"without its bias (err/tol {fault:.3f})")
+        a, a2 = k1(kernel, x)(), k1(kernel, x)()
+        torch.cuda.synchronize()
+        require(torch.equal(a, a2), f"{name} N={n}: two calls differ")
+        checks[name][f"N={n} without b"] = {"err_over_tol": fault}
+    for name, d in checks.items():
+        log(f"check {name}: "
+            f"{', '.join(k for k in d if not k.endswith('without b'))} "
+            f"within {tol} of the plain version"
+            f" (worst err/tol {worst[name]['err_over_tol']:.3f} at "
+            f"{worst[name]['case']}); b left out rejected ("
+            + ", ".join(f"{k[:-10]}: err/tol {v['err_over_tol']:.1f}"
+                        for k, v in d.items() if k.endswith("without b"))
+            + "); two calls bit-identical")
+
+    # timings, alternated: the route's kernel (both float32 routes at
+    # LN_CROSSOVER), the SIMT kernel it replaced and the plain version,
+    # each held against the plain version first
+    sweep = {}
+    for n in LN_SWEEP:
+        x = t((n, h), bf16)
+        fns = {}
+        if n <= limit or n in LN_CROSSOVER:
+            fns["stream_ms"] = k1(fb.ln_linear_stream_cuda, x)
+        if n > limit or n in LN_CROSSOVER:
+            fns["tiled_ms"] = k1(fb.ln_linear_tiled_cuda, x)
+        fns["simt_ms"] = k1(fb.ln_linear_simt_cuda, x)
+        ref = plain(x)()
+        errs = {key: values(f"{key[:-3]} N={n}", fn, ref)["max_abs_err"]
+                for key, fn in fns.items()}
+        fns["plain_ms"] = plain(x)
+        row = dict(zip(fns, alternate(torch, list(fns.values()))))
+        row["route"] = fb.ln_linear_route(w, n)
+        row["ms"] = row["stream_ms" if n <= limit else "tiled_ms"]
+        row["max_abs_err"] = errs
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes(x, w, b, g, beta) + n * cols * 4, 2.0 * n * h * cols)
+        if n > limit:
+            row["depth_split"] = fb._tiled_splits(_kernels.sm_count(dev), n,
+                                                  h, cols)
+        sweep[f"N={n}"] = row
+        log(f"time ln_linear N={n}: "
+            + ", ".join(f"{k[:-3]} {row[k]:.4f} ms" for k in fns)
+            + f" (alternated; bound {row['bound_ms']:.4f} ms by "
+            f"{row['bound_by']}); the route takes {row['route']}")
+    for n in (8, 4096):
+        row = sweep[f"N={n}"]
+        require(row["ms"] < row["simt_ms"],
+                f"{row['route']}: {row['ms']:.4f} ms at N={n}, not faster "
+                f"than the SIMT ln_linear's {row['simt_ms']:.4f}")
+    for name, n in LN_TIMED.items():
+        row = sweep[f"N={n}"]
+        results[name] = {
+            "name": name, "route": "cuda",
+            "source": f"paddle_tpu_torch/csrc/{name}.cu",
+            "replaces": LN_REPLACES, "launches": 0,
+            "max_abs_err": worst[name]["max_abs_err"],
+            "tol": worst[name]["tol"],
+            "err_over_tol": worst[name]["err_over_tol"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "peak": PEAK_F32, "simt_ms": row["simt_ms"],
+            "shape": f"N={n}, h={h}, cols={cols}, float32 w, bf16 x",
+            "checks": checks[name],
+            "sweep": {k: v for k, v in sweep.items()
+                      if f"{name[len('ln_linear_'):]}_ms" in v},
             "max_rows": limit}
 
 
@@ -1288,9 +1529,11 @@ def check_flash_decode(torch, np, dev, _kernels):
 # ---------------------------------------------------------------------------
 # the K2 / K3 wrappers of float32 weights whose calls' rows the serving run
 # records: the SIMT kernels must take only N > fused_block._STREAM_MAX_ROWS,
-# the weight-streaming kernels the rest
+# the weight-streaming kernels the rest (K1: ln_linear_tiled above
+# _LN_STREAM_MAX_ROWS, ln_linear_stream the rest)
 ROW_RECORDED = ("ffn_simt_cuda", "linear_residual_simt_cuda",
-                "ffn_stream_cuda", "linear_residual_stream_cuda")
+                "ffn_stream_cuda", "linear_residual_stream_cuda",
+                "ln_linear_tiled_cuda", "ln_linear_stream_cuda")
 
 
 def record_rows(module, names):
@@ -1386,18 +1629,23 @@ def serve(torch, np, dev, _kernels):
     for name in SERVING_KERNELS:
         require(launches[name] > 0,
                 f"{name}: launched 0 times on the serving path")
-    for name in FUSED_ONLY_KERNELS:
+    for name in (*FUSED_ONLY_KERNELS, "ln_linear"):
         require(launches[name] == 0, f"{name}: {launches[name]} launches on "
-                "the serving path (float32 weights take the SIMT kernels)")
+                "the serving path (float32 weights take the float32 routes; "
+                "K1's are ln_linear_stream and ln_linear_tiled)")
     st = eng.stats()
     require(st["kv_blocks"]["used"] == 0 and st["kv_blocks"]["leaked"] == 0,
             f"KV blocks not returned: {st['kv_blocks']}")
     # the decode steps ((max_seqs, 1): 8 rows) take the stream kernels, once
-    # per layer each; the SIMT ones take only prefill buckets above the bound
-    limit, decodes = fb._STREAM_MAX_ROWS, st["step_ms"]["decode"]["count"]
-    for simt, stream in (("ffn_simt_cuda", "ffn_stream_cuda"),
-                         ("linear_residual_simt_cuda",
-                          "linear_residual_stream_cuda")):
+    # per layer each; the SIMT K2 / K3 and the tiled K1 take only prefill
+    # buckets above the bound
+    decodes = st["step_ms"]["decode"]["count"]
+    for simt, stream, limit in (
+            ("ffn_simt_cuda", "ffn_stream_cuda", fb._STREAM_MAX_ROWS),
+            ("linear_residual_simt_cuda", "linear_residual_stream_cuda",
+             fb._STREAM_MAX_ROWS),
+            ("ln_linear_tiled_cuda", "ln_linear_stream_cuda",
+             fb._LN_STREAM_MAX_ROWS)):
         require(rows[simt] and min(rows[simt]) > limit,
                 f"serving: {simt} took rows {sorted(set(rows[simt]))}, not "
                 f"only N > {limit}")
@@ -1421,7 +1669,7 @@ def serve(torch, np, dev, _kernels):
         "prefills": st["step_ms"]["prefill"]["count"],
         "ttft_ms_p50": st["slo"]["ttft_ms"]["p50"],
         "tpot_ms_p50": st["slo"]["tpot_ms"]["p50"],
-        "launches": launches, "k2_k3_calls_by_rows": row_counts}}
+        "launches": launches, "k1_k3_calls_by_rows": row_counts}}
     log(json.dumps(line))
     return {"launches": launches}
 
@@ -1599,7 +1847,8 @@ def check_dropout(torch, np, dev, results):
     w_qkv, b_qkv = t((h, 3 * h), bf16, std=0.02), t((3 * h,), std=0.02)
     require(fb.ffn_route(w1, w2, DROP_ROWS[0]) == "ffn_mma",
             "K3 with bf16 O1 weights does not route to ffn_mma")
-    require(fb.ln_linear_route(w_qkv) == "ln_linear_mma",
+    require(all(fb.ln_linear_route(w_qkv, n) == "ln_linear_mma"
+                for n in DROP_ROWS),
             "K1 with bf16 O1 weights does not route to ln_linear_mma")
     salt = fb._SALT_RESID
     out = {"ln_linear_mma": {}, "linear_residual_mma": {}, "ffn_mma": {}}
@@ -1857,7 +2106,7 @@ def train_fused(torch, np, dev, _kernels, unfused_p50):
             "S=2048, dropout 0.1")
     line = timed_steps(torch, np, _kernels, model, opt, ids, labels,
                        FUSED_TRAINING_KERNELS, "fused training")
-    for name in (*FUSED_KERNELS, *STREAM_ONLY_KERNELS):
+    for name in (*FUSED_KERNELS, *F32_KERNELS):
         require(line["launches"][name] == 0, f"fused training: {name} "
                 f"launched {line['launches'][name]} times; under O1 the bf16 "
                 "operands of K1-K3 take the tensor-core kernels")
@@ -1871,7 +2120,7 @@ def train_fused(torch, np, dev, _kernels, unfused_p50):
 # ---------------------------------------------------------------------------
 # (c3) generate
 # ---------------------------------------------------------------------------
-FUSED_KERNELS = ("ln_linear", "linear_residual", "ffn")
+FUSED_KERNELS = ("ln_linear", "linear_residual", "ffn")   # the SIMT K1-K3
 GENERATE_CALLS = 3      # timed calls per variant; their medians are reported
 
 
@@ -2035,14 +2284,14 @@ def generate(torch, np, dev, _kernels):
                 f"flash_decode ({tag}): {launches['flash_decode']} launches "
                 f"in {GENERATE_CALLS} x {decode_steps} decode steps, not "
                 f"{cfg.num_layers} per step")
-        for name in FUSED_KERNELS:
-            require((launches[name] > 0) == fused,
-                    f"{name} ({tag}): {launches[name]} launches")
-        # fused: the decode steps' 8 rows take the stream K2 / K3, the
-        # prefill's 4096 the SIMT ones, once per layer each
+        # fused: the decode steps' 8 rows take the stream K1-K3, the
+        # prefill's 4096 the tiled K1 and the SIMT K2 / K3, once per layer
+        # each; the SIMT K1 never
         for name, per_call in (("ffn_stream", decode_steps),
                                ("linear_residual_stream", decode_steps),
-                               ("ffn", 1), ("linear_residual", 1)):
+                               ("ln_linear_stream", decode_steps),
+                               ("ffn", 1), ("linear_residual", 1),
+                               ("ln_linear_tiled", 1), ("ln_linear", 0)):
             want = cfg.num_layers * per_call * GENERATE_CALLS if fused else 0
             require(launches[name] == want, f"{name} ({tag}): "
                     f"{launches[name]} launches, not {want}")

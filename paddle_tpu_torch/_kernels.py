@@ -48,10 +48,10 @@ BUILD_DIR = (Path(__file__).resolve().parent.parent / "build"
              / "paddle_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("paged_decode", "ln_linear", "ln_linear_mma", "linear_residual",
-           "linear_residual_mma", "linear_residual_stream", "ffn", "ffn_mma",
-           "ffn_stream", "flash_fwd", "flash_dkdv", "flash_dq",
-           "flash_decode")
+KERNELS = ("paged_decode", "ln_linear", "ln_linear_mma", "ln_linear_stream",
+           "ln_linear_tiled", "linear_residual", "linear_residual_mma",
+           "linear_residual_stream", "ffn", "ffn_mma", "ffn_stream",
+           "flash_fwd", "flash_dkdv", "flash_dq", "flash_decode")
 
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -7,6 +7,10 @@ version:
 
   [K1 ln_linear]        LN(x) @ W + b          csrc/ln_linear.cu (float32 W)
                                                csrc/ln_linear_mma.cu (bf16 W)
+                                               csrc/ln_linear_stream.cu
+                                               (float32 W, a few rows)
+                                               csrc/ln_linear_tiled.cu
+                                               (float32 W, more rows)
   [K2 linear_residual]  r + dropout(x @ W + b) csrc/linear_residual.cu
                                                (float32 operands)
                                                csrc/linear_residual_mma.cu
@@ -19,13 +23,14 @@ version:
                                                 csrc/ffn_stream.cu (float32
                                                 weights, a few rows)
 
-Each bf16 kernel (``*_mma``: mma.sync on the tensor cores) and each
+Each bf16 kernel (``*_mma``: mma.sync on the tensor cores), each
 weight-streaming kernel (``*_stream``: float32 weights at no more than
 ``_STREAM_MAX_ROWS`` rows, the decode steps of serving and ``generate``)
-takes the calls that its route function (``ln_linear_route``,
-``linear_residual_route``, ``ffn_route``) names from dtypes, shapes and
-addresses on the host; every other CUDA call runs the SIMT float32 kernel
-beside it.
+and K1's register-blocked ``ln_linear_tiled`` (float32 weights above that,
+the prefills) takes the calls that its route function (``ln_linear_route``,
+``linear_residual_route``, ``ffn_route``) names from dtypes, shapes,
+addresses and row counts on the host; every other CUDA call runs the SIMT
+float32 kernel beside it.
 
 the attention half of a training block, :func:`fused_attention_block`: K1
 -> flash attention (``ops/flash_attention.py``, attention dropout in the
@@ -74,7 +79,9 @@ from .flash_attention import (_M32, _NEG_INF, _keep_mask, flash_attention,
 __all__ = ["fused_ln_linear", "fused_linear_residual", "fused_ffn_block",
            "fused_attention_block", "fused_attention_block_kvcache",
            "ln_linear_reference", "ln_linear_cuda", "ln_linear_mma_cuda",
-           "ln_linear_route", "linear_residual_reference",
+           "ln_linear_stream_cuda", "ln_linear_tiled_cuda",
+           "ln_linear_simt_cuda", "ln_linear_route",
+           "linear_residual_reference",
            "linear_residual_cuda", "linear_residual_mma_cuda",
            "linear_residual_stream_cuda", "linear_residual_simt_cuda",
            "linear_residual_route", "ffn_reference", "ffn_cuda",
@@ -95,10 +102,18 @@ _MMA_HIDDEN = (128, 768)
 # The weight-streaming kernels (csrc/*_stream.cu) take float32-weight calls
 # of at most this many rows: the largest N at which they beat the SIMT
 # kernels in the card's alternated timings (PERF.md, findings).
-# Their widths (K2's depth and columns, K3's h) are at most _STREAM_MAX_H:
-# a thread owns one quad of K3's output columns (256 threads).
+# Their widths (K2's depth and columns, K3's h, K1's h) are at most
+# _STREAM_MAX_H: a thread owns one quad of K3's output columns (256
+# threads).  K1's columns (the QKV projection's 3h) are at most
+# _LN_STREAM_MAX_COLS, 3h at that h: up to it a grid of one depth chunk a
+# block, about one block an SM, fits a block's shared memory at 64 rows.
 _STREAM_MAX_ROWS = 64
 _STREAM_MAX_H = 1024
+_LN_STREAM_MAX_COLS = 3 * _STREAM_MAX_H
+# K1's weight-streaming kernel takes float32-weight calls of at most this
+# many rows: above it ln_linear_tiled is faster in the card's alternated
+# timings (PERF.md, findings)
+_LN_STREAM_MAX_ROWS = 32
 
 _c = ctypes.c_int
 _f = ctypes.c_float
@@ -223,6 +238,53 @@ def _check_smem(name: str, h: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The weight-streaming GEMM of K1 and K2 at a few rows
+# ---------------------------------------------------------------------------
+def _stream_weight(w: torch.Tensor) -> bool:
+    """A float32 weight that the weight-streaming kernels stage in 16-byte
+    copies: 2-d, rows a multiple of 4 elements, 16-byte aligned."""
+    return (w.dtype == torch.float32 and w.dim() == 2
+            and w.shape[1] % 4 == 0 and w.data_ptr() % 16 == 0)
+
+
+# The weight-streaming kernels' most blocks of a cluster (portable size)
+_STREAM_MAX_CLUSTER = 8
+
+
+def _stream_gemm_smem(n: int, width: int, depth: int) -> int:
+    """Bytes of dynamic shared memory a block of ``linear_residual_stream``
+    or ``ln_linear_stream`` takes (``ptt_*_stream_smem``, ``ptt_stream::
+    gemm`` of ``csrc/stream.cuh``): its W chunk, the A rows over its depth
+    (rounded up to 8 rows) and its (n, width) partial."""
+    return 4 * (depth * width + -(-n // 8) * 8 * depth + n * width)
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_gemm_grid(sms: int, n: int, k: int,
+                      cols: int) -> Optional[Tuple[int, int, int]]:
+    """(cluster, width, depth) of the depth-split weight-streaming GEMM
+    (``linear_residual_stream``, ``ln_linear_stream``) for N=n rows of a
+    (k, cols) weight on a card of ``sms`` SMs: column tiles of ``width``
+    columns (a multiple of 4; 32 or more where cols allows: rows of 128
+    bytes or more), each split by depth into ``cluster`` chunks of ``depth``
+    rows, one chunk a block.  Of the cluster sizes up to 8 whose blocks fit
+    in shared memory, the one with the most blocks, at most one an SM; the
+    smaller cluster on a tie.  None when no size fits."""
+    best = None
+    for cluster in range(1, _STREAM_MAX_CLUSTER + 1):
+        tiles = max(1, sms // cluster)
+        width = max(min(32, 4 * -(-cols // 4)), 4 * -(-cols // (4 * tiles)))
+        depth = -(-k // cluster)
+        if (depth * (cluster - 1) >= k
+                or _stream_gemm_smem(n, width, depth) > _SMEM_LIMIT):
+            continue
+        blocks = cluster * -(-cols // width)
+        if best is None or blocks > best[0]:
+            best = (blocks, (cluster, width, depth))
+    return None if best is None else best[1]
+
+
+# ---------------------------------------------------------------------------
 # K1: LN(x) @ W + b
 # ---------------------------------------------------------------------------
 def ln_linear_reference(x, w, b, g, beta, epsilon: float) -> torch.Tensor:
@@ -240,16 +302,30 @@ def _check_ln_linear_shapes(name, x, w, b, g, beta):
     return n, k, cols
 
 
-def ln_linear_route(w: torch.Tensor) -> str:
-    """The K1 kernel a CUDA call of :func:`ln_linear_cuda` launches, decided
-    on the host from the weight alone: ``"ln_linear_mma"``
-    (``csrc/ln_linear_mma.cu``, bf16 tensor cores) when ``w`` (h, cols) is
-    bfloat16, h is one of ``_MMA_HIDDEN``, cols is a multiple of 8 and
-    ``w`` starts on a 16-byte boundary; ``"ln_linear"``
-    (``csrc/ln_linear.cu``, float32 on the CUDA cores) for every other
-    call.  ``x`` may be float32 or bfloat16 on either."""
+def ln_linear_route(w: torch.Tensor, n: int) -> str:
+    """The K1 kernel a CUDA call of :func:`ln_linear_cuda` of N=``n`` rows
+    launches, decided on the host from the weight and the row count:
+    ``"ln_linear_mma"`` (``csrc/ln_linear_mma.cu``, bf16 tensor cores) when
+    ``w`` (h, cols) is bfloat16, h is one of ``_MMA_HIDDEN``, cols is a
+    multiple of 8 and ``w`` starts on a 16-byte boundary; for a float32
+    ``w`` that the weight-streaming kernels can stage (cols a multiple of
+    4, a 16-byte aligned start), ``"ln_linear_stream"``
+    (``csrc/ln_linear_stream.cu``) at N at most ``_LN_STREAM_MAX_ROWS`` with h
+    at most ``_STREAM_MAX_H`` and cols at most ``_LN_STREAM_MAX_COLS``, and
+    otherwise ``"ln_linear_tiled"`` (``csrc/ln_linear_tiled.cu``,
+    register-blocked float32) when h is a multiple of 8 (x's rows then move
+    in 16-byte copies); ``"ln_linear"`` (``csrc/ln_linear.cu``, the SIMT
+    float32 kernel) for every other call.  ``x`` may be float32 or bfloat16
+    on each."""
     if _bf16_operand(w) and w.shape[0] in _MMA_HIDDEN:
         return "ln_linear_mma"
+    if _stream_weight(w):
+        h, cols = w.shape
+        if (n <= _LN_STREAM_MAX_ROWS and h <= _STREAM_MAX_H
+                and cols <= _LN_STREAM_MAX_COLS):
+            return "ln_linear_stream"
+        if h % 8 == 0:
+            return "ln_linear_tiled"
     return "ln_linear"
 
 
@@ -279,7 +355,7 @@ def ln_linear_mma_cuda(x, w, b, g, beta, epsilon: float) -> torch.Tensor:
     name = "ln_linear_mma"
     dev = _kernels.require_cuda(name, x, w, b, g, beta)
     n, k, cols = _check_ln_linear_shapes(name, x, w, b, g, beta)
-    enforce(ln_linear_route(w) == name,
+    enforce(ln_linear_route(w, n) == name,
             f"{name}: takes a bf16 w with h in {_MMA_HIDDEN}, cols a "
             f"multiple of 8 and 16-byte aligned rows; got {w.dtype} "
             f"{tuple(w.shape)}")
@@ -300,14 +376,134 @@ def ln_linear_mma_cuda(x, w, b, g, beta, epsilon: float) -> torch.Tensor:
     return out
 
 
+def ln_linear_stream_cuda(x, w, b, g, beta, epsilon: float) -> torch.Tensor:
+    """K1 by weight streaming (``csrc/ln_linear_stream.cu``), for the calls
+    that :func:`ln_linear_route` sends there; as :func:`ln_linear_cuda`.
+    One launch on the grid of K2's stream kernel
+    (:func:`_stream_gemm_grid`): each block holds its whole chunk of W in
+    flight at once while it takes LN(x) of the rows over its depth slice,
+    and a cluster sums its depth chunks through distributed shared memory
+    before + b.  Any N whose grid fits: the route adds the bound on N."""
+    name = "ln_linear_stream"
+    dev = _kernels.require_cuda(name, x, w, b, g, beta)
+    n, k, cols = _check_ln_linear_shapes(name, x, w, b, g, beta)
+    enforce(_stream_weight(w) and k <= _STREAM_MAX_H
+            and cols <= _LN_STREAM_MAX_COLS,
+            f"{name}: takes a float32 w with h at most {_STREAM_MAX_H}, cols "
+            f"at most {_LN_STREAM_MAX_COLS} and a multiple of 4 and a "
+            f"16-byte aligned start; got {w.dtype} {tuple(w.shape)}")
+    out = torch.empty((n, cols), dtype=w.dtype, device=dev)
+    if n == 0:
+        return out
+    grid = _stream_gemm_grid(_kernels.sm_count(dev), n, k, cols)
+    enforce(grid is not None,
+            f"{name}: no grid fits shared memory at N={n}, k={k}")
+    cluster, width, depth = grid
+    smem = _kernels.bind(name, "ptt_ln_linear_stream_smem", [_c, _c, _c])
+    enforce(smem(n, width, depth) == _stream_gemm_smem(n, width, depth),
+            f"{name}: the library's shared memory a block is not the "
+            "grid's")
+    fn = _kernels.bind(name, "ptt_ln_linear_stream",
+                       [_p, _c, _p, _p, _c, _p, _c, _p, _c, _p, _c, _c, _c,
+                        _c, _c, _c, _f, _p])
+    cd, pt = _kernels.dtype_code, _kernels.ptr
+    rc = fn(pt(x), cd(x), pt(w), pt(b), cd(b), pt(g), cd(g), pt(beta),
+            cd(beta), pt(out), n, k, cols, width, depth, cluster,
+            float(epsilon), _kernels.stream(dev))
+    _kernels.check(rc, name)
+    _kernels.launches[name] += 1
+    return out
+
+
+# K1's register-blocked float32 kernel (csrc/ln_linear_tiled.cu): a 64 x 128
+# output tile a block of 128 threads, 16-deep slabs
+_TILED_ROWS, _TILED_COLS, _TILED_DEPTH = 64, 128, 16
+
+
+def _tiled_smem(h: int) -> int:
+    """Bytes of dynamic shared memory an ``ln_linear_tiled`` block takes at
+    depth h (``ptt_ln_linear_tiled_smem``): a 3-stage ring of W slabs, two
+    transposed A slabs, each row's mean and rstd, a 3-stage ring of raw x
+    slabs (sized for float32), and g and beta as float32."""
+    return 4 * (3 * _TILED_DEPTH * _TILED_COLS + 2 * _TILED_DEPTH * _TILED_ROWS
+                + 2 * _TILED_ROWS + 3 * _TILED_ROWS * _TILED_DEPTH + 2 * h)
+
+
+def _tiled_splits(sms: int, n: int, k: int, cols: int) -> int:
+    """Depth chunks of ``ln_linear_tiled``: the blocks of a thread-block
+    cluster that split each 64 x 128 output tile's depth, their partials
+    summed through distributed shared memory.  The most that keep the
+    blocks at no more than 2.5 an SM (the card holds 3; every block repeats
+    its rows' LN statistics, so more chunks cost more), at most 8 (a
+    portable cluster), and at least 4 slabs of 16 a chunk: 1 at generate's
+    4096 rows, 2 at serving's 512, up to 8 for the smaller prefill buckets
+    (where a sweep of 1-8 at 64-1024 rows on the card found the best;
+    PERF.md, findings)."""
+    tiles = -(-n // _TILED_ROWS) * -(-cols // _TILED_COLS)
+    return max(1, min(_STREAM_MAX_CLUSTER, 5 * sms // (2 * tiles),
+                      -(-k // _TILED_DEPTH) // 4))
+
+
+def ln_linear_tiled_cuda(x, w, b, g, beta, epsilon: float) -> torch.Tensor:
+    """K1 by the register-blocked float32 kernel
+    (``csrc/ln_linear_tiled.cu``), for the calls that
+    :func:`ln_linear_route` sends there; as :func:`ln_linear_cuda`.  Each
+    block takes its rows' LN statistics, then normalises each x slab as it
+    stages it; the depth of a tile is split over :func:`_tiled_splits`
+    blocks of a cluster.  Any N and h."""
+    name = "ln_linear_tiled"
+    dev = _kernels.require_cuda(name, x, w, b, g, beta)
+    n, k, cols = _check_ln_linear_shapes(name, x, w, b, g, beta)
+    enforce(_stream_weight(w) and k % 8 == 0,
+            f"{name}: takes a float32 w with h a multiple of 8, cols a "
+            f"multiple of 4 and a 16-byte aligned start; got {w.dtype} "
+            f"{tuple(w.shape)}")
+    smem = _kernels.bind(name, "ptt_ln_linear_tiled_smem", [_c])(k)
+    enforce(smem == _tiled_smem(k) <= _SMEM_LIMIT,
+            f"{name}: {smem} bytes of shared memory a block at h={k} (the "
+            f"wrapper counts {_tiled_smem(k)})")
+    out = torch.empty((n, cols), dtype=w.dtype, device=dev)
+    if n == 0:
+        return out
+    if x.data_ptr() % 16:
+        # a view that starts inside its storage: x's rows move in 16-byte
+        # copies, so they must start on a 16-byte boundary
+        x = x.clone()
+    fn = _kernels.bind(name, "ptt_ln_linear_tiled",
+                       [_p, _c, _p, _p, _c, _p, _c, _p, _c, _p, _c, _c, _c,
+                        _c, _f, _p])
+    cluster = _tiled_splits(_kernels.sm_count(dev), n, k, cols)
+    cd, pt = _kernels.dtype_code, _kernels.ptr
+    rc = fn(pt(x), cd(x), pt(w), pt(b), cd(b), pt(g), cd(g), pt(beta),
+            cd(beta), pt(out), n, k, cols, cluster, float(epsilon),
+            _kernels.stream(dev))
+    _kernels.check(rc, name)
+    _kernels.launches[name] += 1
+    return out
+
+
 def ln_linear_cuda(x, w, b, g, beta, epsilon: float) -> torch.Tensor:
     """K1 on the card: ``x`` (N, h), ``w`` (h, cols); returns (N, cols) in
-    ``w``'s dtype, as the JAX kernel does.  A bf16 ``w`` of the shapes that
-    :func:`ln_linear_route` names goes to the tensor-core kernel
-    (:func:`ln_linear_mma_cuda`); every other call runs the float32 kernel
-    of ``csrc/ln_linear.cu``."""
-    if ln_linear_route(w) == "ln_linear_mma":
+    ``w``'s dtype, as the JAX kernel does.  The kernel is the one
+    :func:`ln_linear_route` names: the tensor-core kernel
+    (:func:`ln_linear_mma_cuda`), the weight-streaming one
+    (:func:`ln_linear_stream_cuda`), the register-blocked float32 one
+    (:func:`ln_linear_tiled_cuda`) or the SIMT float32 one
+    (:func:`ln_linear_simt_cuda`)."""
+    route = ln_linear_route(w, x.shape[0])
+    if route == "ln_linear_mma":
         return ln_linear_mma_cuda(x, w, b, g, beta, epsilon)
+    if route == "ln_linear_stream":
+        return ln_linear_stream_cuda(x, w, b, g, beta, epsilon)
+    if route == "ln_linear_tiled":
+        return ln_linear_tiled_cuda(x, w, b, g, beta, epsilon)
+    return ln_linear_simt_cuda(x, w, b, g, beta, epsilon)
+
+
+def ln_linear_simt_cuda(x, w, b, g, beta, epsilon: float) -> torch.Tensor:
+    """K1 by the float32 kernel of ``csrc/ln_linear.cu`` (CUDA cores), for
+    the calls that :func:`ln_linear_route` sends there (and any other it
+    can take); as :func:`ln_linear_cuda`."""
     name = "ln_linear"
     dev = _kernels.require_cuda(name, x, w, b, g, beta)
     n, k, cols = _check_ln_linear_shapes(name, x, w, b, g, beta)
@@ -366,13 +562,6 @@ def _check_linear_residual_shapes(name, x, w, b, r):
     return n, k, cols
 
 
-def _stream_weight(w: torch.Tensor) -> bool:
-    """A float32 weight that the weight-streaming kernels stage in 16-byte
-    copies: 2-d, rows a multiple of 4 elements, 16-byte aligned."""
-    return (w.dtype == torch.float32 and w.dim() == 2
-            and w.shape[1] % 4 == 0 and w.data_ptr() % 16 == 0)
-
-
 def linear_residual_route(x: torch.Tensor, w: torch.Tensor) -> str:
     """The K2 kernel a CUDA call of :func:`linear_residual_cuda` launches,
     decided on the host: ``"linear_residual_mma"``
@@ -426,42 +615,6 @@ def linear_residual_mma_cuda(x, w, b, r, seed: int = 0,
     return out
 
 
-# The weight-streaming kernels' most blocks of a cluster (portable size)
-_STREAM_MAX_CLUSTER = 8
-
-
-def _linear_residual_stream_smem(n: int, width: int, depth: int) -> int:
-    """Bytes of dynamic shared memory a ``linear_residual_stream`` block
-    takes (``ptt_linear_residual_stream_smem``): its W chunk, x's rows over
-    its depth (rounded up to 8 rows) and its (n, width) partial."""
-    return 4 * (depth * width + -(-n // 8) * 8 * depth + n * width)
-
-
-@functools.lru_cache(maxsize=None)
-def _linear_residual_stream_grid(sms: int, n: int, k: int,
-                                 cols: int) -> Optional[Tuple[int, int, int]]:
-    """(cluster, width, depth) of ``linear_residual_stream`` for N=n rows of
-    a (k, cols) weight on a card of ``sms`` SMs: column tiles of ``width``
-    columns (a multiple of 4; 32 or more where cols allows: rows of 128
-    bytes or more), each split by depth into ``cluster`` chunks of ``depth``
-    rows, one chunk a block.  Of the cluster sizes up to 8 whose blocks fit
-    in shared memory, the one with the most blocks, at most one an SM; the
-    smaller cluster on a tie.  None when no size fits."""
-    best = None
-    for cluster in range(1, _STREAM_MAX_CLUSTER + 1):
-        tiles = max(1, sms // cluster)
-        width = max(min(32, 4 * -(-cols // 4)), 4 * -(-cols // (4 * tiles)))
-        depth = -(-k // cluster)
-        if (depth * (cluster - 1) >= k
-                or _linear_residual_stream_smem(n, width, depth)
-                > _SMEM_LIMIT):
-            continue
-        blocks = cluster * -(-cols // width)
-        if best is None or blocks > best[0]:
-            best = (blocks, (cluster, width, depth))
-    return None if best is None else best[1]
-
-
 def linear_residual_stream_cuda(x, w, b, r, seed: int = 0,
                                 dropout_p: float = 0.0,
                                 salt: int = _SALT_RESID) -> torch.Tensor:
@@ -471,7 +624,7 @@ def linear_residual_stream_cuda(x, w, b, r, seed: int = 0,
     chunk of W in flight at once, a cluster sums its depth chunks through
     distributed shared memory, and b, the dropout and r are applied in
     float32 with one rounding to ``r``'s dtype.  Any N whose grid fits
-    (:func:`_linear_residual_stream_grid`): the route adds the bound on
+    (:func:`_stream_gemm_grid`): the route adds the bound on
     N."""
     name = "linear_residual_stream"
     dev = _kernels.require_cuda(name, x, w, b, r)
@@ -483,7 +636,7 @@ def linear_residual_stream_cuda(x, w, b, r, seed: int = 0,
     out = torch.empty((n, cols), dtype=r.dtype, device=dev)
     if n == 0:
         return out
-    grid = _linear_residual_stream_grid(_kernels.sm_count(dev), n, k, cols)
+    grid = _stream_gemm_grid(_kernels.sm_count(dev), n, k, cols)
     enforce(grid is not None,
             f"{name}: no grid fits shared memory at N={n}, k={k}")
     cluster, width, depth = grid

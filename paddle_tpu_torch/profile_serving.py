@@ -30,6 +30,8 @@ from .inference import ServingEngine
 _SHORT = {"paged_decode_kernel": "paged_decode (ours)",
           "ln_linear_kernel": "ln_linear (ours)",
           "ln_linear_mma_kernel": "ln_linear_mma (ours)",
+          "ln_linear_stream_kernel": "ln_linear_stream (ours)",
+          "ln_linear_tiled_kernel": "ln_linear_tiled (ours)",
           "linear_residual_kernel": "linear_residual (ours)",
           "linear_residual_mma_kernel": "linear_residual_mma (ours)",
           "linear_residual_stream_kernel": "linear_residual_stream (ours)",

@@ -80,6 +80,27 @@ def test_ln_linear_bf16_input_keeps_weight_dtype(route):
                                atol=F32_TOL)
 
 
+# serving's dtype pair (a bf16 residual stream, float32 weights) at the rows
+# of K1's two float32 routes on the card: the decode rows (ln_linear_stream)
+# and a ragged prefill above the stream bound (ln_linear_tiled); the CPU
+# runs the plain version, the reference both card kernels are held to
+@pytest.mark.parametrize("n", [8, 130])
+def test_ln_linear_float32_weight_rows_match_jax(route, n):
+    x, p = _x(b=n, s=1, seed=15), _params(seed=15)
+    w = _t(p["qkv_w"])
+    assert tfb.ln_linear_route(w, n) == (
+        "ln_linear_stream" if n <= tfb._LN_STREAM_MAX_ROWS
+        else "ln_linear_tiled")
+    ref = jfb.fused_ln_linear(_j(x, jnp.bfloat16), _j(p["qkv_w"]),
+                              _j(p["qkv_b"]), _j(p["g"]), _j(p["beta"]),
+                              epsilon=EPS)
+    got = tfb.fused_ln_linear(_t(x, torch.bfloat16), w, _t(p["qkv_b"]),
+                              _t(p["g"]), _t(p["beta"]), epsilon=EPS)
+    assert got.shape == (n, 1, 384) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=F32_TOL,
+                               atol=F32_TOL)
+
+
 @pytest.mark.parametrize("rdtype", ["float32", "bfloat16"])
 def test_linear_residual_matches_jax(route, rdtype):
     x, p = _x(seed=3), _params(seed=3)
@@ -214,28 +235,58 @@ def _weight(dtype, rows, cols, offset):
     return w
 
 
-# (w dtype, h, cols, byte offset of w's data, route)
+_LN_T = tfb._LN_STREAM_MAX_ROWS
+
+# (w dtype, h, cols, byte offset of w's data, rows N of x, route): a prefill
+# bucket's 512 rows, then the decode rows and N around K1's stream bound
 LN_LINEAR_ROUTES = [
-    (torch.bfloat16, 768, 2304, 0, "ln_linear_mma"),   # fused training QKV
-    (torch.bfloat16, 128, 384, 0, "ln_linear_mma"),    # gpt_tiny
-    (torch.bfloat16, 768, 200, 0, "ln_linear_mma"),    # ragged column tile
-    (torch.bfloat16, 128, 8, 0, "ln_linear_mma"),
-    (torch.float32, 768, 2304, 0, "ln_linear"),        # serving, generate
-    (torch.float16, 768, 2304, 0, "ln_linear"),
-    (torch.bfloat16, 64, 192, 0, "ln_linear"),         # h not built
-    (torch.bfloat16, 256, 768, 0, "ln_linear"),
-    (torch.bfloat16, 1024, 3072, 0, "ln_linear"),
-    (torch.bfloat16, 768, 100, 0, "ln_linear"),        # cols % 8 != 0
-    (torch.bfloat16, 768, 2304, 2, "ln_linear"),       # misaligned
-    (torch.bfloat16, 128, 384, 8, "ln_linear"),
+    (torch.bfloat16, 768, 2304, 0, 512, "ln_linear_mma"),  # fused training
+    (torch.bfloat16, 128, 384, 0, 512, "ln_linear_mma"),   # gpt_tiny
+    (torch.bfloat16, 768, 200, 0, 512, "ln_linear_mma"),   # ragged col tile
+    (torch.bfloat16, 128, 8, 0, 512, "ln_linear_mma"),
+    (torch.float32, 768, 2304, 0, 512,
+     "ln_linear_tiled"),                          # serving, generate prefill
+    (torch.float16, 768, 2304, 0, 512, "ln_linear"),
+    (torch.bfloat16, 64, 192, 0, 512, "ln_linear"),        # h not built
+    (torch.bfloat16, 256, 768, 0, 512, "ln_linear"),
+    (torch.bfloat16, 1024, 3072, 0, 512, "ln_linear"),
+    (torch.bfloat16, 768, 100, 0, 512, "ln_linear"),       # cols % 8 != 0
+    (torch.bfloat16, 768, 2304, 2, 512, "ln_linear"),      # misaligned
+    (torch.bfloat16, 128, 384, 8, 512, "ln_linear"),
+    (torch.bfloat16, 768, 2304, 0, 8,
+     "ln_linear_mma"),                            # bf16 keeps the tensor cores
+    # a float32 w: the stream kernel up to the bound, the tiled one above
+    (torch.float32, 768, 2304, 0, 1, "ln_linear_stream"),
+    (torch.float32, 768, 2304, 0, 8,
+     "ln_linear_stream"),                         # serving, generate decode
+    (torch.float32, 768, 2304, 0, _LN_T, "ln_linear_stream"),
+    (torch.float32, 768, 2304, 0, _LN_T + 1, "ln_linear_tiled"),
+    (torch.float32, 768, 2304, 0, 64, "ln_linear_tiled"),
+    (torch.float32, 768, 2304, 0, 4096, "ln_linear_tiled"),
+    (torch.float32, 128, 384, 0, 8, "ln_linear_stream"),   # gpt_tiny
+    (torch.float32, 128, 384, 0, 130, "ln_linear_tiled"),
+    (torch.float32, 96, 200, 0, 3, "ln_linear_stream"),
+    (torch.float32, 1024, 3072, 0, 8, "ln_linear_stream"),
+    (torch.float32, 1280, 3840, 0, 8,
+     "ln_linear_tiled"),                          # h above the stream widths
+    (torch.float32, 768, 3076, 0, 8, "ln_linear_tiled"),   # cols likewise
+    (torch.float32, 100, 300, 0, 8, "ln_linear_stream"),
+    (torch.float32, 100, 300, 0, 512,
+     "ln_linear"),                                # h % 8 != 0: no tiled rows
+    (torch.float32, 1284, 2304, 0, 8, "ln_linear"),
+    (torch.float32, 768, 2304, 4, 8, "ln_linear"),         # misaligned
+    (torch.float32, 768, 2304, 8, 4096, "ln_linear"),
+    (torch.float32, 768, 2302, 0, 8, "ln_linear"),         # cols % 4 != 0
+    (torch.float16, 768, 2304, 0, 8, "ln_linear"),
 ]
 
 
-@pytest.mark.parametrize("wdtype,h,cols,offset,want", LN_LINEAR_ROUTES)
-def test_ln_linear_route(wdtype, h, cols, offset, want):
-    # the host-side rule that sends a CUDA call of K1 to ln_linear_mma or
-    # ln_linear, from w's dtype, shape and address alone
-    assert tfb.ln_linear_route(_weight(wdtype, h, cols, offset)) == want
+@pytest.mark.parametrize("wdtype,h,cols,offset,n,want", LN_LINEAR_ROUTES)
+def test_ln_linear_route(wdtype, h, cols, offset, n, want):
+    # the host-side rule that sends a CUDA call of K1 to ln_linear_mma,
+    # ln_linear_stream, ln_linear_tiled or ln_linear, from w's dtype, shape
+    # and address and the row count alone
+    assert tfb.ln_linear_route(_weight(wdtype, h, cols, offset), n) == want
 
 
 # (x dtype, w dtype, k, cols, byte offset of x's data, of w's data, rows
@@ -386,7 +437,7 @@ def test_linear_residual_stream_grid(sms, n, k, cols):
     # every (depth row, column) of W lies in exactly one block's chunk, at
     # most one block an SM, clusters of at most 8, rows of 32 columns or
     # more where cols allows, and the blocks fit in shared memory
-    grid = tfb._linear_residual_stream_grid(sms, n, k, cols)
+    grid = tfb._stream_gemm_grid(sms, n, k, cols)
     assert grid is not None
     cluster, width, depth = grid
     assert 1 <= cluster <= tfb._STREAM_MAX_CLUSTER
@@ -395,7 +446,7 @@ def test_linear_residual_stream_grid(sms, n, k, cols):
     assert (tiles - 1) * width < cols <= tiles * width
     assert (cluster - 1) * depth < k <= cluster * depth
     assert cluster * tiles <= sms
-    assert tfb._linear_residual_stream_smem(n, width, depth) \
+    assert tfb._stream_gemm_smem(n, width, depth) \
         <= tfb._SMEM_LIMIT
     if (k, cols) == (768, 768):
         assert cluster * tiles >= 0.9 * sms
@@ -404,7 +455,82 @@ def test_linear_residual_stream_grid(sms, n, k, cols):
 def test_linear_residual_stream_grid_at_decode():
     # GPT-125M's out-projection at 8 rows on 132 SMs: 22 column tiles of 36
     # (144-byte rows) x 6 depth chunks of 128 rows, 132 blocks of 18 KB
-    assert tfb._linear_residual_stream_grid(132, 8, 768, 768) == (6, 36, 128)
+    assert tfb._stream_gemm_grid(132, 8, 768, 768) == (6, 36, 128)
+
+
+# K1's weight-streaming kernel takes the same grid (ln_linear_stream shares
+# linear_residual_stream's body): (SMs, N, h, cols) -> (cluster, width,
+# depth, blocks)
+LN_STREAM_GRIDS = [
+    # GPT-125M's QKV projection at the decode rows and at the bound: 22
+    # tiles of 108 columns (432-byte rows) x 6 chunks of 128 rows
+    ((132, 8, 768, 2304), (6, 108, 128, 132)),
+    ((132, 64, 768, 2304), (6, 108, 128, 132)),
+    # gpt_tiny (h = 128, 384 columns): 12 tiles of 32 x 8 chunks of 16
+    ((132, 8, 128, 384), (8, 32, 16, 96)),
+    ((114, 8, 768, 2304), (6, 124, 128, 114)),
+]
+
+
+@pytest.mark.parametrize("args,want", LN_STREAM_GRIDS)
+def test_ln_linear_stream_grid(monkeypatch, args, want):
+    # as the wrapper asks it, with the card's SM count monkeypatched
+    sms, n, k, cols = args
+    monkeypatch.setattr(_kernels, "sm_count", lambda device: sms)
+    grid = tfb._stream_gemm_grid(_kernels.sm_count(torch.device("cpu")), n,
+                                 k, cols)
+    cluster, width, depth = grid
+    assert (cluster, width, depth, cluster * -(-cols // width)) == want
+    # W's chunk, LN(x) of the rows over the chunk's depth, the partial
+    assert tfb._stream_gemm_smem(n, width, depth) == 4 * (
+        depth * width + -(-n // 8) * 8 * depth + n * width)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n", [1, 8, 64])
+@pytest.mark.parametrize("k,cols", [(1024, 3072), (1024, 20), (4, 3072),
+                                    (96, 200), (768, 2304)])
+def test_ln_linear_stream_width_rule(sms, n, k, cols):
+    # every width the route sends to ln_linear_stream (h <= _STREAM_MAX_H,
+    # cols <= _LN_STREAM_MAX_COLS) at every N up to the bound has a grid
+    # of at most one block an SM that fits shared memory
+    assert k <= tfb._STREAM_MAX_H and cols <= tfb._LN_STREAM_MAX_COLS
+    cluster, width, depth = tfb._stream_gemm_grid(sms, n, k, cols)
+    assert cluster * -(-cols // width) <= sms
+    assert (cluster - 1) * depth < k <= cluster * depth
+    assert tfb._stream_gemm_smem(n, width, depth) <= tfb._SMEM_LIMIT
+
+
+# (SMs, N, h, cols, depth chunks): ln_linear_tiled's 64 x 128 tiles, split
+# by depth over a cluster until the card has about two blocks an SM
+TILED_SPLITS = [
+    (132, 4096, 768, 2304, 1),     # generate's prefill: 1,152 tiles
+    (132, 1024, 768, 2304, 1),     # 288 tiles
+    (132, 512, 768, 2304, 2),      # serving's largest bucket: 144 tiles
+    (132, 384, 768, 2304, 3),      # 108 tiles
+    (132, 256, 768, 2304, 4),      # 72 tiles
+    (132, 128, 768, 2304, 8),      # 36 tiles: at most a portable cluster
+    (132, 33, 768, 2304, 8),       # the first N above the stream bound
+    (114, 384, 768, 2304, 2),
+    (132, 130, 128, 384, 2),       # gpt_tiny: at least 4 slabs of 16 a chunk
+    (132, 512, 40, 200, 1),        # fewer than 4 slabs: no split
+]
+
+
+@pytest.mark.parametrize("sms,n,k,cols,want", TILED_SPLITS)
+def test_ln_linear_tiled_splits(monkeypatch, sms, n, k, cols, want):
+    monkeypatch.setattr(_kernels, "sm_count", lambda device: sms)
+    got = tfb._tiled_splits(_kernels.sm_count(torch.device("cpu")), n, k,
+                            cols)
+    assert got == want
+    tiles = -(-n // tfb._TILED_ROWS) * -(-cols // tfb._TILED_COLS)
+    slabs = -(-k // tfb._TILED_DEPTH)
+    # every chunk has depth to take, and the cluster is portable
+    assert 1 <= got <= tfb._STREAM_MAX_CLUSTER and (got - 1) * -(
+        -slabs // got) < slabs
+    assert got == 1 or 2 * tiles * got <= 5 * sms
+    # three blocks an SM at GPT-125M's h
+    assert 3 * tfb._tiled_smem(768) <= tfb._SMEM_LIMIT
 
 
 @pytest.mark.parametrize("seed", [0, 7, 123456789, -5, 2 ** 31 - 1])
@@ -509,7 +635,9 @@ def test_cpu_tensors_take_plain_versions():
                                      "ffn_bf16", "ffn_mma", "ln_linear_mma",
                                      "linear_residual_mma", "ffn_stream",
                                      "ffn_simt", "linear_residual_stream",
-                                     "linear_residual_simt"])
+                                     "linear_residual_simt",
+                                     "ln_linear_stream", "ln_linear_tiled",
+                                     "ln_linear_simt"])
 def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     x, p = _t(_x().reshape(-1, 128)), {k: _t(v) for k, v in
                                        _params().items()}
@@ -540,6 +668,12 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
             "linear_residual_stream": lambda: tfb.linear_residual_stream_cuda(
                 x[:8], p["out_w"], p["out_b"], x[:8]),
             "linear_residual_simt": lambda: tfb.linear_residual_simt_cuda(
-                x, p["out_w"], p["out_b"], x)}[wrapper]
+                x, p["out_w"], p["out_b"], x),
+            "ln_linear_stream": lambda: tfb.ln_linear_stream_cuda(
+                x[:8], p["qkv_w"], p["qkv_b"], p["g"], p["beta"], EPS),
+            "ln_linear_tiled": lambda: tfb.ln_linear_tiled_cuda(
+                x, p["qkv_w"], p["qkv_b"], p["g"], p["beta"], EPS),
+            "ln_linear_simt": lambda: tfb.ln_linear_simt_cuda(
+                x, p["qkv_w"], p["qkv_b"], p["g"], p["beta"], EPS)}[wrapper]
     with pytest.raises(ValueError, match="must be on"):
         call()

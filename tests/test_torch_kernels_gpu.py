@@ -43,7 +43,9 @@ def _tol(ref, dtype):
     return float(ref.float().abs().max()) * 2.0 ** -7   # one bf16 ulp
 
 
-# ragged rows (not a multiple of 16) and columns (not a multiple of 64)
+# the SIMT K1 through its own wrapper (a float32 w takes ln_linear_stream
+# or ln_linear_tiled through ln_linear_cuda); ragged rows (not a multiple
+# of 16) and columns (not a multiple of 64)
 @pytest.mark.parametrize("n,h,cols", [(8, 128, 384), (37, 96, 200)])
 @pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
 def test_ln_linear(dev, n, h, cols, xdtype):
@@ -51,7 +53,7 @@ def test_ln_linear(dev, n, h, cols, xdtype):
     w, b = _t(dev, h, cols, std=0.05), _t(dev, cols, std=0.05)
     g, beta = 1 + _t(dev, h, std=0.1), _t(dev, h, std=0.1)
     before = _kernels.launches["ln_linear"]
-    out = fb.ln_linear_cuda(x, w, b, g, beta, EPS)
+    out = fb.ln_linear_simt_cuda(x, w, b, g, beta, EPS)
     ref = fb.ln_linear_reference(x, w, b, g, beta, EPS)
     assert _kernels.launches["ln_linear"] == before + 1
     assert out.dtype == ref.dtype == torch.float32
@@ -451,7 +453,7 @@ def _ln_linear_params(dev, h, cols):
 def test_ln_linear_mma(dev, n, h, cols, xdtype):
     x = _t(dev, n, h, dtype=xdtype, seed=15)
     w, b, g, beta = _ln_linear_params(dev, h, cols)
-    assert fb.ln_linear_route(w) == "ln_linear_mma"
+    assert fb.ln_linear_route(w, n) == "ln_linear_mma"
     before = dict(_kernels.launches)
     out = fb.ln_linear_cuda(x, w, b, g, beta, EPS)
     assert _kernels.launches["ln_linear_mma"] == before["ln_linear_mma"] + 1
@@ -556,12 +558,12 @@ def test_ln_linear_and_linear_residual_mma_repeat_exactly(dev, n):
 def test_ln_linear_route_keeps_the_simt_kernel(dev, case):
     h, cols = (96, 288) if case == "bf16-h96" else (128, 384)
     w, b, g, beta = _ln_linear_params(dev, h, cols)
-    if case == "float32":                 # serving and generate
-        w = w.float()
+    if case == "float32":                 # starts 4 bytes into its buffer
+        w = torch.empty(h * cols + 1, device=dev)[1:].view(h, cols).copy_(w)
     elif case == "bf16-misaligned":       # starts 2 bytes into its buffer
         w = torch.empty(h * cols + 1, dtype=torch.bfloat16,
                         device=dev)[1:].view(h, cols).copy_(w)
-    assert fb.ln_linear_route(w) == "ln_linear"
+    assert fb.ln_linear_route(w, 37) == "ln_linear"
     x = _t(dev, 37, h, dtype=torch.bfloat16, seed=22)
     before = dict(_kernels.launches)
     out = fb.ln_linear_cuda(x, w, b, g, beta, EPS)
@@ -782,9 +784,16 @@ def test_stream_smem_counts_match_the_libraries(dev):
                        [ctypes.c_int, ctypes.c_int, ctypes.c_int])
     for h, per in [(768, 24), (768, 28), (96, 16), (128, 4)]:
         assert k3(h, per) == fb._ffn_stream_smem(h, per)
-    for n, width, depth in [(8, 36, 128), (64, 48, 96), (3, 20, 31)]:
-        assert k2(n, width, depth) == fb._linear_residual_stream_smem(
-            n, width, depth)
+    k1 = _kernels.bind("ln_linear_stream", "ptt_ln_linear_stream_smem",
+                       [ctypes.c_int, ctypes.c_int, ctypes.c_int])
+    for n, width, depth in [(8, 36, 128), (64, 48, 96), (3, 20, 31),
+                            (8, 108, 128), (64, 108, 128)]:
+        assert k2(n, width, depth) == fb._stream_gemm_smem(n, width, depth)
+        assert k1(n, width, depth) == fb._stream_gemm_smem(n, width, depth)
+    tiled = _kernels.bind("ln_linear_tiled", "ptt_ln_linear_tiled_smem",
+                          [ctypes.c_int])
+    for h in (128, 768, 1000):
+        assert tiled(h) == fb._tiled_smem(h)
     held = dict(fb._ffn_stream_resident(dev))
     assert held[1] >= held[2] >= held[4] >= held[8] > 0
 
@@ -797,6 +806,116 @@ def test_stream_kernels_refuse_what_they_cannot_take(dev):
     w = torch.empty(768 * 768 + 1, device=dev)[1:].view(768, 768)
     with pytest.raises(ValueError, match="linear_residual_stream: takes"):
         fb.linear_residual_stream_cuda(x.float(), w, b2, x)
+
+
+# K1's float32 routes (csrc/ln_linear_stream.cu at the decode rows,
+# csrc/ln_linear_tiled.cu above them): GPT-125M's QKV projection and
+# gpt_tiny's, the tiled kernel also at a ragged column tile (200 columns)
+# and ragged rows; float32 or bf16 x (serving's residual stream), float32
+# w.  Both compute in float32 FMA, as the SIMT kernel does: float32 sums
+# in another order than cuBLAS, within F32_TOL
+LN_STREAM_WIDTHS = [(768, 2304), (128, 384)]
+LN_TILED_ROWS = (fb._LN_STREAM_MAX_ROWS + 1, 64, 65, 100, 128, 512, 1000,
+                 4096)
+
+
+def _ln_f32_params(dev, h, cols):
+    w = _t(dev, h, cols, std=0.02, seed=51)
+    b = _t(dev, cols, std=0.02, seed=52)
+    g, beta = 1 + _t(dev, h, std=0.1, seed=53), _t(dev, h, std=0.1, seed=54)
+    return w, b, g, beta
+
+
+def _k1_launched(before, name):
+    """Launches of each K1 kernel since ``before``: one of ``name``."""
+    k1 = ("ln_linear", "ln_linear_mma", "ln_linear_stream", "ln_linear_tiled")
+    return {q: _kernels.launches[q] - before[q] for q in k1} == {
+        q: int(q == name) for q in k1}
+
+
+@pytest.mark.parametrize("n", range(1, fb._LN_STREAM_MAX_ROWS + 1))
+@pytest.mark.parametrize("h,cols", LN_STREAM_WIDTHS)
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_ln_linear_stream(dev, n, h, cols, xdtype):
+    x = _t(dev, n, h, dtype=xdtype, seed=55)
+    w, b, g, beta = _ln_f32_params(dev, h, cols)
+    assert fb.ln_linear_route(w, n) == "ln_linear_stream"
+    before = dict(_kernels.launches)
+    out = fb.ln_linear_cuda(x, w, b, g, beta, EPS)
+    assert _k1_launched(before, "ln_linear_stream")
+    again = fb.ln_linear_cuda(x, w, b, g, beta, EPS)
+    ref = fb.ln_linear_reference(x, w, b, g, beta, EPS)
+    assert out.dtype == ref.dtype == torch.float32 and out.shape == (n, cols)
+    assert float((out - ref).abs().max()) <= F32_TOL
+    assert torch.equal(out, again)           # no atomics: the same bits
+
+
+@pytest.mark.parametrize("n", LN_TILED_ROWS)
+@pytest.mark.parametrize("h,cols", [*LN_STREAM_WIDTHS, (768, 200)])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_ln_linear_tiled(dev, n, h, cols, xdtype):
+    x = _t(dev, n, h, dtype=xdtype, seed=56)
+    w, b, g, beta = _ln_f32_params(dev, h, cols)
+    assert fb.ln_linear_route(w, n) == "ln_linear_tiled"
+    before = dict(_kernels.launches)
+    out = fb.ln_linear_cuda(x, w, b, g, beta, EPS)
+    assert _k1_launched(before, "ln_linear_tiled")
+    again = fb.ln_linear_cuda(x, w, b, g, beta, EPS)
+    ref = fb.ln_linear_reference(x, w, b, g, beta, EPS)
+    assert out.dtype == ref.dtype == torch.float32 and out.shape == (n, cols)
+    assert float((out - ref).abs().max()) <= F32_TOL
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("n", [8, 64])
+def test_ln_linear_stream_rejects_b_left_out(dev, n):
+    # the check above sees a fault of the bias's size (std 0.02): err/tol
+    # far above 1
+    x = _t(dev, n, 768, dtype=torch.bfloat16, seed=57)
+    w, b, g, beta = _ln_f32_params(dev, 768, 2304)
+    ref = fb.ln_linear_reference(x, w, b, g, beta, EPS)
+    bad = fb.ln_linear_stream_cuda(x, w, torch.zeros_like(b), g, beta, EPS)
+    assert float((bad - ref).abs().max()) > 10 * F32_TOL
+
+
+@pytest.mark.parametrize("n", [128, 4096])
+def test_ln_linear_tiled_rejects_b_left_out(dev, n):
+    x = _t(dev, n, 768, dtype=torch.bfloat16, seed=58)
+    w, b, g, beta = _ln_f32_params(dev, 768, 2304)
+    ref = fb.ln_linear_reference(x, w, b, g, beta, EPS)
+    bad = fb.ln_linear_tiled_cuda(x, w, torch.zeros_like(b), g, beta, EPS)
+    assert float((bad - ref).abs().max()) > 10 * F32_TOL
+
+
+def test_ln_linear_stream_and_tiled_refuse_what_they_cannot_take(dev):
+    x = _t(dev, 8, 768, dtype=torch.bfloat16)
+    w, b, g, beta = _ln_f32_params(dev, 768, 2304)
+    with pytest.raises(ValueError, match="ln_linear_stream: takes"):
+        fb.ln_linear_stream_cuda(x, w.bfloat16(), b, g, beta, EPS)
+    wide = _t(dev, 768, 4096, std=0.02)
+    with pytest.raises(ValueError, match="ln_linear_stream: takes"):
+        fb.ln_linear_stream_cuda(x, wide, wide[0], g, beta, EPS)
+    odd = torch.empty(768 * 2304 + 1, device=dev)[1:].view(768, 2304)
+    with pytest.raises(ValueError, match="ln_linear_tiled: takes"):
+        fb.ln_linear_tiled_cuda(x, odd, b, g, beta, EPS)
+
+
+def test_ln_linear_stream_under_graph_replay(dev):
+    # the decode step of generate replays K1 from a CUDA graph: two replays
+    # give the eager call's bits, and the graph records one launch
+    x = _t(dev, 8, 768, dtype=torch.bfloat16, seed=59)
+    w, b, g, beta = _ln_f32_params(dev, 768, 2304)
+    eager = fb.ln_linear_cuda(x, w, b, g, beta, EPS)
+    torch.cuda.synchronize()
+    graph, holder = torch.cuda.CUDAGraph(), {}
+    recorded = _kernels.capture(graph, lambda: holder.update(
+        out=fb.ln_linear_cuda(x, w, b, g, beta, EPS)))
+    assert recorded == {"ln_linear_stream": 1}
+    _kernels.replay(graph, recorded)
+    first = holder["out"].clone()
+    _kernels.replay(graph, recorded)
+    torch.cuda.synchronize()
+    assert torch.equal(eager, first) and torch.equal(eager, holder["out"])
 
 
 def test_o1_fused_training_step_takes_ffn_mma(dev):
@@ -813,7 +932,8 @@ def test_o1_fused_training_step_takes_ffn_mma(dev):
     losses = [float(train_step(m, opt, ids, labels)) for _ in range(3)]
     for name in ("ffn_mma", "ln_linear_mma", "linear_residual_mma"):
         assert _kernels.launches[name] == 3 * cfg.num_layers, name
-    for name in ("ffn", "ln_linear", "linear_residual"):
+    for name in ("ffn", "ln_linear", "linear_residual", "ln_linear_stream",
+                 "ln_linear_tiled"):
         assert _kernels.launches[name] == 0, name
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
@@ -849,7 +969,9 @@ def test_fused_block_on_card_matches_cpu(dev, s):
         results.append([y.detach().cpu(), x.grad.cpu()]
                        + [p.grad.cpu() for p in ps])
         if device == dev:
-            assert launched == {"ln_linear", "linear_residual", "ffn",
+            # float32 weights at 128 / 200 rows: K1's tiled kernel, the
+            # SIMT K2 and K3
+            assert launched == {"ln_linear_tiled", "linear_residual", "ffn",
                                 "flash_fwd", "flash_dkdv", "flash_dq"}
         else:
             assert not launched
@@ -891,7 +1013,7 @@ def test_fused_training_step_on_card_matches_cpu(dev):
     for k, ref in g_cpu.items():
         assert float((g_gpu[k] - ref).abs().max()) <= (
             1e-4 * float(ref.abs().max()) + 1e-6), k
-    for name in ("ln_linear", "linear_residual", "ffn", "flash_fwd",
+    for name in ("ln_linear_tiled", "linear_residual", "ffn", "flash_fwd",
                  "flash_dkdv", "flash_dq"):
         assert n_gpu[name] == cfg.num_layers, name
     assert not any(n_cpu.values())
