@@ -26,8 +26,12 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               card holds at once); K1's float32 kernels
               (ln_linear_stream, ln_linear_tiled) must neither spill nor
               keep a stack frame, with the stream grid at N = 8 and 64 and
-              the tiled kernel's shared memory and depth split logged; the
-              decode
+              the tiled kernel's shared memory and depth split logged; so
+              must every instantiation of K3's and K2's tiled kernels
+              (ffn_tiled: up pass by x dtype x drop1, down pass by drop2;
+              linear_residual_tiled: x dtype x dropout), with their
+              registers, shared memory a block and depth splits at N =
+              128, 512, 4096 logged; the decode
               kernel's registers, spills and cluster split at the generate
               shape are logged, and the paged-decode kernel's at the
               serving table width;
@@ -43,10 +47,12 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               dtype pairs, d = 32 and 128 and rows that share blocks, and
               two launches must give the same bits; the weight-streaming
               K3 (ffn_stream) and K2 (linear_residual_stream) of float32
-              weights at every N from 1 to fused_block._STREAM_MAX_ROWS
-              (the route's rows), at N=8 also with float32 x / r and with
-              dropout (dropped elements the hash mask's, a bias left out
-              rejected, two calls bit-identical), timed at N = 1, 8, 16,
+              weights at every N from 1 to the larger of
+              fused_block._FFN_STREAM_MAX_ROWS and _RESID_STREAM_MAX_ROWS
+              (each route takes them up to its own), at N=8 also with
+              float32 x / r and with dropout (dropped elements the hash
+              mask's, a bias left out rejected, two calls bit-identical),
+              timed at N = 1, 8, 16,
               32, 64 against the SIMT kernel they replace there and the
               plain version, alternated (each faster than both at N=8, or
               the phase fails); K1 of float32 weights (h=768, 2304
@@ -59,19 +65,35 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               and the plain version (both float32 routes at 16-128: the
               numbers that set the route's bound), the route's kernel
               faster than the SIMT one at N=8 and 4096, or the phase
-              fails;
+              fails; ln_linear_tiled's outputs at N = 128, 512, 4096
+              bit-identical to the kernel's before its body moved into
+              csrc/tiled.cuh (sha256, LN_TILED_DIGESTS); K3's and K2's
+              tiled kernels (ffn_tiled, linear_residual_tiled; float32
+              weights, bf16 residual) through their routes at N = 33, 65,
+              128, 300 (ragged), 512, 4096 with bf16 and float32 x, with
+              dropout at N = 300 and 512 (the addend with a residual of
+              2^-40 within one bf16 unit, its dropped elements the hash
+              mask's, a K3 without b1 and a K2 without b rejected, drop1's
+              mask with W2 the identity, two calls bit-identical); timed at
+              N = 16, 32, 48, 64, 96, 128, 512, 4096 alternated with the
+              SIMT kernel and the plain version (the stream kernel too up
+              to 128: the numbers that set each route's bound), each tiled
+              kernel faster than its SIMT kernel at N = 512 and 4096, or
+              the phase fails;
   (c) serving GPT-125M at full width (12 layers, h=768, 12 heads, vocab
               50304, bf16 activations, use_fused_block) with seeded random
               weights loaded through convert.py, served by ServingEngine:
               8 ragged prompts x 32 greedy tokens.  Every kernel's launch
               counter is zeroed just before this run and must be > 0 after
               (ln_linear_mma, linear_residual_mma and ffn_mma, the
-              bf16-weight K1-K3, and the SIMT ln_linear must not launch:
-              serving multiplies float32 weights); the rows of every K1-K3
-              call are recorded: the decode steps' 8 rows take ffn_stream,
+              bf16-weight K1-K3, and the SIMT ln_linear, linear_residual
+              and ffn must not launch: serving multiplies float32
+              weights); the rows of every K1-K3 call are recorded: the
+              decode steps' 8 rows take ffn_stream,
               linear_residual_stream and ln_linear_stream once per layer,
-              the SIMT ffn and linear_residual and ln_linear_tiled only
-              prefill buckets above the bound.
+              and ffn_tiled, linear_residual_tiled and ln_linear_tiled
+              exactly the layer calls of the prefill buckets above their
+              bounds (12 x those buckets).
               Beforehand, a float32 run on a small input is held against
               the same model on the CPU (plain versions): tokens identical,
               logits within 1e-3;
@@ -110,10 +132,11 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               and a K3 with b1 left out rejected by that check, and the
               dropped elements (those equal to the residual) exactly the
               hash mask's; ffn_mma's dropout1 mask exact at N=4096 (W2 the
-              identity); the SIMT K2's dropout and K3's dropout1 in
-              float32; and a float32 gpt_tiny fused training step on the
-              card against the CPU (loss, every gradient, the loss after
-              one AdamW step);
+              identity); the float32 routes' K2 dropout and K3 dropout1
+              (linear_residual_tiled, ffn_tiled) at N=4096; and a float32
+              gpt_tiny fused training step on the card against the CPU
+              (loss, every gradient, the loss after one AdamW step; its
+              K1-K3 take the tiled kernels);
   (c3) generate GPTForCausalLM.generate at full width (convert.
               generate_workload: B=8, prompt 512, 128 greedy tokens, bf16),
               unfused (use_pallas_attention) and fused (use_fused_block):
@@ -122,17 +145,17 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               one.  The counters are zeroed just before the timed calls;
               flash_decode must read 12 x their decode steps, and in the
               fused run ffn_stream, linear_residual_stream and
-              ln_linear_stream 12 x the decode steps, the SIMT ffn and
-              linear_residual and ln_linear_tiled 12 x the prefills
-              (float32 weights; the SIMT ln_linear, ln_linear_mma,
-              linear_residual_mma and ffn_mma 0).
+              ln_linear_stream 12 x the decode steps, ffn_tiled,
+              linear_residual_tiled and ln_linear_tiled 12 x the prefills
+              (float32 weights; the SIMT ln_linear, linear_residual and
+              ffn, ln_linear_mma, linear_residual_mma and ffn_mma 0).
               Beforehand, a float32 run on a
               small input is held against the same model on the CPU
               (tokens identical, generate_step logits within 1e-3), and the
               flash decode kernel against its plain version at B=8, H=12,
               d=64, L=640 (phase b: every length, the split edges among
               them, eagerly and under one captured graph's replays), and
-              K1-K3 at the prefill's 4096 rows;
+              the tiled K1-K3 at the prefill's 4096 rows;
               sampled decoding (temperature, top_k, seed) under graph
               replay is held against an eager loop on the float32 model.
               Afterwards an eager loop of generate_step must give the
@@ -164,17 +187,19 @@ PEAK_F32 = "bytes at 3.35 TB/s; float32 operations at 67 TFLOP/s"
 PEAK_BF16 = "bytes at 3.35 TB/s; bf16 operations at 989 TFLOP/s"
 
 SEED = 1234
-SERVING_KERNELS = ("paged_decode", "linear_residual", "ffn",
-                   "linear_residual_stream", "ffn_stream", "ln_linear_stream",
-                   "ln_linear_tiled")
+SERVING_KERNELS = ("paged_decode", "linear_residual_stream", "ffn_stream",
+                   "ln_linear_stream", "ln_linear_tiled",
+                   "linear_residual_tiled", "ffn_tiled")
 # the redesigned kernels of float32 weights, launched by serving and
 # generate and by no training path: the weight-streaming K1-K3 at a few
-# rows (the decode steps, and serving's prefill buckets up to
-# fused_block._STREAM_MAX_ROWS, K1's up to _LN_STREAM_MAX_ROWS) and K1's
-# register-blocked kernel above them
+# rows (the decode steps, and serving's prefill buckets up to each route's
+# bound, fused_block._LN_STREAM_MAX_ROWS, _RESID_STREAM_MAX_ROWS and
+# _FFN_STREAM_MAX_ROWS) and the register-blocked K1-K3 above them
 F32_KERNELS = ("linear_residual_stream", "ffn_stream", "ln_linear_stream",
-               "ln_linear_tiled")
+               "ln_linear_tiled", "linear_residual_tiled", "ffn_tiled")
 TRAINING_KERNELS = ("flash_fwd", "flash_dkdv", "flash_dq")
+# the SIMT K1-K3: since the stream and tiled routes, launched by no path
+FUSED_KERNELS = ("ln_linear", "linear_residual", "ffn")
 # the tensor-core K1-K3 of bf16 weights: launched by no other path
 FUSED_ONLY_KERNELS = ("ln_linear_mma", "linear_residual_mma", "ffn_mma")
 FUSED_TRAINING_KERNELS = (*FUSED_ONLY_KERNELS, *TRAINING_KERNELS)
@@ -220,13 +245,15 @@ def main() -> int:
     design = check_design(_kernels)
     design.update(check_stream_design(torch, _kernels, dev))
     design.update(check_ln_linear_design(_kernels, dev))
+    design.update(check_tiled_design(_kernels, dev))
 
     # -- (b) each kernel against its plain version ---------------------------
     results = check_kernels(torch, np, dev)
 
-    check_dropout(torch, np, dev, results)
     check_stream(torch, np, dev, results)
     check_ln_linear(torch, np, dev, results)
+    check_tiled(torch, np, dev, results)
+    check_dropout(torch, np, dev, results)
     results.update(check_flash(torch, np, dev))
     results.update(check_flash_decode(torch, np, dev, _kernels))
     for name, d in design.items():
@@ -516,94 +543,13 @@ def measure(torch, name, kernel, plain, tol_fn, work, peak=F32_FLOPS,
 def check_kernels(torch, np, dev):
     from paddle_tpu_torch.inference.paged_attention import (
         paged_attention_cuda, paged_attention_reference)
-    from paddle_tpu_torch.ops import fused_block as fb
     rng = np.random.default_rng(SEED)
 
     def t(shape, dtype=torch.float32, std=1.0, mean=0.0):
         a = rng.standard_normal(shape, dtype=np.float32) * std + mean
         return torch.from_numpy(a).to(dev).to(dtype)
 
-    h, ffn, eps = 768, 3072, 1e-5
-    g, beta = t((h,), std=0.1, mean=1.0), t((h,), std=0.1)
-    w_out, b_out = t((h, h), std=0.02), t((h,), std=0.02)
-    w1, b1 = t((h, ffn), std=0.02), t((ffn,), std=0.02)
-    w2, b2 = t((ffn, h), std=0.02), t((h,), std=0.02)
-
     results = {}
-    shapes = {}
-    # decode rows; the serving engine's largest prefill bucket; the rows of
-    # the generate prefill (8 prompts x 512 tokens).  K2 and K3 through
-    # their SIMT wrappers: the decode rows take the weight-streaming
-    # kernels (check_stream), and N=8 here is the SIMT kernel they replace
-    # there.  K1's float32 routes and its SIMT kernel: check_ln_linear
-    for n in (8, 512, 4096):
-        x_res = t((n, h), torch.bfloat16)          # bf16 residual stream
-        attn = t((n, h))                            # float32 attention out
-        require(fb.ffn_route(w1, w2, n)
-                == ("ffn_stream" if n <= fb._STREAM_MAX_ROWS else "ffn")
-                and fb.linear_residual_route(attn, w_out)
-                == ("linear_residual_stream" if n <= fb._STREAM_MAX_ROWS
-                    else "linear_residual"),
-                f"K2 / K3 with float32 weights at N={n} take another route")
-        shapes[n] = {
-            "linear_residual": measure(
-                torch, f"linear_residual N={n}",
-                lambda: fb.linear_residual_simt_cuda(attn, w_out, b_out,
-                                                     x_res),
-                lambda: fb.linear_residual_reference(attn, w_out, b_out,
-                                                     x_res),
-                bf16_tol,
-                (nbytes(attn, w_out, b_out, x_res) + n * h * 2,
-                 2.0 * n * h * h)),
-            "ffn": measure(
-                torch, f"ffn N={n}",
-                lambda: fb.ffn_simt_cuda(x_res, w1, b1, w2, b2, g, beta,
-                                         epsilon=eps),
-                lambda: fb.ffn_reference(x_res, w1, b1, w2, b2, g, beta,
-                                         epsilon=eps),
-                bf16_tol,
-                (nbytes(x_res, w1, b1, w2, b2, g, beta) + n * h * 2,
-                 4.0 * n * h * ffn)),
-        }
-        # K3's device-memory scratch: one float32 (N, h) partial per cluster
-        # group when there is more than one, beside the (N, ffn) float32
-        # intermediate that the fusion keeps on chip
-        groups, cluster = fb._ffn_grid(dev, n, h, ffn)
-        shapes[n]["ffn"].update(
-            groups=groups, cluster=cluster,
-            scratch_bytes=groups * n * h * 4 if groups > 1 else 0,
-            intermediate_bytes=n * ffn * 4)
-        require(shapes[n]["ffn"]["scratch_bytes"]
-                < shapes[n]["ffn"]["intermediate_bytes"],
-                f"ffn N={n}: the partials outgrow the intermediate")
-        for name, r in shapes[n].items():
-            log(f"check {name} N={n}: max_abs_err {r['max_abs_err']:.3e} "
-                f"<= tol {r['tol']:.3e}; {r['ms']:.4f} ms (plain "
-                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                f"by {r['bound_by']})")
-
-    replaces = {
-        "linear_residual": "paddle_tpu/ops/fused_block.py:267",
-        "ffn": "paddle_tpu/ops/fused_block.py:363",
-    }
-    for name, line in replaces.items():
-        # at the serving prefill bucket, the smallest N of this list that
-        # they still take
-        dec = shapes[512][name]
-        # the error of the shape nearest its limit, beside its tolerance
-        worst = max((shapes[n][name] for n in shapes),
-                    key=lambda r: r["err_over_tol"])
-        results[name] = {
-            "name": name, "route": "cuda",
-            "source": f"paddle_tpu_torch/csrc/{name}.cu", "replaces": line,
-            "launches": 0,
-            "max_abs_err": worst["max_abs_err"], "tol": worst["tol"],
-            "err_over_tol": worst["err_over_tol"],
-            "ms": dec["ms"], "plain_ms": dec["plain_ms"],
-            "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-            "library_ms": None, "peak": PEAK_F32,
-            "shapes": {f"N={n}": dict(shapes[n][name]) for n in shapes}}
-
     # paged decode at the 125M serving shape: B=8, H=12, d=64, block 16,
     # 64 blocks per row (1024 positions), ragged lengths with one empty row
     B, H, D, bs, per_row = 8, 12, 64, PAGED_BS, PAGED_WIDTH
@@ -734,15 +680,15 @@ def check_stream(torch, np, dev, results):
     """The weight-streaming K3 (ffn_stream) and K2 (linear_residual_stream)
     of float32 weights at GPT-125M's widths, on serving's dtypes (a bf16
     residual stream; K2's x the float32 attention output), against their
-    plain versions at every N from 1 to _STREAM_MAX_ROWS (the route's N)
-    and at the rows of STREAM_SWEEP: float32 tolerance for a float32
+    plain versions at every N up to the larger route bound and at the
+    rows of STREAM_SWEEP: float32 tolerance for a float32
     output, one bf16 unit for a bf16 one.  At N=8 also with float32 x / r,
     with dropout (the addend with a residual of 2^-40 within one bf16 unit
     of its range, its dropped elements exactly the hash mask's, and a K3
     without b1 / a K2 without b rejected by that check), two calls
     bit-identical, and the launches counted per call.  Timed: at every N
     of STREAM_SWEEP the stream kernel, the SIMT kernel and the plain
-    version alternated (the numbers that set _STREAM_MAX_ROWS)."""
+    version alternated."""
     from paddle_tpu_torch import _kernels
     from paddle_tpu_torch.ops import fused_block as fb
     rng = np.random.default_rng(SEED + 12)
@@ -759,7 +705,8 @@ def check_stream(torch, np, dev, results):
     w2, b2 = t((ffn, h), std=0.02), t((h,), std=0.02)
     tol = lambda ref: 1e-4 if ref.dtype == torch.float32 else \
         bf16_tol(ref)  # noqa: E731
-    limit = fb._STREAM_MAX_ROWS
+    limits = {"ffn_stream": fb._FFN_STREAM_MAX_ROWS,
+              "linear_residual_stream": fb._RESID_STREAM_MAX_ROWS}
 
     def k3(x, d=(0.0, 0.0), e=eps, b1_=b1, kernel=fb.ffn_cuda):
         return lambda: kernel(x, w1, b1_, w2, b2, g, beta, seed, "gelu",
@@ -789,24 +736,34 @@ def check_stream(torch, np, dev, results):
         torch.cuda.synchronize()
         return compare(torch, name, out, ref, tol(ref))
 
-    # every N the route takes, ragged rows and launches included
+    # every N up to the larger bound through the stream wrappers, ragged
+    # rows and launches included; the route takes each up to its own bound
     worst = {"ffn_stream": None, "linear_residual_stream": None}
-    for n in range(1, limit + 1):
+    for n in range(1, max(limits.values()) + 1):
         x_res, attn = t((n, h), bf16), t((n, h))
-        require(fb.ffn_route(w1, w2, n) == "ffn_stream"
-                and fb.linear_residual_route(attn, w_out)
-                == "linear_residual_stream",
-                f"float32 weights at N={n} do not take the stream kernels")
-        for name, r in (("ffn_stream", values(f"ffn_stream N={n}", k3(x_res),
-                                              k3_plain(x_res))),
+        require((fb.ffn_route(w1, w2, n) == "ffn_stream")
+                == (n <= limits["ffn_stream"])
+                and (fb.linear_residual_route(attn, w_out)
+                     == "linear_residual_stream")
+                == (n <= limits["linear_residual_stream"]),
+                f"float32 weights at N={n}: the routes do not take the "
+                "stream kernels up to their bounds")
+        for name, r in (("ffn_stream", values(
+                            f"ffn_stream N={n}",
+                            k3(x_res, kernel=fb.ffn_stream_cuda),
+                            k3_plain(x_res))),
                         ("linear_residual_stream", values(
                             f"linear_residual_stream N={n}",
-                            k2(attn, x_res), k2_plain(attn, x_res)))):
+                            k2(attn, x_res,
+                               kernel=fb.linear_residual_stream_cuda),
+                            k2_plain(attn, x_res)))):
             if worst[name] is None or r["err_over_tol"] > \
                     worst[name]["err_over_tol"]:
                 worst[name] = dict(r, N=n)
-    log(f"check ffn_stream / linear_residual_stream: every N in 1..{limit}"
-        f" (bf16 residual) within tolerance; worst err/tol "
+    log(f"check ffn_stream / linear_residual_stream: every N in "
+        f"1..{max(limits.values())} (bf16 residual) within tolerance; the "
+        f"routes take them up to {limits['ffn_stream']} / "
+        f"{limits['linear_residual_stream']} rows; worst err/tol "
         f"{worst['ffn_stream']['err_over_tol']:.3f} at N="
         f"{worst['ffn_stream']['N']} / "
         f"{worst['linear_residual_stream']['err_over_tol']:.3f} at N="
@@ -893,13 +850,13 @@ def check_stream(torch, np, dev, results):
             work = (k3_work(n, xn) if name == "ffn_stream"
                     else k2_work(n, an, xn))
             row["bound_ms"], row["bound_by"] = bound(*work)
-            row["route_takes_it"] = n <= limit
+            row["route_takes_it"] = n <= limits[name]
             sweep[name][f"N={n}"] = row
             log(f"time {name} N={n}: {row['ms']:.4f} ms against the SIMT "
                 f"kernel's {row['simt_ms']:.4f} ms and the plain version's "
                 f"{row['plain_ms']:.4f} ms (alternated; bound "
                 f"{row['bound_ms']:.4f} ms by {row['bound_by']}); the route "
-                f"takes it: {n <= limit}")
+                f"takes it: {n <= limits[name]}")
     for name, r in (("ffn_stream", k3r), ("linear_residual_stream", k2r)):
         line = STREAM_KERNELS[name][1]
         timed = sweep[name][f"N={STREAM_TIMED}"]
@@ -922,7 +879,7 @@ def check_stream(torch, np, dev, results):
                      + (f", ffn={ffn}" if name == "ffn_stream" else "")
                      + ", float32 weights, bf16 residual",
             "checks": r, "sweep": sweep[name],
-            "max_rows": limit}
+            "max_rows": limits[name]}
 
 
 # ---------------------------------------------------------------------------
@@ -1155,6 +1112,356 @@ def check_ln_linear(torch, np, dev, results):
             "sweep": {k: v for k, v in sweep.items()
                       if f"{name[len('ln_linear_'):]}_ms" in v},
             "max_rows": limit}
+
+
+# ---------------------------------------------------------------------------
+# (a), (b) K3's and K2's register-blocked routes of float32 weights above
+# the stream bounds (ffn_tiled, linear_residual_tiled), and K1's tiled
+# kernel's bits, all on the GEMM body of csrc/tiled.cuh
+# ---------------------------------------------------------------------------
+# library -> (kernel function, instantiations) of ptxas's report: K3's up
+# pass by x's dtype x drop1, its down pass by drop2; K2 by x's dtype x drop
+TILED_KERNELS = {
+    "ffn_tiled": (("ffn_tiled_up_kernel", 4), ("ffn_tiled_down_kernel", 2)),
+    "linear_residual_tiled": (("linear_residual_tiled_kernel", 4),),
+}
+TILED_REPLACES = {"ffn_tiled": "paddle_tpu/ops/fused_block.py:363",
+                  "linear_residual_tiled": "paddle_tpu/ops/fused_block.py:267"}
+TILED_CHECKED = (33, 65, 128, 300, 512, 4096)   # values, through the route
+# rows timed, alternated with the SIMT kernel and the plain version; at
+# TILED_CROSSOVER the stream kernel too (the numbers that set the route's
+# bounds, fused_block._FFN_STREAM_MAX_ROWS and _RESID_STREAM_MAX_ROWS)
+TILED_SWEEP = (16, 32, 48, 64, 96, 128, 512, 4096)
+TILED_CROSSOVER = (16, 32, 48, 64, 96, 128)
+TILED_TIMED = 512             # serving's largest prefill bucket: the line's
+TILED_BEATS_SIMT = (512, 4096)
+TILED_DROP = (0.2, 0.1)       # K3's dropout1 / dropout2; K2's is the 2nd
+# K1's tiled kernel before its body moved into csrc/tiled.cuh (commit
+# 5f23eac), on an H100 (132 SMs): sha256 of its float32 outputs on the
+# inputs of ln_tiled_bits, by "N/depth chunks"
+LN_TILED_DIGESTS = {
+    "128/8":
+        "10de3339e824f4fb51a6003142835c864bda4591c7cc4f447c7c789b41833a47",
+    "512/2":
+        "89d6ef01f1781d8b4c0b38ace245e15944ebb9cbba9ed303c625d75a6e764373",
+    "4096/1":
+        "8763990511c0277644506966efc74dbfa2698c063bbc814c7610aaeaee80ad1e"}
+
+
+def ln_tiled_bits(torch, np, dev):
+    """sha256 of ln_linear_tiled's outputs at GPT-125M's QKV projection
+    (h=768, 2304 columns, bf16 x) for N = 128, 512 and 4096 on seeded
+    inputs, by "N/depth chunks" (the split decides the order of the
+    sums)."""
+    import hashlib
+    from paddle_tpu_torch import _kernels
+    from paddle_tpu_torch.ops import fused_block as fb
+    rng = np.random.default_rng(SEED + 15)
+
+    def t(shape, dtype=torch.float32, std=1.0, mean=0.0):
+        a = rng.standard_normal(shape, dtype=np.float32) * std + mean
+        return torch.from_numpy(a).to(dev).to(dtype)
+
+    h, cols = 768, 2304
+    g, beta = t((h,), std=0.1, mean=1.0), t((h,), std=0.1)
+    w, b = t((h, cols), std=0.02), t((cols,), std=0.02)
+    out = {}
+    for n in (128, 512, 4096):
+        y = fb.ln_linear_tiled_cuda(t((n, h), torch.bfloat16), w, b, g, beta,
+                                    1e-5)
+        split = fb._tiled_splits(_kernels.sm_count(dev), n, h, cols)
+        out[f"{n}/{split}"] = hashlib.sha256(
+            y.cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def check_tiled_design(_kernels, dev):
+    """ptxas's registers, spills and stack frame of every instantiation of
+    ffn_tiled and linear_residual_tiled (none may spill or keep a stack
+    frame), their shared memory a block (the libraries' counts, which must
+    equal the wrappers') and their depth splits at GPT-125M's widths for N
+    = 128, 512 and 4096."""
+    import ctypes
+    from paddle_tpu_torch.ops import fused_block as fb
+    h, ffn = 768, 3072
+    out = {}
+    for lib, fns in TILED_KERNELS.items():
+        props = _kernels.ptxas_functions(lib)
+        regs = {}
+        for fn, count in fns:
+            got = {f: p for f, p in props.items() if fn in f}
+            require(len(got) == count, f"{lib}: {len(got)} ptxas reports "
+                    f"for {fn}, not {count}")
+            for f, p in got.items():
+                require(p.get("spill_stores") == 0
+                        and p.get("spill_loads") == 0
+                        and p.get("stack_frame") == 0,
+                        f"{lib}: {f} spills or keeps a stack frame: {p}")
+            regs[fn] = sorted(p.get("registers") for p in got.values())
+        out[lib] = {"registers": regs, "spill_stores": 0, "spill_loads": 0,
+                    "stack_frame": 0}
+    k3 = _kernels.bind("ffn_tiled", "ptt_ffn_tiled_smem",
+                       [ctypes.c_int, ctypes.c_int])
+    k2 = _kernels.bind("linear_residual_tiled",
+                       "ptt_linear_residual_tiled_smem", [])()
+    require(k3(h, 0) == fb._tiled_smem(h) and k3(h, 1) == k2
+            == fb._tiled_raw_smem(),
+            f"ffn_tiled / linear_residual_tiled: the libraries' shared "
+            f"memory a block ({k3(h, 0)}, {k3(h, 1)}, {k2}) is not the "
+            f"wrappers' ({fb._tiled_smem(h)}, {fb._tiled_raw_smem()})")
+    sms = _kernels.sm_count(dev)
+    out["ffn_tiled"].update(
+        smem_bytes={"up": k3(h, 0), "down": k3(h, 1)},
+        depth_split={f"N={n}": {"up": fb._tiled_splits(sms, n, h, ffn),
+                                "down": fb._tiled_splits(sms, n, ffn, h)}
+                     for n in (128, 512, 4096)},
+        scratch_bytes={f"N={n}": n * ffn * 4 for n in (128, 512, 4096)})
+    out["linear_residual_tiled"].update(
+        smem_bytes=k2,
+        depth_split={f"N={n}": fb._tiled_splits(sms, n, h, h)
+                     for n in (128, 512, 4096)})
+    for lib, d in out.items():
+        log(f"design {lib}: registers {d['registers']}, 0 spills, no stack "
+            f"frame; shared memory a block {d['smem_bytes']}; depth split "
+            f"{d['depth_split']}"
+            + (f"; scratch {d['scratch_bytes']}" if "scratch_bytes" in d
+               else ""))
+    return out
+
+
+def check_tiled(torch, np, dev, results):
+    """ffn_tiled and linear_residual_tiled of float32 weights at GPT-125M's
+    widths, on serving's and generate's dtypes (a bf16 residual stream; K2's
+    x the attention output in the cache dtype, bf16, or float32), against
+    their plain versions: through the route at every N of TILED_CHECKED
+    (one launch a call, none of the other K2 / K3 kernels), with float32 x
+    too; float32 tolerance 1e-4 for a float32 output, one bf16 unit for a
+    bf16 one.  With dropout (K3 0.2 / 0.1, K2 0.1) at N = 300 and 512:
+    values, the addend with a residual of 2^-40 within one bf16 unit of its
+    range and its dropped elements exactly the hash mask's, a K3 without b1
+    and a K2 without b rejected by that check; drop1's mask exactly (W2 the
+    identity); two calls bit-identical.  Timed at every N of TILED_SWEEP:
+    the tiled kernel, the SIMT kernel and the plain version (and at
+    TILED_CROSSOVER the stream kernel) alternated, each held against the
+    plain version first; each tiled kernel must beat its SIMT kernel at
+    TILED_BEATS_SIMT.  K1's tiled kernel: its outputs' digests equal
+    LN_TILED_DIGESTS."""
+    from paddle_tpu_torch import _kernels
+    from paddle_tpu_torch.ops import fused_block as fb
+    rng = np.random.default_rng(SEED + 14)
+    bf16 = torch.bfloat16
+
+    def t(shape, dtype=torch.float32, std=1.0, mean=0.0):
+        a = rng.standard_normal(shape, dtype=np.float32) * std + mean
+        return torch.from_numpy(a).to(dev).to(dtype)
+
+    bits = ln_tiled_bits(torch, np, dev)
+    require(bits == {k: LN_TILED_DIGESTS.get(k) for k in bits},
+            f"ln_linear_tiled: outputs {bits} are not the bits of the kernel "
+            f"before tiled.cuh {LN_TILED_DIGESTS}")
+    log(f"check ln_linear_tiled: outputs at N/depth chunks {sorted(bits)} "
+        "bit-identical to the kernel before tiled.cuh (sha256)")
+
+    h, ffn, eps, seed = 768, 3072, 1e-5, 20261017
+    g, beta = t((h,), std=0.1, mean=1.0), t((h,), std=0.1)
+    w_out, b_out = t((h, h), std=0.02), t((h,), std=0.02)
+    w1, b1 = t((h, ffn), std=0.02), t((ffn,), std=0.02)
+    w2, b2 = t((ffn, h), std=0.02), t((h,), std=0.02)
+    tol = lambda ref: 1e-4 if ref.dtype == torch.float32 else \
+        bf16_tol(ref)  # noqa: E731
+    k3_names = ("ffn", "ffn_mma", "ffn_stream", "ffn_tiled")
+    k2_names = ("linear_residual", "linear_residual_mma",
+                "linear_residual_stream", "linear_residual_tiled")
+
+    def k3(x, d=(0.0, 0.0), e=eps, b1_=b1, w2_=w2, b2_=b2,
+           kernel=fb.ffn_cuda):
+        return lambda: kernel(x, w1, b1_, w2_, b2_, g, beta, seed, "gelu",
+                              *d, e)
+
+    def k3_plain(x, d=(0.0, 0.0), e=eps, w2_=w2, b2_=b2):
+        return lambda: fb.ffn_reference(x, w1, b1, w2_, b2_, g, beta, seed,
+                                        "gelu", *d, e)
+
+    def k2(x, r, p=0.0, b=b_out, kernel=fb.linear_residual_cuda):
+        return lambda: kernel(x, w_out, b, r, seed, p)
+
+    def k2_plain(x, r, p=0.0):
+        return lambda: fb.linear_residual_reference(x, w_out, b_out, r, seed,
+                                                    p)
+
+    def values(name, kernel, plain):
+        out, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        return compare(torch, name, out, ref, tol(ref))
+
+    checks = {"ffn_tiled": {}, "linear_residual_tiled": {}}
+
+    def routed(name, names, key, kernel, plain):
+        """One call through the route: ``name`` launched once and no other
+        kernel of ``names``, within tol of the plain version."""
+        before = dict(_kernels.launches)
+        r = values(f"{name} {key}", kernel, plain)
+        launched = {q: _kernels.launches[q] - before[q] for q in names}
+        require(launched == {q: int(q == name) for q in names},
+                f"{name} {key}: launches {launched} in one call")
+        checks[name][key] = r
+
+    for n in TILED_CHECKED:
+        x_res, attn = t((n, h), bf16), t((n, h))
+        require(fb.ffn_route(w1, w2, n) == "ffn_tiled"
+                and fb.linear_residual_route(attn, w_out)
+                == "linear_residual_tiled",
+                f"float32 weights at N={n} do not take the tiled kernels")
+        routed("ffn_tiled", k3_names, f"N={n} bf16 x", k3(x_res),
+               k3_plain(x_res))
+        routed("ffn_tiled", k3_names, f"N={n} float32 x", k3(attn),
+               k3_plain(attn))
+        routed("linear_residual_tiled", k2_names, f"N={n} bf16 x, bf16 r",
+               k2(attn.to(bf16), x_res), k2_plain(attn.to(bf16), x_res))
+        routed("linear_residual_tiled", k2_names,
+               f"N={n} float32 x, bf16 r", k2(attn, x_res),
+               k2_plain(attn, x_res))
+    n = 512
+    attn, r32 = t((n, h)), t((n, h))
+    routed("linear_residual_tiled", k2_names, f"N={n} float32 x, float32 r",
+           k2(attn, r32), k2_plain(attn, r32))
+
+    # dropout: values, the addend with a residual of 2^-40 (its dropped
+    # elements are the hash mask's; a K3 without b1 and a K2 without b fall
+    # outside one bf16 unit), drop1's mask with W2 the identity, and two
+    # calls bit-identical
+    d1, d2 = TILED_DROP
+    eye, zero = torch.eye(ffn, h, device=dev), torch.zeros(h, device=dev)
+    for n in (300, 512):
+        x_res, attn = t((n, h), bf16), t((n, h), bf16)
+        tiny = (x_res.float() * TINY).to(bf16)
+        rows_t, cols_t = (torch.arange(n, device=dev)[:, None],
+                          torch.arange(h, device=dev)[None, :])
+        routed("ffn_tiled", k3_names, f"N={n} dropout {d1}/{d2}",
+               k3(x_res, (d1, d2)), k3_plain(x_res, (d1, d2)))
+        routed("linear_residual_tiled", k2_names, f"N={n} p={d2}",
+               k2(attn, x_res, d2), k2_plain(attn, x_res, d2))
+        for name, got, want, salt, bad in (
+                ("ffn_tiled", k3(tiny, (d1, d2), TINY_EPS)(),
+                 k3_plain(tiny, (d1, d2), TINY_EPS)(), fb._SALT_FFN2,
+                 k3(tiny, (d1, d2), TINY_EPS, torch.zeros_like(b1))()),
+                ("linear_residual_tiled", k2(attn, tiny, d2)(),
+                 k2_plain(attn, tiny, d2)(), fb._SALT_RESID,
+                 k2(attn, tiny, d2, torch.zeros_like(b_out))())):
+            torch.cuda.synchronize()
+            res = compare(torch, f"{name} N={n} (the addend)", got, want,
+                          bf16_tol(want))
+            keep = fb._keep_mask(seed, salt, rows_t, cols_t, d2)
+            for who, o in (("kernel", got), ("plain", want)):
+                require(torch.equal(o == tiny, ~keep), f"{name} N={n}: the "
+                        f"{who}'s dropped elements are not the hash mask's")
+            res["dropped"] = int((~keep).sum())
+            fault = float((bad.float() - want.float()).abs().max()) \
+                / bf16_tol(want)
+            require(fault > 1.0, f"{name} N={n}: the addend check passes a "
+                    f"kernel without its bias (err/tol {fault:.3f})")
+            res["bias_fault_err_over_tol"] = fault
+            checks[name][f"N={n} the addend"] = res
+        got = k3(tiny, (0.3, 0.0), TINY_EPS, w2_=eye, b2_=zero)()
+        want = k3_plain(tiny, (0.3, 0.0), TINY_EPS, w2_=eye, b2_=zero)()
+        torch.cuda.synchronize()
+        res = compare(torch, f"ffn_tiled N={n} dropout1 (W2 the identity)",
+                      got, want, bf16_tol(want))
+        keep = fb._keep_mask(seed, fb._SALT_FFN1, rows_t, cols_t, 0.3)
+        for who, o in (("kernel", got), ("plain", want)):
+            require(torch.equal(o == tiny, ~keep), f"ffn_tiled N={n}: the "
+                    f"{who}'s dropout1 elements are not the hash mask's")
+        res["dropped"] = int((~keep).sum())
+        checks["ffn_tiled"][f"N={n} dropout1 mask"] = res
+        for name, fn in (("ffn_tiled", k3(x_res, (d1, d2))),
+                         ("linear_residual_tiled", k2(attn, x_res, d2))):
+            a, b = fn(), fn()
+            torch.cuda.synchronize()
+            require(torch.equal(a, b), f"{name} N={n}: two calls differ")
+        del x_res, attn, tiny
+    worst = {name: max(({**r, "case": key} for key, r in d.items()),
+                       key=lambda r: r["err_over_tol"])
+             for name, d in checks.items()}
+    for name, d in checks.items():
+        adds = [r for k, r in d.items() if k.endswith("the addend")]
+        log(f"check {name}: {len(d)} cases within tolerance of the plain "
+            f"version (worst err/tol {worst[name]['err_over_tol']:.3f} at "
+            f"{worst[name]['case']}); the addend's dropped elements equal "
+            f"the hash mask's ({', '.join(str(r['dropped']) for r in adds)})"
+            ", a bias left out rejected (err/tol "
+            + ", ".join(f"{r['bias_fault_err_over_tol']:.1f}" for r in adds)
+            + "); two calls bit-identical")
+
+    # timings, alternated: the tiled kernel, the SIMT kernel it replaced
+    # and the plain version (and at TILED_CROSSOVER the stream kernel),
+    # each held against the plain version first
+    sweep = {"ffn_tiled": {}, "linear_residual_tiled": {}}
+    sms = _kernels.sm_count(dev)
+    for n in TILED_SWEEP:
+        xn, an = t((n, h), bf16), t((n, h), bf16)
+        cases = {
+            "ffn_tiled": (
+                {"tiled_ms": k3(xn, kernel=fb.ffn_tiled_cuda),
+                 "stream_ms": k3(xn, kernel=fb.ffn_stream_cuda),
+                 "simt_ms": k3(xn, kernel=fb.ffn_simt_cuda)},
+                k3_plain(xn),
+                (nbytes(xn, w1, b1, w2, b2, g, beta) + n * h * 2,
+                 4.0 * n * h * ffn),
+                {"up": fb._tiled_splits(sms, n, h, ffn),
+                 "down": fb._tiled_splits(sms, n, ffn, h)},
+                fb.ffn_route(w1, w2, n)),
+            "linear_residual_tiled": (
+                {"tiled_ms": k2(an, xn, kernel=fb.linear_residual_tiled_cuda),
+                 "stream_ms": k2(an, xn,
+                                 kernel=fb.linear_residual_stream_cuda),
+                 "simt_ms": k2(an, xn, kernel=fb.linear_residual_simt_cuda)},
+                k2_plain(an, xn),
+                (nbytes(an, w_out, b_out, xn) + n * h * 2, 2.0 * n * h * h),
+                fb._tiled_splits(sms, n, h, h),
+                fb.linear_residual_route(an, w_out))}
+        for name, (fns, plain, work, split, route) in cases.items():
+            if n not in TILED_CROSSOVER:
+                del fns["stream_ms"]
+            ref = plain()
+            errs = {key: values(f"{name[:-6]} {key[:-3]} N={n}", fn,
+                                lambda: ref)["max_abs_err"]
+                    for key, fn in fns.items()}
+            fns["plain_ms"] = plain
+            row = dict(zip(fns, alternate(torch, list(fns.values()))))
+            row["ms"] = row["tiled_ms"]
+            row["route"] = route
+            row["max_abs_err"] = errs
+            row["bound_ms"], row["bound_by"] = bound(*work)
+            row["depth_split"] = split
+            sweep[name][f"N={n}"] = row
+            log(f"time {name[:-6]} N={n}: "
+                + ", ".join(f"{k[:-3]} {row[k]:.4f} ms" for k in fns)
+                + f" (alternated; bound {row['bound_ms']:.4f} ms by "
+                f"{row['bound_by']}; depth split {split}); the route takes "
+                f"{route}")
+    for name in sweep:
+        for n in TILED_BEATS_SIMT:
+            row = sweep[name][f"N={n}"]
+            require(row["tiled_ms"] < row["simt_ms"],
+                    f"{name}: {row['tiled_ms']:.4f} ms at N={n}, not faster "
+                    f"than the SIMT kernel's {row['simt_ms']:.4f}")
+        row = sweep[name][f"N={TILED_TIMED}"]
+        results[name] = {
+            "name": name, "route": "cuda",
+            "source": f"paddle_tpu_torch/csrc/{name}.cu",
+            "replaces": TILED_REPLACES[name], "launches": 0,
+            "max_abs_err": worst[name]["max_abs_err"],
+            "tol": worst[name]["tol"],
+            "err_over_tol": worst[name]["err_over_tol"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "peak": PEAK_F32, "simt_ms": row["simt_ms"],
+            "shape": f"N={TILED_TIMED}, h={h}"
+                     + (f", ffn={ffn}" if name == "ffn_tiled" else "")
+                     + ", float32 weights, bf16 residual"
+                     + (", bf16 x" if name != "ffn_tiled" else ""),
+            "checks": checks[name], "sweep": sweep[name]}
+    results["ln_linear_tiled"]["bits"] = bits
 
 
 # table widths of the untimed paged cases: the serving width (4 blocks of
@@ -1527,11 +1834,11 @@ def check_flash_decode(torch, np, dev, _kernels):
 # ---------------------------------------------------------------------------
 # (c) serving
 # ---------------------------------------------------------------------------
-# the K2 / K3 wrappers of float32 weights whose calls' rows the serving run
-# records: the SIMT kernels must take only N > fused_block._STREAM_MAX_ROWS,
-# the weight-streaming kernels the rest (K1: ln_linear_tiled above
-# _LN_STREAM_MAX_ROWS, ln_linear_stream the rest)
-ROW_RECORDED = ("ffn_simt_cuda", "linear_residual_simt_cuda",
+# the K1-K3 wrappers of float32 weights whose calls' rows the serving run
+# records: each tiled kernel must take only N above its route's bound
+# (fused_block._FFN_STREAM_MAX_ROWS, _RESID_STREAM_MAX_ROWS,
+# _LN_STREAM_MAX_ROWS), the weight-streaming kernel the rest
+ROW_RECORDED = ("ffn_tiled_cuda", "linear_residual_tiled_cuda",
                 "ffn_stream_cuda", "linear_residual_stream_cuda",
                 "ln_linear_tiled_cuda", "ln_linear_stream_cuda")
 
@@ -1629,31 +1936,43 @@ def serve(torch, np, dev, _kernels):
     for name in SERVING_KERNELS:
         require(launches[name] > 0,
                 f"{name}: launched 0 times on the serving path")
-    for name in (*FUSED_ONLY_KERNELS, "ln_linear"):
+    for name in (*FUSED_ONLY_KERNELS, *FUSED_KERNELS):
         require(launches[name] == 0, f"{name}: {launches[name]} launches on "
-                "the serving path (float32 weights take the float32 routes; "
-                "K1's are ln_linear_stream and ln_linear_tiled)")
+                "the serving path (float32 weights take the stream and tiled "
+                "routes)")
     st = eng.stats()
     require(st["kv_blocks"]["used"] == 0 and st["kv_blocks"]["leaked"] == 0,
             f"KV blocks not returned: {st['kv_blocks']}")
     # the decode steps ((max_seqs, 1): 8 rows) take the stream kernels, once
-    # per layer each; the SIMT K2 / K3 and the tiled K1 take only prefill
-    # buckets above the bound
+    # per layer each; the tiled K1-K3 take only prefill buckets above their
+    # bounds, once per layer each: K1-K3 see every step's rows once a layer,
+    # so each tiled kernel launches 12 x the steps above its bound
     decodes = st["step_ms"]["decode"]["count"]
-    for simt, stream, limit in (
-            ("ffn_simt_cuda", "ffn_stream_cuda", fb._STREAM_MAX_ROWS),
-            ("linear_residual_simt_cuda", "linear_residual_stream_cuda",
-             fb._STREAM_MAX_ROWS),
+    steps_rows = sorted(rows["ln_linear_tiled_cuda"]
+                        + rows["ln_linear_stream_cuda"])
+    for tiled, stream, limit in (
+            ("ffn_tiled_cuda", "ffn_stream_cuda", fb._FFN_STREAM_MAX_ROWS),
+            ("linear_residual_tiled_cuda", "linear_residual_stream_cuda",
+             fb._RESID_STREAM_MAX_ROWS),
             ("ln_linear_tiled_cuda", "ln_linear_stream_cuda",
              fb._LN_STREAM_MAX_ROWS)):
-        require(rows[simt] and min(rows[simt]) > limit,
-                f"serving: {simt} took rows {sorted(set(rows[simt]))}, not "
+        require(rows[tiled] and min(rows[tiled]) > limit,
+                f"serving: {tiled} took rows {sorted(set(rows[tiled]))}, not "
                 f"only N > {limit}")
         require(rows[stream] and max(rows[stream]) <= limit
                 and rows[stream].count(
                     SERVING_ENGINE["max_seqs"]) == cfg.num_layers * decodes,
                 f"serving: {stream} took rows {sorted(set(rows[stream]))}; "
                 f"{cfg.num_layers} x {decodes} decode steps expected")
+        require(sorted(rows[tiled] + rows[stream]) == steps_rows,
+                f"serving: {tiled} and {stream} did not take every step's "
+                "rows once a layer")
+        above = sum(1 for r in steps_rows if r > limit)
+        name = tiled[:-len("_cuda")]
+        require(launches[name] == len(rows[tiled]) == above
+                and above % cfg.num_layers == 0,
+                f"serving: {name} launched {launches[name]} times, for "
+                f"{above} layer calls above {limit} rows")
     row_counts = {name: {str(n): r.count(n) for n in sorted(set(r))}
                   for name, r in rows.items()}
     generated = sum(len(r["tokens"]) for r in results)
@@ -1829,8 +2148,8 @@ def check_dropout(torch, np, dev, results):
     plain version.  Planted faults the checks must reject: K1 with b left
     out (the value check), K2 with b and K3 with b1 left out (the addend
     check).  At N=16384 K2 and K3 alternated with p=0.  ffn_mma's dropout1
-    mask exactly at N=4096; the SIMT K2's dropout and K3's dropout1
-    (float32 weights) within float32 sums."""
+    mask exactly at N=4096; the float32 routes' K2 dropout and K3
+    dropout1 (ffn_tiled, linear_residual_tiled) within float32 sums."""
     from paddle_tpu_torch.ops import fused_block as fb
     rng = np.random.default_rng(SEED + 7)
     bf16 = torch.bfloat16
@@ -2012,38 +2331,39 @@ def check_dropout(torch, np, dev, results):
         "kernel and plain")
     del tiny, eye
 
-    # the SIMT K2's dropout and K3's dropout1 (float32 operands, as a
-    # float32 training step multiplies), where one misplaced element of the
-    # mask moves the output far past the tolerance
+    # the float32 routes' K2 dropout and K3 dropout1 (float32 operands, as
+    # a float32 training step multiplies: ffn_tiled and
+    # linear_residual_tiled), where one misplaced element of the mask moves
+    # the output far past the tolerance
     n = 4096
     x32 = t((n, h))
     f32w = [a.float() for a in (w1, b1, w2, b2)]
-    require(fb.ffn_route(f32w[0], f32w[2], n) == "ffn"
+    require(fb.ffn_route(f32w[0], f32w[2], n) == "ffn_tiled"
             and fb.linear_residual_route(x32, w_out.float())
-            == "linear_residual",
-            "K2 / K3 with float32 operands do not route to the SIMT kernels")
+            == "linear_residual_tiled",
+            "K2 / K3 with float32 operands do not route to the tiled kernels")
     k2d = measure(
-        torch, f"linear_residual N={n} p={DROP_P} (float32)",
+        torch, f"linear_residual_tiled N={n} p={DROP_P} (float32)",
         lambda: fb.linear_residual_cuda(x32, w_out.float(), b_out, x32, seed,
                                         DROP_P),
         lambda: fb.linear_residual_reference(x32, w_out.float(), b_out, x32,
                                              seed, DROP_P),
         lambda ref: 1e-4, (0, 0), timed=False)
     k3d1 = measure(
-        torch, "ffn N=4096 dropout1=0.2 dropout2=0.1 (float32)",
+        torch, "ffn_tiled N=4096 dropout1=0.2 dropout2=0.1 (float32)",
         lambda: fb.ffn_cuda(x32, *f32w, g, beta, seed, "gelu", 0.2, DROP_P,
                             eps),
         lambda: fb.ffn_reference(x32, *f32w, g, beta, seed, "gelu", 0.2,
                                  DROP_P, eps),
         lambda ref: 1e-4, (0, 0), timed=False)
-    log(f"check linear_residual N={n} p={DROP_P} (float32): max_abs_err "
-        f"{k2d['max_abs_err']:.3e} <= 1e-4; ffn N={n} dropout1=0.2 "
-        f"dropout2={DROP_P} (float32): max_abs_err "
+    log(f"check linear_residual_tiled N={n} p={DROP_P} (float32): "
+        f"max_abs_err {k2d['max_abs_err']:.3e} <= 1e-4; ffn_tiled N={n} "
+        f"dropout1=0.2 dropout2={DROP_P} (float32): max_abs_err "
         f"{k3d1['max_abs_err']:.3e} <= 1e-4")
-    results["linear_residual"]["dropout"] = {
+    results["linear_residual_tiled"]["dropout"] = {
         "p": DROP_P, "seed": seed,
         "shapes": {f"N={n}, float32": k2d}}
-    results["ffn"]["dropout"] = {
+    results["ffn_tiled"]["dropout"] = {
         "p": DROP_P, "seed": seed,
         "shapes": {"N=4096, dropout1=0.2, float32": k3d1}}
 
@@ -2120,7 +2440,6 @@ def train_fused(torch, np, dev, _kernels, unfused_p50):
 # ---------------------------------------------------------------------------
 # (c3) generate
 # ---------------------------------------------------------------------------
-FUSED_KERNELS = ("ln_linear", "linear_residual", "ffn")   # the SIMT K1-K3
 GENERATE_CALLS = 3      # timed calls per variant; their medians are reported
 
 
@@ -2285,19 +2604,20 @@ def generate(torch, np, dev, _kernels):
                 f"in {GENERATE_CALLS} x {decode_steps} decode steps, not "
                 f"{cfg.num_layers} per step")
         # fused: the decode steps' 8 rows take the stream K1-K3, the
-        # prefill's 4096 the tiled K1 and the SIMT K2 / K3, once per layer
-        # each; the SIMT K1 never
+        # prefill's 4096 the tiled K1-K3, once per layer each; the SIMT
+        # K1-K3 never
         for name, per_call in (("ffn_stream", decode_steps),
                                ("linear_residual_stream", decode_steps),
                                ("ln_linear_stream", decode_steps),
-                               ("ffn", 1), ("linear_residual", 1),
-                               ("ln_linear_tiled", 1), ("ln_linear", 0)):
+                               ("ffn_tiled", 1), ("linear_residual_tiled", 1),
+                               ("ln_linear_tiled", 1), ("ffn", 0),
+                               ("linear_residual", 0), ("ln_linear", 0)):
             want = cfg.num_layers * per_call * GENERATE_CALLS if fused else 0
             require(launches[name] == want, f"{name} ({tag}): "
                     f"{launches[name]} launches, not {want}")
         for name in FUSED_ONLY_KERNELS:
             require(launches[name] == 0, f"{name} ({tag}): {launches[name]} "
-                    "launches (float32 weights take the SIMT kernels)")
+                    "launches (float32 weights take the float32 routes)")
         eager, eager_steps = eager_decode(torch, model, prompts,
                                           GENERATE_NEW_TOKENS)
         require(torch.equal(eager, out),

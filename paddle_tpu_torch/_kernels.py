@@ -50,8 +50,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("paged_decode", "ln_linear", "ln_linear_mma", "ln_linear_stream",
            "ln_linear_tiled", "linear_residual", "linear_residual_mma",
-           "linear_residual_stream", "ffn", "ffn_mma", "ffn_stream",
-           "flash_fwd", "flash_dkdv", "flash_dq", "flash_decode")
+           "linear_residual_stream", "linear_residual_tiled", "ffn",
+           "ffn_mma", "ffn_stream", "ffn_tiled", "flash_fwd", "flash_dkdv",
+           "flash_dq", "flash_decode")
 
 launches: Dict[str, int] = {name: 0 for name in KERNELS}
 

@@ -5,8 +5,8 @@
 //
 // Replaces: paddle_tpu/ops/fused_block.py `_ffn_kernel` (launched by
 // `_ffn_pallas`) for the calls that `ffn_route` sends here: float32 W1 and
-// W2 and at most `_STREAM_MAX_ROWS` rows (serving's and generate's decode
-// steps).  drop1 is the counter-hash dropout of the JAX kernel over the
+// W2 and at most `_FFN_STREAM_MAX_ROWS` rows (serving's and generate's
+// decode steps).  drop1 is the counter-hash dropout of the JAX kernel over the
 // global (row, ffn column) of the activation (salt `_SALT_FFN1`); drop2,
 // over the global (row, column) of the finished sum + b2, is applied by
 // ffn.cu's finalize kernel, which the wrapper launches after this one.

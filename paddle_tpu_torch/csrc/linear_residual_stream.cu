@@ -6,8 +6,8 @@
 // Replaces: paddle_tpu/ops/fused_block.py `_linear_residual_kernel`
 // (launched by `_linear_residual_pallas`) for the calls that
 // `linear_residual_route` sends here: a float32 W and at most
-// `_STREAM_MAX_ROWS` rows (the attention out-projection of serving's and
-// generate's decode steps, x the float32 attention output, r the bf16
+// `_RESID_STREAM_MAX_ROWS` rows (the attention out-projection of serving's
+// and generate's decode steps, x the float32 attention output, r the bf16
 // residual).  drop is the counter-hash dropout of the JAX kernel over the
 // global (row, col), salted by the caller (`_SALT_RESID`).
 //

@@ -17,20 +17,27 @@ version:
                                                (bf16 x and W)
                                                csrc/linear_residual_stream.cu
                                                (float32 W, a few rows)
+                                               csrc/linear_residual_tiled.cu
+                                               (float32 W, more rows)
   [K3 ffn]              x + drop2(W2 drop1(act(W1 LN(x) + b1)) + b2)
                                                 csrc/ffn.cu (float32 weights)
                                                 csrc/ffn_mma.cu (bf16 weights)
                                                 csrc/ffn_stream.cu (float32
                                                 weights, a few rows)
+                                                csrc/ffn_tiled.cu (float32
+                                                weights, more rows)
 
 Each bf16 kernel (``*_mma``: mma.sync on the tensor cores), each
-weight-streaming kernel (``*_stream``: float32 weights at no more than
-``_STREAM_MAX_ROWS`` rows, the decode steps of serving and ``generate``)
-and K1's register-blocked ``ln_linear_tiled`` (float32 weights above that,
-the prefills) takes the calls that its route function (``ln_linear_route``,
+weight-streaming kernel (``*_stream``: float32 weights at a few rows, up
+to ``_LN_STREAM_MAX_ROWS``, ``_RESID_STREAM_MAX_ROWS`` and
+``_FFN_STREAM_MAX_ROWS``, the decode steps of serving and ``generate``) and
+each register-blocked float32 kernel (``*_tiled``, on the shared GEMM body
+of ``csrc/tiled.cuh``: float32 weights above those rows, the prefills)
+takes the calls that its route function (``ln_linear_route``,
 ``linear_residual_route``, ``ffn_route``) names from dtypes, shapes,
-addresses and row counts on the host; every other CUDA call runs the SIMT
-float32 kernel beside it.
+addresses and row counts on the host; every other CUDA call (widths or
+addresses none of them can stage) runs the SIMT float32 kernel beside
+them.
 
 the attention half of a training block, :func:`fused_attention_block`: K1
 -> flash attention (``ops/flash_attention.py``, attention dropout in the
@@ -83,9 +90,10 @@ __all__ = ["fused_ln_linear", "fused_linear_residual", "fused_ffn_block",
            "ln_linear_simt_cuda", "ln_linear_route",
            "linear_residual_reference",
            "linear_residual_cuda", "linear_residual_mma_cuda",
-           "linear_residual_stream_cuda", "linear_residual_simt_cuda",
-           "linear_residual_route", "ffn_reference", "ffn_cuda",
-           "ffn_mma_cuda", "ffn_stream_cuda", "ffn_simt_cuda", "ffn_route"]
+           "linear_residual_stream_cuda", "linear_residual_tiled_cuda",
+           "linear_residual_simt_cuda", "linear_residual_route",
+           "ffn_reference", "ffn_cuda", "ffn_mma_cuda", "ffn_stream_cuda",
+           "ffn_tiled_cuda", "ffn_simt_cuda", "ffn_route"]
 
 # distinct dropout sub-streams per epilogue (the bh slot of the flash hash)
 _SALT_RESID = 0x52455344
@@ -100,20 +108,24 @@ _TILE_ROWS, _TILE_COLS, _TILE_DEPTH = 16, 64, 32   # csrc/common.cuh tiles
 _MMA_HIDDEN = (128, 768)
 
 # The weight-streaming kernels (csrc/*_stream.cu) take float32-weight calls
-# of at most this many rows: the largest N at which they beat the SIMT
-# kernels in the card's alternated timings (PERF.md, findings).
-# Their widths (K2's depth and columns, K3's h, K1's h) are at most
-# _STREAM_MAX_H: a thread owns one quad of K3's output columns (256
-# threads).  K1's columns (the QKV projection's 3h) are at most
-# _LN_STREAM_MAX_COLS, 3h at that h: up to it a grid of one depth chunk a
-# block, about one block an SM, fits a block's shared memory at 64 rows.
-_STREAM_MAX_ROWS = 64
+# of a few rows, each route up to its own bound below.  Their widths (K2's
+# depth and columns, K3's h, K1's h) are at most _STREAM_MAX_H: a thread
+# owns one quad of K3's output columns (256 threads).  K1's columns (the
+# QKV projection's 3h) are at most _LN_STREAM_MAX_COLS, 3h at that h: up to
+# it a grid of one depth chunk a block, about one block an SM, fits a
+# block's shared memory at 64 rows.
 _STREAM_MAX_H = 1024
 _LN_STREAM_MAX_COLS = 3 * _STREAM_MAX_H
-# K1's weight-streaming kernel takes float32-weight calls of at most this
-# many rows: above it ln_linear_tiled is faster in the card's alternated
-# timings (PERF.md, findings)
+# The most rows of a float32-weight call that each weight-streaming kernel
+# takes: above them the register-blocked kernel of its route (csrc/
+# *_tiled.cu) is faster in the card's alternated timings at GPT-125M's
+# widths (PERF.md, findings), stream against tiled, ms: K1 0.0315 / 0.0360
+# at 32 rows, 0.0461 / 0.0369 at 48; K2 0.0165 / 0.0169 at 32, 0.0210 /
+# 0.0171 at 48; K3 0.0632 / 0.0806 at 32, 0.0908 / 0.0816 at 48 (ffn_stream
+# walks N in launches of 16 rows)
 _LN_STREAM_MAX_ROWS = 32
+_RESID_STREAM_MAX_ROWS = 32
+_FFN_STREAM_MAX_ROWS = 32
 
 _c = ctypes.c_int
 _f = ctypes.c_float
@@ -415,30 +427,43 @@ def ln_linear_stream_cuda(x, w, b, g, beta, epsilon: float) -> torch.Tensor:
     return out
 
 
-# K1's register-blocked float32 kernel (csrc/ln_linear_tiled.cu): a 64 x 128
-# output tile a block of 128 threads, 16-deep slabs
+# The register-blocked float32 kernels (csrc/ln_linear_tiled.cu,
+# ffn_tiled.cu, linear_residual_tiled.cu, on the GEMM body of
+# csrc/tiled.cuh): a 64 x 128 output tile a block of 128 threads, 16-deep
+# slabs
 _TILED_ROWS, _TILED_COLS, _TILED_DEPTH = 64, 128, 16
 
 
-def _tiled_smem(h: int) -> int:
-    """Bytes of dynamic shared memory an ``ln_linear_tiled`` block takes at
-    depth h (``ptt_ln_linear_tiled_smem``): a 3-stage ring of W slabs, two
-    transposed A slabs, each row's mean and rstd, a 3-stage ring of raw x
-    slabs (sized for float32), and g and beta as float32."""
+def _tiled_raw_smem() -> int:
+    """Bytes of dynamic shared memory a block of a tiled kernel whose A is
+    taken as it is takes at any depth (``linear_residual_tiled``, the down
+    pass of ``ffn_tiled``; ``ptt_linear_residual_tiled_smem``): a 3-stage
+    ring of W slabs, two transposed A slabs and a 3-stage ring of raw A
+    slabs (sized for float32)."""
     return 4 * (3 * _TILED_DEPTH * _TILED_COLS + 2 * _TILED_DEPTH * _TILED_ROWS
-                + 2 * _TILED_ROWS + 3 * _TILED_ROWS * _TILED_DEPTH + 2 * h)
+                + 3 * _TILED_ROWS * _TILED_DEPTH)
+
+
+def _tiled_smem(h: int) -> int:
+    """Bytes of dynamic shared memory a block of a tiled kernel with the
+    LayerNorm prologue takes at depth h (``ln_linear_tiled``, the up pass
+    of ``ffn_tiled``; ``ptt_ln_linear_tiled_smem``): the raw body's
+    (:func:`_tiled_raw_smem`), each row's mean and rstd, and g and beta as
+    float32."""
+    return _tiled_raw_smem() + 4 * (2 * _TILED_ROWS + 2 * h)
 
 
 def _tiled_splits(sms: int, n: int, k: int, cols: int) -> int:
-    """Depth chunks of ``ln_linear_tiled``: the blocks of a thread-block
-    cluster that split each 64 x 128 output tile's depth, their partials
-    summed through distributed shared memory.  The most that keep the
-    blocks at no more than 2.5 an SM (the card holds 3; every block repeats
-    its rows' LN statistics, so more chunks cost more), at most 8 (a
-    portable cluster), and at least 4 slabs of 16 a chunk: 1 at generate's
-    4096 rows, 2 at serving's 512, up to 8 for the smaller prefill buckets
-    (where a sweep of 1-8 at 64-1024 rows on the card found the best;
-    PERF.md, findings)."""
+    """Depth chunks of a tiled kernel's pass of N=n rows over a (k, cols)
+    W: the blocks of a thread-block cluster that split each 64 x 128 output
+    tile's depth, their partials summed through distributed shared memory.
+    The most that keep the blocks at no more than 2.5 an SM (the card holds
+    3; more chunks cost more: each block of an LN pass repeats its rows'
+    statistics, and every chunk adds a partial to the sum), at most 8 (a
+    portable cluster), and at least 4 slabs of 16 a chunk.  K1 at
+    GPT-125M's QKV projection: 1 at generate's 4096 rows, 2 at serving's
+    512, up to 8 for the smaller prefill buckets (where a sweep of 1-8 at
+    64-1024 rows on the card found the best; PERF.md, findings)."""
     tiles = -(-n // _TILED_ROWS) * -(-cols // _TILED_COLS)
     return max(1, min(_STREAM_MAX_CLUSTER, 5 * sms // (2 * tiles),
                       -(-k // _TILED_DEPTH) // 4))
@@ -568,20 +593,25 @@ def linear_residual_route(x: torch.Tensor, w: torch.Tensor) -> str:
     (``csrc/linear_residual_mma.cu``, bf16 tensor cores) when ``w`` (k,
     cols) is bfloat16 with k one of ``_MMA_HIDDEN``, cols a multiple of 8
     and a 16-byte aligned start, and ``x`` (N, k) is bfloat16 and 16-byte
-    aligned; ``"linear_residual_stream"``
-    (``csrc/linear_residual_stream.cu``, float32 weight streaming) when
-    ``w`` is float32 with k and cols at most ``_STREAM_MAX_H``, cols a
-    multiple of 4 and a 16-byte aligned start, and N is at most
-    ``_STREAM_MAX_ROWS``; ``"linear_residual"``
-    (``csrc/linear_residual.cu``, float32 on the CUDA cores) for every
-    other call.  ``x`` and ``r`` may be float32 or bfloat16 on the last
-    two."""
+    aligned; for a float32 ``w`` with cols a multiple of 4 and a 16-byte
+    aligned start, ``"linear_residual_stream"``
+    (``csrc/linear_residual_stream.cu``, float32 weight streaming) at N at
+    most ``_RESID_STREAM_MAX_ROWS`` with k and cols at most
+    ``_STREAM_MAX_H``, and otherwise ``"linear_residual_tiled"``
+    (``csrc/linear_residual_tiled.cu``, register-blocked float32) when k
+    is a multiple of 8 (x's rows then move in 16-byte copies);
+    ``"linear_residual"`` (``csrc/linear_residual.cu``, the SIMT float32
+    kernel) for every other call.  ``x`` and ``r`` may be float32 or
+    bfloat16 on the last three."""
     if (_bf16_operand(w) and w.shape[0] in _MMA_HIDDEN
             and _bf16_operand(x)):
         return "linear_residual_mma"
-    if (x.shape[0] <= _STREAM_MAX_ROWS and _stream_weight(w)
-            and max(w.shape) <= _STREAM_MAX_H):
-        return "linear_residual_stream"
+    if _stream_weight(w):
+        if (x.shape[0] <= _RESID_STREAM_MAX_ROWS
+                and max(w.shape) <= _STREAM_MAX_H):
+            return "linear_residual_stream"
+        if w.shape[0] % 8 == 0:
+            return "linear_residual_tiled"
     return "linear_residual"
 
 
@@ -652,6 +682,47 @@ def linear_residual_stream_cuda(x, w, b, r, seed: int = 0,
     return out
 
 
+def linear_residual_tiled_cuda(x, w, b, r, seed: int = 0,
+                               dropout_p: float = 0.0,
+                               salt: int = _SALT_RESID) -> torch.Tensor:
+    """K2 by the register-blocked float32 kernel
+    (``csrc/linear_residual_tiled.cu``), for the calls that
+    :func:`linear_residual_route` sends there; as
+    :func:`linear_residual_cuda`.  One launch of the GEMM body of
+    ``csrc/tiled.cuh`` with x taken as it is; the depth of a tile is split
+    over :func:`_tiled_splits` blocks of a cluster, and b, the dropout and
+    r are applied in float32 with one rounding to ``r``'s dtype.  Any N."""
+    name = "linear_residual_tiled"
+    dev = _kernels.require_cuda(name, x, w, b, r)
+    n, k, cols = _check_linear_residual_shapes(name, x, w, b, r)
+    enforce(_stream_weight(w) and k % 8 == 0,
+            f"{name}: takes a float32 w with k a multiple of 8, cols a "
+            f"multiple of 4 and a 16-byte aligned start; got {w.dtype} "
+            f"{tuple(w.shape)}")
+    smem = _kernels.bind(name, "ptt_linear_residual_tiled_smem", [])()
+    enforce(smem == _tiled_raw_smem(),
+            f"{name}: {smem} bytes of shared memory a block (the wrapper "
+            f"counts {_tiled_raw_smem()})")
+    out = torch.empty((n, cols), dtype=r.dtype, device=dev)
+    if n == 0:
+        return out
+    if x.data_ptr() % 16:
+        # a view that starts inside its storage: x's rows move in 16-byte
+        # copies, so they must start on a 16-byte boundary
+        x = x.clone()
+    fn = _kernels.bind(name, "ptt_linear_residual_tiled",
+                       [_p, _c, _p, _p, _c, _p, _c, _p, _c, _c, _c, _c,
+                        _u, _u, _f, _f, _p])
+    cluster = _tiled_splits(_kernels.sm_count(dev), n, k, cols)
+    cd, pt = _kernels.dtype_code, _kernels.ptr
+    rc = fn(pt(x), cd(x), pt(w), pt(b), cd(b), pt(r), cd(r), pt(out), n, k,
+            cols, cluster, int(seed) & _M32, int(salt) & _M32,
+            *_drop_args(dropout_p), _kernels.stream(dev))
+    _kernels.check(rc, name)
+    _kernels.launches[name] += 1
+    return out
+
+
 def linear_residual_cuda(x, w, b, r, seed: int = 0, dropout_p: float = 0.0,
                          salt: int = _SALT_RESID) -> torch.Tensor:
     """K2 on the card: ``x`` (N, k), ``w`` (k, cols), ``r`` (N, cols);
@@ -659,13 +730,16 @@ def linear_residual_cuda(x, w, b, r, seed: int = 0, dropout_p: float = 0.0,
     and ``salt`` over the global (row, col) when ``dropout_p > 0``.  The
     kernel is the one :func:`linear_residual_route` names: the tensor-core
     kernel (:func:`linear_residual_mma_cuda`), the weight-streaming one
-    (:func:`linear_residual_stream_cuda`) or the SIMT float32 one
+    (:func:`linear_residual_stream_cuda`), the register-blocked float32 one
+    (:func:`linear_residual_tiled_cuda`) or the SIMT float32 one
     (:func:`linear_residual_simt_cuda`)."""
     route = linear_residual_route(x, w)
     if route == "linear_residual_mma":
         return linear_residual_mma_cuda(x, w, b, r, seed, dropout_p, salt)
     if route == "linear_residual_stream":
         return linear_residual_stream_cuda(x, w, b, r, seed, dropout_p, salt)
+    if route == "linear_residual_tiled":
+        return linear_residual_tiled_cuda(x, w, b, r, seed, dropout_p, salt)
     return linear_residual_simt_cuda(x, w, b, r, seed, dropout_p, salt)
 
 
@@ -809,6 +883,15 @@ def _ffn_stream_takes(w1: torch.Tensor, w2: torch.Tensor, n: int) -> bool:
             and _ffn_stream_scratch_fits(1, min(n, _STREAM_ROWS), h, ffn))
 
 
+def _ffn_tiled_takes(w1: torch.Tensor, w2: torch.Tensor) -> bool:
+    """What ``ffn_tiled`` can take: float32 ``w1`` (h, ffn) and ``w2``
+    (ffn, h), both 16-byte aligned, h a multiple of 8 (x's rows move in
+    16-byte copies) and ffn a multiple of 4 (W1's and the intermediate's
+    rows do)."""
+    return (_stream_weight(w1) and w2.dtype == torch.float32
+            and w1.shape[0] % 8 == 0 and w2.data_ptr() % 16 == 0)
+
+
 def ffn_route(w1: torch.Tensor, w2: torch.Tensor, n: int) -> str:
     """The K3 kernel a CUDA call of :func:`ffn_cuda` of N=``n`` rows
     launches, decided on the host before any launch from the weights'
@@ -818,14 +901,18 @@ def ffn_route(w1: torch.Tensor, w2: torch.Tensor, n: int) -> str:
     a multiple of 8 (16-byte rows of ``w1``) and both weights start on a
     16-byte boundary; ``"ffn_stream"`` (``csrc/ffn_stream.cu``, float32
     weight streaming) for float32 weights that :func:`_ffn_stream_takes`
-    at N at most ``_STREAM_MAX_ROWS``; ``"ffn"`` (``csrc/ffn.cu``, float32
-    on the CUDA cores) for every other call.  ``x`` may be float32 or
-    bfloat16 on each."""
+    at N at most ``_FFN_STREAM_MAX_ROWS``; ``"ffn_tiled"``
+    (``csrc/ffn_tiled.cu``, register-blocked float32) for float32 weights
+    that :func:`_ffn_tiled_takes` at any other N; ``"ffn"``
+    (``csrc/ffn.cu``, the SIMT float32 kernel) for every other call.
+    ``x`` may be float32 or bfloat16 on each."""
     if (_bf16_operand(w1) and w1.shape[0] in _MMA_HIDDEN
             and w2.dtype == torch.bfloat16 and w2.data_ptr() % 16 == 0):
         return "ffn_mma"
-    if n <= _STREAM_MAX_ROWS and _ffn_stream_takes(w1, w2, n):
+    if n <= _FFN_STREAM_MAX_ROWS and _ffn_stream_takes(w1, w2, n):
         return "ffn_stream"
+    if _ffn_tiled_takes(w1, w2):
+        return "ffn_tiled"
     return "ffn"
 
 
@@ -1018,16 +1105,70 @@ def ffn_stream_cuda(x, w1, b1, w2, b2, g, beta, seed: int = 0,
     return out
 
 
+def ffn_tiled_cuda(x, w1, b1, w2, b2, g, beta, seed: int = 0,
+                   activation: str = "gelu", dropout1: float = 0.0,
+                   dropout2: float = 0.0,
+                   epsilon: float = 1e-5) -> torch.Tensor:
+    """K3 by the register-blocked float32 kernels (``csrc/ffn_tiled.cu``),
+    for the calls that :func:`ffn_route` sends there; as :func:`ffn_cuda`.
+    Two launches of the GEMM body of ``csrc/tiled.cuh``, counted as one
+    call: the up pass (LN(x) as it stages x, then + b1, the activation and
+    ``dropout1``) writes the float32 (N, ffn) intermediate to a scratch
+    allocated here; the down pass takes it as its A and adds ``b2``,
+    ``dropout2`` and ``x``.  Each pass splits a tile's depth over
+    :func:`_tiled_splits` blocks of a cluster.  Any N."""
+    name = "ffn_tiled"
+    dev = _kernels.require_cuda(name, x, w1, b1, w2, b2, g, beta)
+    n, h, ffn = _check_ffn_shapes(name, x, w1, b1, w2, b2, g, beta)
+    enforce(_ffn_tiled_takes(w1, w2),
+            f"{name}: takes float32 weights with h a multiple of 8, ffn a "
+            f"multiple of 4 and 16-byte aligned starts; got {w1.dtype} "
+            f"{tuple(w1.shape)}, {w2.dtype}")
+    enforce(activation in ("gelu", "relu"),
+            f"{name}: unsupported activation {activation!r}")
+    smem = _kernels.bind(name, "ptt_ffn_tiled_smem", [_c, _c])
+    enforce(smem(h, 0) == _tiled_smem(h) <= _SMEM_LIMIT
+            and smem(h, 1) == _tiled_raw_smem(),
+            f"{name}: {smem(h, 0)} / {smem(h, 1)} bytes of shared memory a "
+            f"block of the up / down pass at h={h} (the wrapper counts "
+            f"{_tiled_smem(h)} / {_tiled_raw_smem()})")
+    out = torch.empty_like(x)
+    if n == 0:
+        return out
+    if x.data_ptr() % 16:
+        # a view that starts inside its storage: x's rows move in 16-byte
+        # copies, so they must start on a 16-byte boundary
+        x = x.clone()
+    fn = _kernels.bind(name, "ptt_ffn_tiled",
+                       [_p, _c, _p, _p, _c, _p, _p, _c, _p, _c, _p, _c, _p,
+                        _p, _c, _c, _c, _f, _c, _c, _c, _u, _u, _f, _f, _u,
+                        _f, _f, _p])
+    hbuf = torch.empty((n, ffn), dtype=torch.float32, device=dev)
+    sms = _kernels.sm_count(dev)
+    cd, pt = _kernels.dtype_code, _kernels.ptr
+    rc = fn(pt(x), cd(x), pt(w1), pt(b1), cd(b1), pt(w2), pt(b2), cd(b2),
+            pt(g), cd(g), pt(beta), cd(beta), pt(hbuf), pt(out), n, h, ffn,
+            float(epsilon), 0 if activation == "gelu" else 1,
+            _tiled_splits(sms, n, h, ffn), _tiled_splits(sms, n, ffn, h),
+            int(seed) & _M32, _SALT_FFN1, *_drop_args(dropout1), _SALT_FFN2,
+            *_drop_args(dropout2), _kernels.stream(dev))
+    _kernels.check(rc, name)
+    _kernels.launches[name] += 1
+    return out
+
+
 def ffn_cuda(x, w1, b1, w2, b2, g, beta, seed: int = 0,
              activation: str = "gelu", dropout1: float = 0.0,
              dropout2: float = 0.0, epsilon: float = 1e-5) -> torch.Tensor:
     """K3 on the card: ``x`` (N, h), ``w1`` (h, ffn), ``w2`` (ffn, h);
     returns (N, h) in ``x``'s dtype, with the hash dropouts of ``seed``
     (``dropout1`` after the activation, ``dropout2`` after ``+ b2``).  The
-    (N, ffn) intermediate stays on chip.  The kernel is the one
+    (N, ffn) intermediate stays on chip but on the tiled route, which
+    passes it in float32 through a scratch.  The kernel is the one
     :func:`ffn_route` names: the tensor-core kernel (:func:`ffn_mma_cuda`),
-    the weight-streaming one (:func:`ffn_stream_cuda`) or the SIMT float32
-    one (:func:`ffn_simt_cuda`)."""
+    the weight-streaming one (:func:`ffn_stream_cuda`), the register-blocked
+    float32 one (:func:`ffn_tiled_cuda`) or the SIMT float32 one
+    (:func:`ffn_simt_cuda`)."""
     args = (x, w1, b1, w2, b2, g, beta, seed, activation, dropout1, dropout2,
             epsilon)
     route = ffn_route(w1, w2, x.shape[0])
@@ -1035,6 +1176,8 @@ def ffn_cuda(x, w1, b1, w2, b2, g, beta, seed: int = 0,
         return ffn_mma_cuda(*args)
     if route == "ffn_stream":
         return ffn_stream_cuda(*args)
+    if route == "ffn_tiled":
+        return ffn_tiled_cuda(*args)
     return ffn_simt_cuda(*args)
 
 

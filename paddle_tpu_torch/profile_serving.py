@@ -35,8 +35,11 @@ _SHORT = {"paged_decode_kernel": "paged_decode (ours)",
           "linear_residual_kernel": "linear_residual (ours)",
           "linear_residual_mma_kernel": "linear_residual_mma (ours)",
           "linear_residual_stream_kernel": "linear_residual_stream (ours)",
+          "linear_residual_tiled_kernel": "linear_residual_tiled (ours)",
           "ffn_mma_kernel": "ffn_mma (ours)",
           "ffn_stream_kernel": "ffn_stream (ours)",
+          "ffn_tiled_up_kernel": "ffn_tiled up (ours)",
+          "ffn_tiled_down_kernel": "ffn_tiled down (ours)",
           "ffn_finalize_kernel": "ffn finalize (ours)",
           "ffn_kernel": "ffn (ours)",
           "flash_fwd_kernel": "flash_fwd (ours)",

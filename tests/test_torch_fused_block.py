@@ -168,8 +168,8 @@ def test_ffn_o1_bf16_flow_matches_jax(route, cast, drops):
 
 # (w1 dtype, w2 dtype, h, ffn, byte offset of w1's data, rows N, route):
 # the prefill's 4096 rows, then the decode rows and N around the stream
-# kernel's bound
-_T = tfb._STREAM_MAX_ROWS
+# kernel's bound, then the tiled kernel's rows and what it refuses
+_T = tfb._FFN_STREAM_MAX_ROWS
 ROUTES = [
     (torch.bfloat16, torch.bfloat16, 768, 3072, 0, 4096,
      "ffn_mma"),                                              # training
@@ -177,7 +177,7 @@ ROUTES = [
     (torch.bfloat16, torch.bfloat16, 768, 200, 0, 4096, "ffn_mma"),
     (torch.bfloat16, torch.bfloat16, 128, 8, 0, 4096, "ffn_mma"),
     (torch.float32, torch.float32, 768, 3072, 0, 4096,
-     "ffn"),                                      # serving, generate prefill
+     "ffn_tiled"),                                # serving, generate prefill
     (torch.bfloat16, torch.float32, 768, 3072, 0, 4096, "ffn"),
     (torch.float32, torch.bfloat16, 768, 3072, 0, 4096, "ffn"),
     (torch.float16, torch.float16, 768, 3072, 0, 4096, "ffn"),
@@ -188,12 +188,12 @@ ROUTES = [
     (torch.bfloat16, torch.bfloat16, 128, 100, 0, 4096,
      "ffn"),                                                  # ffn % 8 != 0
     (torch.bfloat16, torch.bfloat16, 128, 512, 2, 4096, "ffn"),  # misaligned
-    # the weight-streaming arm: float32 weights at N <= _STREAM_MAX_ROWS
+    # the weight-streaming arm: float32 weights at N <= _FFN_STREAM_MAX_ROWS
     (torch.float32, torch.float32, 768, 3072, 0, 8,
      "ffn_stream"),                               # serving, generate decode
     (torch.float32, torch.float32, 768, 3072, 0, 1, "ffn_stream"),
     (torch.float32, torch.float32, 768, 3072, 0, _T, "ffn_stream"),
-    (torch.float32, torch.float32, 768, 3072, 0, _T + 1, "ffn"),
+    (torch.float32, torch.float32, 768, 3072, 0, _T + 1, "ffn_tiled"),
     (torch.float32, torch.float32, 128, 512, 0, 8, "ffn_stream"),  # tiny
     (torch.float32, torch.float32, 96, 200, 0, 3, "ffn_stream"),
     (torch.bfloat16, torch.bfloat16, 768, 3072, 0, 8,
@@ -202,12 +202,31 @@ ROUTES = [
     (torch.float32, torch.bfloat16, 768, 3072, 0, 8, "ffn"),
     (torch.float32, torch.float32, 768, 3070, 0, 8, "ffn"),  # ffn % 4 != 0
     (torch.float32, torch.float32, 766, 3072, 0, 8, "ffn"),  # h % 4 != 0
-    (torch.float32, torch.float32, 1280, 5120, 0, 8, "ffn"),  # h > 1024
+    (torch.float32, torch.float32, 1280, 5120, 0, 8,
+     "ffn_tiled"),                                # h > 1024: tiled at any N
     (torch.float32, torch.float32, 768, 3072, 4, 8, "ffn"),  # misaligned
     (torch.float32, torch.float32, 768, 3072, 8, 8, "ffn"),
     (torch.float32, torch.float32, 32, 64, 0, 8,
-     "ffn"),                                      # one group's scratch > 5%
+     "ffn_tiled"),                                # one group's scratch > 5%
     (torch.float32, torch.float32, 32, 64, 0, 6, "ffn_stream"),
+    # the register-blocked arm: float32 weights above the bound (or that
+    # the stream kernel cannot take), h % 8 == 0, ffn % 4 == 0, aligned
+    (torch.float32, torch.float32, 768, 3072, 0, 512,
+     "ffn_tiled"),                                # serving's largest bucket
+    (torch.float32, torch.float32, 768, 3072, 0, 128, "ffn_tiled"),
+    (torch.float32, torch.float32, 128, 512, 0, 130, "ffn_tiled"),  # tiny
+    (torch.float32, torch.float32, 128, 512, 0, _T + 1, "ffn_tiled"),
+    (torch.float32, torch.float32, 96, 200, 0, 300, "ffn_tiled"),
+    (torch.float32, torch.float32, 1280, 5120, 0, 512, "ffn_tiled"),
+    (torch.float32, torch.float32, 100, 400, 0, 8,
+     "ffn_stream"),                               # h % 8 != 0: stream rows
+    (torch.float32, torch.float32, 100, 400, 0, 512, "ffn"),  # and SIMT
+    (torch.float32, torch.float32, 768, 3070, 0, 512,
+     "ffn"),                                      # ffn % 4 != 0
+    (torch.float32, torch.float32, 768, 3072, 4, 512, "ffn"),  # misaligned
+    (torch.float32, torch.float32, 768, 3072, 8, 4096, "ffn"),
+    (torch.bfloat16, torch.float32, 768, 3072, 0, 512, "ffn"),
+    (torch.float16, torch.float16, 768, 3072, 0, 512, "ffn"),
 ]
 
 
@@ -222,6 +241,14 @@ def test_ffn_route(w1dtype, w2dtype, h, ffn, offset, n, want):
     w2 = torch.zeros(ffn, h, dtype=w2dtype)
     assert (w1.data_ptr() % 16 == 0) == (offset == 0)
     assert tfb.ffn_route(w1, w2, n) == want
+
+
+@pytest.mark.parametrize("n,want", [(8, "ffn"), (512, "ffn")])
+def test_ffn_route_refuses_a_misaligned_w2(n, want):
+    # W2's rows move in 16-byte copies in both float32 routes
+    w1 = torch.zeros(768, 3072)
+    w2 = torch.zeros(768 * 3072 + 1)[1:].view(3072, 768)
+    assert w2.data_ptr() % 16 and tfb.ffn_route(w1, w2, n) == want
 
 
 def _weight(dtype, rows, cols, offset):
@@ -291,7 +318,9 @@ def test_ln_linear_route(wdtype, h, cols, offset, n, want):
 
 # (x dtype, w dtype, k, cols, byte offset of x's data, of w's data, rows
 # N of x, route): a prefill bucket's 512 rows, then the decode rows and N
-# around the stream kernel's bound
+# around the stream kernel's bound, then the tiled kernel's rows and what
+# it refuses
+_RT = tfb._RESID_STREAM_MAX_ROWS
 LINEAR_RESIDUAL_ROUTES = [
     (torch.bfloat16, torch.bfloat16, 768, 768, 0, 0, 512,
      "linear_residual_mma"),                              # fused training
@@ -300,9 +329,10 @@ LINEAR_RESIDUAL_ROUTES = [
     (torch.bfloat16, torch.bfloat16, 768, 200, 0, 0, 512,
      "linear_residual_mma"),
     (torch.float32, torch.float32, 768, 768, 0, 0, 512,
-     "linear_residual"),                         # serving, generate prefill
+     "linear_residual_tiled"),                   # serving, generate prefill
     (torch.float32, torch.bfloat16, 768, 768, 0, 0, 512, "linear_residual"),
-    (torch.bfloat16, torch.float32, 768, 768, 0, 0, 512, "linear_residual"),
+    (torch.bfloat16, torch.float32, 768, 768, 0, 0, 512,
+     "linear_residual_tiled"),                   # the cache dtype's x
     (torch.float16, torch.float16, 768, 768, 0, 0, 512, "linear_residual"),
     (torch.bfloat16, torch.bfloat16, 96, 96, 0, 0, 512,
      "linear_residual"),                                  # k not built
@@ -314,15 +344,16 @@ LINEAR_RESIDUAL_ROUTES = [
     (torch.bfloat16, torch.bfloat16, 768, 768, 2, 0, 512,
      "linear_residual"),                                  # x misaligned
     (torch.bfloat16, torch.bfloat16, 128, 128, 8, 0, 512, "linear_residual"),
-    # the weight-streaming arm: a float32 w at N <= _STREAM_MAX_ROWS, x and
-    # r of either dtype
+    # the weight-streaming arm: a float32 w at N <= _RESID_STREAM_MAX_ROWS,
+    # x and r of either dtype
     (torch.float32, torch.float32, 768, 768, 0, 0, 8,
      "linear_residual_stream"),                   # serving, generate decode
     (torch.float32, torch.float32, 768, 768, 0, 0, 1,
      "linear_residual_stream"),
-    (torch.float32, torch.float32, 768, 768, 0, 0, _T,
+    (torch.float32, torch.float32, 768, 768, 0, 0, _RT,
      "linear_residual_stream"),
-    (torch.float32, torch.float32, 768, 768, 0, 0, _T + 1, "linear_residual"),
+    (torch.float32, torch.float32, 768, 768, 0, 0, _RT + 1,
+     "linear_residual_tiled"),
     (torch.bfloat16, torch.float32, 768, 768, 2, 0, 8,
      "linear_residual_stream"),                   # x is read element-wise
     (torch.float32, torch.float32, 96, 200, 4, 0, 3,
@@ -335,9 +366,31 @@ LINEAR_RESIDUAL_ROUTES = [
     (torch.float32, torch.float32, 768, 768, 0, 4, 8,
      "linear_residual"),                                  # w misaligned
     (torch.float32, torch.float32, 2048, 768, 0, 0, 8,
-     "linear_residual"),                                  # k > 1024
+     "linear_residual_tiled"),                # k > 1024: tiled at any N
     (torch.float32, torch.float32, 768, 2048, 0, 0, 8,
-     "linear_residual"),                                  # cols > 1024
+     "linear_residual_tiled"),                            # cols > 1024
+    # the register-blocked arm: a float32 w above the bound (or that the
+    # stream kernel cannot take), k % 8 == 0, cols % 4 == 0, w aligned; x
+    # of either dtype at any address (a misaligned x is copied)
+    (torch.float32, torch.float32, 768, 768, 0, 0, 4096,
+     "linear_residual_tiled"),                            # generate prefill
+    (torch.float32, torch.float32, 768, 768, 0, 0, 128,
+     "linear_residual_tiled"),
+    (torch.bfloat16, torch.float32, 768, 768, 2, 0, 512,
+     "linear_residual_tiled"),
+    (torch.float32, torch.float32, 128, 128, 0, 0, 130,
+     "linear_residual_tiled"),                            # gpt_tiny
+    (torch.float32, torch.float32, 96, 200, 4, 0, 300,
+     "linear_residual_tiled"),
+    (torch.float32, torch.float32, 100, 200, 0, 0, 8,
+     "linear_residual_stream"),               # k % 8 != 0: stream rows
+    (torch.float32, torch.float32, 100, 200, 0, 0, 512,
+     "linear_residual"),                                  # and SIMT
+    (torch.float32, torch.float32, 768, 766, 0, 0, 512,
+     "linear_residual"),                                  # cols % 4 != 0
+    (torch.float32, torch.float32, 768, 768, 0, 4, 512,
+     "linear_residual"),                                  # w misaligned
+    (torch.float16, torch.float32, 768, 768, 0, 8, 4096, "linear_residual"),
 ]
 
 
@@ -533,6 +586,63 @@ def test_ln_linear_tiled_splits(monkeypatch, sms, n, k, cols, want):
     assert 3 * tfb._tiled_smem(768) <= tfb._SMEM_LIMIT
 
 
+# (SMs, N, h, ffn, depth chunks of the up pass, of the down pass): K3's
+# two tiled passes, each split by depth over a cluster by _tiled_splits
+# (the up pass over h into ffn columns, the down pass over ffn into h)
+FFN_TILED_SPLITS = [
+    (132, 4096, 768, 3072, 1, 1),   # generate's prefill: 1,536 / 384 tiles
+    (132, 1024, 768, 3072, 1, 3),
+    (132, 512, 768, 3072, 1, 6),    # serving's largest bucket: 192 / 48
+    (132, 256, 768, 3072, 3, 8),
+    (132, 128, 768, 3072, 6, 8),
+    (132, 65, 768, 3072, 6, 8),     # the first N above the stream bound
+    (114, 512, 768, 3072, 1, 5),
+    (132, 130, 128, 512, 2, 8),     # gpt_tiny: at least 4 slabs of 16
+]
+
+
+@pytest.mark.parametrize("sms,n,h,ffn,up,down", FFN_TILED_SPLITS)
+def test_ffn_tiled_splits(sms, n, h, ffn, up, down):
+    assert tfb._tiled_splits(sms, n, h, ffn) == up
+    assert tfb._tiled_splits(sms, n, ffn, h) == down
+    for k, cols, got in ((h, ffn, up), (ffn, h, down)):
+        tiles = -(-n // tfb._TILED_ROWS) * -(-cols // tfb._TILED_COLS)
+        slabs = -(-k // tfb._TILED_DEPTH)
+        assert 1 <= got <= tfb._STREAM_MAX_CLUSTER
+        assert (got - 1) * -(-slabs // got) < slabs
+        assert got == 1 or 2 * tiles * got <= 5 * sms
+
+
+# (SMs, N, k, cols, depth chunks): K2's tiled kernel
+RESID_TILED_SPLITS = [
+    (132, 4096, 768, 768, 1),       # generate's prefill: 384 tiles
+    (132, 512, 768, 768, 6),        # serving's largest bucket: 48 tiles
+    (132, 256, 768, 768, 8),
+    (132, 65, 768, 768, 8),
+    (114, 512, 768, 768, 5),
+    (132, 130, 128, 128, 2),        # gpt_tiny: 8 slabs, 4 a chunk
+    (132, 512, 40, 200, 1),         # fewer than 4 slabs: no split
+]
+
+
+@pytest.mark.parametrize("sms,n,k,cols,want", RESID_TILED_SPLITS)
+def test_linear_residual_tiled_splits(sms, n, k, cols, want):
+    assert tfb._tiled_splits(sms, n, k, cols) == want
+
+
+def test_tiled_smem_formulas():
+    # the wrappers check the libraries' counts against these (ptt_*_smem):
+    # the raw body (K2, K3's down pass) is the LN body (K1, K3's up pass)
+    # without the rows' statistics and g / beta; three blocks of either
+    # fit an SM at GPT-125M's h, and the drained ring holds a tile's
+    # float32 partial for the depth split
+    raw = tfb._tiled_raw_smem()
+    assert raw == 4 * (3 * 16 * 128 + 2 * 16 * 64 + 3 * 64 * 16) == 45056
+    assert tfb._tiled_smem(768) == raw + 4 * (2 * 64 + 2 * 768)
+    assert 3 * tfb._tiled_smem(768) <= tfb._SMEM_LIMIT
+    assert 4 * (3 * 16 * 128 + 2 * 16 * 64) >= 4 * 64 * 128
+
+
 @pytest.mark.parametrize("seed", [0, 7, 123456789, -5, 2 ** 31 - 1])
 @pytest.mark.parametrize("salt", [tfb._SALT_RESID, tfb._SALT_FFN1,
                                   tfb._SALT_FFN2, 3])
@@ -637,7 +747,8 @@ def test_cpu_tensors_take_plain_versions():
                                      "ffn_simt", "linear_residual_stream",
                                      "linear_residual_simt",
                                      "ln_linear_stream", "ln_linear_tiled",
-                                     "ln_linear_simt"])
+                                     "ln_linear_simt", "ffn_tiled",
+                                     "linear_residual_tiled"])
 def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     x, p = _t(_x().reshape(-1, 128)), {k: _t(v) for k, v in
                                        _params().items()}
@@ -674,6 +785,10 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
             "ln_linear_tiled": lambda: tfb.ln_linear_tiled_cuda(
                 x, p["qkv_w"], p["qkv_b"], p["g"], p["beta"], EPS),
             "ln_linear_simt": lambda: tfb.ln_linear_simt_cuda(
-                x, p["qkv_w"], p["qkv_b"], p["g"], p["beta"], EPS)}[wrapper]
+                x, p["qkv_w"], p["qkv_b"], p["g"], p["beta"], EPS),
+            "ffn_tiled": lambda: tfb.ffn_tiled_cuda(
+                x, p["w1"], p["b1"], p["w2"], p["b2"], p["g"], p["beta"]),
+            "linear_residual_tiled": lambda: tfb.linear_residual_tiled_cuda(
+                x, p["out_w"], p["out_b"], x)}[wrapper]
     with pytest.raises(ValueError, match="must be on"):
         call()

@@ -404,13 +404,13 @@ def test_ffn_mma_repeats_exactly(dev, n, d2):
 
 
 @pytest.mark.parametrize("wdtype,h,ffn", [
-    (torch.float32, 768, 3072),       # serving and generate: float32
+    (torch.float32, 100, 400),        # float32, h not a multiple of 8
     (torch.bfloat16, 96, 200),        # h without an instantiation
     (torch.bfloat16, 128, 100)])      # ffn rows of w1 not 16-byte aligned
 def test_ffn_route_keeps_the_simt_kernel(dev, wdtype, h, ffn):
     # rows above the stream kernels' bound (below it float32 weights take
-    # ffn_stream)
-    n = fb._STREAM_MAX_ROWS + 1
+    # ffn_stream; above it ffn_tiled, where h % 8 == 0)
+    n = fb._FFN_STREAM_MAX_ROWS + 1
     x = _t(dev, n, h, dtype=torch.bfloat16, seed=9)
     w1, b1, w2, b2, g, beta = _mma_params(dev, h, ffn)
     w1, w2 = w1.to(wdtype), w2.to(wdtype)
@@ -575,15 +575,16 @@ def test_ln_linear_route_keeps_the_simt_kernel(dev, case):
 
 
 @pytest.mark.parametrize("xdtype,wdtype,k", [
-    (torch.float32, torch.float32, 768),      # serving and generate
+    (torch.float32, torch.float32, 100),      # float32, k % 8 != 0
     (torch.float32, torch.bfloat16, 768),     # x not bf16
-    (torch.bfloat16, torch.float32, 768),
+    (torch.bfloat16, torch.float32, 100),
     (torch.bfloat16, torch.bfloat16, 96)])    # k without an instantiation
 def test_linear_residual_route_keeps_the_simt_kernel(dev, xdtype, wdtype, k):
     # rows above the stream kernels' bound (below it a float32 w takes
-    # linear_residual_stream)
-    x, w, b, r = _linear_residual_inputs(dev, fb._STREAM_MAX_ROWS + 1, k, k,
-                                         torch.bfloat16)
+    # linear_residual_stream; above it linear_residual_tiled, where k % 8
+    # == 0)
+    x, w, b, r = _linear_residual_inputs(dev, fb._RESID_STREAM_MAX_ROWS + 1,
+                                         k, k, torch.bfloat16)
     x, w = x.to(xdtype), w.to(wdtype)
     assert fb.linear_residual_route(x, w) == "linear_residual"
     before = dict(_kernels.launches)
@@ -617,7 +618,8 @@ def test_ln_linear_and_linear_residual_mma_refuse_what_they_cannot_take(dev):
 # (a bf16 one), with and without dropout; with a residual of 2^-40 the
 # addend alone within the same tolerance of its own range and its dropped
 # elements exactly the hash mask's
-STREAM_ROWS = sorted({1, 3, 8, 17, fb._STREAM_MAX_ROWS, 64})
+STREAM_ROWS = sorted({1, 3, 8, 17, fb._FFN_STREAM_MAX_ROWS,
+                      fb._RESID_STREAM_MAX_ROWS, 64})
 STREAM_WIDTHS = [(768, 3072), (96, 200)]
 
 
@@ -645,7 +647,7 @@ def test_ffn_stream(dev, n, h, ffn, xdtype, drops):
     x = _t(dev, n, h, dtype=xdtype, seed=37)
     params = _stream_params(dev, h, ffn)
     assert (fb.ffn_route(params[0], params[2], n) == "ffn_stream") == (
-        n <= fb._STREAM_MAX_ROWS)
+        n <= fb._FFN_STREAM_MAX_ROWS)
     before = dict(_kernels.launches)
     out = fb.ffn_stream_cuda(x, *params, 5, "gelu", *drops, EPS)
     assert _kernels.launches["ffn_stream"] == (
@@ -701,7 +703,7 @@ def test_linear_residual_stream(dev, n, k, cols, xdtype, rdtype, p):
                                                    seed=41)
     r = _t(dev, n, cols, dtype=rdtype, seed=42)
     assert (fb.linear_residual_route(x, w) == "linear_residual_stream") == (
-        n <= fb._STREAM_MAX_ROWS)
+        n <= fb._RESID_STREAM_MAX_ROWS)
     args = (77, p, fb._SALT_RESID)
     before = dict(_kernels.launches)
     out = fb.linear_residual_stream_cuda(x, w, b, r, *args)
@@ -918,6 +920,184 @@ def test_ln_linear_stream_under_graph_replay(dev):
     assert torch.equal(eager, first) and torch.equal(eager, holder["out"])
 
 
+# K3's and K2's register-blocked routes (csrc/ffn_tiled.cu,
+# csrc/linear_residual_tiled.cu, on the GEMM body of csrc/tiled.cuh):
+# float32 weights above the stream bounds.  Rows: the first above the
+# bounds, ragged row tiles (100, 300, 1000), serving's buckets (128, 512)
+# and generate's prefill (4096); GPT-125M's widths, gpt_tiny's and a ragged
+# column tile (96 / 200).  float32 FMA as the plain version's float32
+# matmul: within F32_TOL for a float32 output, one bf16 unit for a bf16
+# one; with a residual of 2^-40 the addend alone within the same, and its
+# dropped elements exactly the hash mask's
+TILED_ROWS = (max(fb._FFN_STREAM_MAX_ROWS, fb._RESID_STREAM_MAX_ROWS) + 1,
+              65, 100, 128, 300, 512, 1000, 4096)
+TILED_WIDTHS = [(768, 3072), (128, 512), (96, 200)]
+
+
+def _launched(before, names, name):
+    """Launches of each of ``names`` since ``before``: one of ``name``."""
+    return {q: _kernels.launches[q] - before[q] for q in names} == {
+        q: int(q == name) for q in names}
+
+
+@pytest.mark.parametrize("n,h,ffn", [
+    (n, h, ffn) for n in TILED_ROWS for h, ffn in TILED_WIDTHS
+    if n < 4096 or h == 768])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("drops", [(0.0, 0.0), (0.2, 0.1)])
+def test_ffn_tiled(dev, n, h, ffn, xdtype, drops):
+    x = _t(dev, n, h, dtype=xdtype, seed=60)
+    params = _stream_params(dev, h, ffn)
+    assert fb.ffn_route(params[0], params[2], n) == "ffn_tiled"
+    before = dict(_kernels.launches)
+    out = fb.ffn_cuda(x, *params, 5, "gelu", *drops, EPS)
+    assert _launched(before, ("ffn", "ffn_mma", "ffn_stream", "ffn_tiled"),
+                     "ffn_tiled")
+    again = fb.ffn_cuda(x, *params, 5, "gelu", *drops, EPS)
+    ref = fb.ffn_reference(x, *params, 5, "gelu", *drops, EPS)
+    assert out.dtype == xdtype and out.shape == (n, h)
+    assert float((out.float() - ref.float()).abs().max()) <= _tol(ref, xdtype)
+    assert torch.equal(out, again)           # no atomics: the same bits
+    tiny = (x.float() * TINY).to(xdtype)
+    got = fb.ffn_tiled_cuda(tiny, *params, 5, "gelu", *drops, TINY_EPS)
+    want = fb.ffn_reference(tiny, *params, 5, "gelu", *drops, TINY_EPS)
+    assert float((got.float() - want.float()).abs().max()) <= _tol(want,
+                                                                   xdtype)
+    if drops[1] > 0.0:
+        keep = fb._keep_mask(5, fb._SALT_FFN2, torch.arange(n)[:, None],
+                             torch.arange(h)[None, :], drops[1])
+        assert torch.equal(_dropped(got, tiny), ~keep)
+        assert torch.equal(_dropped(want, tiny), ~keep)
+
+
+@pytest.mark.parametrize("n", [65, 300, 4096])
+@pytest.mark.parametrize("h,ffn", [(768, 3072), (128, 128), (128, 200)])
+def test_ffn_tiled_dropout1_mask(dev, n, h, ffn):
+    # W2 = the (ffn, h) identity and b2 = 0: the output is x + the
+    # activation of the ffn columns below h, so with a residual of 2^-40 the
+    # elements equal to it are exactly drop1's dropped ones
+    w1, b1, _, _, g, beta = _stream_params(dev, h, ffn)
+    w2 = torch.eye(ffn, h, device=dev)
+    b2 = torch.zeros(h, device=dev)
+    tiny = (_t(dev, n, h, seed=61) * TINY).to(torch.bfloat16)
+    got = fb.ffn_tiled_cuda(tiny, w1, b1, w2, b2, g, beta, 21, "gelu", 0.3,
+                            0.0, TINY_EPS)
+    want = fb.ffn_reference(tiny, w1, b1, w2, b2, g, beta, 21, "gelu", 0.3,
+                            0.0, TINY_EPS)
+    cols = min(h, ffn)
+    keep = fb._keep_mask(21, fb._SALT_FFN1, torch.arange(n)[:, None],
+                         torch.arange(cols)[None, :], 0.3)
+    assert torch.equal(_dropped(got, tiny)[:, :cols], ~keep)
+    assert torch.equal(_dropped(want, tiny)[:, :cols], ~keep)
+    assert float((got.float() - want.float()).abs().max()) <= _bf16_tol(want)
+
+
+@pytest.mark.parametrize("n", TILED_ROWS)
+@pytest.mark.parametrize("k,cols", [(768, 768), (128, 128), (96, 200)])
+@pytest.mark.parametrize("xdtype,rdtype", [
+    (torch.bfloat16, torch.bfloat16),         # serving and generate
+    (torch.float32, torch.bfloat16), (torch.float32, torch.float32)])
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_linear_residual_tiled(dev, n, k, cols, xdtype, rdtype, p):
+    x = _t(dev, n, k, dtype=xdtype, seed=62)
+    w, b = _t(dev, k, cols, std=0.02, seed=63), _t(dev, cols, std=0.02,
+                                                   seed=64)
+    r = _t(dev, n, cols, dtype=rdtype, seed=65)
+    assert fb.linear_residual_route(x, w) == "linear_residual_tiled"
+    args = (77, p, fb._SALT_RESID)
+    before = dict(_kernels.launches)
+    out = fb.linear_residual_cuda(x, w, b, r, *args)
+    assert _launched(before, ("linear_residual", "linear_residual_mma",
+                              "linear_residual_stream",
+                              "linear_residual_tiled"),
+                     "linear_residual_tiled")
+    again = fb.linear_residual_cuda(x, w, b, r, *args)
+    ref = fb.linear_residual_reference(x, w, b, r, *args)
+    assert out.dtype == rdtype and out.shape == (n, cols)
+    assert float((out.float() - ref.float()).abs().max()) <= _tol(ref, rdtype)
+    assert torch.equal(out, again)
+    tiny = (r.float() * TINY).to(rdtype)
+    got = fb.linear_residual_tiled_cuda(x, w, b, tiny, *args)
+    want = fb.linear_residual_reference(x, w, b, tiny, *args)
+    assert float((got.float() - want.float()).abs().max()) <= _tol(want,
+                                                                   rdtype)
+    if p > 0.0:
+        keep = fb._keep_mask(77, fb._SALT_RESID, torch.arange(n)[:, None],
+                             torch.arange(cols)[None, :], p)
+        assert torch.equal(_dropped(got, tiny), ~keep)
+        assert torch.equal(_dropped(want, tiny), ~keep)
+
+
+def test_linear_residual_tiled_copies_a_misaligned_x(dev):
+    # a view of the attention output that starts 2 bytes into its storage
+    x = torch.empty(130 * 768 + 1, dtype=torch.bfloat16,
+                    device=dev)[1:].view(130, 768).copy_(
+                        _t(dev, 130, 768, seed=66))
+    w, b = _t(dev, 768, 768, std=0.02, seed=67), _t(dev, 768, std=0.02)
+    r = _t(dev, 130, 768, dtype=torch.bfloat16, seed=68)
+    assert x.data_ptr() % 16
+    out = fb.linear_residual_tiled_cuda(x, w, b, r)
+    ref = fb.linear_residual_reference(x, w, b, r)
+    assert float((out.float() - ref.float()).abs().max()) <= _bf16_tol(ref)
+
+
+@pytest.mark.parametrize("n", [128, 512])
+def test_tiled_addend_checks_reject_a_bias_left_out(dev, n):
+    # the addend checks above see a fault of the bias's size: K3 without b1
+    # and K2 without b lie outside one bf16 unit of the addend's range
+    h, ffn = 768, 3072
+    w1, b1, w2, b2, g, beta = _stream_params(dev, h, ffn)
+    tiny = (_t(dev, n, h, seed=69) * TINY).to(torch.bfloat16)
+    want = fb.ffn_reference(tiny, w1, b1, w2, b2, g, beta, 3, "gelu", 0.0,
+                            0.1, TINY_EPS)
+    bad = fb.ffn_tiled_cuda(tiny, w1, torch.zeros_like(b1), w2, b2, g, beta,
+                            3, "gelu", 0.0, 0.1, TINY_EPS)
+    assert float((bad.float() - want.float()).abs().max()) > _bf16_tol(want)
+    x, w = _t(dev, n, h, seed=70), _t(dev, h, h, std=0.02, seed=71)
+    b = _t(dev, h, std=0.02, seed=72)
+    want = fb.linear_residual_reference(x, w, b, tiny, 3, 0.1)
+    bad = fb.linear_residual_tiled_cuda(x, w, torch.zeros_like(b), tiny, 3,
+                                        0.1)
+    assert float((bad.float() - want.float()).abs().max()) > _bf16_tol(want)
+
+
+def test_tiled_smem_counts_match_the_libraries(dev):
+    import ctypes
+    k3 = _kernels.bind("ffn_tiled", "ptt_ffn_tiled_smem",
+                       [ctypes.c_int, ctypes.c_int])
+    k2 = _kernels.bind("linear_residual_tiled",
+                       "ptt_linear_residual_tiled_smem", [])
+    for h in (128, 768, 1000):
+        assert k3(h, 0) == fb._tiled_smem(h)
+        assert k3(h, 1) == k2() == fb._tiled_raw_smem()
+
+
+def test_tiled_kernels_refuse_what_they_cannot_take(dev):
+    w1, b1, w2, b2, g, beta = _stream_params(dev, 768, 3072)
+    x = _t(dev, 128, 768, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="ffn_tiled: takes float32"):
+        fb.ffn_tiled_cuda(x, w1.bfloat16(), b1, w2.bfloat16(), b2, g, beta)
+    w = torch.empty(768 * 768 + 1, device=dev)[1:].view(768, 768)
+    with pytest.raises(ValueError, match="linear_residual_tiled: takes"):
+        fb.linear_residual_tiled_cuda(x, w, b2, x)
+    w100 = _t(dev, 100, 768, std=0.02)
+    with pytest.raises(ValueError, match="linear_residual_tiled: takes"):
+        fb.linear_residual_tiled_cuda(x[:, :100].contiguous(), w100, b2, x)
+
+
+def test_ln_linear_tiled_bits_unchanged(dev):
+    # the K1 kernel rebuilt on tiled.cuh gives the bits of the kernel
+    # before its body moved there (chip_smoke.LN_TILED_DIGESTS)
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    got = smoke.ln_tiled_bits(torch, np, dev)
+    assert got == {k: smoke.LN_TILED_DIGESTS[k] for k in got}
+
+
 def test_o1_fused_training_step_takes_ffn_mma(dev):
     # gpt_tiny (h = 128, ffn = 512) fused, under O1: K1, K2 and K3 run on
     # the tensor cores once per layer; the float32 step above keeps the
@@ -933,7 +1113,7 @@ def test_o1_fused_training_step_takes_ffn_mma(dev):
     for name in ("ffn_mma", "ln_linear_mma", "linear_residual_mma"):
         assert _kernels.launches[name] == 3 * cfg.num_layers, name
     for name in ("ffn", "ln_linear", "linear_residual", "ln_linear_stream",
-                 "ln_linear_tiled"):
+                 "ln_linear_tiled", "ffn_tiled", "linear_residual_tiled"):
         assert _kernels.launches[name] == 0, name
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
 
@@ -969,10 +1149,10 @@ def test_fused_block_on_card_matches_cpu(dev, s):
         results.append([y.detach().cpu(), x.grad.cpu()]
                        + [p.grad.cpu() for p in ps])
         if device == dev:
-            # float32 weights at 128 / 200 rows: K1's tiled kernel, the
-            # SIMT K2 and K3
-            assert launched == {"ln_linear_tiled", "linear_residual", "ffn",
-                                "flash_fwd", "flash_dkdv", "flash_dq"}
+            # float32 weights at 128 / 200 rows: the tiled K1-K3
+            assert launched == {"ln_linear_tiled", "linear_residual_tiled",
+                                "ffn_tiled", "flash_fwd", "flash_dkdv",
+                                "flash_dq"}
         else:
             assert not launched
     for i, (a, b) in enumerate(zip(*results)):
@@ -1013,8 +1193,8 @@ def test_fused_training_step_on_card_matches_cpu(dev):
     for k, ref in g_cpu.items():
         assert float((g_gpu[k] - ref).abs().max()) <= (
             1e-4 * float(ref.abs().max()) + 1e-6), k
-    for name in ("ln_linear_tiled", "linear_residual", "ffn", "flash_fwd",
-                 "flash_dkdv", "flash_dq"):
+    for name in ("ln_linear_tiled", "linear_residual_tiled", "ffn_tiled",
+                 "flash_fwd", "flash_dkdv", "flash_dq"):
         assert n_gpu[name] == cfg.num_layers, name
     assert not any(n_cpu.values())
 
