@@ -97,6 +97,33 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               Beforehand, a float32 run on a small input is held against
               the same model on the CPU (plain versions): tokens identical,
               logits within 1e-3;
+  (c1b) serving lifecycle  the same workload through the engine's
+              request lifecycle.  (i) bf16, NaN guard on, a run_dir:
+              request 2 raises on its decode steps (bisection probes run
+              paged decode and the stream K1-K3 on pad rows), request 5
+              gives NaN logits, request 6 is cancelled after its 4th
+              token, the clock passes request 7's deadline mid-run, and
+              the pool is defragmented whenever a finish leaves it
+              non-compact: requests 0, 1, 3 and 4 must give (c)'s tokens
+              exactly, every reason must be the one set, two quarantine
+              records must be on disk, and the allocator must balance;
+              the probes' kernel launches and the defrag moves are logged.
+              (ii) float32: an uninterrupted run, then request 3 hangs on
+              a decode step under a watchdog of 20x that run's slowest
+              step (and at least 1 s), recovered by preempting the running
+              set, then drain(timeout=) mid-run and resume() in a fresh
+              engine: every request must finish with the uninterrupted
+              tokens (else the first differing position and the top-2
+              logit margin there are printed), watchdog_restarts == 1.
+              (iii) a StatusServer on port 0 over the bf16 engine:
+              /healthz 200 then 503 "draining" after begin_drain, /statusz's
+              resilience section equal to stats(), /metrics with serve_
+              series.  (iv) Config().enable_continuous_batching(8, 16),
+              set_decoder_model(model, 32), create_predictor, run(): the
+              output rows must be the prompts + (c)'s tokens.  (v) the
+              host ms p50 of a decode step with the guard, a registry with
+              a JSONL sink and request tracing on, against the engine with
+              all three off, alternated in one process;
   (c2) training one training step (bf16 O1, AdamW) of GPT-125M at full
               width and depth, S=2048, B=8, with flash attention and the
               chunked LM loss (convert.training_workload): 3 warm-up and 10
@@ -261,6 +288,10 @@ def main() -> int:
 
     # -- (c) serving ---------------------------------------------------------
     serving = serve(torch, np, dev, _kernels)
+
+    # -- (c1b) the serving lifecycle -------------------------------------------
+    serve_lifecycle(torch, np, dev, _kernels, root, serving["tokens"])
+    torch.cuda.empty_cache()
 
     # -- (c2) training -------------------------------------------------------
     training = train(torch, np, dev, _kernels)
@@ -1990,7 +2021,373 @@ def serve(torch, np, dev, _kernels):
         "tpot_ms_p50": st["slo"]["tpot_ms"]["p50"],
         "launches": launches, "k1_k3_calls_by_rows": row_counts}}
     log(json.dumps(line))
-    return {"launches": launches}
+    return {"launches": launches, "tokens": [r["tokens"] for r in results]}
+
+
+# ---------------------------------------------------------------------------
+# (c1b) the serving lifecycle
+# ---------------------------------------------------------------------------
+LIFE_RAISE, LIFE_NAN, LIFE_CANCEL, LIFE_DEADLINE = 2, 5, 6, 7
+LIFE_CANCEL_AFTER = 4     # request 6's tokens when it is cancelled
+LIFE_DEADLINE_AT = 8      # request 7's tokens when the clock passes its deadline
+LIFE_HANG = 3             # the float32 request whose decode step hangs
+LIFE_DECODES_BEFORE_DRAIN = 4   # decode steps after the recovery's prefills
+PROBED_KERNELS = ("paged_decode", "ln_linear_stream", "linear_residual_stream",
+                  "ffn_stream")
+GUARD_PAIRS = 5           # alternations of guard on / off in (v)
+
+
+class NullRegistry:
+    """A registry that records nothing: the engine with its metrics off."""
+
+    class _Instrument:
+        def inc(self, n=1.0):
+            pass
+
+        def set(self, v):
+            pass
+
+        def observe(self, v):
+            pass
+
+    _inst = _Instrument()
+
+    def counter(self, name):
+        return self._inst
+
+    gauge = histogram = counter
+
+    def emit(self, kind, ts=None, **fields):
+        pass
+
+
+def http_get(url):
+    """(status, body) of a GET, 4xx / 5xx included."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def seq_output(eng, rid):
+    if rid in eng.sched.finished:
+        return eng.sched.finished[rid].output
+    for seq in list(eng.sched.running) + list(eng.sched.waiting):
+        if seq.request_id == rid:
+            return seq.output
+    raise RuntimeError(f"{rid}: unknown to the engine")
+
+
+def lifecycle_bf16(torch, np, _kernels, model, prompts, clean, work):
+    """(i): the faults, cancel, deadline and defrag on the bf16 workload."""
+    from paddle_tpu_torch.convert import SERVING_ENGINE, SERVING_NEW_TOKENS
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.observability.registry import MetricsRegistry
+    from paddle_tpu_torch.testing import faults
+
+    clk = faults.expire_clock()
+    raise_inj = faults.poison_request(LIFE_RAISE, "raise", kinds=("decode",))
+    nan_inj = faults.poison_request(LIFE_NAN, "nan")
+
+    def fault(engine, kind, request_ids, logits):
+        raise_inj(engine, kind, request_ids, logits)
+        return nan_inj(engine, kind, request_ids, logits)
+
+    run_dir = os.path.join(work, "bf16")
+    eng = ServingEngine(model, **SERVING_ENGINE, nan_guard=True,
+                        run_dir=run_dir, clock=clk, step_fault=fault,
+                        registry=MetricsRegistry())
+    probes = {"calls": 0, "launches": {name: 0 for name in _kernels.launches}}
+    real_probe = eng._probe
+
+    def probe(seqs, rng):
+        before = dict(_kernels.launches)
+        try:
+            return real_probe(seqs, rng)
+        finally:
+            probes["calls"] += 1
+            for name, n in _kernels.launches.items():
+                probes["launches"][name] += n - before[name]
+
+    eng._probe = probe
+    _kernels.reset_launches()
+    rids = [eng.submit(p, max_new_tokens=SERVING_NEW_TOKENS,
+                       deadline_ms=1000.0 if i == LIFE_DEADLINE else None)
+            for i, p in enumerate(prompts)]
+    moves, renumbered_decodes, cancelled, expired = 0, 0, False, False
+    t0 = time.perf_counter()
+    while eng.has_work():
+        finished = len(eng.sched.finished)
+        decodes = len(eng._step_ms["decode"])
+        eng.step()
+        if moves:
+            renumbered_decodes += len(eng._step_ms["decode"]) - decodes
+        if (not cancelled and len(seq_output(eng, rids[LIFE_CANCEL]))
+                >= LIFE_CANCEL_AFTER):
+            require(eng.cancel(rids[LIFE_CANCEL]),
+                    "lifecycle: request 6 could not be cancelled")
+            cancelled = True
+        if (not expired and len(seq_output(eng, rids[LIFE_DEADLINE]))
+                >= LIFE_DEADLINE_AT):
+            clk.advance(2.0)              # past its 1 s deadline
+            expired = True
+        if len(eng.sched.finished) > finished and eng.defrag():
+            moves += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    reasons = [eng.sched.finished[r].finish_reason for r in rids]
+    want = ["max_new_tokens"] * len(rids)
+    want[LIFE_RAISE] = want[LIFE_NAN] = "poisoned"
+    want[LIFE_CANCEL], want[LIFE_DEADLINE] = "cancelled", "deadline"
+    require(reasons == want, f"lifecycle: reasons {reasons}, want {want}")
+    tokens = [list(eng.sched.finished[r].output) for r in rids]
+    for i in (0, 1, 3, 4):
+        require(tokens[i] == clean[i],
+                f"lifecycle: request {i}'s tokens {tokens[i]} differ from "
+                f"the uninterrupted run's {clean[i]}")
+    require(tokens[LIFE_CANCEL] == clean[LIFE_CANCEL][:LIFE_CANCEL_AFTER],
+            f"lifecycle: cancelled request kept {tokens[LIFE_CANCEL]}")
+    require(tokens[LIFE_DEADLINE] == clean[LIFE_DEADLINE][:LIFE_DEADLINE_AT],
+            f"lifecycle: expired request kept {tokens[LIFE_DEADLINE]}")
+    qdir = os.path.join(run_dir, "serve", "replica-0", "quarantine")
+    records = sorted(os.listdir(qdir))
+    require(len(records) == 2, f"lifecycle: quarantine records {records}")
+    kinds = sorted(json.load(open(os.path.join(qdir, f)))["step_kind"]
+                   for f in records)
+    leak = eng.cache.leak_report()
+    require(leak["balanced"] and leak["leaked_blocks"] == 0
+            and leak["num_used"] == 0, f"lifecycle: leak report {leak}")
+    require(raise_inj.fired > 1 and probes["calls"] > 0,
+            f"lifecycle: {probes['calls']} probes, the raise fired "
+            f"{raise_inj.fired} times")
+    for name in PROBED_KERNELS:
+        require(probes["launches"][name] > 0,
+                f"lifecycle: {name} launched 0 times in the probes")
+    for name in SERVING_KERNELS:
+        require(launches[name] > 0,
+                f"lifecycle: {name} launched 0 times in the phase")
+    require(moves > 0 and renumbered_decodes > 0,
+            f"lifecycle: {moves} defrag moves, {renumbered_decodes} decode "
+            "steps on renumbered tables")
+    return eng, {"reasons": reasons, "quarantine_records": records,
+                 "quarantine_step_kinds": kinds, "probes": probes["calls"],
+                 "raise_fired": raise_inj.fired,
+                 "probe_launches": {k: v for k, v in
+                                    probes["launches"].items() if v},
+                 "defrag_moves": moves,
+                 "decode_steps_on_renumbered_tables": renumbered_decodes,
+                 "launches": launches, "wall_s": wall,
+                 "resilience": eng.stats()["resilience"]}
+
+
+def lifecycle_status(eng):
+    """(iii): /healthz, /statusz and /metrics over the (i) engine."""
+    srv = eng.start_status_server(port=0, host="127.0.0.1")
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        code, body = http_get(base + "/healthz")
+        require(code == 200 and json.loads(body)["ok"],
+                f"status: /healthz {code} {body}")
+        code, body = http_get(base + "/statusz")
+        require(code == 200, f"status: /statusz {code}")
+        page = json.loads(body)["serving"]["resilience"]
+        require(page == json.loads(json.dumps(eng.stats()["resilience"])),
+                f"status: /statusz resilience {page} != stats()")
+        code, metrics = http_get(base + "/metrics")
+        series = sorted({ln.split("{")[0].split(" ")[0]
+                         for ln in metrics.splitlines()
+                         if ln.startswith("paddle_tpu_serve_")})
+        require(code == 200 and series, "status: /metrics has no serve_ "
+                "series")
+        eng.begin_drain()
+        code, body = http_get(base + "/healthz")
+        require(code == 503 and json.loads(body)["state"] == "draining",
+                f"status: /healthz after begin_drain {code} {body}")
+    finally:
+        eng.stop()
+    return {"healthz_after_drain": [code, json.loads(body)["state"]],
+            "statusz_resilience": page, "metrics_serve_series": len(series)}
+
+
+def lifecycle_predictor(np, model, prompts, clean):
+    """(iv): the paddle.inference facade over the engine."""
+    from paddle_tpu_torch.convert import SERVING_NEW_TOKENS
+    from paddle_tpu_torch.inference import Config, create_predictor
+
+    pad = model.config.vocab_size - 1
+    require(all(p[-1] != pad for p in prompts),
+            "predictor: a prompt ends with the pad id")
+    cfg = Config()
+    cfg.enable_continuous_batching(8, 16)
+    cfg.set_decoder_model(model, SERVING_NEW_TOKENS, pad_token_id=pad)
+    pred = create_predictor(cfg)
+    ids = np.full((len(prompts), max(len(p) for p in prompts)), pad,
+                  np.int64)
+    for i, p in enumerate(prompts):
+        ids[i, :len(p)] = p
+    pred.get_input_handle(pred.get_input_names()[0]).copy_from_cpu(ids)
+    pred.run()
+    out = pred.get_output_handle(pred.get_output_names()[0]).copy_to_cpu()
+    for i, (p, toks) in enumerate(zip(prompts, clean)):
+        full = p + toks
+        require(out[i, :len(full)].tolist() == full
+                and (out[i, len(full):] == pad).all(),
+                f"predictor: row {i} is not prompt + the serve phase's tokens")
+    return {"output_shape": list(out.shape)}
+
+
+def lifecycle_guard_cost(model, prompts, clean, work):
+    """(v): host ms of a decode step with the NaN guard, a registry with a
+    JSONL sink and request tracing on, against the engine with all three
+    off, alternated in one process."""
+    from paddle_tpu_torch.convert import SERVING_ENGINE, SERVING_NEW_TOKENS
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.observability.registry import MetricsRegistry
+    from paddle_tpu_torch.observability.sinks import MetricsWriter
+
+    def run(on):
+        os.environ["PTPU_TRACE_REQUESTS"] = "1" if on else "0"
+        if on:
+            reg = MetricsRegistry()
+            reg.add_sink(MetricsWriter(os.path.join(work, "metrics"),
+                                       worker_id=0))
+        else:
+            reg = NullRegistry()
+        eng = ServingEngine(model, **SERVING_ENGINE, nan_guard=on,
+                            registry=reg)
+        rids = [eng.submit(p, max_new_tokens=SERVING_NEW_TOKENS)
+                for p in prompts]
+        ms = []
+        while eng.has_work():
+            n = len(eng._step_ms["decode"])
+            t = time.perf_counter()
+            eng.step()
+            dt = time.perf_counter() - t
+            if len(eng._step_ms["decode"]) > n:
+                ms.append(dt * 1e3)
+        require([eng.collect(r)["tokens"] for r in rids] == clean,
+                f"guard cost: tokens changed with the guard {on}")
+        return ms
+
+    prior = os.environ.get("PTPU_TRACE_REQUESTS")
+    runs = {True: [], False: []}
+    try:
+        for _ in range(GUARD_PAIRS):
+            for on in (True, False):
+                runs[on].append(run(on))
+    finally:
+        if prior is None:
+            os.environ.pop("PTPU_TRACE_REQUESTS", None)
+        else:
+            os.environ["PTPU_TRACE_REQUESTS"] = prior
+    on = [statistics.median(r) for r in runs[True]]
+    off = [statistics.median(r) for r in runs[False]]
+    return {"decode_step_host_ms_p50_on": on,
+            "decode_step_host_ms_p50_off": off,
+            "on_minus_off_ms": statistics.median(on) - statistics.median(off),
+            "decode_steps_a_run": len(runs[True][0])}
+
+
+def lifecycle_f32(np, prompts, work, dev):
+    """(ii): hang recovery, then drain / resume, float32, token-exact."""
+    from paddle_tpu_torch.convert import (SERVING_ENGINE, SERVING_NEW_TOKENS,
+                                          serving_workload)
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.observability.registry import MetricsRegistry
+    from paddle_tpu_torch.testing import faults
+
+    model, _ = serving_workload(dev, dtype="float32")
+    ref = ServingEngine(model, **SERVING_ENGINE, capture_logits=True,
+                        registry=MetricsRegistry())
+    rr = [ref.submit(p, max_new_tokens=SERVING_NEW_TOKENS) for p in prompts]
+    step_s = []
+    while ref.has_work():
+        t = time.perf_counter()
+        ref.step()                      # ends in the tokens' host copy
+        step_s.append(time.perf_counter() - t)
+    ref_out = [ref.collect(r) for r in rr]
+    clean = [o["tokens"] for o in ref_out]
+    decode_ms = ref.stats()["step_ms"]["decode"]["p50"]
+    timeout = max(1.0, 20.0 * max(step_s))
+    inj = faults.poison_request(LIFE_HANG, "hang", seconds=60.0 + timeout,
+                                kinds=("decode",))
+    eng = ServingEngine(model, **SERVING_ENGINE, step_timeout=timeout,
+                        step_fault=inj, run_dir=os.path.join(work, "f32"),
+                        registry=MetricsRegistry())
+    rids = [eng.submit(p, max_new_tokens=SERVING_NEW_TOKENS)
+            for p in prompts]
+    t0 = time.perf_counter()
+    while eng.watchdog_restarts == 0:
+        require(eng.has_work(), "f32: the hang never fired")
+        eng.step()
+    recovery_s = time.perf_counter() - t0
+    require(not eng.sched.running and eng.cache.allocator.num_used == 0,
+            "f32: hang recovery left a running set or blocks")
+    decodes = 0
+    while decodes < LIFE_DECODES_BEFORE_DRAIN:
+        n = len(eng._step_ms["decode"])
+        eng.step()
+        decodes += len(eng._step_ms["decode"]) - n
+    drain_s = 5 * decode_ms / 1e3
+    report = eng.drain(timeout=drain_s)
+    require(report["spilled"] > 0, f"f32: drain spilled nothing {report}")
+    fresh = ServingEngine(model, **SERVING_ENGINE, registry=MetricsRegistry())
+    resumed = fresh.resume(report["spill_path"])
+    fresh.run()
+    tokens = []
+    for i, rid in enumerate(rids):
+        src = fresh if rid in resumed else eng
+        rec = src.sched.finished[rid]
+        require(rec.finish_reason == "max_new_tokens",
+                f"f32: {rid} ended {rec.finish_reason}")
+        tokens.append(list(rec.output))
+        if tokens[i] != clean[i]:
+            j = next(k for k, (a, b) in enumerate(zip(tokens[i], clean[i]))
+                     if a != b)
+            top = np.sort(ref_out[i]["logits"][j])[-2:]
+            log(json.dumps({"f32_token_flip": {
+                "request": i, "position": j, "got": tokens[i][j],
+                "want": clean[i][j],
+                "top2_margin": float(top[1] - top[0])}}))
+            require(False, f"f32: {rid} differs from the uninterrupted run "
+                    f"at token {j}")
+    require(eng.watchdog_restarts == 1 and inj.fired == 1,
+            f"f32: {eng.watchdog_restarts} watchdog restarts, the hang "
+            f"fired {inj.fired} times")
+    leak = fresh.cache.leak_report()
+    require(leak["balanced"] and leak["num_used"] == 0,
+            f"f32: leak report {leak}")
+    return {"step_timeout_s": timeout, "slowest_step_ms": max(step_s) * 1e3,
+            "recovery_s": recovery_s, "drain_timeout_s": drain_s,
+            "drain": {k: report[k] for k in ("finished", "spilled",
+                                             "timed_out")},
+            "resumed": len(resumed), "watchdog_restarts":
+            eng.watchdog_restarts}
+
+
+def serve_lifecycle(torch, np, dev, _kernels, root, clean):
+    import shutil
+    from paddle_tpu_torch.convert import serving_workload
+
+    work = os.path.join(root, "build", "serve_lifecycle")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    model, prompts = serving_workload(dev)
+    line = {}
+    eng, line["bf16"] = lifecycle_bf16(torch, np, _kernels, model, prompts,
+                                       clean, work)
+    line["status"] = lifecycle_status(eng)
+    del eng
+    line["predictor"] = lifecycle_predictor(np, model, prompts, clean)
+    line["guard_cost"] = lifecycle_guard_cost(model, prompts, clean, work)
+    del model
+    torch.cuda.empty_cache()
+    line["float32"] = lifecycle_f32(np, prompts, work, dev)
+    log(json.dumps({"serving_resilience": line}))
 
 
 # ---------------------------------------------------------------------------

@@ -14,10 +14,16 @@ Slots: block ``b`` owns flat rows ``[b*block_size, (b+1)*block_size)``;
 ``slot = table[pos // bs] * bs + pos % bs``.  ``slot_pad == num_slots``
 names the trailing row of the pages: pad positions write there and no read
 ever touches it.
+
+``defrag`` compacts the live blocks to the lowest ids and permutes the
+pages to match, out of place (``index_select`` into new tensors, one layer
+at a time: source and destination slots overlap, so an in-place copy from
+the same tensor would read rows it already overwrote).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -26,7 +32,14 @@ import torch
 from ..device import resolve_device
 from ..framework.errors import enforce
 
-__all__ = ["BlockAllocator", "PagedLayerCache", "PagedKVCache"]
+__all__ = ["KV_BLOCK_SIZE_ENV", "default_kv_block_size", "BlockAllocator",
+           "PagedLayerCache", "PagedKVCache"]
+
+KV_BLOCK_SIZE_ENV = "PTPU_KV_BLOCK_SIZE"
+
+
+def default_kv_block_size() -> int:
+    return int(os.environ.get(KV_BLOCK_SIZE_ENV, "16"))
 
 
 class BlockAllocator:
@@ -56,9 +69,15 @@ class BlockAllocator:
     def num_used(self) -> int:
         return self.num_blocks - len(self._free)
 
+    def occupancy(self) -> float:
+        return self.num_used / self.num_blocks
+
     def blocks_for_tokens(self, num_tokens: int) -> int:
         """Blocks needed to hold ``num_tokens`` cache entries."""
         return -(-max(0, int(num_tokens)) // self.block_size)
+
+    def can_alloc(self, n: int) -> bool:
+        return len(self._free) >= n
 
     def alloc(self, n: int) -> Optional[List[int]]:
         """Take ``n`` blocks, or None (taking nothing) when the pool cannot
@@ -91,6 +110,35 @@ class BlockAllocator:
                 "balanced": (self.total_allocs - self.total_frees
                              == self.num_used)}
 
+    def defrag(self, tables: Dict[object, List[int]]
+               ) -> Optional[np.ndarray]:
+        """Compact live blocks to ids ``[0, num_used)``.
+
+        ``tables`` maps owner -> block-id list covering every live block;
+        tables are renumbered in place.  Returns ``perm`` with
+        ``perm[new_id] = old_id`` (length ``num_blocks``) for permuting the
+        pages, or None when already compact (no device traffic needed).
+        With fixed-size blocks there is no external fragmentation: defrag
+        re-densifies the pool after churn, so the used prefix stays small.
+        """
+        live = sorted(self._live)
+        referenced = sorted({b for t in tables.values() for b in t})
+        enforce(referenced == live,
+                f"defrag: tables cover {referenced} but live={live}")
+        if live == list(range(len(live))):
+            return None
+        mapping = {old: new for new, old in enumerate(live)}
+        for t in tables.values():
+            t[:] = [mapping[b] for b in t]
+        spare = [b for b in range(self.num_blocks) if b not in mapping]
+        perm = np.empty(self.num_blocks, np.int64)
+        for old, new in mapping.items():
+            perm[new] = old
+        perm[len(live):] = spare
+        self._live = set(range(len(live)))
+        self._free = list(range(self.num_blocks - 1, len(live) - 1, -1))
+        return perm
+
 
 @dataclasses.dataclass
 class PagedLayerCache:
@@ -117,13 +165,14 @@ class PagedKVCache:
     per-sequence block tables."""
 
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
-                 num_blocks: int, block_size: int = 16,
+                 num_blocks: int, block_size: Optional[int] = None,
                  dtype: torch.dtype = torch.float32,
                  device: Optional[Union[str, torch.device]] = None):
         self.num_layers = int(num_layers)
         self.num_heads = int(num_heads)
         self.head_dim = int(head_dim)
-        self.block_size = int(block_size)
+        self.block_size = (default_kv_block_size() if block_size is None
+                           else int(block_size))
         self.num_blocks = int(num_blocks)
         self.num_slots = self.num_blocks * self.block_size
         self.slot_pad = self.num_slots        # the trailing sentinel row
@@ -137,6 +186,12 @@ class PagedKVCache:
                       for _ in range(self.num_layers)]
 
     # -- per-sequence table management ------------------------------------
+    def table(self, seq_id) -> List[int]:
+        return self._tables.get(seq_id, [])
+
+    def live_seqs(self) -> List[object]:
+        return list(self._tables)
+
     def ensure_capacity(self, seq_id, num_tokens: int) -> bool:
         """Grow ``seq_id``'s table to cover ``num_tokens`` cache slots;
         False (nothing taken) when the pool cannot supply the growth."""
@@ -156,6 +211,17 @@ class PagedKVCache:
         table = self._tables.pop(seq_id, None)
         if table:
             self.allocator.free(table)
+
+    def slot(self, seq_id, pos: int) -> int:
+        """Flat page slot of cache position ``pos`` for ``seq_id``."""
+        table = self._tables[seq_id]
+        block = pos // self.block_size
+        enforce(0 <= block < len(table),
+                f"pos {pos} outside {seq_id}'s {len(table)}-block table")
+        return table[block] * self.block_size + pos % self.block_size
+
+    def occupancy(self) -> float:
+        return self.allocator.occupancy()
 
     def leak_report(self) -> Dict[str, object]:
         """Allocator lifetime counters plus the table-coverage check: a
@@ -209,3 +275,23 @@ class PagedKVCache:
             as_dev(slot_mapping)
         return [PagedLayerCache(k, v, bt, sl, sm, self.block_size)
                 for (k, v) in self.pages]
+
+    # -- defrag ------------------------------------------------------------
+    def defrag(self) -> bool:
+        """Compact the pool (see :meth:`BlockAllocator.defrag`) and permute
+        the pages to match; True when a permutation was applied.  Each
+        layer's pages are gathered into new tensors (the JAX package's
+        ``jnp.take``), replacing that layer before the next is gathered,
+        so the copy needs one layer's pages of extra memory.  The sentinel
+        row stays last.  Work stays on the current stream, behind every
+        step already queued there."""
+        perm = self.allocator.defrag(self._tables)
+        if perm is None:
+            return False
+        slot_perm = (perm[:, None] * self.block_size
+                     + np.arange(self.block_size)[None, :]).reshape(-1)
+        slot_perm = np.concatenate([slot_perm, [self.num_slots]])
+        idx = torch.as_tensor(slot_perm).to(self.device)
+        for i, (k, v) in enumerate(self.pages):
+            self.pages[i] = (k.index_select(0, idx), v.index_select(0, idx))
+        return True

@@ -7,8 +7,16 @@ waiting ones are admitted as soon as KV blocks allow.
 Sequence lifecycle::
 
     WAITING --admit(prefill)--> RUNNING --eos/max_tokens--> FINISHED
-       ^                          |
-       +------- PREEMPTED <-- OOM on next-token block
+       ^                          |                            ^
+       +------- PREEMPTED <-- OOM on next-token block          |
+       |                                                       |
+       +--- cancel / deadline / poisoned / spilled (evict) ----+
+
+Terminal reasons beyond ``eos`` / ``max_new_tokens``: ``cancelled`` and
+``deadline`` land through the engine's between-steps reaper, ``poisoned``
+through the fault-boundary quarantine, ``spilled`` through graceful drain.
+All of them go through :meth:`ContinuousBatchingScheduler.evict`, which
+frees the sequence's blocks from any live state.
 
 - **Admission** is by KV-block budget: a sequence is admitted only when the
   allocator can hold its whole prefill context now (all-or-nothing).
@@ -18,6 +26,8 @@ Sequence lifecycle::
   newest-admitted first, so the oldest running sequence always finishes.
 - **Interleaving**: each ``schedule()`` returns ONE prefill (padded to a
   power-of-two bucket) or one decode batch over the running set.
+- **Drain gate**: with ``admission_open`` False only sequences that already
+  produced output (preempted ones) re-admit; fresh arrivals wait.
 """
 from __future__ import annotations
 
@@ -67,7 +77,14 @@ class SequenceState:
     max_new_tokens: int
     eos_token_id: Optional[int] = None
     arrival: float = 0.0
+    on_token: Optional[Callable] = None
     capture_logits: bool = False
+
+    # absolute clock() times, computed by the engine from submit()'s
+    # relative deadline_ms / ttft_deadline_ms
+    deadline: Optional[float] = None
+    ttft_deadline: Optional[float] = None
+    cancelled: bool = False
 
     state: str = WAITING
     output: List[int] = dataclasses.field(default_factory=list)
@@ -79,9 +96,22 @@ class SequenceState:
     finish_reason: Optional[str] = None
     preemptions: int = 0
 
+    # request tracing: ``trace_id`` rides every span this sequence emits;
+    # ``resume_why`` marks a recompute's cause ("preempt" / "failover" /
+    # "migration") so the next prefill span is attributed to it;
+    # ``trace_enqueued`` is the time the sequence (re-)entered the waiting
+    # queue, the start of its next queue span
+    trace_id: Optional[str] = None
+    resume_why: Optional[str] = None
+    trace_enqueued: Optional[float] = None
+
     def context(self) -> List[int]:
         toks = list(self.prompt) + list(self.output)
         return toks[:-1] if self.pending is not None else toks
+
+    @property
+    def total_len(self) -> int:
+        return len(self.prompt) + len(self.output)
 
     def should_finish(self) -> Optional[str]:
         if (self.eos_token_id is not None and self.output
@@ -120,6 +150,9 @@ class ContinuousBatchingScheduler:
         self.running: List[SequenceState] = []
         self.finished: Dict[str, SequenceState] = {}
         self.preemptions = 0
+        # drain gate: closed admission still lets preempted sequences
+        # (anything that already produced output) re-admit
+        self.admission_open = True
 
     def submit(self, seq: SequenceState) -> None:
         worst = len(seq.prompt) + seq.max_new_tokens
@@ -134,7 +167,13 @@ class ContinuousBatchingScheduler:
         enforce(len(seq.prompt) >= 1, f"{seq.request_id}: empty prompt")
         seq.state = WAITING
         seq.arrival = seq.arrival or float(self.clock())
+        if seq.trace_enqueued is None:
+            seq.trace_enqueued = seq.arrival
         self.waiting.append(seq)
+
+    @property
+    def queue_depth(self) -> int:
+        return len(self.waiting)
 
     def has_work(self) -> bool:
         return bool(self.waiting or self.running)
@@ -145,7 +184,8 @@ class ContinuousBatchingScheduler:
         on next-token OOM), else idle."""
         plan_preempted: List[SequenceState] = []
 
-        if self.waiting and len(self.running) < self.max_seqs:
+        if (self.waiting and len(self.running) < self.max_seqs
+                and (self.admission_open or self.waiting[0].output)):
             seq = self.waiting[0]
             ctx = len(seq.context())
             need = self.cache.allocator.blocks_for_tokens(ctx)
@@ -186,7 +226,20 @@ class ContinuousBatchingScheduler:
         seq.state = PREEMPTED
         seq.preemptions += 1
         self.preemptions += 1
+        # the wait and re-prefill this preemption causes belong to it
+        seq.resume_why = "preempt"
+        seq.trace_enqueued = float(self.clock())
         self.waiting.appendleft(seq)    # re-admits before new arrivals
+
+    def preempt_all(self) -> List[SequenceState]:
+        """Evict every running sequence back to the queue (recompute): the
+        engine's hang recovery.  Host state stays consistent because the
+        engine's feedback (``mark_*``) lands only after a step returns.
+        Newest first, so re-admission replays the admission order."""
+        victims = list(reversed(self.running))
+        for seq in victims:
+            self._preempt(seq)
+        return victims
 
     def mark_prefilled(self, seq: SequenceState) -> None:
         seq.computed_len = len(seq.context())
@@ -197,7 +250,20 @@ class ContinuousBatchingScheduler:
     def complete(self, seq: SequenceState, reason: str) -> None:
         """Retire a finished sequence and free its blocks at once, so the
         next schedule() can admit into the reclaimed space."""
-        self.running.remove(seq)
+        self.evict(seq, reason)
+
+    def evict(self, seq: SequenceState, reason: str) -> None:
+        """Terminal eviction from any live state — finish, cancel,
+        deadline, quarantine and drain-spill all exit through here: remove
+        the sequence from whichever queue holds it, free its blocks,
+        record the reason, file it under ``finished``."""
+        if seq in self.running:
+            self.running.remove(seq)
+        else:
+            try:
+                self.waiting.remove(seq)
+            except ValueError:
+                pass
         self.cache.free_seq(seq.request_id)
         seq.state = FINISHED
         seq.finish_reason = reason

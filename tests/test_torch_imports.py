@@ -37,6 +37,16 @@ def test_package_imports_with_jax_blocked():
             "import paddle_tpu_torch.profile_serving\n"
             "import paddle_tpu_torch.profile_generate\n"
             "import paddle_tpu_torch.inference.kv_cache\n"
+            "import paddle_tpu_torch.inference.scheduler\n"
+            "import paddle_tpu_torch.inference\n"
+            "import paddle_tpu_torch.framework.log\n"
+            "import paddle_tpu_torch.utils.fsio\n"
+            "import paddle_tpu_torch.observability.registry\n"
+            "import paddle_tpu_torch.observability.sinks\n"
+            "import paddle_tpu_torch.observability.requesttrace\n"
+            "import paddle_tpu_torch.observability.monitor\n"
+            "import paddle_tpu_torch.supervisor.watchdog\n"
+            "import paddle_tpu_torch.testing.faults\n"
             "import paddle_tpu_torch.convert\n"
             "loaded = [m for m in sys.modules if sys.modules[m] is not None]\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
