@@ -123,7 +123,15 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               output rows must be the prompts + (c)'s tokens.  (v) the
               host ms p50 of a decode step with the guard, a registry with
               a JSONL sink and request tracing on, against the engine with
-              all three off, alternated in one process;
+              all three off, alternated in one process.  (i b, run after
+              iii) the NaN guard on the card: no fault seam, a
+              serving_step hook makes request 1's logits NaN on one decode
+              step; it must end "poisoned" with no bisection probe, the
+              others must give (c)'s tokens, and no tensor of vocab width
+              may reach the host.  (vi) the host time of a prefill and a
+              decode step of the engine as a user gets it, split into the
+              parts the lifecycle added (reaper, gauges, spans, step
+              guard, registry calls) and the rest;
   (c2) training one training step (bf16 O1, AdamW) of GPT-125M at full
               width and depth, S=2048, B=8, with flash attention and the
               chunked LM loss (convert.training_workload): 3 warm-up and 10
@@ -2035,6 +2043,9 @@ LIFE_DECODES_BEFORE_DRAIN = 4   # decode steps after the recovery's prefills
 PROBED_KERNELS = ("paged_decode", "ln_linear_stream", "linear_residual_stream",
                   "ffn_stream")
 GUARD_PAIRS = 5           # alternations of guard on / off in (v)
+LIFE_NAN_ON_CARD = 1      # the request whose logits (i b) makes NaN
+LIFE_NAN_ON_CARD_AT = 3   # its tokens when that decode step runs
+ACCOUNT_RUNS = 3          # runs of the workload that (vi) accounts
 
 
 class NullRegistry:
@@ -2292,6 +2303,198 @@ def lifecycle_guard_cost(model, prompts, clean, work):
             "decode_steps_a_run": len(runs[True][0])}
 
 
+def lifecycle_nan_on_card(torch, model, prompts, clean, work):
+    """(i b): the NaN guard on the card.  No fault seam and no logits
+    capture, so the guard reduces isfinite(logits).all(-1) on the device
+    and reads the row flags back with the tokens.  A serving_step hook
+    makes request 1's logits NaN on one decode step: it must end
+    "poisoned" with no bisection probe, the others must give (c)'s tokens,
+    and no tensor of vocab width may be copied to the host."""
+    from paddle_tpu_torch.convert import SERVING_ENGINE, SERVING_NEW_TOKENS
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.observability.registry import MetricsRegistry
+
+    vocab = model.config.vocab_size
+    run_dir = os.path.join(work, "nan_on_card")
+    eng = ServingEngine(model, **SERVING_ENGINE, nan_guard=True,
+                        run_dir=run_dir, registry=MetricsRegistry())
+    batch = {"seqs": None}
+    probes = []
+    poisoned = []
+    copied = []
+    real_apply, real_probe = eng._apply_decode, eng._probe
+
+    def apply_decode(seqs):
+        batch["seqs"] = seqs
+        try:
+            return real_apply(seqs)
+        finally:
+            batch["seqs"] = None
+
+    def probe(seqs, rng):
+        probes.append(len(seqs))
+        return real_probe(seqs, rng)
+
+    def serving_step(ids, caches, positions, last_index):
+        logits, caches = real_step(ids, caches, positions, last_index)
+        for i, s in enumerate(batch["seqs"] or ()):
+            if (not poisoned and s.request_id == target
+                    and len(s.output) == LIFE_NAN_ON_CARD_AT):
+                logits = logits.clone()
+                logits[i] = float("nan")
+                poisoned.append(i)
+        return logits, caches
+
+    def spy(self, *a, **kw):
+        copied.append(tuple(self.shape))
+        return real_cpu(self, *a, **kw)
+
+    eng._apply_decode, eng._probe = apply_decode, probe
+    real_step, real_cpu = model.serving_step, torch.Tensor.cpu
+    rids = [eng.submit(p, max_new_tokens=SERVING_NEW_TOKENS) for p in prompts]
+    target = rids[LIFE_NAN_ON_CARD]
+    model.serving_step, torch.Tensor.cpu = serving_step, spy
+    try:
+        eng.run()
+    finally:
+        del model.serving_step
+        torch.Tensor.cpu = real_cpu
+    reasons = [eng.sched.finished[r].finish_reason for r in rids]
+    want = ["max_new_tokens"] * len(rids)
+    want[LIFE_NAN_ON_CARD] = "poisoned"
+    require(reasons == want, f"nan on card: reasons {reasons}, want {want}")
+    require(len(poisoned) == 1 and not probes,
+            f"nan on card: poisoned {poisoned}, probes of {probes} rows")
+    require(list(eng.quarantined) == [target]
+            and "nonfinite" in eng.quarantined[target]["error"]
+            and eng.quarantined[target]["step_kind"] == "decode",
+            f"nan on card: quarantined {eng.quarantined}")
+    tokens = [list(eng.sched.finished[r].output) for r in rids]
+    for i, toks in enumerate(tokens):
+        want_toks = (clean[i][:LIFE_NAN_ON_CARD_AT]
+                     if i == LIFE_NAN_ON_CARD else clean[i])
+        require(toks == want_toks, f"nan on card: request {i}'s tokens "
+                f"{toks} differ from {want_toks}")
+    wide = [shape for shape in copied if vocab in shape]
+    require(copied and not wide,
+            f"nan on card: logits copied to the host {wide}")
+    records = os.listdir(os.path.join(eng.serve_dir(), "quarantine"))
+    require(records == [f"{target}.json"],
+            f"nan on card: quarantine records {records}")
+    leak = eng.cache.leak_report()
+    require(leak["balanced"] and leak["num_used"] == 0,
+            f"nan on card: leak report {leak}")
+    return {"poisoned_row": poisoned[0], "probes": len(probes),
+            "host_copies": len(copied),
+            "host_copy_shapes": sorted(set(copied)),
+            "quarantine_records": records}
+
+
+class HostAccount:
+    """Host time (time.perf_counter_ns) spent in named functions; a call
+    inside another accounted call counts to the outer.  The parts it wraps
+    are host Python that waits on nothing, so their wall time is their
+    CPU time unless the thread is preempted; the thread CPU clock can tick
+    as coarsely as 10 ms, too coarse for parts of a few microseconds."""
+
+    def __init__(self):
+        self.ns = {}
+        self._depth = 0
+
+    def wrap(self, name, fn):
+        def timed(*a, **kw):
+            if self._depth:
+                return fn(*a, **kw)
+            self._depth += 1
+            t = time.perf_counter_ns()
+            try:
+                return fn(*a, **kw)
+            finally:
+                self.ns[name] = (self.ns.get(name, 0)
+                                 + time.perf_counter_ns() - t)
+                self._depth -= 1
+        return timed
+
+    def wrap_cm(self, name, factory):
+        """The same for a context manager: its enter and exit count."""
+        import contextlib
+
+        @contextlib.contextmanager
+        def timed(*a, **kw):
+            cm = self.wrap(name, factory)(*a, **kw)
+            self.wrap(name, cm.__enter__)()
+            try:
+                yield
+            except BaseException as e:
+                if not self.wrap(name, cm.__exit__)(type(e), e,
+                                                    e.__traceback__):
+                    raise
+            else:
+                self.wrap(name, cm.__exit__)(None, None, None)
+        return timed
+
+
+def lifecycle_host_account(model, prompts, clean):
+    """(vi): where a step's host time goes in the engine as a user gets it
+    (the process registry, tracing as the environment says, no guard):
+    the parts this slice added (reaper, gauges, spans, the step guard,
+    counters / histograms / events) against the whole step, for prefill
+    and decode steps, over ACCOUNT_RUNS runs."""
+    from paddle_tpu_torch.convert import SERVING_ENGINE, SERVING_NEW_TOKENS
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.observability import registry as registry_mod
+    from paddle_tpu_torch.observability import requesttrace
+
+    acc = HostAccount()
+    patched = [(requesttrace, name) for name in
+               ("emit_span", "emit_decode_span", "emit_stall_span")]
+    patched += [(registry_mod.Counter, "inc"), (registry_mod.Gauge, "set"),
+                (registry_mod.Histogram, "observe"),
+                (registry_mod.MetricsRegistry, "emit")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name in patched]
+    for obj, name, fn in saved:
+        setattr(obj, name, acc.wrap("spans" if obj is requesttrace
+                                    else "registry", fn))
+    steps = {"prefill": [], "decode": []}
+    parts = {"prefill": {}, "decode": {}}
+    try:
+        for _ in range(ACCOUNT_RUNS):
+            eng = ServingEngine(model, **SERVING_ENGINE)
+            eng._reap = acc.wrap("reap", eng._reap)
+            eng._update_gauges = acc.wrap("gauges", eng._update_gauges)
+            eng._step_guard = acc.wrap_cm("guard", eng._step_guard)
+            rids = [eng.submit(p, max_new_tokens=SERVING_NEW_TOKENS)
+                    for p in prompts]
+            while eng.has_work():
+                n = {k: len(v) for k, v in eng._step_ms.items()}
+                before = dict(acc.ns)
+                t = time.perf_counter_ns()
+                eng.step()
+                dt = time.perf_counter_ns() - t
+                kind = next((k for k in steps
+                             if len(eng._step_ms[k]) > n[k]), None)
+                if kind is None:
+                    continue
+                steps[kind].append(dt)
+                for k, v in acc.ns.items():
+                    parts[kind][k] = (parts[kind].get(k, 0)
+                                      + v - before.get(k, 0))
+            require([eng.collect(r)["tokens"] for r in rids] == clean,
+                    "host account: tokens changed")
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    line = {"runs": ACCOUNT_RUNS, "tracing": requesttrace.tracing_enabled()}
+    for kind, ns in steps.items():
+        per_step_us = {k: v / len(ns) / 1e3
+                       for k, v in sorted(parts[kind].items())}
+        line[kind] = {"steps": len(ns), "parts_us": per_step_us,
+                      "added_us": sum(per_step_us.values()),
+                      "step_us_mean": sum(ns) / len(ns) / 1e3,
+                      "step_us_p50": statistics.median(ns) / 1e3}
+    return line
+
+
 def lifecycle_f32(np, prompts, work, dev):
     """(ii): hang recovery, then drain / resume, float32, token-exact."""
     from paddle_tpu_torch.convert import (SERVING_ENGINE, SERVING_NEW_TOKENS,
@@ -2382,8 +2585,11 @@ def serve_lifecycle(torch, np, dev, _kernels, root, clean):
                                        clean, work)
     line["status"] = lifecycle_status(eng)
     del eng
+    line["nan_on_card"] = lifecycle_nan_on_card(torch, model, prompts, clean,
+                                                work)
     line["predictor"] = lifecycle_predictor(np, model, prompts, clean)
     line["guard_cost"] = lifecycle_guard_cost(model, prompts, clean, work)
+    line["host_account"] = lifecycle_host_account(model, prompts, clean)
     del model
     torch.cuda.empty_cache()
     line["float32"] = lifecycle_f32(np, prompts, work, dev)

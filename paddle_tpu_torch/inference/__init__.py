@@ -37,7 +37,6 @@ class Config:
 
     def __init__(self, model_dir: Optional[str] = None):
         self._model_dir = model_dir
-        self._device = "gpu"
         self._cb_enabled = False
         self._cb_max_seqs: Optional[int] = None
         self._cb_kv_block_size: Optional[int] = None
@@ -55,7 +54,6 @@ class Config:
     def disable_gpu(self) -> None:
         """Source-compatibility no-op: the engine runs on the device of
         the model given to :meth:`set_decoder_model`."""
-        self._device = "cpu"
 
     def enable_memory_optim(self) -> None:  # the caching allocator's job
         pass

@@ -182,8 +182,10 @@ class ServingEngine:
 
     Lifecycle knobs: ``nan_guard`` enables the per-step nonfinite-logits
     check (env ``PTPU_SERVE_NAN_GUARD``); ``step_timeout`` arms a watchdog
-    around every step (or pass a shared ``watchdog``) — set it above the
-    slowest step, the first one included (kernel builds, CUDA set-up);
+    of the engine's own around every step (without it the step is
+    ``guarded`` by the process-global watchdog, if one is installed) — set
+    it above the slowest step, the first one included (kernel builds, CUDA
+    set-up);
     ``run_dir`` is where quarantine records and the drain spill file land;
     ``step_fault`` is the test seam ``testing.faults.poison_request``
     plugs into — it is called as ``fault(engine, kind, request_ids,
@@ -202,7 +204,6 @@ class ServingEngine:
                  clock: Callable[[], float] = time.time,
                  nan_guard: Optional[bool] = None,
                  step_timeout: Optional[float] = None,
-                 watchdog: Optional[Watchdog] = None,
                  run_dir: Optional[str] = None,
                  replica_id: Optional[int] = None,
                  step_fault: Optional[Callable] = None):
@@ -249,9 +250,8 @@ class ServingEngine:
         self.replica_id = None if replica_id is None else int(replica_id)
         self.step_fault = step_fault
         self.step_timeout = step_timeout
-        self._owns_watchdog = watchdog is None and step_timeout is not None
         self._watchdog = (Watchdog(timeout=step_timeout)
-                          if self._owns_watchdog else watchdog)
+                          if step_timeout is not None else None)
         self._state = "serving"           # serving | draining | stopped
         self._submit_order: List[str] = []
         self.quarantined: Dict[str, Dict[str, Any]] = {}
@@ -1178,7 +1178,7 @@ class ServingEngine:
 
     def stop(self) -> None:
         self._stop_callbacks(timeout=1.0)
-        if self._owns_watchdog and self._watchdog is not None:
+        if self._watchdog is not None:
             self._watchdog.close()
             self._watchdog = None
         if self.status_server is not None:
