@@ -132,6 +132,37 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               decode step of the engine as a user gets it, split into the
               parts the lifecycle added (reaper, gauges, spans, step
               guard, registry calls) and the rest;
+  (c1c) serving fleet  the fleet (paddle_tpu_torch.inference.fleet) over
+              the float32 serving workload (convert.serving_workload:
+              GPT-125M at full width and depth, SERVING_SEED weights, the
+              8 prompts, SERVING_ENGINE), 64 greedy tokens a stream, every
+              stream held token for token against one uninterrupted
+              float32 engine on the card (else the first differing
+              position, the reference's top-2 logit margin there and the
+              rows of the prefill that rebuilt the stream are printed).
+              (i) in process: two LocalReplica engines under a Router, the
+              replica serving stream 0 stopped once it has 3 tokens
+              (failovers >= 1, fleet.failovers counted, the survivor
+              leak-free); a second such fleet drains replica 0 with
+              timeout 0 (fleet.migrations == the streams migrated); paged
+              decode and the stream and tiled K1-K3 must launch in this
+              part.  (ii) SIGKILL drill (fleet.drills.sigkill_drill): two
+              ReplicaManager workers on the card (both pids among
+              nvidia-smi's compute apps, or, where nvidia-smi cannot see
+              this pid namespace, each worker holding the card's device
+              file and the compute apps' memory grown by at least both
+              workers' weights), replica 0 SIGKILLed once it
+              holds an unfinished stream with 2 or more tokens: kill.fired
+              == 1, failovers >= 1, the survivor leak-free, /statusz
+              states dead == 1.  (iii) rolling upgrade: no stream dropped
+              or cut short, 2 restarts, both replicas healthy.  (iv) router
+              crash: a child process's journaling router SIGKILLed
+              mid-stream over ragged lengths (36..64), a fresh
+              Router(recover=run_dir) finishes every stream with the
+              workers it found (zero restarts), 0 live journal files and
+              0 leaked blocks.  Each worker's handshake seconds, each
+              drill's wall seconds and the accepted tokens at the kill are
+              printed; one JSON line per part;
   (c2) training one training step (bf16 O1, AdamW) of GPT-125M at full
               width and depth, S=2048, B=8, with flash attention and the
               chunked LM loss (convert.training_workload): 3 warm-up and 10
@@ -299,6 +330,10 @@ def main() -> int:
 
     # -- (c1b) the serving lifecycle -------------------------------------------
     serve_lifecycle(torch, np, dev, _kernels, root, serving["tokens"])
+    torch.cuda.empty_cache()
+
+    # -- (c1c) the serving fleet -----------------------------------------------
+    serve_fleet(torch, np, dev, _kernels, root)
     torch.cuda.empty_cache()
 
     # -- (c2) training -------------------------------------------------------
@@ -2594,6 +2629,279 @@ def serve_lifecycle(torch, np, dev, _kernels, root, clean):
     torch.cuda.empty_cache()
     line["float32"] = lifecycle_f32(np, prompts, work, dev)
     log(json.dumps({"serving_resilience": line}))
+
+
+# ---------------------------------------------------------------------------
+# (c1c) the serving fleet
+# ---------------------------------------------------------------------------
+FLEET_NEW_TOKENS = 64     # tokens a stream (the router-crash drill's ragged
+# lengths end here: 36..64)
+FLEET_STOP_AFTER = 3      # stream 0's tokens when its replica is stopped (i)
+
+
+class RecordSink:
+    """A registry sink that keeps every record."""
+
+    def __init__(self):
+        self.records = []
+
+    def write(self, record):
+        self.records.append(record)
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
+def fleet_explainer(np, what, prompts, ref_out, sink):
+    """The drills' ``explain(stream, tokens)``: print where a stream left
+    the reference, the reference's top-2 logit margin there, and the rows
+    of each prefill that rebuilt the stream (prompt + accepted tokens but
+    the pending one), read from the router's fleet.dispatch records."""
+    def explain(i, got):
+        want = ref_out[i]["tokens"]
+        j = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b),
+                 min(len(got), len(want)))
+        margin = None
+        if j < len(want):
+            top = np.sort(ref_out[i]["logits"][j])[-2:]
+            margin = float(top[1] - top[0])
+        rid = f"fleet-{i}"
+        rebuilt = [len(prompts[i]) + r["resumed_at"] - 1
+                   for r in sink.records
+                   if r.get("kind") == "fleet.dispatch"
+                   and r.get("request_id") == rid and r.get("resumed_at")]
+        log(json.dumps({"fleet_token_flip": {
+            "part": what, "stream": i, "position": j,
+            "got": got[j] if j < len(got) else None,
+            "want": want[j] if j < len(want) else None,
+            "top2_margin": margin, "rebuild_prefill_rows": rebuilt}}))
+    return explain
+
+
+def fleet_in_process(torch, np, _kernels, model, prompts, ref_out, run_dir):
+    """(i): failover and drain migration of in-process replicas (sharing
+    ``run_dir``: each spills under its own replica-<i> namespace)."""
+    from paddle_tpu_torch.convert import SERVING_ENGINE
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.inference.fleet import LocalReplica, Router, drills
+    from paddle_tpu_torch.observability.registry import MetricsRegistry
+
+    want = [o["tokens"] for o in ref_out]
+
+    def local_fleet():
+        reg = MetricsRegistry()
+        sink = reg.add_sink(RecordSink())
+        reps = [LocalReplica(ServingEngine(model, **SERVING_ENGINE,
+                                           registry=reg, replica_id=i,
+                                           run_dir=run_dir),
+                             replica_id=i) for i in range(2)]
+        return reps, reg, sink, Router(reps, registry=reg)
+
+    def exact(what, router, rids, sink):
+        outs = [router.collect(r, timeout=300) for r in rids]
+        drills.check_exact(f"fleet (i) {what}", [o["tokens"] for o in outs],
+                           want, fleet_explainer(np, what, prompts, ref_out,
+                                                 sink))
+        require(all(o["finish_reason"] == "max_new_tokens" for o in outs),
+                f"fleet (i) {what}: reasons "
+                f"{[o['finish_reason'] for o in outs]}")
+
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    reps, reg, sink, router = local_fleet()
+    rids = [router.submit(p, max_new_tokens=FLEET_NEW_TOKENS)
+            for p in prompts]
+    while len(router.journals[rids[0]].tokens) < FLEET_STOP_AFTER:
+        router.pump()
+    victim = router.journals[rids[0]].replica_id
+    moved = sum(1 for r in rids if router.journals[r].replica_id == victim
+                and not router.journals[r].finished)
+    reps[victim].engine._state = "stopped"       # no drain, no spill
+    exact("failover", router, rids, sink)
+    counted = reg.snapshot()["fleet.failovers"]["value"]
+    require(router.failovers >= 1 and counted == router.failovers,
+            f"fleet (i): {router.failovers} failovers, {counted} counted")
+    survivor = reps[1 - victim].engine.cache.leak_report()
+    require(survivor["leaked_blocks"] == 0 and survivor["num_used"] == 0,
+            f"fleet (i): survivor leak report {survivor}")
+    failover = {"victim": victim, "streams_on_victim": moved,
+                "failovers": router.failovers, "survivor_leak": survivor,
+                "wall_s": time.perf_counter() - t0}
+    del reps, router
+
+    t0 = time.perf_counter()
+    reps, reg, sink, router = local_fleet()
+    rids = [router.submit(p, max_new_tokens=FLEET_NEW_TOKENS)
+            for p in prompts]
+    router.pump()
+    migrated = router.drain_replica(0, timeout=0.0)
+    require(not any(router.journals[r].replica_id == 0
+                    and not router.journals[r].finished for r in rids),
+            "fleet (i): streams left on the drained replica")
+    exact("migration", router, rids, sink)
+    counted = reg.snapshot().get("fleet.migrations", {}).get("value", 0.0)
+    require(migrated > 0 and router.migrations == migrated == counted,
+            f"fleet (i): {migrated} migrated, router {router.migrations}, "
+            f"{counted} counted")
+    leaks = [rep.engine.cache.leak_report() for rep in reps]
+    require(all(lk["leaked_blocks"] == 0 and lk["num_used"] == 0
+                for lk in leaks), f"fleet (i): leak reports {leaks}")
+    launches = dict(_kernels.launches)
+    for name in SERVING_KERNELS:
+        require(launches[name] > 0,
+                f"fleet (i): {name} launched 0 times in the part")
+    return {"failover": failover,
+            "migration": {"migrated": migrated,
+                          "wall_s": time.perf_counter() - t0},
+            "launches": {n: launches[n] for n in SERVING_KERNELS}}
+
+
+def compute_apps():
+    """``nvidia-smi``'s compute apps: {pid: used MiB}."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout
+    apps = {}
+    for line in out.strip().splitlines():
+        pid, mib = (f.strip() for f in line.split(","))
+        apps[int(pid)] = apps.get(int(pid), 0) + int(mib)
+    return apps
+
+
+def card_devices(pid):
+    """The card's device files (``/dev/nvidia<N>``) that ``pid`` holds
+    open: a process with a CUDA context on the card has one."""
+    import re
+    fd_dir = f"/proc/{pid}/fd"
+    held = set()
+    for fd in os.listdir(fd_dir):
+        try:
+            target = os.readlink(os.path.join(fd_dir, fd))
+        except OSError:
+            continue
+        if re.fullmatch(r"/dev/nvidia\d+", target):
+            held.add(target)
+    return sorted(held)
+
+
+def serve_fleet(torch, np, dev, _kernels, root):
+    import dataclasses
+    import shutil
+    from paddle_tpu_torch.convert import (SERVING_ENGINE, SERVING_SEED,
+                                          serving_workload)
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.inference.fleet import ReplicaManager, drills
+    from paddle_tpu_torch.observability.registry import MetricsRegistry
+
+    work = os.path.join(root, "build", "serve_fleet")
+    shutil.rmtree(work, ignore_errors=True)
+    model, prompts = serving_workload(dev, dtype="float32")
+    spec = {"seed": SERVING_SEED,
+            "config": dataclasses.asdict(model.config),
+            "engine": dict(SERVING_ENGINE), "device": "cuda"}
+
+    # the reference: one uninterrupted float32 engine, with its logits
+    t0 = time.perf_counter()
+    ref = ServingEngine(model, **SERVING_ENGINE, capture_logits=True,
+                        registry=MetricsRegistry())
+    rr = [ref.submit(p, max_new_tokens=FLEET_NEW_TOKENS) for p in prompts]
+    ref.run()
+    ref_out = [ref.collect(r) for r in rr]
+    want = [o["tokens"] for o in ref_out]
+    ref_s = time.perf_counter() - t0
+    del ref
+
+    line = {"reference_s": ref_s,
+            "in_process": fleet_in_process(
+                torch, np, _kernels, model, prompts, ref_out,
+                os.path.join(work, "in_process"))}
+    log(json.dumps({"serving_fleet_in_process": line}))
+    weights_mib = sum(t.numel() * t.element_size()
+                      for t in model.state_dict().values()) / 2 ** 20
+    del model
+    torch.cuda.empty_cache()
+
+    # every worker's handshake: spawn to its ready line
+    handshakes = []
+    spawn = ReplicaManager._spawn
+
+    def timed_spawn(self, idx):
+        t = time.perf_counter()
+        replica = spawn(self, idx)
+        handshakes.append({"replica": idx, "pid": replica.process.pid,
+                           "handshake_s": time.perf_counter() - t})
+        log(json.dumps({"fleet_worker_handshake": handshakes[-1]}))
+        return replica
+
+    def run(name, fn, **kw):
+        run_dir = os.path.join(work, name)
+        os.makedirs(run_dir)
+        reg = MetricsRegistry()
+        sink = reg.add_sink(RecordSink())
+        first = len(handshakes)
+        ev = fn(run_dir, spec, prompts, FLEET_NEW_TOKENS, reference=want,
+                registry=reg,
+                explain=fleet_explainer(np, name, prompts, ref_out, sink),
+                **kw)
+        ev["handshakes"] = handshakes[first:]
+        log(json.dumps({f"serving_fleet_{name}": ev}))
+        return ev
+
+    def on_card(mgr):
+        # each worker must hold a CUDA context on the card.  nvidia-smi
+        # names a process by its pid outside this pid namespace, so in a
+        # container it may list none of the workers' pids (one H100 host
+        # showed every process as pid 1): then each worker
+        # must hold the card's device file open, and the compute apps'
+        # memory must have grown by at least both workers' weights
+        apps = compute_apps()
+        pids = [rep.process.pid for rep in mgr.replicas]
+        held = {p: card_devices(p) for p in pids}
+        grew = sum(apps.values()) - sum(apps_before.values())
+        listed = all(p in apps for p in pids)
+        log(json.dumps({"fleet_compute_apps": {
+            "workers": pids, "nvidia_smi_mib": apps,
+            "nvidia_smi_mib_before": apps_before, "grew_mib": grew,
+            "weights_mib_a_worker": weights_mib, "listed": listed,
+            "device_files": held}}))
+        require(listed or (all(held.values())
+                           and grew >= 2 * weights_mib),
+                f"fleet (ii): workers {pids} not shown on the card: "
+                f"nvidia-smi {apps} (before {apps_before}), device files "
+                f"{held}")
+
+    ReplicaManager._spawn = timed_spawn
+    try:
+        apps_before = compute_apps()
+        sig = run("sigkill", drills.sigkill_drill, on_start=on_card)
+        require(sig["kill_fired"] == 1 and sig["failovers"] >= 1
+                and sig["survivor_leaked_blocks"] == 0
+                and sig["statusz_states"].get("dead") == 1,
+                f"fleet (ii): {sig}")
+        up = run("rolling_upgrade", drills.rolling_upgrade)
+        require(up["dropped"] == 0 and up["restarts"] == 2
+                and up["statusz_states"] == {"healthy": 2},
+                f"fleet (iii): {up}")
+        crash = run("router_crash", drills.router_crash_drill)
+        require(crash["worker_restarts"] == 0 and crash["journal_live"] == 0
+                and crash["leaked_blocks"] == 0
+                and crash["recovered"]["streams"] == len(prompts),
+                f"fleet (iv): {crash}")
+    finally:
+        ReplicaManager._spawn = spawn
+    log(json.dumps({"serving_fleet": {
+        "streams": len(prompts), "new_tokens": FLEET_NEW_TOKENS,
+        "handshake_s": [h["handshake_s"] for h in handshakes],
+        "wall_s": {"sigkill": sig["wall_s"],
+                   "rolling_upgrade": up["wall_s"],
+                   "router_crash": crash["wall_s"]},
+        "accepted_at_kill": [a["accepted"] for a in sig["at_kill"]],
+        "token_exact": [sig["token_exact"], up["token_exact"],
+                        crash["token_exact"]]}}))
 
 
 # ---------------------------------------------------------------------------

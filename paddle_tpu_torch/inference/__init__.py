@@ -8,7 +8,8 @@ the serving engine: ``Config.enable_continuous_batching`` plus
 ``set_decoder_model`` routes a predictor onto :class:`ServingEngine`, and
 each batch row becomes a ragged engine request.  A ``Predictor`` over a
 ``jit.save`` artifact is not ported yet and raises (ROADMAP Queue 1 item
-12: ``jit`` export).
+12: ``jit`` export).  :mod:`.fleet` is the serving fleet above the engine
+(router, journal, replicas, autoscaler).
 """
 from __future__ import annotations
 
@@ -214,3 +215,9 @@ class PredictorPool:
         return self._predictors[idx]
 
     retrieve = retrive
+
+
+# -- the serving fleet (router, journal, replicas, autoscaler) --------------
+from . import fleet  # noqa: E402
+
+__all__ += ["fleet"]

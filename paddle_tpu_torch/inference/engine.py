@@ -71,9 +71,9 @@ What differs from the JAX step, and why it is safe:
   faulted step drew.  Greedy serving draws nothing.
 
 Still to port (ROADMAP.md Queue 1): the hybrid-mesh check of the JAX
-constructor (the port has no mesh until multi-GPU parallelism, item 10),
-the engine's decode step as a CUDA graph, and the serving fleet around
-the engine (router, journal, replicas; item 8).
+constructor (the port has no mesh until multi-GPU parallelism, item 10)
+and the engine's decode step as a CUDA graph.  The serving fleet above
+the engine (router, journal, replicas) is :mod:`.fleet`.
 
 Env knobs: ``PTPU_MAX_SEQS``, ``PTPU_KV_BLOCK_SIZE``,
 ``PTPU_SHED_QUEUE_DEPTH``, ``PTPU_SERVE_NAN_GUARD``,

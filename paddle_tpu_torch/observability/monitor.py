@@ -9,15 +9,18 @@ serving engine:
   once it is ``draining`` or ``stopped``, and 503
   ``load-shed:queue_depth=<n>`` while the admission queue is past
   ``PTPU_SHED_QUEUE_DEPTH`` (the signal a balancer routes away on);
-- ``/statusz`` — one JSON page: the health verdict and a ``serving``
+- ``/statusz`` — one JSON page: the health verdict, a ``serving``
   section (queue depth, running / waiting, TTFT / TPOT tails, KV
   occupancy, the registry's lifecycle counters, and the engine's own
   ``stats()`` with its ``resilience`` section, which wins where both
-  carry a key).
+  carry a key) and a ``fleet`` section (the replica census, streams,
+  client-observed TTFT / TPOT tails and the ``fleet.*`` counters, from
+  the registry; the router's own ``stats()`` wins where the router
+  hosts the server).
 
 Start one with ``ServingEngine.start_status_server()`` or
-``StatusServer(engine=...).start()``; ``port=0`` binds an ephemeral port
-(read back from ``.port``).
+``StatusServer(engine=..., router=...).start()``; ``port=0`` binds an
+ephemeral port (read back from ``.port``).
 """
 from __future__ import annotations
 
@@ -36,15 +39,16 @@ __all__ = ["StatusServer"]
 
 
 class StatusServer:
-    """``/metrics``, ``/healthz`` and ``/statusz`` over one engine (or
-    over the registry alone).  ``registry`` defaults to the process-global
+    """``/metrics``, ``/healthz`` and ``/statusz`` over one engine and / or
+    one fleet router (or over the registry alone).  ``registry`` defaults to the process-global
     one at request time, so a server started before the first instrument
     still sees everything."""
 
     def __init__(self, port: int = 0, host: str = "0.0.0.0",
-                 registry=None, engine=None):
+                 registry=None, engine=None, router=None):
         self._registry = registry
         self.engine = engine
+        self.router = router
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
         self.host = host
@@ -123,6 +127,40 @@ class StatusServer:
             except Exception as e:  # statusz must render
                 vlog(0, "monitor: statusz could not read the engine: %r", e)
         status["serving"] = serving or None
+        # the serving fleet: replica census + stream / failover counters,
+        # registry-derived so any process of the fleet can render it; the
+        # router's richer stats() wins when the router hosts this server
+        fleet: Dict[str, Any] = {}
+        if any(k.startswith("fleet.") for k in snap):
+            states = {}
+            for key in snap:
+                if key.startswith("fleet.replicas[state="):
+                    states[key[len("fleet.replicas[state="):-1]] = \
+                        gauge(key)
+            fleet = {
+                "replicas": states or None,
+                "streams": gauge("fleet.streams"),
+                # client-observed latency tails, beside the engine-local
+                # serve.* histograms so the gap shows at a glance
+                "ttft_ms": hist("fleet.ttft_ms"),
+                "tpot_ms": hist("fleet.tpot_ms"),
+                "dispatch": counter("fleet.dispatch"),
+                "retries": counter("fleet.retries"),
+                "failovers": counter("fleet.failovers"),
+                "migrations": counter("fleet.migrations"),
+                "shed": counter("fleet.shed"),
+                "restarts": counter("fleet.restarts"),
+                "deferred": counter("fleet.deferred"),
+                "breaker_trips": counter("fleet.breaker_trips"),
+                "autoscale_events": counter("fleet.autoscale"),
+                "recovered": counter("fleet.recovered"),
+            }
+        if self.router is not None:
+            try:
+                fleet.update(self.router.stats())
+            except Exception as e:  # statusz must render
+                vlog(0, "monitor: statusz could not read the router: %r", e)
+        status["fleet"] = fleet or None
         return status
 
     # -- plumbing ----------------------------------------------------------

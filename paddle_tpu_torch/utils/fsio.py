@@ -1,8 +1,9 @@
 """Durable small-file I/O: the port's own copy of ``paddle_tpu/utils/
 fsio.py``.
 
-Every durable byte the serving engine writes (quarantine records, the
-drain spill file, the JSONL metric stream) passes through these helpers:
+Every durable byte the serving engine and the fleet router write
+(quarantine records, the drain spill file, the JSONL metric stream, the
+router's journal) passes through these helpers:
 
 - **durability**: every write is flushed and fsync'd before it counts;
 - **atomicity**: :func:`atomic_write_bytes` stages through
@@ -16,7 +17,7 @@ from __future__ import annotations
 import os
 
 __all__ = ["write_bytes", "atomic_write_bytes", "append_bytes",
-           "read_bytes", "fsync_dir"]
+           "truncate_bytes", "read_bytes", "fsync_dir"]
 
 
 def write_bytes(path: str, payload: bytes) -> None:
@@ -31,6 +32,15 @@ def append_bytes(path: str, payload: bytes) -> None:
     """Append ``payload`` to ``path`` and fsync it (the JSONL streams)."""
     with open(path, "ab") as f:
         f.write(payload)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def truncate_bytes(path: str, size: int) -> None:
+    """Cut ``path`` to its first ``size`` bytes and fsync it (a JSONL
+    stream's torn tail)."""
+    with open(path, "r+b") as f:
+        f.truncate(size)
         f.flush()
         os.fsync(f.fileno())
 

@@ -47,6 +47,14 @@ def test_package_imports_with_jax_blocked():
             "import paddle_tpu_torch.observability.monitor\n"
             "import paddle_tpu_torch.supervisor.watchdog\n"
             "import paddle_tpu_torch.testing.faults\n"
+            "import paddle_tpu_torch.inference.fleet\n"
+            "import paddle_tpu_torch.inference.fleet.health\n"
+            "import paddle_tpu_torch.inference.fleet.journal\n"
+            "import paddle_tpu_torch.inference.fleet.router\n"
+            "import paddle_tpu_torch.inference.fleet.replica\n"
+            "import paddle_tpu_torch.inference.fleet.autoscaler\n"
+            "import paddle_tpu_torch.inference.fleet.worker\n"
+            "import paddle_tpu_torch.inference.fleet.drills\n"
             "import paddle_tpu_torch.convert\n"
             "loaded = [m for m in sys.modules if sys.modules[m] is not None]\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
