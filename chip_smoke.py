@@ -203,6 +203,45 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               gpt_tiny fused training step on the card against the CPU
               (loss, every gradient, the loss after one AdamW step; its
               K1-K3 take the tiled kernels);
+  (c2c) pretraining  GPT-3 1.3B (convert.pretraining_workload: 24 x 2048,
+              16 heads, vocab 50304, recompute, flash attention, B=4,
+              S=2048, weights drawn on the card):
+              (1) the flash forward, dK/dV and dQ kernels at the 1.3B
+              attention shape (B=4, H=16, S=2048, d=128, bf16, causal) at
+              p=0 and p=0.1 against their plain versions with the (b)
+              tolerances, timed, with SDPA forward and backward beside
+              them, and the d=128 instantiations' ptxas registers and
+              spills logged in (a);
+              (2) leg A, the JAX bench's 1.3B full step (bf16 O1, dropout
+              0, AdamW(1e-4, 0.01)): 2 warm-up and 5 timed steps, step p50,
+              tokens/s, MFU and peak memory; the first loss within 1 of
+              ln 50304; the counters zeroed before and read after: 48
+              flash forward launches a step (24, and 24 replays), 24 dK/dV,
+              24 dQ;
+              (3) one forward + backward of leg A's model without
+              recompute, under "full" and under "dots_saveable": peak
+              memory above rest ordered full < dots_saveable <= none, and
+              "full"'s gradients within one bf16 unit of each gradient's
+              range of no recompute's;
+              (4) leg B, the recipe (dropout 0.1, O2 master weights, a
+              GradScaler, ClipGradByGlobalNorm(1.0), AdamW with decay on
+              the 2-D weights, warmup then cosine): 4 steps whose lr is the
+              schedule's host value, the global norm before clipping
+              logged, bf16 parameters and float32 masters; then a step
+              with an inf in one gradient (a hook): parameters, masters,
+              slots and the step count unchanged bit for bit, the scale
+              halved; then recompute's gradients against no recompute's
+              under one seed, bit for bit (the random streams' replay);
+              (5) resume at full width and 2 layers: 4 steps straight
+              against 2 steps, save_sharded (parameters, masters, slots,
+              step, schedule, scaler, random streams; an mlh32/1 stamp), a
+              fresh model and optimizer, load_sharded, 2 steps: the same
+              losses bit for bit; checkpoint bytes, save and load seconds;
+              a shard cut by one byte raises CheckpointCorruption; the
+              host seconds of convert.random_state for that model logged;
+              (6) a float32 gpt_tiny step with use_recompute on the card
+              against the CPU (loss, every gradient, the loss after one
+              AdamW step);
   (c3) generate GPTForCausalLM.generate at full width (convert.
               generate_workload: B=8, prompt 512, 128 greedy tokens, bf16),
               unfused (use_pallas_attention) and fused (use_fused_block):
@@ -345,6 +384,14 @@ def main() -> int:
                                  training["step_ms_p50"])
     torch.cuda.empty_cache()
 
+    # -- (c2c) GPT-3 1.3B pretraining ---------------------------------------
+    d128 = check_flash_d128(torch, np, dev)
+    per_step = pretrain(torch, np, dev, _kernels, root)
+    for name, cases in d128.items():
+        results[name]["d128"] = {
+            **cases, "launches_per_step_pretraining": per_step[name]}
+    torch.cuda.empty_cache()
+
     # -- (c3) generate -------------------------------------------------------
     generating = generate(torch, np, dev, _kernels)
 
@@ -432,14 +479,25 @@ def check_design(_kernels):
                 and props.get("spill_loads") == 0,
                 f"{lib}: {fn}<64> spills: {props}")
         (h64,) = [c for f, c in hmma.items() if f"{fn}ILi64E" in f]
+        d128 = [p for f, p in _kernels.ptxas_functions(lib).items()
+                if f"{fn}ILi128E" in f]
+        require(len(d128) == 1, f"{lib}: no ptxas report for {fn}<128>")
+        (h128,) = [c for f, c in hmma.items() if f"{fn}ILi128E" in f]
         out[lib] = {"kernel": f"{fn}<64>", "hmma": h64,
                     "hmma_per_head_dim": sorted(hmma.values()),
                     "registers": props.get("registers"),
                     "spill_stores": props["spill_stores"],
-                    "spill_loads": props["spill_loads"]}
+                    "spill_loads": props["spill_loads"],
+                    # the 1.3B path's instantiation: logged, not required
+                    # to be free of spills
+                    "d128": {"kernel": f"{fn}<128>", "hmma": h128,
+                             **{k: d128[0].get(k) for k in (
+                                 "registers", "spill_stores", "spill_loads",
+                                 "stack_frame")}}}
         log(f"design {lib}: {fn}<64> has {h64} HMMA instructions "
             f"({sorted(hmma.values())} over the {MMA_HEAD_DIMS} head dims), "
-            f"{props.get('registers')} registers, 0 spill stores")
+            f"{props.get('registers')} registers, 0 spill stores; "
+            f"{fn}<128>: {out[lib]['d128']}")
     for lib in MMA_FUSED:
         out[lib] = check_mma_fused_design(_kernels, lib)
 
@@ -1643,11 +1701,12 @@ def visible_pairs(sq: int, sk: int) -> int:
     return sum(min(sk, max(0, i + sk - sq + 1)) for i in range(sq))
 
 
-def check_flash(torch, np, dev):
-    """(b) the flash kernels against their plain versions: the training
-    shape (timed, with SDPA as the library yardstick), the same shape with
-    the fused leg's attention dropout, a small dropout case and ragged
-    sq != sk cases (checked only)."""
+def flash_cases(torch, np, dev, cases):
+    """The flash forward, dK/dV and dQ kernels against their plain versions
+    at each case of ``cases`` (see ``FLASH_CASES``); a timed case is timed
+    with SDPA forward and backward beside it as the library yardstick.
+    Returns the measurements by kernel and case, and the SDPA ms by case
+    ({"fwd", "bwd"})."""
     import torch.nn.functional as TF
     from paddle_tpu_torch.ops import flash_attention as fa
     rng = np.random.default_rng(SEED + 2)
@@ -1692,7 +1751,7 @@ def check_flash(torch, np, dev):
 
     per = {"flash_fwd": {}, "flash_dkdv": {}, "flash_dq": {}}
     library = {}
-    for tag, (b, h, sq, sk, d, p, dtype, timed) in FLASH_CASES.items():
+    for tag, (b, h, sq, sk, d, p, dtype, timed) in cases.items():
         dtype = getattr(torch, dtype)
         bh = b * h
         q, k, v = t((bh, sq, d), dtype), t((bh, sk, d), dtype), \
@@ -1739,25 +1798,39 @@ def check_flash(torch, np, dev):
             # computes dK, dV and dQ together)
             q4, k4, v4, do4 = (x.view(b, h, -1, d) for x in (q, k, v, do))
             sdpa = TF.scaled_dot_product_attention
-            library["fwd"] = time_ms(
-                torch, lambda: sdpa(q4, k4, v4, is_causal=True))
+            # SDPA's own dropout draws another mask: its time at p > 0 is
+            # a yardstick of the work, not of these values
+            lib = {"fwd": time_ms(torch, lambda: sdpa(
+                q4, k4, v4, is_causal=True, dropout_p=p))}
             qg, kg, vg = (x.detach().requires_grad_() for x in (q4, k4, v4))
 
             def fwd_bwd():
-                o = sdpa(qg, kg, vg, is_causal=True)
+                o = sdpa(qg, kg, vg, is_causal=True, dropout_p=p)
                 torch.autograd.grad(o, (qg, kg, vg), do4)
-            library["bwd"] = time_ms(torch, fwd_bwd) - library["fwd"]
-            log(f"library: SDPA forward {library['fwd']:.4f} ms, backward "
-                f"{library['bwd']:.4f} ms (dK, dV and dQ together)")
+            lib["bwd"] = time_ms(torch, fwd_bwd) - lib["fwd"]
+            library[tag] = lib
+            log(f"library ({tag}): SDPA forward {lib['fwd']:.4f} ms, "
+                f"backward {lib['bwd']:.4f} ms (dK, dV and dQ together)")
         del q, k, v, do, out, lse, delta
         torch.cuda.empty_cache()
+    return per, library
 
-    replaces = {"flash_fwd": ("paddle_tpu/ops/flash_attention.py:149", "fwd"),
-                "flash_dkdv": ("paddle_tpu/ops/flash_attention.py:254",
-                               "bwd"),
-                "flash_dq": ("paddle_tpu/ops/flash_attention.py:312", "bwd")}
+
+FLASH_REPLACES = {
+    "flash_fwd": ("paddle_tpu/ops/flash_attention.py:149", "fwd"),
+    "flash_dkdv": ("paddle_tpu/ops/flash_attention.py:254", "bwd"),
+    "flash_dq": ("paddle_tpu/ops/flash_attention.py:312", "bwd")}
+
+
+def check_flash(torch, np, dev):
+    """(b) the flash kernels against their plain versions: the training
+    shape (timed, with SDPA as the library yardstick), the same shape with
+    the fused leg's attention dropout, a small dropout case and ragged
+    sq != sk cases (checked only)."""
+    per, library = flash_cases(torch, np, dev, FLASH_CASES)
+    library = library["train"]
     results = {}
-    for name, (line, lib) in replaces.items():
+    for name, (line, lib) in FLASH_REPLACES.items():
         train_r = per[name]["train"]
         worst = max(per[name].values(), key=lambda r: r["err_over_tol"])
         results[name] = {
@@ -1777,6 +1850,32 @@ def check_flash(torch, np, dev):
                             "err_over_tol": r["err_over_tol"]}
                       for tag, r in per[name].items()}}
     return results
+
+
+# the 1.3B pretraining path's attention (c2c (1)): B=4, H=16, S=2048, d=128,
+# without dropout (leg A) and with the recipe's 0.1 (leg B)
+PRETRAIN_FLASH_CASES = {
+    "1p3b": (4, 16, 2048, 2048, 128, 0.0, "bfloat16", True),
+    "1p3b-dropout": (4, 16, 2048, 2048, 128, 0.1, "bfloat16", True),
+}
+
+
+def check_flash_d128(torch, np, dev):
+    """(c2c 1) the flash kernels at the 1.3B attention shape, against their
+    plain versions with the (b) tolerances, timed with SDPA beside them.
+    Returns, per kernel, each case's numbers."""
+    per, library = flash_cases(torch, np, dev, PRETRAIN_FLASH_CASES)
+    out = {}
+    for name, (_, lib) in FLASH_REPLACES.items():
+        out[name] = {
+            tag: {"shape": "B=4, H=16, S=2048, d=128, bf16, causal, "
+                           f"p={PRETRAIN_FLASH_CASES[tag][5]}",
+                  **{k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "max_abs_err", "tol",
+                                       "err_over_tol")},
+                  "library_ms": library[tag][lib]}
+            for tag, r in per[name].items()}
+    return out
 
 
 DECODE_CAP = 640
@@ -3346,6 +3445,392 @@ def train_fused(torch, np, dev, _kernels, unfused_p50):
             "unfused_step_ms_p50": unfused_p50}
     log(json.dumps({"fused_training": line}))
     return {"launches": line["launches"], "step_ms_p50": line["step_ms_p50"]}
+
+
+# ---------------------------------------------------------------------------
+# (c2c) GPT-3 1.3B pretraining
+# ---------------------------------------------------------------------------
+PRETRAIN_WARMUP, PRETRAIN_TIMED = 2, 5     # leg A's steps
+PRETRAIN_B_STEPS = 4                       # leg B's steps before the inf
+PRETRAIN_SEED = 2024                       # the framework's streams
+RESUME_LAYERS, RESUME_STEPS = 2, 4         # (5): full width, 2 layers
+INF_PARAM = "gpt.h.0.mlp.fc_in.weight"     # (4): the gradient made inf
+
+
+def grads_of(model):
+    return {n: p.grad for n, p in model.named_parameters()}
+
+
+def flops_per_token(cfg, n_params, s):
+    """paddle_tpu/observability/mfu.py flops_per_token: 6N for the matmuls
+    plus the causal attention term 12 L h S / 2 (recompute not counted)."""
+    return 6.0 * n_params + 12.0 * cfg.num_layers * cfg.hidden_size * s / 2.0
+
+
+def pretrain_leg_a(torch, np, dev, _kernels):
+    """(c2c 2) leg A: 2 warm-up and 5 timed steps; the loss near ln V; the
+    flash launches a step: 48 forward (24 + 24 replays), 24 dK/dV, 24
+    dQ."""
+    from paddle_tpu_torch.convert import pretraining_workload
+    from paddle_tpu_torch.training import train_step
+    model, opt, ids, labels, kw = pretraining_workload(dev, leg="A")
+    cfg = model.config
+    require(cfg.num_layers == 24 and cfg.hidden_size == 2048
+            and cfg.num_heads == 16 and cfg.vocab_size == 50304
+            and cfg.max_position_embeddings == 2048 and cfg.use_recompute
+            and cfg.recompute_policy is None and cfg.use_pallas_attention
+            and not cfg.use_fused_block and cfg.dtype == "bfloat16"
+            and cfg.hidden_dropout == 0.0 and tuple(ids.shape) == (4, 2048)
+            and kw == {}, "not the full-width GPT-3 1.3B leg A at B=4, "
+            "S=2048")
+    b, s = ids.shape
+    steps = PRETRAIN_WARMUP + PRETRAIN_TIMED
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _kernels.reset_launches()
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(train_step(model, opt, ids, labels, **kw)))
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(_kernels.launches)
+    per_step = {"flash_fwd": 2 * cfg.num_layers, "flash_dkdv": cfg.num_layers,
+                "flash_dq": cfg.num_layers}
+    for name, want in per_step.items():
+        require(launches[name] == want * steps,
+                f"pretraining leg A: {name} launched {launches[name]} times "
+                f"in {steps} steps, not {want} a step")
+    for name in (*FUSED_KERNELS, *FUSED_ONLY_KERNELS, *F32_KERNELS):
+        require(launches[name] == 0, f"pretraining leg A: {name} launched")
+    require(all(np.isfinite(losses)), f"leg A: nonfinite loss {losses}")
+    ln_v = float(np.log(cfg.vocab_size))
+    # random ids under 0.02-scaled weights: logits of std ~0.9 add ~0.4
+    require(abs(losses[0] - ln_v) < 1.0,
+            f"leg A: first loss {losses[0]} is not near ln V = {ln_v}")
+    require(losses[-1] < losses[0], f"leg A: the loss did not fall {losses}")
+    p50 = statistics.median(times[PRETRAIN_WARMUP:])
+    n_params = sum(p.numel() for p in model.parameters())
+    tok_s = b * s / (p50 / 1e3)
+    fpt = flops_per_token(cfg, n_params, s)
+    line = {"leg": "A", "model": "gpt_1p3b", "params": n_params,
+            "B": b, "S": s, "amp": "O1", "recompute": "full",
+            "optimizer": "AdamW(learning_rate=1e-4, weight_decay=0.01)",
+            "steps": {"warmup": PRETRAIN_WARMUP, "timed": PRETRAIN_TIMED},
+            "step_ms_p50": p50, "step_ms": times[PRETRAIN_WARMUP:],
+            "tokens_per_s": tok_s, "flops_per_token": fpt,
+            "mfu": tok_s * fpt / BF16_FLOPS,
+            "mfu_peak": "989 TFLOP/s bf16 dense",
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "loss_first": losses[0], "ln_vocab": ln_v, "losses": losses,
+            "flash_launches_per_step": {n: launches[n] // steps
+                                        for n in per_step}}
+    log(f"pretraining leg A: step p50 {p50:.2f} ms, {tok_s:.0f} tokens/s, "
+        f"MFU {line['mfu']:.4f}, peak {line['peak_memory_gb']:.2f} GB, "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (ln V {ln_v:.4f}); "
+        f"flash launches a step {line['flash_launches_per_step']}")
+    return model, ids, labels, line
+
+
+def recompute_at_work(torch, model, ids, labels):
+    """(c2c 3) one forward + backward of leg A's model without recompute,
+    under "full" and under "dots_saveable": the peak memory above the
+    resting state is ordered full < dots_saveable <= none, and "full"'s
+    gradients agree with no recompute's within the flash kernels' backward
+    tolerance (one bf16 unit of each gradient's range)."""
+    from paddle_tpu_torch import amp
+    cfg = model.config
+    peaks, ref = {}, None
+    worst = 0.0
+    for policy in ("full", "none", "dots_saveable"):
+        cfg.use_recompute = policy != "none"
+        cfg.recompute_policy = None if policy == "none" else policy
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        resting = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss, _ = model(ids, labels=labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        peaks[policy] = (torch.cuda.max_memory_allocated() - resting) / 1e9
+        if policy == "full":
+            ref = {n: g.clone() for n, g in grads_of(model).items()}
+        elif policy == "none":
+            for n, g in grads_of(model).items():
+                tol = 2.0 ** -7 * max(1e-30, float(g.abs().max()))
+                err = float((ref[n] - g).abs().max())
+                require(err <= tol, f"recompute: grad {n} of 'full' differs "
+                        f"from no recompute by {err} > {tol}")
+                worst = max(worst, err / tol)
+            del ref
+    cfg.use_recompute, cfg.recompute_policy = True, None
+    model.zero_grad(set_to_none=True)
+    require(peaks["full"] < peaks["dots_saveable"] <= peaks["none"],
+            f"recompute: peak memory above rest not ordered full < "
+            f"dots_saveable <= none: {peaks}")
+    line = {"peak_gb_above_rest": peaks,
+            "full_vs_none_grad_worst_err_over_tol": worst}
+    log(f"recompute at work: peak above rest {peaks} GB; 'full' against no "
+        f"recompute: every gradient within one bf16 unit of its range "
+        f"(worst err/tol {worst:.3f})")
+    return line
+
+
+def snapshot(opt, model):
+    sd = opt.state_dict()["state"]
+    return {"params": {n: p.detach().clone()
+                       for n, p in model.named_parameters()},
+            "step": sd["step"].clone(),
+            "master": {n: m.clone() for n, m in sd["master"].items()},
+            "slots": {n: {k: v.clone() for k, v in s.items()}
+                      for n, s in sd["slots"].items()}}
+
+
+def same_state(torch, a, b):
+    return (torch.equal(a["step"], b["step"])
+            and all(torch.equal(a["params"][n], b["params"][n])
+                    for n in a["params"])
+            and all(torch.equal(a["master"][n], b["master"][n])
+                    for n in a["master"])
+            and all(torch.equal(a["slots"][n][k], b["slots"][n][k])
+                    for n in a["slots"] for k in a["slots"][n]))
+
+
+def pretrain_leg_b(torch, np, dev):
+    """(c2c 4) leg B, the recipe: each step's lr is the schedule's host
+    value, the global norm before clipping is logged, masters float32 and
+    parameters bf16; a step whose gradient holds an inf (a hook) leaves
+    parameters, masters, slots and the step count bit for bit and halves
+    the scale; with dropout 0.1, recompute's gradients equal no
+    recompute's bit for bit under the same seeds (the streams' replay)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.convert import (PRETRAINING_T_MAX,
+                                          PRETRAINING_WARMUP,
+                                          pretraining_workload)
+    from paddle_tpu_torch.framework import random as fw_random
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+    from paddle_tpu_torch.training import train_step
+    fw_random.seed(PRETRAIN_SEED)
+    model, opt, ids, labels, kw = pretraining_workload(dev, leg="B")
+    cfg, scaler = model.config, kw["scaler"]
+    require(cfg.num_layers == 24 and cfg.hidden_size == 2048
+            and cfg.hidden_dropout == cfg.attention_dropout == 0.1
+            and cfg.use_recompute and kw["level"] == "O2"
+            and tuple(ids.shape) == (4, 2048), "not the 1.3B leg B recipe")
+    plan = LinearWarmup(CosineAnnealingDecay(2e-4, PRETRAINING_T_MAX,
+                                             eta_min=2e-5),
+                        PRETRAINING_WARMUP, start_lr=0.0, end_lr=2e-4)
+    steps = []
+    for i in range(PRETRAIN_B_STEPS):
+        t0 = time.perf_counter()
+        loss = float(train_step(model, opt, ids, labels, **kw))
+        ms = (time.perf_counter() - t0) * 1e3
+        want = float(plan(i))
+        require(opt.last_lr == want, f"leg B step {i}: lr {opt.last_lr} "
+                f"!= the schedule's {want}")
+        norm = float(opt._grad_clip.last_norm)
+        require(np.isfinite(loss) and np.isfinite(norm),
+                f"leg B step {i}: loss {loss}, norm {norm}")
+        steps.append({"loss": loss, "lr": opt.last_lr, "grad_norm": norm,
+                      "ms": ms})
+    masters = opt.state_dict()["state"]["master"]
+    require(all(p.dtype == torch.bfloat16 for p in model.parameters())
+            and all(masters[n].dtype == torch.float32
+                    for n, _ in model.named_parameters()),
+            "leg B: parameters must be bf16 and masters float32")
+    require(int(opt.state_dict()["state"]["step"]) == PRETRAIN_B_STEPS,
+            "leg B: the step count")
+
+    # an inf in one gradient: the step is skipped on the card
+    before = snapshot(opt, model)
+    scale = scaler.get_loss_scaling()
+    param = dict(model.named_parameters())[INF_PARAM]
+
+    def poison(g):
+        g = g.clone()
+        g.view(-1)[0] = float("inf")
+        return g
+    hook = param.register_hook(poison)
+    loss = float(train_step(model, opt, ids, labels, **kw))
+    hook.remove()
+    after = snapshot(opt, model)
+    require(same_state(torch, before, after), "leg B: the step with an inf "
+            "gradient changed parameters, masters, slots or the step count")
+    require(scaler.get_loss_scaling() == scale / 2,
+            f"leg B: scale {scaler.get_loss_scaling()} after the inf, not "
+            f"{scale / 2}")
+    del before, after
+    torch.cuda.empty_cache()
+
+    # the streams' replay: recompute against no recompute, one seed
+    grads = {}
+    for rc in (True, False):
+        cfg.use_recompute = rc
+        model.zero_grad(set_to_none=True)
+        fw_random.seed(PRETRAIN_SEED + 1)
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss_rc, _ = model(ids, labels=labels)
+        loss_rc.backward()
+        if rc:
+            grads = {n: g.clone() for n, g in grads_of(model).items()}
+        else:
+            differ = [n for n, g in grads_of(model).items()
+                      if not torch.equal(g, grads[n])]
+            require(not differ, f"leg B: dropout 0.1 gradients under "
+                    f"recompute differ from no recompute's: {differ[:4]}")
+    cfg.use_recompute = True
+    model.zero_grad(set_to_none=True)
+    line = {"leg": "B", "model": "gpt_1p3b", "amp": "O2",
+            "dropout": cfg.hidden_dropout, "recompute": "full",
+            "optimizer": "AdamW(beta2=0.95, epsilon=1e-8, weight_decay=0.1 "
+                         "on 2-D weights), ClipGradByGlobalNorm(1.0)",
+            "schedule": f"LinearWarmup({PRETRAINING_WARMUP}) then "
+                        f"CosineAnnealingDecay(2e-4, T_max="
+                        f"{PRETRAINING_T_MAX}, eta_min=2e-5)",
+            "steps": steps, "inf_step": {"loss": loss, "skipped": True,
+                                         "scale_before": scale,
+                                         "scale_after":
+                                         scaler.get_loss_scaling()},
+            "dropout_replay": "recompute grads == no-recompute grads, bit "
+                              "for bit"}
+    log(f"pretraining leg B: lr {[s['lr'] for s in steps]} (the schedule's "
+        f"host values), global norm before clipping "
+        f"{[round(s['grad_norm'], 4) for s in steps]}, losses "
+        f"{[round(s['loss'], 4) for s in steps]}; the inf step kept every "
+        f"parameter, master and slot bit for bit, scale {scale} -> "
+        f"{scaler.get_loss_scaling()}; dropout 0.1 recompute gradients equal "
+        f"no recompute's bit for bit")
+    return line
+
+
+def resume_run(torch, dev, cfg, stop_after=None, ckpt=None):
+    """Leg B's recipe on ``cfg`` from the framework seed: RESUME_STEPS steps
+    straight, or ``stop_after`` steps then a checkpoint under ``ckpt`` and
+    the rest in a fresh model and optimizer loaded from it.  Returns the
+    losses and the checkpoint's numbers."""
+    from paddle_tpu_torch.convert import init_random_, pretraining_workload
+    from paddle_tpu_torch.distributed import checkpoint as ck
+    from paddle_tpu_torch.distributed.fingerprint import (DEFAULT_EXCLUDE,
+                                                          TreeFingerprint)
+    from paddle_tpu_torch.framework import random as fw_random
+    from paddle_tpu_torch.training import train_step
+    fw_random.seed(PRETRAIN_SEED)
+    model, opt, ids, labels, kw = pretraining_workload(dev, cfg, leg="B")
+    losses = []
+    for _ in range(stop_after or RESUME_STEPS):
+        losses.append(float(train_step(model, opt, ids, labels, **kw)))
+    if stop_after is None:
+        return losses, None
+    state = {"model": model.state_dict(), "optimizer": opt.state_dict(),
+             "scaler": kw["scaler"].state_dict(),
+             "rng": fw_random.get_state()}
+    stamp = {**TreeFingerprint().digest(state).meta(),
+             "exclude": list(DEFAULT_EXCLUDE)}
+    t0 = time.perf_counter()
+    ck.save_sharded(state, ckpt, integrity=stamp)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(os.path.getsize(os.path.join(d, f))
+                 for d, _, fs in os.walk(ckpt) for f in fs)
+    del model, opt, kw, state
+    torch.cuda.empty_cache()
+    # a fresh model (other weights) and optimizer, then the checkpoint
+    model, opt, ids, labels, kw = pretraining_workload(dev, cfg, leg="B")
+    init_random_(model, PRETRAIN_SEED + 99)
+    fw_random.seed(PRETRAIN_SEED + 99)
+    t0 = time.perf_counter()
+    loaded = ck.load_sharded(ckpt)
+    model.load_state_dict(loaded["model"])
+    opt.set_state_dict(loaded["optimizer"])
+    kw["scaler"].load_state_dict(loaded["scaler"])
+    fw_random.set_state(loaded["rng"])
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    for _ in range(RESUME_STEPS - stop_after):
+        losses.append(float(train_step(model, opt, ids, labels, **kw)))
+    return losses, {"bytes": nbytes, "save_s": save_s, "load_s": load_s,
+                    "tree_digest": stamp["tree"]}
+
+
+def resume(torch, dev, root):
+    """(c2c 5) save / resume at full width and 2 layers: 4 steps straight
+    against 2 steps, a checkpoint (parameters, masters, slots, step,
+    scheduler, scaler, the framework's streams, with an mlh32/1 stamp), a
+    fresh model and optimizer loaded from it and 2 more steps: steps 3-4
+    give the same losses bit for bit; a shard cut by one byte raises
+    CheckpointCorruption."""
+    import shutil
+    from paddle_tpu_torch.convert import random_state
+    from paddle_tpu_torch.distributed import checkpoint as ck
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_1p3b
+    cfg = gpt_1p3b(num_layers=RESUME_LAYERS, vocab_size=50304,
+                   use_recompute=True, use_pallas_attention=True,
+                   dtype="bfloat16")
+    ckpt = os.path.join(root, "build", "pretraining_resume_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        straight, _ = resume_run(torch, dev, cfg)
+        torch.cuda.empty_cache()
+        resumed, numbers = resume_run(torch, dev, cfg, RESUME_STEPS // 2,
+                                      ckpt)
+        require(resumed == straight, f"resume: losses {resumed} != the "
+                f"straight run's {straight} (bit for bit)")
+        shard = os.path.join(ckpt, "model__gpt.wte.weight", "shard-p0-0.npy")
+        with open(shard, "r+b") as f:
+            f.truncate(os.path.getsize(shard) - 1)
+        try:
+            ck.load_sharded(ckpt)
+        except ck.CheckpointCorruption as e:
+            caught = str(e)
+        else:
+            raise RuntimeError("resume: a truncated shard loaded")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    # what the host's numpy draw of convert.random_state would cost: the
+    # 1.3B workloads draw on the card (convert.init_random_) instead
+    model = GPTForCausalLM(cfg, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    t0 = time.perf_counter()
+    random_state(model, 0)
+    host_draw_s = time.perf_counter() - t0
+    del model
+    line = {"layers": RESUME_LAYERS, "hidden": cfg.hidden_size,
+            "vocab": cfg.vocab_size, "steps": RESUME_STEPS,
+            "losses": straight, "resumed_losses": resumed,
+            "bit_identical": True, "checkpoint_bytes": numbers["bytes"],
+            "save_s": numbers["save_s"], "load_s": numbers["load_s"],
+            "tree_digest": numbers["tree_digest"],
+            "truncated_shard": caught[:160],
+            "random_state_s": host_draw_s, "random_state_params": n_params}
+    log(f"convert.random_state on the host: {host_draw_s:.2f} s for "
+        f"{n_params} parameters")
+    log(f"resume: losses {straight} straight and {resumed} across the "
+        f"checkpoint, bit for bit; {numbers['bytes']} bytes, save "
+        f"{numbers['save_s']:.2f} s, load {numbers['load_s']:.2f} s "
+        f"(verified CRCs and digest {numbers['tree_digest']}); a shard cut "
+        "by one byte raised CheckpointCorruption")
+    return line
+
+
+def pretrain(torch, np, dev, _kernels, root):
+    from paddle_tpu_torch.models.gpt import gpt_tiny
+    # (6) the card against the CPU with recompute on
+    tiny_reference(torch, dev, gpt_tiny(hidden_dropout=0.0,
+                                        attention_dropout=0.0,
+                                        use_pallas_attention=True,
+                                        use_recompute=True),
+                   "recompute training")
+    model, ids, labels, leg_a = pretrain_leg_a(torch, np, dev, _kernels)
+    leg_a["recompute_at_work"] = recompute_at_work(torch, model, ids,
+                                                   labels)
+    del model
+    torch.cuda.empty_cache()
+    leg_b = pretrain_leg_b(torch, np, dev)
+    torch.cuda.empty_cache()
+    resumed = resume(torch, dev, root)
+    log(json.dumps({"pretraining": {"leg_a": leg_a, "leg_b": leg_b,
+                                    "resume": resumed}}))
+    return leg_a["flash_launches_per_step"]
 
 
 # ---------------------------------------------------------------------------

@@ -19,9 +19,15 @@ watchdog, drain / spill / resume, defrag, ``serve.*`` metrics, request
 tracing, the status server — ``observability/``, ``supervisor/``,
 ``testing/faults.py``) under the ``inference.Config`` /
 ``create_predictor`` facade; training —
-``training.train_step`` (bf16 O1 ``amp.auto_cast``, ``GPTForCausalLM``
-with labels, backward, ``optimizer.AdamW``) with the flash-attention
-forward, dK/dV and dQ kernels and the chunked LM loss (``ops/fused.py``).
+``training.train_step`` (``amp.auto_cast``, ``GPTForCausalLM`` with
+labels, backward, the optimizer) with the flash-attention forward, dK/dV
+and dQ kernels and the chunked LM loss (``ops/fused.py``); pretraining —
+activation recompute (``distributed/fleet/recompute.py``), every
+optimizer with clipping, decay forms, lr schedules (``optimizer/lr.py``)
+and O2 master weights, ``amp.decorate`` and ``amp.GradScaler``, and
+checkpoints in the JAX package's format with its fingerprint
+(``distributed/checkpoint.py``, ``distributed/fingerprint.py``), driven at
+GPT-3 1.3B by ``convert.pretraining_workload``.
 """
 __version__ = "0.1.0"
 

@@ -15,7 +15,7 @@ import threading
 
 import torch
 
-__all__ = ["WHITE_OPS", "BLACK_OPS", "push", "pop", "cast_for_op"]
+__all__ = ["WHITE_OPS", "BLACK_OPS", "push", "pop", "current", "cast_for_op"]
 
 WHITE_OPS = {  # compute in low precision (tensor-core bound)
     "matmul", "linear", "conv2d", "einsum", "attention",
@@ -43,6 +43,11 @@ def _get() -> _AmpState:
         st = _AmpState()
         _tls.amp = st
     return st
+
+
+def current() -> _AmpState:
+    """The policy in force in this thread (recompute replays under it)."""
+    return _get()
 
 
 def push(enabled: bool, level: str, dtype: torch.dtype) -> _AmpState:

@@ -1,4 +1,5 @@
-"""Weights from the JAX package into the port.
+"""Weights and optimizer states from the JAX package into the port, and the
+workloads that ``chip_smoke.py`` and the profilers drive.
 
 The port keeps the JAX package's parameter names and layouts (Linear
 weights are (in, out), the tied embedding is (vocab, hidden)), so a JAX
@@ -7,7 +8,11 @@ model's ``state_dict()`` converted to numpy maps key for key:
     np_state = {k: np.asarray(v) for k, v in jax_model.state_dict().items()}
     load_jax_state(torch_model, np_state)
 
-Nothing here imports JAX: the input is plain numpy.
+A JAX optimizer state (``opt.init`` / ``apply_gradients``: ``step``,
+``slots``, ``master``, keyed by the same names) maps onto the port
+optimizer's ``state_dict`` with :func:`optimizer_state_from_jax` and back
+with :func:`optimizer_state_to_jax`, so a JAX run's checkpoint resumes in
+the port.  Nothing here imports JAX: the input is plain numpy.
 """
 from __future__ import annotations
 
@@ -26,7 +31,10 @@ __all__ = ["state_dict_from_jax", "load_jax_state", "random_state",
            "TRAINING_BATCH", "TRAINING_SEQ", "fused_training_workload",
            "FUSED_TRAINING_DROPOUT", "generate_workload",
            "GENERATE_SEED", "GENERATE_BATCH", "GENERATE_PROMPT",
-           "GENERATE_NEW_TOKENS"]
+           "GENERATE_NEW_TOKENS", "init_random_", "pretraining_workload",
+           "PRETRAINING_SEED", "PRETRAINING_BATCH", "PRETRAINING_SEQ",
+           "PRETRAINING_WARMUP", "PRETRAINING_T_MAX",
+           "optimizer_state_from_jax", "optimizer_state_to_jax"]
 
 
 def state_dict_from_jax(np_state: Dict[str, np.ndarray],
@@ -118,7 +126,7 @@ def training_workload(device, config=None, *, batch: int = TRAINING_BATCH,
     load_jax_state(model, random_state(model, TRAINING_SEED))
     model.train()
     optimizer = AdamW(learning_rate=1e-4, weight_decay=0.01,
-                      parameters=model.parameters())
+                      parameters=model.named_parameters())
     rng = np.random.RandomState(0)
     dev = model.device
     ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, seq_len))
@@ -198,3 +206,141 @@ def random_state(model: nn.Module, seed: int) -> Dict[str, np.ndarray]:
         is_gain = key.endswith(("ln_1.weight", "ln_2.weight", "ln_f.weight"))
         out[key] = 1.0 + 0.05 * a if is_gain else 0.02 * a
     return out
+
+
+def init_random_(model: nn.Module, seed: int) -> nn.Module:
+    """The rule of :func:`random_state` (LayerNorm gains ``1 + 0.05 N(0,
+    1)``, every other parameter ``0.02 N(0, 1)``), drawn in place on the
+    model's device from a ``torch.Generator`` seeded with ``seed``: other
+    numbers than :func:`random_state`'s, made on the card, where the
+    host's numpy draw takes tens of seconds for a billion parameters."""
+    device = next(model.parameters()).device
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        for key, p in model.state_dict().items():
+            a = torch.randn(p.shape, generator=gen, device=device,
+                            dtype=torch.float32)
+            is_gain = key.endswith(("ln_1.weight", "ln_2.weight",
+                                    "ln_f.weight"))
+            p.copy_(1.0 + 0.05 * a if is_gain else 0.02 * a)
+    return model
+
+
+PRETRAINING_SEED = 13
+PRETRAINING_BATCH = 4
+PRETRAINING_SEQ = 2048
+# the recipe's schedule, cut to a smoke's few steps (GPT-3: 375M tokens of
+# warmup, cosine decay over 260B tokens)
+PRETRAINING_WARMUP = 2
+PRETRAINING_T_MAX = 8
+
+
+def pretraining_workload(device, config=None, *, leg: str = "A",
+                         batch: int = PRETRAINING_BATCH,
+                         seq_len: int = PRETRAINING_SEQ):
+    """GPT-3 1.3B pretraining on one card: ``gpt_1p3b`` at full width and
+    depth (24 layers, h=2048, 16 heads, vocab 50304, 2048 positions) with
+    bf16 activations, flash attention and ``use_recompute``, weights by
+    :func:`init_random_` (``PRETRAINING_SEED``) on ``device``, and ``ids``
+    then ``labels`` drawn by ``np.random.RandomState(0).randint(0, vocab,
+    (batch, seq_len))``.
+
+    - ``leg="A"``: the JAX bench's 1.3B full step (``bench.py``
+      ``_bench_1p3b_fullstep``: dropout 0) under bf16 O1 with ``_build``'s
+      ``AdamW(1e-4, weight_decay=0.01)``;
+    - ``leg="B"``: the pretraining recipe of the GPT-3 paper's 1.3B row:
+      dropout 0.1, ``amp.decorate`` O2 (bf16 parameters, float32 masters),
+      a ``GradScaler`` that backs off at the first overflow,
+      ``ClipGradByGlobalNorm(1.0)``, ``AdamW(beta2=0.95, epsilon=1e-8,
+      weight_decay=0.1)`` on the 2-D weights only, and
+      ``LinearWarmup(CosineAnnealingDecay(2e-4, PRETRAINING_T_MAX,
+      eta_min=2e-5), PRETRAINING_WARMUP, 0, 2e-4)``.
+
+    ``config`` replaces the model configuration (the same rules at another
+    size).  Returns ``(model, optimizer, ids, labels, step_kwargs)``: run
+    it with ``training.train_step(model, optimizer, ids, labels,
+    **step_kwargs)``."""
+    from . import amp
+    from .models.gpt import GPTForCausalLM, gpt_1p3b
+    from .optimizer import AdamW, ClipGradByGlobalNorm
+    from .optimizer.lr import CosineAnnealingDecay, LinearWarmup
+    enforce(leg in ("A", "B"), f"leg must be 'A' or 'B', got {leg!r}")
+    drop = 0.0 if leg == "A" else 0.1
+    cfg = config or gpt_1p3b(vocab_size=50304, hidden_dropout=drop,
+                             attention_dropout=drop, use_recompute=True,
+                             use_pallas_attention=True, dtype="bfloat16")
+    model = init_random_(GPTForCausalLM(cfg, device=device),
+                         PRETRAINING_SEED)
+    model.train()
+    if leg == "A":
+        optimizer = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                          parameters=model.named_parameters())
+        step_kwargs = {}
+    else:
+        two_d = {n for n, p in model.named_parameters() if p.dim() == 2}
+        scheduler = LinearWarmup(
+            CosineAnnealingDecay(2e-4, PRETRAINING_T_MAX, eta_min=2e-5),
+            PRETRAINING_WARMUP, start_lr=0.0, end_lr=2e-4)
+        optimizer = AdamW(learning_rate=scheduler, beta1=0.9, beta2=0.95,
+                          epsilon=1e-8, weight_decay=0.1,
+                          grad_clip=ClipGradByGlobalNorm(1.0),
+                          parameters=model.named_parameters(),
+                          apply_decay_param_fun=two_d.__contains__)
+        model, optimizer = amp.decorate(model, optimizer, level="O2",
+                                        dtype="bfloat16")
+        step_kwargs = {"level": "O2", "scheduler": scheduler,
+                       "scaler": amp.GradScaler(decr_every_n_nan_or_inf=1)}
+    rng = np.random.RandomState(0)
+    dev = model.device
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (batch, seq_len))
+                           ).to(dev)
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                          (batch, seq_len))).to(dev)
+    return model, optimizer, ids, labels, step_kwargs
+
+
+def _to_tensor(value, device) -> torch.Tensor:
+    """A numpy array (bfloat16 by its bits) or tensor as a tensor on
+    ``device``."""
+    if torch.is_tensor(value):
+        return value.to(device)
+    arr = np.ascontiguousarray(np.asarray(value))
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(arr.copy()).to(device)
+
+
+def optimizer_state_from_jax(jax_state, optimizer) -> None:
+    """Load a JAX optimizer state (``{"step", "slots", "master"}`` of numpy
+    arrays, keyed by the parameter names the port optimizer was built with,
+    e.g. as ``load_sharded`` of either package returns it) into the port
+    ``optimizer``.  A None or absent master means the parameter has none."""
+    dev = optimizer._params[0].device
+    masters = jax_state.get("master") or {}
+    optimizer.set_state_dict({"state": {
+        "step": _to_tensor(jax_state["step"], dev),
+        "slots": {n: {k: _to_tensor(v, dev)
+                      for k, v in dict(jax_state["slots"].get(n) or {}
+                                       ).items()}
+                  for n in optimizer._names},
+        "master": {n: None if masters.get(n) is None
+                   else _to_tensor(masters[n], dev)
+                   for n in optimizer._names}}})
+
+
+def optimizer_state_to_jax(optimizer) -> Dict[str, object]:
+    """The port optimizer's state as a JAX optimizer state of numpy arrays
+    (``step`` int32, ``slots`` and ``master`` float32, None for a parameter
+    without a master; a rule without slots gives ``()``, as the JAX
+    ``_init_slot``), for the JAX ``apply_gradients`` or ``save_sharded``."""
+    state = optimizer.state_dict()["state"]
+
+    def host(t):
+        return t.detach().cpu().numpy()
+    return {"step": host(state["step"]),
+            "slots": {n: ({k: host(v) for k, v in s.items()} if s else ())
+                      for n, s in state["slots"].items()},
+            "master": {n: None if m is None else host(m)
+                       for n, m in state["master"].items()}}

@@ -11,7 +11,12 @@ a training step that draws dropout masks or hash-dropout seeds leaves
   drawn from it;
 - :func:`draw_seed` is an int32 seed for the counter-hash dropout of the
   flash and fused-block ops, drawn on the host from the CPU stream, so
-  drawing one never waits for the card.
+  drawing one never waits for the card;
+- :func:`get_state` / :func:`set_state` snapshot and restore every stream:
+  activation recompute replays a block's forward from the snapshot taken
+  before it (``torch.utils.checkpoint``'s RNG preservation covers only
+  torch's default generators), and a checkpoint carries the streams so a
+  resumed run draws what the uninterrupted one would.
 
 JAX's threefry keys and torch's Philox streams give different numbers from
 one seed, so the port's masks are reproducible per seed but are not JAX's;
@@ -24,7 +29,7 @@ from typing import Dict, Union
 
 import torch
 
-__all__ = ["seed", "generator", "draw_seed"]
+__all__ = ["seed", "generator", "draw_seed", "get_state", "set_state"]
 
 _lock = threading.Lock()
 _seed = 0
@@ -63,3 +68,21 @@ def draw_seed() -> int:
     """A fresh int32 hash-dropout seed in [0, 2**31 - 1) from the host
     stream."""
     return int(torch.randint(0, 2 ** 31 - 1, (), generator=generator("cpu")))
+
+
+def get_state() -> Dict[str, torch.Tensor]:
+    """Every stream's state, by device name (``"cpu"``, ``"cuda:0"``): the
+    ``uint8`` CPU tensors of ``torch.Generator.get_state``.  The CPU stream
+    is created first if no draw has made it yet."""
+    generator("cpu")
+    with _lock:
+        return {str(dev): gen.get_state()
+                for dev, gen in _generators.items()}
+
+
+def set_state(state: Dict[str, torch.Tensor]) -> None:
+    """Restore the streams of a :func:`get_state` (a stream it does not
+    name is left as it is)."""
+    for name, value in state.items():
+        generator(name).set_state(torch.as_tensor(value, dtype=torch.uint8)
+                                  .cpu())

@@ -19,13 +19,19 @@ paths, chosen by ``GPTConfig.use_fused_block`` as in the JAX package:
   (``fused_attention_block``), paged or fixed-cache decode attention over
   a cache.
 
-Dtypes follow the JAX package: parameters stay float32; with ``dtype=
-"bfloat16"`` the embeddings are cast to bfloat16 (the residual stream) and
-the KV pages are bfloat16; every op promotes as ``jnp`` does, and under
-``amp.auto_cast`` the ops cast as the JAX package's do.
+Dtypes follow the JAX package: parameters stay float32 (bf16 after
+``amp.decorate(level="O2")``); with ``dtype="bfloat16"`` the embeddings
+are cast to bfloat16 (the residual stream) and the KV pages are bfloat16;
+every op promotes as ``jnp`` does, and under ``amp.auto_cast`` the ops
+cast as the JAX package's do.
 
-Not in these slices (ROADMAP): MoE, sequence / context parallelism and
-recompute; their config fields raise when set.
+``use_recompute`` replays each block's forward in the backward instead of
+keeping its activations (``distributed/fleet/recompute.py``, under
+``recompute_policy``), for both block paths, as the JAX package's
+``GPTDecoderLayer.forward``.
+
+Not in these slices (ROADMAP): MoE, sequence and context parallelism;
+their config fields raise when set.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from .. import _kernels
 from ..device import resolve_device
 from ..distributed.mp_layers import (ColumnParallelLinear, RowParallelLinear,
                                      VocabParallelEmbedding)
+from ..distributed.fleet.recompute import POLICIES, recompute
 from ..distributed.mp_ops import parallel_cross_entropy
 from ..framework import random as fw_random
 from ..framework.errors import UnimplementedError, enforce
@@ -82,6 +89,9 @@ class GPTConfig:
     layer_norm_epsilon: float = 1e-5
     initializer_range: float = 0.02
     use_recompute: bool = False
+    # what recompute keeps: None / "full", "dots_saveable",
+    # "dots_with_no_batch_dims_saveable", "everything_saveable"
+    recompute_policy: Optional[str] = None
     use_pallas_attention: bool = False   # flash-attention kernels (ops/)
     # block-level fused execution (ops/fused_block.py): LN->QKV as K1, the
     # out-projection + residual as K2 and the whole FFN half as K3
@@ -100,8 +110,10 @@ class GPTConfig:
         enforce(self.hidden_size % self.num_heads == 0,
                 "num_heads must evenly divide hidden_size")
         enforce(self.dtype in _DTYPES, f"unsupported dtype {self.dtype!r}")
-        for name in ("use_recompute", "sequence_parallel",
-                     "context_parallel", "moe_num_experts"):
+        enforce(self.recompute_policy in POLICIES,
+                f"unknown recompute_policy {self.recompute_policy!r}")
+        for name in ("sequence_parallel", "context_parallel",
+                     "moe_num_experts"):
             enforce(not getattr(self, name),
                     f"GPTConfig.{name} is not ported yet (ROADMAP Queue 1)",
                     exc=UnimplementedError)
@@ -320,13 +332,19 @@ class GPTDecoderLayer(nn.Module):
             training=self.training)
         return x, new_cache
 
+    def _block(self, x):
+        """The cache-free unfused block."""
+        x = x + self.attn(self.ln_1(x))
+        return x + self.mlp(self.ln_2(x))
+
     def forward(self, x, cache=None):
+        c = self.config
         if cache is None:
-            if self.config.use_fused_block:
-                return self._block_fused(x)
-            x = x + self.attn(self.ln_1(x))
-            return x + self.mlp(self.ln_2(x))
-        if self.config.use_fused_block:
+            block = self._block_fused if c.use_fused_block else self._block
+            if c.use_recompute:
+                return recompute(block, x, policy=c.recompute_policy)
+            return block(x)
+        if c.use_fused_block:
             return self._fused_cache_forward(x, cache)
         h, new_cache = self.attn(self.ln_1(x), cache=cache)
         x = x + h

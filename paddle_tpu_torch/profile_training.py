@@ -1,19 +1,23 @@
 """Where the training step's time goes on the card.
 
-    python -m paddle_tpu_torch.profile_training [--fused]
+    python -m paddle_tpu_torch.profile_training [--workload NAME]
 
-Runs the training workload of ``chip_smoke.py`` (``convert.
-training_workload``: full-width GPT-125M, bf16 O1, B=8, S=2048, flash
-attention, the chunked LM loss, AdamW; with ``--fused`` the fused-block
-leg, ``convert.fused_training_workload``: the same with
-``use_fused_block`` and dropout 0.1): 3 warm-up steps, 5 steps timed
-without the profiler (host clock, each ending in the loss readback), then
-3 steps under ``torch.profiler`` with CUDA activity.  Prints one JSON line:
-the timed steps' ms and the peak device memory; from the profiled steps,
-the device's busy time (the union of kernel intervals) per step, the idle
-share, and the device time per step by kernel name, largest first, and per
-group (each of the port's kernels, GEMMs, everything else).  Needs a CUDA
-card.
+Runs one of the training workloads of ``chip_smoke.py`` (``convert.py``):
+``training`` (the default; ``training_workload``: full-width GPT-125M,
+bf16 O1, B=8, S=2048, flash attention, the chunked LM loss, AdamW),
+``fused`` (``fused_training_workload``: the same with ``use_fused_block``
+and dropout 0.1), ``pretraining-a`` and ``pretraining-b``
+(``pretraining_workload`` legs A and B: full-width GPT-3 1.3B with
+recompute at B=4, S=2048; A under O1 at dropout 0, B the recipe: O2,
+GradScaler, clipping, AdamW with decay selection, the warmup-cosine
+schedule, dropout 0.1): 3 warm-up steps, 5 steps timed without the
+profiler (host clock, each ending in the loss readback), then 3 steps
+under ``torch.profiler`` with CUDA activity.  Prints one JSON line: the
+timed steps' ms and the peak device memory; from the profiled steps, the
+device's busy time (the union of kernel intervals) per step, the idle
+share, and the device time per step by kernel name, largest first, and
+per group (each of the port's kernels, GEMMs, everything else).  Needs a
+CUDA card.
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ from typing import Dict, List
 import torch
 
 from . import _kernels
-from .convert import fused_training_workload, training_workload
+from .convert import (fused_training_workload, pretraining_workload,
+                      training_workload)
 from .profile_serving import _short, _union_us
 from .training import train_step
 
@@ -44,16 +49,26 @@ def _group(name: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
-def profile(fused: bool = False) -> Dict[str, object]:
-    workload = fused_training_workload if fused else training_workload
-    model, opt, ids, labels = workload(torch.device("cuda"))
+WORKLOADS = ("training", "fused", "pretraining-a", "pretraining-b")
+
+
+def _workload(name: str, device):
+    """``(model, optimizer, ids, labels, step_kwargs)`` of a workload."""
+    if name.startswith("pretraining-"):
+        return pretraining_workload(device, leg=name[-1].upper())
+    make = fused_training_workload if name == "fused" else training_workload
+    return (*make(device), {})
+
+
+def profile(workload: str = "training") -> Dict[str, object]:
+    model, opt, ids, labels, kw = _workload(workload, torch.device("cuda"))
     torch.cuda.reset_peak_memory_stats()
 
     def steps(n: int) -> List[float]:
         out = []
         for _ in range(n):
             t0 = time.perf_counter()
-            float(train_step(model, opt, ids, labels))
+            float(train_step(model, opt, ids, labels, **kw))
             out.append((time.perf_counter() - t0) * 1e3)
         return out
 
@@ -84,8 +99,13 @@ def profile(fused: bool = False) -> Dict[str, object]:
         groups[_group(name)] += ms
     return {
         "device": torch.cuda.get_device_name(0),
-        "model": "gpt_125m", "B": int(ids.shape[0]), "S": int(ids.shape[1]),
-        "use_fused_block": fused,
+        "workload": workload,
+        "model": "gpt_1p3b" if workload.startswith("pretraining")
+        else "gpt_125m",
+        "B": int(ids.shape[0]), "S": int(ids.shape[1]),
+        "use_fused_block": model.config.use_fused_block,
+        "use_recompute": model.config.use_recompute,
+        "amp": kw.get("level", "O1"),
         "dropout": model.config.hidden_dropout,
         "step_ms": timed, "step_ms_p50": statistics.median(timed),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -103,15 +123,16 @@ def profile(fused: bool = False) -> Dict[str, object]:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--fused", action="store_true",
-                        help="profile the fused-block leg (K1 -> flash -> "
-                        "K2, K3; dropout 0.1)")
+    parser.add_argument("--workload", choices=WORKLOADS, default="training",
+                        help="fused: the fused-block leg (K1 -> flash -> "
+                        "K2, K3; dropout 0.1); pretraining-a / -b: GPT-3 "
+                        "1.3B with recompute, legs A and B")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_training: needs a CUDA device", file=sys.stderr)
         return 2
     _kernels.build()
-    print(json.dumps(profile(args.fused)), flush=True)
+    print(json.dumps(profile(args.workload)), flush=True)
     return 0
 
 

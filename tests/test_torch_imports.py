@@ -56,6 +56,12 @@ def test_package_imports_with_jax_blocked():
             "import paddle_tpu_torch.inference.fleet.worker\n"
             "import paddle_tpu_torch.inference.fleet.drills\n"
             "import paddle_tpu_torch.convert\n"
+            "import paddle_tpu_torch.regularizer\n"
+            "import paddle_tpu_torch.utils.retry\n"
+            "import paddle_tpu_torch.optimizer.lr\n"
+            "import paddle_tpu_torch.distributed.fleet.recompute\n"
+            "import paddle_tpu_torch.distributed.fingerprint\n"
+            "import paddle_tpu_torch.distributed.checkpoint\n"
             "loaded = [m for m in sys.modules if sys.modules[m] is not None]\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
             "               for m in loaded)\n"

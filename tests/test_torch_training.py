@@ -115,8 +115,8 @@ def test_adamw_five_steps_match_jax():
     for k in shapes:
         # float32 elementwise arithmetic in the same order: a few ulps
         _close(tp[k].detach(), jp[k], f"param {k}", tol=1e-6)
-        _close(to.state[tp[k]]["moment2"], js["slots"][k]["moment2"],
-               f"moment2 {k}", tol=1e-6)
+        _close(to.state[tp[k]]["slots"]["moment2"],
+               js["slots"][k]["moment2"], f"moment2 {k}", tol=1e-6)
 
 
 # ---------------------------------------------------------------------------
@@ -307,8 +307,8 @@ def test_shift_labels_matches_jax():
 # ---------------------------------------------------------------------------
 # what the port refuses
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("field", ["use_recompute", "sequence_parallel",
-                                   "context_parallel", "moe_num_experts"])
+@pytest.mark.parametrize("field", ["sequence_parallel", "context_parallel",
+                                   "moe_num_experts"])
 def test_unported_config_fields_raise(field):
     with pytest.raises(UnimplementedError, match=field):
         gpt_tiny(**{field: 4 if field == "moe_num_experts" else True})
