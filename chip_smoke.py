@@ -242,6 +242,33 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               (6) a float32 gpt_tiny step with use_recompute on the card
               against the CPU (loss, every gradient, the loss after one
               AdamW step);
+  (c2d) BERT-base pretraining and the MoE GPT: (1) the flash forward,
+              dK/dV and dQ kernels non-causal at BERT-base's attention
+              shape (B=16, H=12, S=512, d=64, bf16; every tile visible)
+              against their plain versions with the (b) tolerances,
+              timed with SDPA non-causal beside them, and ragged
+              non-causal cases (sq=136 / sk=200 both ways, bf16 and
+              float32) checked; (2) a float32 bert_tiny MLM + NSP step on
+              the card against the CPU (loss, every gradient, the loss
+              after one AdamW step); (3) BERT-base pretraining
+              (convert.bert_pretraining_workload: 12 x 768, vocab 30528,
+              15% MLM + NSP, bf16 O1, AdamW, B=16, S=512) for 3 warm-up
+              and 10 timed steps: step p50, sequences/s, tokens/s, MFU
+              (6N + 12 L h S), peak memory, 12 launches of each flash
+              kernel a step; (4) a float32 gpt_tiny MoE step (4 experts
+              every 2nd layer, capacity factor 0.75: assignments dropped)
+              card vs CPU, then the MoE GPT-125M (convert.
+              moe_training_workload: 8 experts every 2nd layer, GShard
+              top-2, capacity factor 2.0, bf16 O1, B=8, S=2048) for 3 +
+              10 steps: p50, tokens/s, MFU as the JAX moe row defines it
+              (6N over every expert, flagged) and over the parameters a
+              token runs, peak memory, 12 flash launches of each kernel
+              a step, each MoE layer's dropped share and aux at the last
+              step, and one MoE layer's forward at the full row, which
+              must grow peak memory by less than one float32 (T, E, C)
+              tensor (4.29 GB); (5) a float32 gpt_tiny MoE model through
+              generate on the card (captured decode graph) gives the
+              CPU's greedy tokens;
   (c3) generate GPTForCausalLM.generate at full width (convert.
               generate_workload: B=8, prompt 512, 128 greedy tokens, bf16),
               unfused (use_pallas_attention) and fused (use_fused_block):
@@ -390,6 +417,11 @@ def main() -> int:
     for name, cases in d128.items():
         results[name]["d128"] = {
             **cases, "launches_per_step_pretraining": per_step[name]}
+    torch.cuda.empty_cache()
+
+    # -- (c2d) BERT-base pretraining and the MoE GPT --------------------------
+    for name, entry in bert_moe(torch, np, dev, _kernels).items():
+        results[name]["noncausal"] = entry
     torch.cuda.empty_cache()
 
     # -- (c3) generate -------------------------------------------------------
@@ -1701,12 +1733,12 @@ def visible_pairs(sq: int, sk: int) -> int:
     return sum(min(sk, max(0, i + sk - sq + 1)) for i in range(sq))
 
 
-def flash_cases(torch, np, dev, cases):
+def flash_cases(torch, np, dev, cases, causal=True):
     """The flash forward, dK/dV and dQ kernels against their plain versions
-    at each case of ``cases`` (see ``FLASH_CASES``); a timed case is timed
-    with SDPA forward and backward beside it as the library yardstick.
-    Returns the measurements by kernel and case, and the SDPA ms by case
-    ({"fwd", "bwd"})."""
+    at each case of ``cases`` (see ``FLASH_CASES``), causal or not; a timed
+    case is timed with SDPA forward and backward beside it as the library
+    yardstick.  Returns the measurements by kernel and case, and the SDPA
+    ms by case ({"fwd", "bwd"})."""
     import torch.nn.functional as TF
     from paddle_tpu_torch.ops import flash_attention as fa
     rng = np.random.default_rng(SEED + 2)
@@ -1731,7 +1763,7 @@ def flash_cases(torch, np, dev, cases):
                 return 1e-5 * max(1.0, float(out.abs().max())), lse_tol
             abs_pv, _ = fa.flash_fwd_reference(q.float(), k.float(),
                                                v.float().abs(), seed, None,
-                                               True, p)
+                                               causal, p)
             return (2.0 ** -8 * abs_pv + 2.0 ** -7 * out.float().abs()
                     + 1e-6, lse_tol)
         return tol
@@ -1757,30 +1789,30 @@ def flash_cases(torch, np, dev, cases):
         q, k, v = t((bh, sq, d), dtype), t((bh, sk, d), dtype), \
             t((bh, sk, d), dtype)
         do = t((bh, sq, d), dtype)
-        out, lse = fa.flash_fwd_reference(q, k, v, seed, None, True, p)
+        out, lse = fa.flash_fwd_reference(q, k, v, seed, None, causal, p)
         delta = (do.float() * out.float()).sum(-1)
-        pairs = visible_pairs(sq, sk) * bh
+        pairs = (visible_pairs(sq, sk) if causal else sq * sk) * bh
         io = nbytes(q, k, v, do, lse, delta)
         per["flash_fwd"][tag] = measure(
             torch, f"flash_fwd {tag}",
-            lambda: fa.flash_fwd_cuda(q, k, v, seed, None, True, p),
-            lambda: fa.flash_fwd_reference(q, k, v, seed, None, True, p),
+            lambda: fa.flash_fwd_cuda(q, k, v, seed, None, causal, p),
+            lambda: fa.flash_fwd_reference(q, k, v, seed, None, causal, p),
             fwd_tol(q, k, v, p, dtype),
             (nbytes(q, k, v, out, lse), 4.0 * d * pairs), BF16_FLOPS, timed)
         per["flash_dkdv"][tag] = measure(
             torch, f"flash_dkdv {tag}",
             lambda: fa.flash_dkdv_cuda(q, k, v, do, lse, delta, seed, None,
-                                       True, p),
+                                       causal, p),
             lambda: fa.flash_dkdv_reference(q, k, v, do, lse, delta, seed,
-                                            None, True, p),
+                                            None, causal, p),
             bwd_tol(dtype), (io + nbytes(k, v), 8.0 * d * pairs), BF16_FLOPS,
             timed)
         per["flash_dq"][tag] = measure(
             torch, f"flash_dq {tag}",
             lambda: fa.flash_dq_cuda(q, k, v, do, lse, delta, seed, None,
-                                     True, p),
+                                     causal, p),
             lambda: fa.flash_dq_reference(q, k, v, do, lse, delta, seed,
-                                          None, True, p),
+                                          None, causal, p),
             bwd_tol(dtype), (io + nbytes(q), 6.0 * d * pairs), BF16_FLOPS,
             timed)
         for name in per:
@@ -1789,7 +1821,8 @@ def flash_cases(torch, np, dev, cases):
                       f"bound {r['bound_ms']:.4f} ms by {r['bound_by']})"
                       if timed else "")
             log(f"check {name} {tag} (B={b}, H={h}, sq={sq}, sk={sk}, d={d}, "
-                f"p={p}, {str(dtype).split('.')[-1]}): max_abs_err "
+                f"p={p}, {str(dtype).split('.')[-1]}, "
+                f"{'causal' if causal else 'non-causal'}): max_abs_err "
                 f"{r['max_abs_err']:.3e}, err/tol {r['err_over_tol']:.3f}"
                 f"{timing}")
         if timed:
@@ -1801,11 +1834,11 @@ def flash_cases(torch, np, dev, cases):
             # SDPA's own dropout draws another mask: its time at p > 0 is
             # a yardstick of the work, not of these values
             lib = {"fwd": time_ms(torch, lambda: sdpa(
-                q4, k4, v4, is_causal=True, dropout_p=p))}
+                q4, k4, v4, is_causal=causal, dropout_p=p))}
             qg, kg, vg = (x.detach().requires_grad_() for x in (q4, k4, v4))
 
             def fwd_bwd():
-                o = sdpa(qg, kg, vg, is_causal=True, dropout_p=p)
+                o = sdpa(qg, kg, vg, is_causal=causal, dropout_p=p)
                 torch.autograd.grad(o, (qg, kg, vg), do4)
             lib["bwd"] = time_ms(torch, fwd_bwd) - lib["fwd"]
             library[tag] = lib
@@ -3009,22 +3042,29 @@ def serve_fleet(torch, np, dev, _kernels, root):
 WARMUP_STEPS, TIMED_STEPS = 3, 10
 
 
-def tiny_reference(torch, dev, cfg, what):
-    """A float32 gpt_tiny-sized training step (S=256, no autocast) on the
-    card (kernels) against the same weights and data on the CPU (plain
+def tiny_reference(torch, dev, cfg, what, make=None,
+                   shape="gpt_tiny (S=256)"):
+    """A float32 training step at a tiny size (no autocast) on the card
+    (kernels) against the same weights and data on the CPU (plain
     versions): the loss, every gradient, and the loss after one AdamW
-    step."""
+    step.  ``make(device)`` gives ``(model, optimizer, ids, inputs)``, the
+    model called as ``model(ids, **inputs)``; by default
+    ``training_workload`` of ``cfg`` at B=2, S=256 with its labels."""
     from paddle_tpu_torch.convert import training_workload
-    runs = []
-    for device in (dev, "cpu"):
+
+    def gpt(device):
         m, opt, ids, labels = training_workload(device, cfg, batch=2,
                                                 seq_len=256)
-        loss, _ = m(ids, labels=labels)
+        return m, opt, ids, {"labels": labels}
+    runs = []
+    for device in (dev, "cpu"):
+        m, opt, ids, inputs = (make or gpt)(device)
+        loss, _ = m(ids, **inputs)
         loss.backward()
         grads = {n: p.grad.detach().cpu() for n, p in m.named_parameters()}
         opt.step()
         with torch.no_grad():
-            loss2, _ = m(ids, labels=labels)
+            loss2, _ = m(ids, **inputs)
         runs.append((loss.item(), grads, loss2.item()))
     (l_gpu, g_gpu, l2_gpu), (l_cpu, g_cpu, l2_cpu) = runs
     # float32 end to end with exact products on both sides (TF32 off):
@@ -3042,18 +3082,20 @@ def tiny_reference(torch, dev, cfg, what):
         require(err <= tol, f"float32 {what} reference: grad {name} "
                 f"differs by {err} > {tol}")
         worst = max(worst, err / tol)
-    log(f"{what} reference: float32 gpt_tiny (S=256) card vs CPU, loss "
+    log(f"{what} reference: float32 {shape} card vs CPU, loss "
         f"{l_gpu:.6f} vs {l_cpu:.6f}, {len(g_cpu)} gradients within 1e-4 "
         f"of their range + 1e-6 (worst err/tol {worst:.3f}), loss after one "
         f"AdamW step {l2_gpu:.6f} vs {l2_cpu:.6f}")
 
 
 def timed_steps(torch, np, _kernels, model, opt, ids, labels, kernels,
-                what):
-    """WARMUP_STEPS + TIMED_STEPS training steps on one batch, each ending
-    in the loss readback, with every launch counter zeroed just before:
-    each of ``kernels`` must launch once per layer and step, and the loss
-    must be finite and fall.  Returns the fields of the JSON line."""
+                what, *, inputs=None, causal=True, model_name="gpt_125m"):
+    """WARMUP_STEPS + TIMED_STEPS training steps on one batch (``labels``,
+    or the keyword ``inputs`` of a BERT step), each ending in the loss
+    readback, with every launch counter zeroed just before: each of
+    ``kernels`` must launch once per layer and step, and the loss must be
+    finite and fall.  Returns the fields of the JSON line; MFU counts the
+    attention term without the causal halving when ``causal`` is False."""
     from paddle_tpu_torch.training import train_step
     cfg = model.config
     b, s = ids.shape
@@ -3064,7 +3106,7 @@ def timed_steps(torch, np, _kernels, model, opt, ids, labels, kernels,
     losses, times = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
-        loss = train_step(model, opt, ids, labels)
+        loss = train_step(model, opt, ids, labels, **(inputs or {}))
         losses.append(float(loss))      # the readback ends the step
         times.append(time.perf_counter() - t0)
     launches = dict(_kernels.launches)
@@ -3080,11 +3122,11 @@ def timed_steps(torch, np, _kernels, model, opt, ids, labels, kernels,
     tokens_per_s = b * s / (p50 / 1e3)
     n_params = sum(p.numel() for p in model.parameters())
     # paddle_tpu/observability/mfu.py flops_per_token: 6N for the matmuls
-    # plus the causal attention term 12 L h S / 2
-    flops_per_token = (6.0 * n_params
-                       + 12.0 * cfg.num_layers * cfg.hidden_size * s / 2.0)
+    # plus the attention term 12 L h S, halved when causal
+    attn = 12.0 * cfg.num_layers * cfg.hidden_size * s
+    flops_per_token = 6.0 * n_params + (attn / 2.0 if causal else attn)
     return {
-        "model": "gpt_125m", "dtype": "bfloat16", "amp": "O1",
+        "model": model_name, "dtype": "bfloat16", "amp": "O1",
         "optimizer": "AdamW(learning_rate=1e-4, weight_decay=0.01)",
         "B": b, "S": s, "params": n_params,
         "steps": {"warmup": WARMUP_STEPS, "timed": TIMED_STEPS},
@@ -3831,6 +3873,270 @@ def pretrain(torch, np, dev, _kernels, root):
     log(json.dumps({"pretraining": {"leg_a": leg_a, "leg_b": leg_b,
                                     "resume": resumed}}))
     return leg_a["flash_launches_per_step"]
+
+
+# ---------------------------------------------------------------------------
+# (c2d) BERT-base pretraining and the MoE GPT
+# ---------------------------------------------------------------------------
+# the flash kernels non-causal, BERT's attention: the bench row's shape
+# (timed; every tile visible), and ragged lengths both ways (checked)
+BERT_FLASH_CASES = {
+    "bert": (16, 12, 512, 512, 64, 0.0, "bfloat16", True),
+    "ragged": (2, 4, 136, 200, 64, 0.0, "bfloat16", False),
+    "ragged-long-q": (2, 4, 200, 136, 64, 0.0, "bfloat16", False),
+    "ragged-f32": (2, 4, 136, 200, 32, 0.0, "float32", False),
+}
+# the tiny MoE card-vs-CPU step: 4 experts on every other layer at a
+# capacity factor that drops assignments (512 tokens x 2 choices into 4 x
+# 192 slots)
+MOE_TINY = dict(moe_num_experts=4, moe_every=2, moe_capacity_factor=0.75)
+MOE_GEN_PROMPT, MOE_GEN_NEW = (4, 24), 16
+
+
+def check_flash_noncausal(torch, np, dev):
+    """(c2d 1) the flash kernels non-causal at BERT-base's attention shape
+    (B=16, H=12, S=512, d=64, bf16; timed, SDPA beside them) and ragged,
+    against their plain versions with the (b) tolerances."""
+    per, library = flash_cases(torch, np, dev, BERT_FLASH_CASES,
+                               causal=False)
+    out = {}
+    for name, (_, lib) in FLASH_REPLACES.items():
+        r = per[name]["bert"]
+        worst = max(per[name].values(), key=lambda x: x["err_over_tol"])
+        out[name] = {
+            "shape": "B=16, H=12, S=512, d=64, bf16, non-causal",
+            **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            **{k: worst[k] for k in ("max_abs_err", "tol", "err_over_tol")},
+            "library_ms": library["bert"][lib],
+            "cases": {tag: {"max_abs_err": x["max_abs_err"],
+                            "err_over_tol": x["err_over_tol"]}
+                      for tag, x in per[name].items()}}
+    return out
+
+
+def train_bert(torch, np, dev, _kernels):
+    """(c2d 2-3) a float32 bert_tiny step card vs CPU, then BERT-base
+    pretraining (convert.bert_pretraining_workload) timed: 12 launches of
+    each flash kernel a step."""
+    from paddle_tpu_torch.convert import bert_pretraining_workload
+    from paddle_tpu_torch.models.bert import bert_tiny
+    tiny = bert_tiny(hidden_dropout=0.0, attention_dropout=0.0,
+                     use_pallas_attention=True)
+    tiny_reference(torch, dev, None, "BERT", shape="bert_tiny (S=128)",
+                   make=lambda device: bert_pretraining_workload(
+                       device, tiny, batch=2, seq_len=128))
+    model, opt, ids, inputs = bert_pretraining_workload(dev)
+    cfg = model.config
+    require(cfg.num_layers == 12 and cfg.hidden_size == 768
+            and cfg.num_heads == 12 and cfg.vocab_size == 30528
+            and cfg.dtype == "bfloat16" and cfg.use_pallas_attention
+            and cfg.hidden_dropout == 0.0 and cfg.attention_dropout == 0.0
+            and tuple(ids.shape) == (16, 512)
+            and set(inputs) == {"mlm_labels", "nsp_labels"},
+            "not the full-width BERT-base pretraining step at B=16, S=512")
+    masked = float((inputs["mlm_labels"] != -100).float().mean())
+    line = timed_steps(torch, np, _kernels, model, opt, ids, None,
+                       TRAINING_KERNELS, "BERT", inputs=inputs, causal=False,
+                       model_name="bert_base")
+    line["sequences_per_s"] = ids.shape[0] / (line["step_ms_p50"] / 1e3)
+    line["masked_share"] = masked
+    line["flash_launches_per_step"] = {
+        n: line["launches"][n] // (WARMUP_STEPS + TIMED_STEPS)
+        for n in TRAINING_KERNELS}
+    log(f"BERT-base: step p50 {line['step_ms_p50']:.2f} ms, "
+        f"{line['sequences_per_s']:.1f} sequences/s, "
+        f"{line['tokens_per_s']:.0f} tokens/s, MFU {line['mfu']:.4f}, peak "
+        f"{line['peak_memory_gb']:.2f} GB, loss {line['loss_first']:.4f} -> "
+        f"{line['loss_last']:.4f}; flash launches a step "
+        f"{line['flash_launches_per_step']}")
+    del model, opt
+    return line
+
+
+def moe_layers(model):
+    return [(i, layer.mlp) for i, layer in enumerate(model.gpt.h)
+            if layer._is_moe]
+
+
+def route_stats(torch, model, run):
+    """Run ``run()`` with each MoE layer's input and gate weight kept (a
+    forward hook: a reference and an (H, E) copy, no routing work), then
+    route those inputs again: per MoE layer, the share of dropped
+    assignments and the aux of that forward."""
+    kept = {}
+    hooks = [mlp.register_forward_hook(
+        lambda mod, args, out, i=i: kept.__setitem__(
+            i, (args[0].detach(), mod.gate_weight.detach().clone())))
+        for i, mlp in moe_layers(model)]
+    try:
+        result = run()
+    finally:
+        for h in hooks:
+            h.remove()
+    from paddle_tpu_torch.distributed.moe import route
+    stats = {}
+    with torch.no_grad():
+        for i, mlp in moe_layers(model):
+            x, w = kept[i]
+            xt = x.reshape(-1, x.shape[-1])
+            r = route(xt.float() @ w.float(), mlp.capacity(xt.shape[0]),
+                      mlp.gate_type)
+            assigned = len(r.kept) * xt.shape[0]
+            stats[f"layer {i}"] = {
+                "capacity": mlp.capacity(xt.shape[0]),
+                "dropped_share": 1.0 - float(sum(k.sum() for k in r.kept))
+                / assigned,
+                "aux": float(r.aux)}
+    return result, stats
+
+
+def moe_layer_growth(torch, model, ids):
+    """Peak memory growth over one MoE layer's forward at the full row
+    under O1, with grad (what the training step keeps): it must stay below
+    one float32 (T, E, C) tensor of the one-hot formulation."""
+    from paddle_tpu_torch import amp
+    _, mlp = moe_layers(model)[0]
+    b, s = ids.shape
+    t, e = b * s, mlp.num_experts
+    c = mlp.capacity(t)
+    one_hot_bytes = 4 * t * e * c
+    x = torch.randn((b, s, model.config.hidden_size), device=ids.device,
+                    dtype=torch.bfloat16, requires_grad=True)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        out, _ = mlp.forward_with_aux(x)
+    torch.cuda.synchronize()
+    growth = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - base
+    require(bool(torch.isfinite(out.float()).all()), "MoE layer: nonfinite")
+    require(growth < one_hot_bytes,
+            f"MoE layer forward grew peak memory by {growth} bytes, not "
+            f"below one float32 (T, E, C) tensor ({one_hot_bytes})")
+    del out, x
+    return {"T": t, "E": e, "C": c, "peak_growth_gb": growth / 1e9,
+            "held_for_backward_gb": held / 1e9,
+            "one_hot_tec_f32_gb": one_hot_bytes / 1e9}
+
+
+def moe_generate(torch, np, dev, _kernels):
+    """(c2d 5) a float32 gpt_tiny MoE model through ``generate`` on the
+    card (its decode step captured as a CUDA graph and replayed) gives the
+    CPU's greedy tokens."""
+    from paddle_tpu_torch.convert import load_jax_state, random_state
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_tiny
+    cfg = gpt_tiny(hidden_dropout=0.0, attention_dropout=0.0,
+                   use_pallas_attention=True, **MOE_TINY)
+    state = random_state(GPTForCausalLM(cfg, device="cpu"), SEED)
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, MOE_GEN_PROMPT).astype(np.int32)
+    outs = []
+    for device in (dev, "cpu"):
+        m = load_jax_state(GPTForCausalLM(cfg, device=device), state)
+        _kernels.reset_launches()
+        outs.append(m.generate(prompts, max_new_tokens=MOE_GEN_NEW).cpu())
+        if device == dev:
+            require(m._gen_loop.graph is not None,
+                    "MoE generate: the decode step was not captured")
+            decode = _kernels.launches["flash_decode"]
+            require(decode > 0, "MoE generate: no flash_decode launch")
+    require(torch.equal(outs[0], outs[1]),
+            f"MoE generate: card tokens {outs[0].tolist()} != CPU "
+            f"{outs[1].tolist()}")
+    log(f"MoE generate: float32 gpt_tiny, 4 experts every 2nd layer, "
+        f"{MOE_GEN_PROMPT[0]} x {MOE_GEN_NEW} greedy tokens under the "
+        f"captured decode graph equal the CPU's ({decode} flash_decode "
+        f"launches in the eager steps)")
+    return {"tokens_equal": True, "shape": list(MOE_GEN_PROMPT),
+            "new_tokens": MOE_GEN_NEW}
+
+
+def train_moe(torch, np, dev, _kernels):
+    """(c2d 4) a float32 gpt_tiny MoE step card vs CPU with dropped
+    assignments, the MoE GPT-125M (convert.moe_training_workload) timed,
+    one MoE layer's memory growth at the full row, then ``generate``."""
+    from paddle_tpu_torch.convert import moe_training_workload
+    from paddle_tpu_torch.models.gpt import gpt_tiny
+    from paddle_tpu_torch.training import train_step
+    tiny_cfg = gpt_tiny(hidden_dropout=0.0, attention_dropout=0.0,
+                        use_pallas_attention=True, **MOE_TINY)
+
+    def tiny(device):
+        m, opt, ids, labels = moe_training_workload(device, tiny_cfg,
+                                                    batch=2, seq_len=256)
+        return m, opt, ids, {"labels": labels}
+    tiny_reference(torch, dev, None, "MoE", make=tiny,
+                   shape="gpt_tiny MoE (S=256)")
+    m, _, ids, labels = tiny(dev)
+    with torch.no_grad():
+        _, tiny_stats = route_stats(torch, m, lambda: m(ids, **labels))
+    require(all(v["dropped_share"] > 0 for v in tiny_stats.values()),
+            f"MoE reference: no assignment dropped {tiny_stats}")
+    del m
+
+    model, opt, ids, labels = moe_training_workload(dev)
+    cfg = model.config
+    require(cfg.num_layers == 12 and cfg.hidden_size == 768
+            and cfg.num_heads == 12 and cfg.vocab_size == 50304
+            and cfg.moe_num_experts == 8 and cfg.moe_every == 2
+            and cfg.moe_gate == "gshard" and cfg.moe_capacity_factor == 2.0
+            and cfg.dtype == "bfloat16" and cfg.use_pallas_attention
+            and cfg.hidden_dropout == 0.0 and tuple(ids.shape) == (8, 2048)
+            and len(moe_layers(model)) == 6,
+            "not the full-width MoE GPT-125M at B=8, S=2048")
+    line, stats = route_stats(torch, model, lambda: timed_steps(
+        torch, np, _kernels, model, opt, ids, labels, TRAINING_KERNELS,
+        "MoE", model_name="gpt_125m, 8 experts every 2nd layer"))
+    n_params = line["params"]
+    expert = sum(p.numel() for p in moe_layers(model)[0][1].experts
+                 .parameters()) // cfg.moe_num_experts
+    # each token runs 2 of the 8 experts of a MoE layer
+    active = n_params - len(moe_layers(model)) * (cfg.moe_num_experts - 2) \
+        * expert
+    attn = 12.0 * cfg.num_layers * cfg.hidden_size * ids.shape[1] / 2.0
+    line["mfu_definition"] = ("the JAX moe row's (paddle_tpu/bench/"
+                              "scenarios.py:122-124): 6N over all "
+                              "parameters, all 8 experts of each MoE layer "
+                              "counted though a token runs 2, plus 12 L h S "
+                              "/ 2; it overstates the work a token does")
+    line["active_params"] = active
+    line["mfu_active_params"] = (line["tokens_per_s"] * (6.0 * active + attn)
+                                 / BF16_FLOPS)
+    line["moe_layers_last_step"] = stats
+    line["flash_launches_per_step"] = {
+        n: line["launches"][n] // (WARMUP_STEPS + TIMED_STEPS)
+        for n in TRAINING_KERNELS}
+    line["moe_layer_forward"] = moe_layer_growth(torch, model, ids)
+    log(f"MoE GPT-125M: step p50 {line['step_ms_p50']:.2f} ms, "
+        f"{line['tokens_per_s']:.0f} tokens/s, MFU {line['mfu']:.4f} (the "
+        f"JAX row's 6N over all experts; {line['mfu_active_params']:.4f} "
+        f"over the {active} parameters a token runs), peak "
+        f"{line['peak_memory_gb']:.2f} GB, loss {line['loss_first']:.4f} -> "
+        f"{line['loss_last']:.4f}; flash launches a step "
+        f"{line['flash_launches_per_step']}; last step {stats}; one MoE "
+        f"layer's forward {line['moe_layer_forward']}")
+    del model, opt
+    torch.cuda.empty_cache()
+    line["generate"] = moe_generate(torch, np, dev, _kernels)
+    return line
+
+
+def bert_moe(torch, np, dev, _kernels):
+    """(c2d) BERT-base pretraining and the MoE GPT.  Returns the
+    non-causal flash cases and each workload's flash launches a step."""
+    noncausal = check_flash_noncausal(torch, np, dev)
+    torch.cuda.empty_cache()
+    bert = train_bert(torch, np, dev, _kernels)
+    torch.cuda.empty_cache()
+    moe = train_moe(torch, np, dev, _kernels)
+    log(json.dumps({"bert_moe": {"bert": bert, "moe": moe}}))
+    for name in TRAINING_KERNELS:
+        noncausal[name]["launches_per_step_bert"] = \
+            bert["flash_launches_per_step"][name]
+        noncausal[name]["launches_per_step_moe"] = \
+            moe["flash_launches_per_step"][name]
+    return noncausal
 
 
 # ---------------------------------------------------------------------------

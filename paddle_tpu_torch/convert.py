@@ -34,6 +34,8 @@ __all__ = ["state_dict_from_jax", "load_jax_state", "random_state",
            "GENERATE_NEW_TOKENS", "init_random_", "pretraining_workload",
            "PRETRAINING_SEED", "PRETRAINING_BATCH", "PRETRAINING_SEQ",
            "PRETRAINING_WARMUP", "PRETRAINING_T_MAX",
+           "bert_pretraining_workload", "BERT_BATCH", "BERT_SEQ",
+           "BERT_MASK_RATE", "moe_training_workload",
            "optimizer_state_from_jax", "optimizer_state_to_jax"]
 
 
@@ -194,17 +196,21 @@ def generate_workload(device, *, dtype: str = "bfloat16",
     return model, torch.from_numpy(prompts).to(model.device)
 
 
+# the LayerNorm gains of the GPT and BERT models
+_GAINS = ("ln_1.weight", "ln_2.weight", "ln_f.weight", "attn_ln.weight",
+          "ffn_ln.weight", "layer_norm.weight", "transform_ln.weight")
+
+
 def random_state(model: nn.Module, seed: int) -> Dict[str, np.ndarray]:
     """Seeded random weights for ``model`` as a numpy ``state_dict`` in the
     JAX package's layout (what :func:`load_jax_state` takes): LayerNorm
     gains ``1 + 0.05 N(0, 1)``, every other parameter ``0.02 N(0, 1)``
-    (the GPT configs' initializer range)."""
+    (the GPT and BERT configs' initializer range)."""
     rng = np.random.default_rng(seed)
     out = {}
     for key, p in model.state_dict().items():
         a = rng.standard_normal(tuple(p.shape), dtype=np.float32)
-        is_gain = key.endswith(("ln_1.weight", "ln_2.weight", "ln_f.weight"))
-        out[key] = 1.0 + 0.05 * a if is_gain else 0.02 * a
+        out[key] = 1.0 + 0.05 * a if key.endswith(_GAINS) else 0.02 * a
     return out
 
 
@@ -221,9 +227,7 @@ def init_random_(model: nn.Module, seed: int) -> nn.Module:
         for key, p in model.state_dict().items():
             a = torch.randn(p.shape, generator=gen, device=device,
                             dtype=torch.float32)
-            is_gain = key.endswith(("ln_1.weight", "ln_2.weight",
-                                    "ln_f.weight"))
-            p.copy_(1.0 + 0.05 * a if is_gain else 0.02 * a)
+            p.copy_(1.0 + 0.05 * a if key.endswith(_GAINS) else 0.02 * a)
     return model
 
 
@@ -298,6 +302,71 @@ def pretraining_workload(device, config=None, *, leg: str = "A",
     labels = torch.from_numpy(rng.randint(0, cfg.vocab_size,
                                           (batch, seq_len))).to(dev)
     return model, optimizer, ids, labels, step_kwargs
+
+
+BERT_BATCH = 16
+BERT_SEQ = 512
+BERT_MASK_RATE = 0.15
+
+
+def bert_pretraining_workload(device, config=None, *,
+                              batch: int = BERT_BATCH,
+                              seq_len: int = BERT_SEQ):
+    """BERT-base pretraining as the JAX package's bench row
+    (``bench.py`` ``_bench_bert_base``): ``bert_base`` at full width and
+    depth (12 layers, h=768, 12 heads, vocab 30528) with bf16
+    activations, dropout 0 and the non-causal flash attention, MLM with
+    15% of positions masked plus NSP, ``AdamW(learning_rate=1e-4,
+    weight_decay=0.01)`` under bf16 O1; :func:`random_state` weights of
+    ``TRAINING_SEED`` on ``device``.  The data is the bench's, drawn in its
+    order from ``np.random.RandomState(0)``: ``ids`` ``randint(0, vocab,
+    (batch, seq_len))``, the mask ``rand(batch, seq_len) < 0.15``, MLM
+    labels ``randint(0, vocab, (batch, seq_len))`` where masked and -100
+    elsewhere, NSP labels ``randint(0, 2, (batch,))``.  ``config``
+    replaces the model configuration.  Returns ``(model, optimizer, ids,
+    inputs)``, ``inputs`` the labels as keywords: run it with
+    ``training.train_step(model, optimizer, ids, **inputs)``."""
+    from .models.bert import BertForPretraining, bert_base
+    from .optimizer import AdamW
+    cfg = config or bert_base(dtype="bfloat16", hidden_dropout=0.0,
+                              attention_dropout=0.0,
+                              use_pallas_attention=True)
+    model = BertForPretraining(cfg, device=device)
+    load_jax_state(model, random_state(model, TRAINING_SEED))
+    model.train()
+    optimizer = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                      parameters=model.named_parameters())
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (batch, seq_len))
+    mask = rng.rand(batch, seq_len) < BERT_MASK_RATE
+    mlm = np.where(mask, rng.randint(0, cfg.vocab_size, (batch, seq_len)),
+                   -100)
+    nsp = rng.randint(0, 2, (batch,))
+    dev = model.device
+    inputs = {"mlm_labels": torch.from_numpy(mlm).to(dev),
+              "nsp_labels": torch.from_numpy(nsp).to(dev)}
+    return model, optimizer, torch.from_numpy(ids).to(dev), inputs
+
+
+def moe_training_workload(device, config=None, *,
+                          batch: int = TRAINING_BATCH,
+                          seq_len: int = TRAINING_SEQ):
+    """The MoE GPT of the JAX package's ``moe`` bench scenario
+    (``paddle_tpu/bench/scenarios.py`` ``moe``): GPT-125M at full width
+    and depth with 8 experts on every other layer (6 MoE layers), GShard
+    top-2 gating at capacity factor 2.0, aux weight 0.01, bf16
+    activations, flash attention, dropout 0, 2048 positions, B=8, S=2048;
+    trained under bf16 O1 with ``AdamW(1e-4, weight_decay=0.01)``, the
+    weights, data and optimizer of :func:`training_workload`.  Returns
+    ``(model, optimizer, ids, labels)``; run it with
+    ``training.train_step``."""
+    from .models.gpt import gpt_125m
+    cfg = config or gpt_125m(dtype="bfloat16", hidden_dropout=0.0,
+                             attention_dropout=0.0,
+                             use_pallas_attention=True,
+                             max_position_embeddings=2048,
+                             moe_num_experts=8, moe_every=2)
+    return training_workload(device, cfg, batch=batch, seq_len=seq_len)
 
 
 def _to_tensor(value, device) -> torch.Tensor:

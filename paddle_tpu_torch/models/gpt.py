@@ -30,8 +30,18 @@ keeping its activations (``distributed/fleet/recompute.py``, under
 ``recompute_policy``), for both block paths, as the JAX package's
 ``GPTDecoderLayer.forward``.
 
-Not in these slices (ROADMAP): MoE, sequence and context parallelism;
-their config fields raise when set.
+With ``moe_num_experts > 0`` every ``moe_every``-th layer's FFN is a
+:class:`~paddle_tpu_torch.distributed.moe.MoELayer` (switch or GShard
+gating with capacity).  Those layers always take the unfused block, in
+training and over either cache, while the dense layers of the same model
+keep ``use_fused_block``; each MoE block returns its load-balance aux
+beside its output (collected inside the block, so a recomputed block's
+replay adds nothing), and the training loss adds ``moe_aux_weight`` times
+their sum.  The cache paths route the step's rows at the capacity of that
+step's token count, as the JAX layer does.
+
+Not in these slices (ROADMAP): sequence and context parallelism; their
+config fields raise when set.
 """
 from __future__ import annotations
 
@@ -47,6 +57,7 @@ from ..device import resolve_device
 from ..distributed.mp_layers import (ColumnParallelLinear, RowParallelLinear,
                                      VocabParallelEmbedding)
 from ..distributed.fleet.recompute import POLICIES, recompute
+from ..distributed.moe import MoELayer, _record_aux, collect_aux_losses
 from ..distributed.mp_ops import parallel_cross_entropy
 from ..framework import random as fw_random
 from ..framework.errors import UnimplementedError, enforce
@@ -99,7 +110,13 @@ class GPTConfig:
     dtype: str = "float32"               # activation dtype
     sequence_parallel: bool = False
     context_parallel: bool = False
+    # MoE: 0 experts = dense FFN; moe_every=2 alternates dense / MoE as
+    # GShard does, 1 makes every layer MoE
     moe_num_experts: int = 0
+    moe_gate: str = "gshard"
+    moe_capacity_factor: float = 2.0
+    moe_aux_weight: float = 0.01
+    moe_every: int = 2
     # memory-efficient LM loss (ops/fused.py linear_softmax_cross_entropy):
     # never builds the [B, S, V] logits
     fused_lm_loss: bool = True
@@ -112,11 +129,14 @@ class GPTConfig:
         enforce(self.dtype in _DTYPES, f"unsupported dtype {self.dtype!r}")
         enforce(self.recompute_policy in POLICIES,
                 f"unknown recompute_policy {self.recompute_policy!r}")
-        for name in ("sequence_parallel", "context_parallel",
-                     "moe_num_experts"):
+        for name in ("sequence_parallel", "context_parallel"):
             enforce(not getattr(self, name),
                     f"GPTConfig.{name} is not ported yet (ROADMAP Queue 1)",
                     exc=UnimplementedError)
+
+    def is_moe_layer(self, index: int) -> bool:
+        return (self.moe_num_experts > 0
+                and index % self.moe_every == self.moe_every - 1)
 
     @property
     def head_dim(self) -> int:
@@ -276,7 +296,8 @@ class GPTMLP(nn.Module):
 
 
 class GPTDecoderLayer(nn.Module):
-    """Pre-LN block, cache-free or over a cache (paged or fixed-shape)."""
+    """Pre-LN block, cache-free or over a cache (paged or fixed-shape).
+    With ``config.is_moe_layer(index)`` the FFN is a :class:`MoELayer`."""
 
     def __init__(self, config: GPTConfig, index: int = 0, device=None):
         super().__init__()
@@ -287,13 +308,27 @@ class GPTDecoderLayer(nn.Module):
         self.attn = GPTAttention(c, device=device)
         self.ln_2 = LayerNorm(c.hidden_size, epsilon=c.layer_norm_epsilon,
                               device=device)
-        self.mlp = GPTMLP(c, device=device)
+        self._is_moe = c.is_moe_layer(index)
+        if self._is_moe:
+            self.mlp = MoELayer(
+                c.hidden_size, c.ffn_hidden_size, c.moe_num_experts,
+                gate=c.moe_gate, capacity_factor=c.moe_capacity_factor,
+                dropout_p=c.hidden_dropout, std=c.initializer_range,
+                out_std=c.initializer_range / math.sqrt(2.0 * c.num_layers),
+                device=device)
+        else:
+            self.mlp = GPTMLP(c, device=device)
+
+    def _fused_block_ok(self) -> bool:
+        """The fused kernels cover the dense pre-LN block only."""
+        return self.config.use_fused_block and not self._is_moe
 
     def _block_fused(self, x):
         """The cache-free fused block (training): the attention half as K1
         -> flash -> K2 with the attention and hidden dropouts, then K3 with
         the hidden dropout after ``+ b2`` (``dropout2``; ``dropout1``
-        stays 0), as the JAX package's ``_block_fused``."""
+        stays 0), as the JAX package's ``_block_fused``.  Returns ``(x,
+        None)``: a dense block has no aux."""
         c = self.config
         a = self.attn
         x = fused_attention_block(
@@ -303,11 +338,12 @@ class GPTDecoderLayer(nn.Module):
             epsilon=c.layer_norm_epsilon, attn_dropout=c.attention_dropout,
             hidden_dropout=c.hidden_dropout, training=self.training)
         m = self.mlp
-        return fused_ffn_block(
+        x = fused_ffn_block(
             x, m.fc_in.weight, m.fc_in.bias, m.fc_out.weight, m.fc_out.bias,
             self.ln_2.weight, self.ln_2.bias, activation="gelu",
             dropout2=c.hidden_dropout, epsilon=c.layer_norm_epsilon,
             training=self.training)
+        return x, None
 
     def _fused_cache_forward(self, x, cache):
         """Fused decode step over either kind of cache: the attention half
@@ -333,18 +369,27 @@ class GPTDecoderLayer(nn.Module):
         return x, new_cache
 
     def _block(self, x):
-        """The cache-free unfused block."""
-        x = x + self.attn(self.ln_1(x))
-        return x + self.mlp(self.ln_2(x))
+        """The cache-free unfused block: ``(x, aux)``, the MoE aux summed
+        inside the block (None for a dense block), so it leaves a
+        recomputed block as one of its outputs."""
+        with collect_aux_losses() as aux_items:
+            x = x + self.attn(self.ln_1(x))
+            x = x + self.mlp(self.ln_2(x))
+        return x, (sum(aux_items) if aux_items else None)
 
     def forward(self, x, cache=None):
         c = self.config
         if cache is None:
-            block = self._block_fused if c.use_fused_block else self._block
+            block = self._block_fused if self._fused_block_ok() else \
+                self._block
             if c.use_recompute:
-                return recompute(block, x, policy=c.recompute_policy)
-            return block(x)
-        if c.use_fused_block:
+                x, aux = recompute(block, x, policy=c.recompute_policy)
+            else:
+                x, aux = block(x)
+            if self._is_moe:
+                _record_aux(aux)
+            return x
+        if self._fused_block_ok():
             return self._fused_cache_forward(x, cache)
         h, new_cache = self.attn(self.ln_1(x), cache=cache)
         x = x + h
@@ -414,11 +459,13 @@ class GPTForCausalLM(nn.Module):
     def forward(self, input_ids, labels=None):
         """Logits ``(b, s, vocab)`` when ``labels`` is None, else ``(loss,
         logits)``: the mean cross-entropy of position t against
-        ``labels[:, t + 1]``.  With ``fused_lm_loss`` and a sequence that a
+        ``labels[:, t + 1]``, plus ``moe_aux_weight`` times the sum of the
+        MoE layers' aux.  With ``fused_lm_loss`` and a sequence that a
         multiple of 128 divides, the loss comes from the chunked
         :func:`linear_softmax_cross_entropy` and the logits slot is None."""
         c = self.config
-        hidden = self.gpt(input_ids)
+        with collect_aux_losses() as aux_losses:
+            hidden = self.gpt(input_ids)
         table = self.gpt.wte.weight.to(hidden.dtype)
         if labels is None:
             return torch.matmul(hidden, table.t())
@@ -426,10 +473,13 @@ class GPTForCausalLM(nn.Module):
         if c.fused_lm_loss and _lce_chunk(hidden.shape[1]) is not None:
             loss = linear_softmax_cross_entropy(hidden, table, shifted,
                                                 reduction="mean")
-            return loss, None
-        logits = torch.matmul(hidden, table.t())
-        loss = parallel_cross_entropy(logits.float(), shifted,
-                                      reduction="mean")
+            logits = None
+        else:
+            logits = torch.matmul(hidden, table.t())
+            loss = parallel_cross_entropy(logits.float(), shifted,
+                                          reduction="mean")
+        if aux_losses:
+            loss = loss + c.moe_aux_weight * sum(aux_losses)
         return loss, logits
 
     @torch.no_grad()

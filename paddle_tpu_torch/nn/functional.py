@@ -20,14 +20,19 @@ import torch
 
 from ..amp.state import cast_for_op
 from ..framework import random as fw_random
+from ..framework.errors import enforce
 
-__all__ = ["gelu", "layer_norm", "linear", "matmul", "embedding", "dropout",
-           "scaled_dot_product_attention"]
+__all__ = ["gelu", "tanh", "layer_norm", "linear", "matmul", "embedding",
+           "dropout", "cross_entropy", "scaled_dot_product_attention"]
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) gelu, as ``jax.nn.gelu(approximate=False)``."""
     return 0.5 * x * (1.0 + torch.erf(x / math.sqrt(2.0)))
+
+
+def tanh(x: torch.Tensor) -> torch.Tensor:
+    return torch.tanh(x)
 
 
 def layer_norm(x, normalized_shape=None, weight=None, bias=None,
@@ -89,6 +94,46 @@ def dropout(x, p: float = 0.5, training: bool = True,
     keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - p
     zero = torch.zeros((), dtype=x.dtype, device=x.device)
     return torch.where(keep, x / (1.0 - p), zero).to(x.dtype)
+
+
+def cross_entropy(logits, label, soft_label: bool = False,
+                  reduction: str = "mean", ignore_index: int = -100,
+                  axis: int = -1, label_smoothing: float = 0.0):
+    """Softmax cross-entropy (``softmax_with_cross_entropy``) over the last
+    axis, cast to float32 under ``auto_cast`` as the JAX op is.  Hard
+    labels are integers with one fewer dim than ``logits`` (or a trailing
+    dim of 1); labels equal to ``ignore_index`` count zero, and ``"mean"``
+    divides by the valid count (floor 1).  Soft labels are distributions
+    over the last axis.  Another ``axis`` is refused: the JAX op's hard
+    label gather assumes the last one."""
+    enforce(reduction in ("mean", "sum", "none"),
+            f"unknown reduction {reduction!r}")
+    enforce(axis in (-1, logits.dim() - 1),
+            f"cross_entropy: axis {axis} is not the last axis")
+    logits = cast_for_op("cross_entropy", logits)
+    logp = torch.log_softmax(logits, dim=axis)
+    if soft_label:
+        loss = -(label * logp).sum(dim=axis)
+    else:
+        if label.dim() == logits.dim():
+            label = label.squeeze(axis)
+        valid = label != ignore_index
+        safe = torch.where(valid, label, torch.zeros_like(label)).long()
+        picked = torch.gather(logp, axis, safe.unsqueeze(axis)).squeeze(axis)
+        if label_smoothing > 0.0:
+            smooth = logp.mean(dim=axis)
+            picked = (1 - label_smoothing) * picked + label_smoothing * smooth
+        loss = torch.where(valid, -picked,
+                           torch.zeros((), dtype=picked.dtype,
+                                       device=picked.device))
+        if reduction == "mean":
+            denom = valid.to(loss.dtype).sum().clamp_min(1.0)
+            return loss.sum() / denom
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "sum":
+        return loss.sum()
+    return loss
 
 
 def scaled_dot_product_attention(q, k, v, attn_mask=None,

@@ -10,7 +10,11 @@ and dropout 0.1), ``pretraining-a`` and ``pretraining-b``
 (``pretraining_workload`` legs A and B: full-width GPT-3 1.3B with
 recompute at B=4, S=2048; A under O1 at dropout 0, B the recipe: O2,
 GradScaler, clipping, AdamW with decay selection, the warmup-cosine
-schedule, dropout 0.1): 3 warm-up steps, 5 steps timed without the
+schedule, dropout 0.1), ``bert`` (``bert_pretraining_workload``:
+full-width BERT-base, MLM + NSP, bf16 O1, B=16, S=512, the non-causal
+flash attention) and ``moe`` (``moe_training_workload``: GPT-125M with 8
+experts on every other layer, GShard top-2, bf16 O1, B=8, S=2048): 3
+warm-up steps, 5 steps timed without the
 profiler (host clock, each ending in the loss readback), then 3 steps
 under ``torch.profiler`` with CUDA activity.  Prints one JSON line: the
 timed steps' ms and the peak device memory; from the profiled steps, the
@@ -32,7 +36,8 @@ from typing import Dict, List
 import torch
 
 from . import _kernels
-from .convert import (fused_training_workload, pretraining_workload,
+from .convert import (bert_pretraining_workload, fused_training_workload,
+                      moe_training_workload, pretraining_workload,
                       training_workload)
 from .profile_serving import _short, _union_us
 from .training import train_step
@@ -49,14 +54,21 @@ def _group(name: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
-WORKLOADS = ("training", "fused", "pretraining-a", "pretraining-b")
+WORKLOADS = ("training", "fused", "pretraining-a", "pretraining-b", "bert",
+             "moe")
+MODELS = {"pretraining-a": "gpt_1p3b", "pretraining-b": "gpt_1p3b",
+          "bert": "bert_base", "moe": "gpt_125m, 8 experts every 2nd layer"}
 
 
 def _workload(name: str, device):
     """``(model, optimizer, ids, labels, step_kwargs)`` of a workload."""
     if name.startswith("pretraining-"):
         return pretraining_workload(device, leg=name[-1].upper())
-    make = fused_training_workload if name == "fused" else training_workload
+    if name == "bert":
+        model, opt, ids, inputs = bert_pretraining_workload(device)
+        return model, opt, ids, None, inputs
+    make = {"fused": fused_training_workload,
+            "moe": moe_training_workload}.get(name, training_workload)
     return (*make(device), {})
 
 
@@ -100,11 +112,10 @@ def profile(workload: str = "training") -> Dict[str, object]:
     return {
         "device": torch.cuda.get_device_name(0),
         "workload": workload,
-        "model": "gpt_1p3b" if workload.startswith("pretraining")
-        else "gpt_125m",
+        "model": MODELS.get(workload, "gpt_125m"),
         "B": int(ids.shape[0]), "S": int(ids.shape[1]),
-        "use_fused_block": model.config.use_fused_block,
-        "use_recompute": model.config.use_recompute,
+        "use_fused_block": getattr(model.config, "use_fused_block", False),
+        "use_recompute": getattr(model.config, "use_recompute", False),
         "amp": kw.get("level", "O1"),
         "dropout": model.config.hidden_dropout,
         "step_ms": timed, "step_ms_p50": statistics.median(timed),
@@ -126,7 +137,8 @@ def main(argv=None) -> int:
     parser.add_argument("--workload", choices=WORKLOADS, default="training",
                         help="fused: the fused-block leg (K1 -> flash -> "
                         "K2, K3; dropout 0.1); pretraining-a / -b: GPT-3 "
-                        "1.3B with recompute, legs A and B")
+                        "1.3B with recompute, legs A and B; bert: BERT-base "
+                        "MLM + NSP; moe: the MoE GPT-125M")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_training: needs a CUDA device", file=sys.stderr)

@@ -62,6 +62,8 @@ def test_package_imports_with_jax_blocked():
             "import paddle_tpu_torch.distributed.fleet.recompute\n"
             "import paddle_tpu_torch.distributed.fingerprint\n"
             "import paddle_tpu_torch.distributed.checkpoint\n"
+            "import paddle_tpu_torch.models.bert\n"
+            "import paddle_tpu_torch.distributed.moe\n"
             "loaded = [m for m in sys.modules if sys.modules[m] is not None]\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
             "               for m in loaded)\n"

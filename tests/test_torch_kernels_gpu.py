@@ -1240,6 +1240,13 @@ FLASH_CASES = [
     # the smallest and largest head dims under dropout
     (3, 130, 130, 16, True, 0.1),
     (2, 150, 140, 128, True, 0.1),
+    # non-causal at BERT-base's shape (B=16 x H=12, S=512, d=64: every tile
+    # visible), ragged both ways, across the tile edges, and with dropout
+    (192, 512, 512, 64, False, 0.0),
+    (6, 136, 200, 64, False, 0.0),
+    (6, 200, 136, 64, False, 0.0),
+    (4, 511, 513, 64, False, 0.0),
+    (4, 256, 256, 64, False, 0.1),
 ]
 
 

@@ -307,8 +307,7 @@ def test_shift_labels_matches_jax():
 # ---------------------------------------------------------------------------
 # what the port refuses
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("field", ["sequence_parallel", "context_parallel",
-                                   "moe_num_experts"])
+@pytest.mark.parametrize("field", ["sequence_parallel", "context_parallel"])
 def test_unported_config_fields_raise(field):
     with pytest.raises(UnimplementedError, match=field):
-        gpt_tiny(**{field: 4 if field == "moe_num_experts" else True})
+        gpt_tiny(**{field: True})
