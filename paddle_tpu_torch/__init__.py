@@ -27,7 +27,12 @@ optimizer with clipping, decay forms, lr schedules (``optimizer/lr.py``)
 and O2 master weights, ``amp.decorate`` and ``amp.GradScaler``, and
 checkpoints in the JAX package's format with its fingerprint
 (``distributed/checkpoint.py``, ``distributed/fingerprint.py``), driven at
-GPT-3 1.3B by ``convert.pretraining_workload``.
+GPT-3 1.3B by ``convert.pretraining_workload``; BERT and the MoE GPT
+(``models/bert.py``, ``distributed/moe.py``); supervised training through
+``hapi.Model.fit`` over ``io.DataLoader`` with ``metric``, callbacks and
+``framework/io.py``'s ``.pdparams`` / ``.pdopt``, under
+``supervisor.RunSupervisor`` (divergence guard, heartbeats, rollback onto
+``distributed/elastic.py``'s committed chain, the integrity guard).
 """
 __version__ = "0.1.0"
 

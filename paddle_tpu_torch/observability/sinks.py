@@ -1,5 +1,5 @@
 """Metric sinks: the port's own copy of the parts of ``paddle_tpu/
-observability/sinks.py`` that serving uses.
+observability/sinks.py`` that serving and training use.
 
 - :class:`MetricsWriter` — the run-scoped JSONL stream,
   ``<dir>/worker-<i>.jsonl``, every byte through the fsync'd
@@ -7,7 +7,9 @@ observability/sinks.py`` that serving uses.
   failed flush keeps the records for the next attempt, a full buffer
   drops the oldest and counts the drops.
 - :func:`render_prometheus` — every registered instrument in the
-  Prometheus text exposition format (the ``/metrics`` page).
+  Prometheus text exposition format (the ``/metrics`` page);
+- :func:`metrics_dir` — ``<run_dir>/metrics``, where a supervised run
+  streams its records.
 
 A sink is anything with ``write(record)`` / ``flush()`` / ``close()``; an
 optional ``bind(registry)`` hook receives the registry on attach.
@@ -23,13 +25,19 @@ from typing import Any, Dict, List, Optional
 from ..framework.log import get_logger
 from ..utils import fsio
 
-__all__ = ["MetricsWriter", "render_prometheus", "default_interval"]
+__all__ = ["MetricsWriter", "render_prometheus", "metrics_dir",
+           "default_interval"]
 
 INTERVAL_ENV = "PTPU_METRICS_INTERVAL"
 
 
 def default_interval() -> float:
     return float(os.environ.get(INTERVAL_ENV, "30"))
+
+
+def metrics_dir(run_dir: str) -> str:
+    """Where a run's telemetry lives: ``<run_dir>/metrics``."""
+    return os.path.join(run_dir, "metrics")
 
 
 class MetricsWriter:

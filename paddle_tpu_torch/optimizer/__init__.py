@@ -194,13 +194,19 @@ class Optimizer(torch.optim.Optimizer):
         """Apply each parameter's ``.grad`` (parameters without one stay).
         ``found_inf``: a bool device scalar; where it is set the step
         leaves parameters, slots, masters and the step count as they
-        were."""
+        were.  A ``"lr"`` key in ``param_groups[0]`` replaces the
+        schedule's learning rate for the step."""
         enforce(closure is None, "step(closure) is not supported")
         live = [i for i, p in enumerate(self._params) if p.grad is not None]
         if not live:
             return None
         self._ensure_state()
-        lr_v = float(np.float32(self.get_lr()))
+        # a "lr" in the parameter group overrides the schedule for this
+        # step (hapi.Model sets it for one step, as the JAX
+        # apply_gradients(lr=) override)
+        override = self.param_groups[0].get("lr")
+        lr_v = float(np.float32(self.get_lr() if override is None
+                                else override))
         self.last_lr = lr_v
         grads = [self._params[i].grad for i in live]
         if self._grad_clip is not None:

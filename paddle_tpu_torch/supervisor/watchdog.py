@@ -1,12 +1,14 @@
 """Step watchdog: the port's own copy of ``paddle_tpu/supervisor/
-watchdog.py``, a deadline armed around each serving step.
+watchdog.py``, a deadline armed around each serving or train step.
 
 A hung step does not crash — it sits idle forever while the card's bill
 runs.  The watchdog turns "forever" into a bounded event: a monitor thread
 tracks every armed section, and when a deadline expires it (1) dumps the
-stacks of every live thread through ``vlog`` and (2) raises
-:class:`StepTimeout` inside the armed thread (``PyThreadState_SetAsyncExc``
-through ``ctypes``) so the loop regains control.
+stacks of every live thread through ``vlog``, (2) records a
+``watchdog_timeout`` event on its ``report`` (the run supervisor's) and
+(3) raises :class:`StepTimeout` inside the armed thread
+(``PyThreadState_SetAsyncExc`` through ``ctypes``) so the loop regains
+control.
 
 The async raise lands at the next Python bytecode boundary.  It interrupts
 host-side loops, sleeps taken in slices and retry backoff, which covers
@@ -100,11 +102,13 @@ class Watchdog:
     ...     engine_step()                 # StepTimeout if it stalls
 
     One daemon monitor thread serves all armed sections (several threads
-    may arm at once).
+    may arm at once).  ``report`` (a ``SupervisorReport``) records each
+    expiry.
     """
 
-    def __init__(self, timeout: Optional[float] = None):
+    def __init__(self, timeout: Optional[float] = None, report=None):
         self.timeout = default_timeout() if timeout is None else float(timeout)
+        self.report = report
         self._clock = time.monotonic
         self._cond = threading.Condition()
         self._entries: List[_Armed] = []
@@ -168,12 +172,23 @@ class Watchdog:
         stacks = dump_all_stacks(first=entry.thread_id)
         vlog(0, "watchdog: %r missed its deadline — thread stacks:\n%s",
              entry.label, stacks)
+        if self.report is not None:
+            self.report.record(
+                "watchdog_timeout", label=entry.label,
+                timeout_secs=entry.timeout, thread_id=entry.thread_id,
+                stacks=stacks[:4000])
         entry.delivered = _async_raise(entry.thread_id, StepTimeout)
 
     def close(self) -> None:
         with self._cond:
             self._closed = True
             self._cond.notify_all()
+
+    def __enter__(self) -> "Watchdog":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 # -- process-global watchdog (guarded() arms through it) -------------------

@@ -1,1 +1,2 @@
-"""Test seams of the port: the serving fault injectors (``faults``)."""
+"""Test seams of the port: the checkpoint, training, serving and fleet
+fault injectors (``faults``)."""

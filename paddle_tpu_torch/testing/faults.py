@@ -1,5 +1,22 @@
-"""Serving fault injectors: the port's own copy of the serving half of
-``paddle_tpu/testing/faults.py``.
+"""Fault injectors: the port's own copy of ``paddle_tpu/testing/
+faults.py``.
+
+The checkpoint half: every durable byte (shards, manifests, pickles, the
+elastic COMMITTED marker, heartbeats, reports) flows through one seam,
+``utils/fsio.write_bytes``; :class:`FaultInjector` patches it inside a
+``with`` block and fails, truncates, flips, stalls or follows with a
+SIGTERM the selected writes.  :func:`flip_byte`, :func:`truncate_file`,
+:func:`corrupt_shard` and :func:`corrupt_manifest` damage a committed
+checkpoint on disk; :func:`fast_retries` swaps the checkpoint and
+``framework.io`` retry policies for a sleepless one.
+
+The training half: :class:`diverge_after` poisons the losses a run
+supervisor sees (``RunSupervisor.inject_loss``); :func:`sigkill_self` /
+:class:`sigkill_at` are the unmaskable preemption; :func:`flip_tree_bit`
+/ :class:`bitflip` flip one bit of a live state tree (the in-memory
+corruption the integrity guard must catch).
+
+The serving half:
 
 - :func:`hang` / :func:`slow_call` — an interruptible stall (a hung or a
   slow-but-alive step) for the watchdog drills;
@@ -23,23 +40,182 @@ and the fleet half:
   retry-budget drill.
 
 The injectors are the JAX package's, so one drill script drives either
-engine or fleet the same way.  (The JAX module's ``fast_retries`` swaps
-checkpoint and ``framework.io`` retry policies the port does not have
-yet.)
+package the same way.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import glob
 import os
 import random
 import signal as _signal
 import time
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 
-__all__ = ["hang", "slow_call", "poison_request", "expire_clock",
+from ..utils import fsio
+from ..utils.retry import RetryPolicy
+
+__all__ = ["FaultInjector", "flip_byte", "truncate_file", "corrupt_shard",
+           "corrupt_manifest", "fast_retries", "hang", "slow_call",
+           "diverge_after", "sigkill_self", "sigkill_at", "bitflip",
+           "flip_tree_bit", "poison_request", "expire_clock",
            "kill_replica", "drop_dispatch", "flaky_replica"]
+
+
+def _default_transient() -> OSError:
+    return OSError("injected transient I/O error")
+
+
+class FaultInjector:
+    """Context manager that intercepts ``fsio.write_bytes`` and injects
+    configured faults; every write it does not target passes through to
+    the real (fsync'd) implementation.  Writes are numbered from 1 across
+    the block; each retry attempt counts as a fresh write.
+
+    >>> with FaultInjector() as fi:
+    ...     fi.fail_writes(first=1, times=3)      # 3 transient OSErrors
+    ...     save_sharded(state, path)             # retry absorbs them
+    """
+
+    def __init__(self):
+        self.write_count = 0
+        self.injected: List[Tuple[int, str, str]] = []  # (n, kind, path)
+        self._rules: List[tuple] = []
+        self._orig: Optional[Callable] = None
+
+    # -- rules (chainable) ---------------------------------------------------
+    def fail_writes(self, first: int, times: int = 1,
+                    exc_factory: Callable[[], BaseException] =
+                    _default_transient) -> "FaultInjector":
+        """Raise ``exc_factory()`` on writes ``first .. first+times-1``."""
+        self._rules.append(("fail", first, times, exc_factory))
+        return self
+
+    def truncate_write(self, nth: int, keep_bytes: int = 8
+                       ) -> "FaultInjector":
+        """Write only the first ``keep_bytes`` of the Nth write (a torn
+        write: the file exists but is short)."""
+        self._rules.append(("truncate", nth, keep_bytes))
+        return self
+
+    def flip_byte_on_write(self, nth: int, offset: int = -1
+                           ) -> "FaultInjector":
+        """Flip one byte of the Nth write's payload (bit rot at write
+        time; the size stays right, the CRC must catch it)."""
+        self._rules.append(("flip", nth, offset))
+        return self
+
+    def sigterm_on_write(self, nth: int) -> "FaultInjector":
+        """Deliver SIGTERM to this process right after the Nth write
+        lands (a preemption notice arriving mid-save)."""
+        self._rules.append(("sigterm", nth))
+        return self
+
+    def hang_on_write(self, nth: int, seconds: float) -> "FaultInjector":
+        """Stall the Nth write for ``seconds`` (a wedged file server),
+        interruptibly, so a watchdog's ``StepTimeout`` can cut it short."""
+        self._rules.append(("hang", nth, seconds))
+        return self
+
+    # -- interception ------------------------------------------------------
+    def __enter__(self) -> "FaultInjector":
+        self._orig = fsio.write_bytes
+        fsio.write_bytes = self._intercept
+        return self
+
+    def __exit__(self, *exc) -> None:
+        fsio.write_bytes = self._orig
+        self._orig = None
+
+    def _intercept(self, path: str, payload: bytes) -> None:
+        self.write_count += 1
+        n = self.write_count
+        for rule in self._rules:
+            kind = rule[0]
+            if kind == "fail" and rule[1] <= n < rule[1] + rule[2]:
+                self.injected.append((n, kind, path))
+                raise rule[3]()
+            if kind == "truncate" and n == rule[1]:
+                self.injected.append((n, kind, path))
+                return self._orig(path, payload[: rule[2]])
+            if kind == "flip" and n == rule[1]:
+                self.injected.append((n, kind, path))
+                mutated = bytearray(payload)
+                mutated[rule[2]] ^= 0xFF
+                return self._orig(path, bytes(mutated))
+            if kind == "sigterm" and n == rule[1]:
+                self.injected.append((n, kind, path))
+                self._orig(path, payload)
+                os.kill(os.getpid(), _signal.SIGTERM)
+                return None
+            if kind == "hang" and n == rule[1]:
+                self.injected.append((n, kind, path))
+                hang(rule[2])
+                return self._orig(path, payload)
+        return self._orig(path, payload)
+
+
+# -- offline corruption (damage committed bytes on disk) -------------------
+def flip_byte(path: str, offset: Optional[int] = None) -> None:
+    """XOR one byte of ``path`` in place (default: the middle byte, which
+    for .npy files lands in array data, not the header)."""
+    with open(path, "r+b") as f:  # noqa: fsio - deliberate corruption
+        f.seek(0, os.SEEK_END)
+        size = f.tell()
+        if size == 0:
+            raise ValueError(f"{path} is empty, nothing to flip")
+        pos = size // 2 if offset is None else offset % size
+        f.seek(pos)
+        b = f.read(1)
+        f.seek(pos)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def truncate_file(path: str, keep_bytes: int = 8) -> None:
+    with open(path, "r+b") as f:  # noqa: fsio - deliberate corruption
+        f.truncate(keep_bytes)
+
+
+def corrupt_shard(ckpt_dir: str, index: int = 0,
+                  offset: Optional[int] = None) -> str:
+    """Flip a byte in the ``index``-th shard file (sorted order) of a
+    saved checkpoint; returns the damaged file's path."""
+    shards = sorted(glob.glob(os.path.join(ckpt_dir, "*", "shard-*.npy")))
+    if not shards:
+        raise FileNotFoundError(f"no shard files under {ckpt_dir}")
+    flip_byte(shards[index], offset)
+    return shards[index]
+
+
+def corrupt_manifest(ckpt_dir: str, keep_bytes: int = 16) -> str:
+    """Truncate the checkpoint's manifest (a torn manifest write); returns
+    the damaged file's path."""
+    names = (sorted(glob.glob(os.path.join(ckpt_dir, "manifest-p*.json")))
+             or [os.path.join(ckpt_dir, "manifest.json")])
+    truncate_file(names[0], keep_bytes)
+    return names[0]
+
+
+@contextlib.contextmanager
+def fast_retries(max_attempts: int = 4):
+    """Swap the checkpoint's and ``framework.io``'s retry policies for a
+    sleepless one for the block (fault tests measure behaviour, not
+    backoff time)."""
+    from ..distributed import checkpoint as ckpt_mod
+    from ..framework import io as io_mod
+
+    policy = RetryPolicy(max_attempts=max_attempts, base_delay=0.0,
+                         jitter=0.0, sleep=lambda _t: None)
+    saved = (ckpt_mod.IO_RETRY_POLICY, io_mod.IO_RETRY_POLICY)
+    ckpt_mod.IO_RETRY_POLICY = policy
+    io_mod.IO_RETRY_POLICY = policy
+    try:
+        yield policy
+    finally:
+        ckpt_mod.IO_RETRY_POLICY, io_mod.IO_RETRY_POLICY = saved
 
 
 def hang(seconds: float, interval: float = 0.01) -> None:
@@ -139,6 +315,126 @@ class expire_clock:
 
     def __call__(self) -> float:
         return self.now
+
+
+# ---------------------------------------------------------------------------
+# run-level injectors (supervisor and integrity drills)
+# ---------------------------------------------------------------------------
+class diverge_after:
+    """Loss injector for the divergence-guard path: identity until
+    ``step``, then poisons every observed loss: ``mode="spike"`` grows it
+    by ``factor`` each step (a finite blow-up), ``mode="nan"`` /
+    ``mode="inf"`` go non-finite at once.  Plugs into
+    ``RunSupervisor.inject_loss`` (called as ``fn(step, loss)``).
+    ``triggered`` counts poisoned steps; ``count`` bounds them (None:
+    keep diverging, the broken-run drill)."""
+
+    def __init__(self, step: int, mode: str = "spike",
+                 factor: float = 100.0, count: Optional[int] = None):
+        if mode not in ("spike", "nan", "inf"):
+            raise ValueError(f"unknown divergence mode {mode!r}")
+        self.step = int(step)
+        self.mode = mode
+        self.factor = float(factor)
+        self.count = count
+        self.triggered = 0
+
+    def __call__(self, step: int, loss: float) -> float:
+        if step < self.step or (self.count is not None
+                                and self.triggered >= self.count):
+            return loss
+        self.triggered += 1
+        if self.mode == "nan":
+            return float("nan")
+        if self.mode == "inf":
+            return float("inf")
+        return (abs(loss) + 1.0) * self.factor ** self.triggered
+
+
+def sigkill_self() -> None:
+    """SIGKILL this process: the unmaskable preemption, with no grace
+    window and no final checkpoint flush."""
+    os.kill(os.getpid(), _signal.SIGKILL)
+
+
+class sigkill_at:
+    """Step-triggered SIGKILL: call per step (``fault(step)``); fires
+    :func:`sigkill_self` once ``step >= trigger`` and ``generation ==
+    gen`` (None: any generation)."""
+
+    def __init__(self, step: int, generation: Optional[int] = 0):
+        self.step = int(step)
+        self.generation = generation
+
+    def __call__(self, step: int, generation: Optional[int] = None
+                 ) -> None:
+        if step < self.step:
+            return
+        if (self.generation is not None and generation is not None
+                and int(generation) != self.generation):
+            return
+        sigkill_self()
+
+
+def flip_tree_bit(tree, leaf: str, bit: int = 0, index: int = 0):
+    """XOR one bit of one element of one named leaf of a live state tree:
+    the in-memory corruption that CRCs on disk never see.  ``leaf`` is
+    the "/"-joined name (the checkpoint's), ``bit`` indexes the leaf's
+    raw bytes (0 = the low bit of byte 0) after ``index`` whole elements.
+    Returns a new tree whose named leaf is a flipped copy; every other
+    leaf is the same object."""
+    import torch
+    from ..distributed.checkpoint import _flatten
+    from ..utils.tree import tree_map_with_path
+
+    names = [n for n, _x in _flatten(tree)]
+    if leaf not in names:
+        raise KeyError(f"no leaf {leaf!r} (have {sorted(names)[:8]}...)")
+
+    def _flip(x):
+        if torch.is_tensor(x):
+            out = x.detach().clone().contiguous()
+            raw = out.reshape(-1).view(torch.uint8)
+            pos = (index * out.element_size() + bit // 8) % raw.numel()
+            raw[pos] ^= 1 << (bit % 8)
+            return out
+        arr = np.array(x, copy=True)
+        raw = arr.reshape(-1).view(np.uint8)
+        pos = index * arr.dtype.itemsize + bit // 8
+        raw[pos % raw.size] ^= np.uint8(1 << (bit % 8))
+        return arr
+
+    return tree_map_with_path(
+        lambda path, x: _flip(x) if path == leaf else x, tree)
+
+
+class bitflip:
+    """Step-triggered single-bit corruptor for integrity drills: call per
+    step with the live state (``state = fault(step, state, worker=i)``);
+    at ``step >= trigger`` on the targeted ``worker`` it flips ``bit`` of
+    ``leaf`` once and stays quiet after.  ``fired`` records the step.
+
+    The flip happens outside the computed path (between steps): replays
+    from the stashed pre-state agree with each other but not with the
+    live digest, the ``sdc_suspect`` signature."""
+
+    def __init__(self, leaf: str, bit: int = 0, step: int = 1,
+                 worker: Optional[int] = None, index: int = 0):
+        self.leaf = leaf
+        self.bit = int(bit)
+        self.step = int(step)
+        self.worker = worker
+        self.index = int(index)
+        self.fired: Optional[int] = None
+
+    def __call__(self, step: int, tree, worker: Optional[int] = None):
+        if self.fired is not None or step < self.step:
+            return tree
+        if (self.worker is not None and worker is not None
+                and int(worker) != self.worker):
+            return tree
+        self.fired = int(step)
+        return flip_tree_bit(tree, self.leaf, self.bit, self.index)
 
 
 # ---------------------------------------------------------------------------

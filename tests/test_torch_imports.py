@@ -64,6 +64,25 @@ def test_package_imports_with_jax_blocked():
             "import paddle_tpu_torch.distributed.checkpoint\n"
             "import paddle_tpu_torch.models.bert\n"
             "import paddle_tpu_torch.distributed.moe\n"
+            "import paddle_tpu_torch.distributed.elastic\n"
+            "import paddle_tpu_torch.observability.tracing\n"
+            "import paddle_tpu_torch.observability.mfu\n"
+            "import paddle_tpu_torch.observability.memory\n"
+            "import paddle_tpu_torch.observability.flight\n"
+            "import paddle_tpu_torch.metric\n"
+            "import paddle_tpu_torch.io\n"
+            "import paddle_tpu_torch.framework.io\n"
+            "import paddle_tpu_torch.hapi\n"
+            "import paddle_tpu_torch.hapi.callbacks\n"
+            "import paddle_tpu_torch.hapi.flops\n"
+            "import paddle_tpu_torch.hapi.model\n"
+            "import paddle_tpu_torch.supervisor\n"
+            "import paddle_tpu_torch.supervisor.report\n"
+            "import paddle_tpu_torch.supervisor.guard\n"
+            "import paddle_tpu_torch.supervisor.heartbeat\n"
+            "import paddle_tpu_torch.supervisor.rollback\n"
+            "import paddle_tpu_torch.supervisor.integrity\n"
+            "import paddle_tpu_torch.utils.tree\n"
             "loaded = [m for m in sys.modules if sys.modules[m] is not None]\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
             "               for m in loaded)\n"
