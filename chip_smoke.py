@@ -291,6 +291,27 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               state: the desync names worker 1 and the leaf, worker 1
               heals from the majority's offer, three equal fingerprints
               after; the stash's clone bytes and ms;
+  (c2f) vision (convert.resnet_training_workload / lenet_training_
+              workload, training.classification_step; no kernel of the
+              port: the eight launch 0 times, counters zeroed before and
+              read after the phase): (1) float32 card against CPU from the
+              same numpy weights (resnet50 at B=4, 64 x 64; LeNet at B=8):
+              the loss, the logits, every gradient, the BatchNorm buffers
+              after one Momentum step and the eval logits after it, each
+              within 1e-4 of its range plus 16 x the CPU's own float32
+              distance from a float64 CPU run (small-batch BatchNorm
+              amplifies rounding); (2) ResNet-50 at the JAX row's size (B=128,
+              224 x 224, bf16 O1, Momentum with weight decay, one
+              resident batch): 3 warm-up and 10 timed steps in NCHW, then
+              as many in channels_last, each step to the loss readback;
+              finite losses, the last NCHW one below the first; step p50,
+              img/s, MFU (img/s x 3 x 4.089 GFLOP / the bf16 peak of
+              observability/mfu.py) and peak memory of each layout; (3)
+              LeNet at the mnist row's size (B=64, float32): step p50 and
+              img/s; (4) the image-classification recipe (the synthetic
+              MNIST, ToTensor + Normalize, SmallNet, Adam over
+              CosineAnnealingDecay, 10 epochs of Model.fit over
+              DataLoader(shuffle=True)): evaluate's acc > 0.9;
   (c3) generate GPTForCausalLM.generate at full width (convert.
               generate_workload: B=8, prompt 512, 128 greedy tokens, bf16),
               unfused (use_pallas_attention) and fused (use_fused_block):
@@ -452,6 +473,10 @@ def main() -> int:
     hapi = supervised_training(torch, np, dev, _kernels, root)
     for name in TRAINING_KERNELS:
         results[name]["launches_per_step_hapi_fit"] = hapi["per_step"][name]
+    torch.cuda.empty_cache()
+
+    # -- (c2f) vision: LeNet, ResNet-50 and the image-classification recipe --
+    vision(torch, np, dev, _kernels)
     torch.cuda.empty_cache()
 
     # -- (c3) generate -------------------------------------------------------
@@ -4697,6 +4722,204 @@ def supervised_training(torch, np, dev, _kernels, root):
         f" healed ({integrity['audit']}), stash {integrity['stash_bytes']} "
         f"bytes in {integrity['stash_ms']:.2f} ms")
     return {"launches": one["launches"], "per_step": per_step}
+
+
+# ---------------------------------------------------------------------------
+# (c2f) vision
+# ---------------------------------------------------------------------------
+RESNET50_FWD_FLOPS = 4.089e9    # a ResNet-50 forward at 224 x 224, an
+# image (bench.py _bench_resnet50); a training step counts it 3 times
+
+
+def vision_card_vs_cpu(torch, np, dev, name, make, batch, hw, channels,
+                       classes):
+    """(c2f 1): one float32 training step of ``make(device)`` on the card
+    and on the CPU from the same numpy weights and data, and a float64 CPU
+    run as the anchor: for each compared tensor the card must lie within
+    1e-4 of the anchor's range plus 16 x the CPU float32 run's own
+    distance from the anchor (small-batch BatchNorm amplifies float32
+    rounding, by another constant in each convolution algorithm: cuDNN's
+    float32 ones against oneDNN's).  Returns the worst err / bound and the
+    worst tensors."""
+    from paddle_tpu_torch.convert import load_jax_state
+    from paddle_tpu_torch.framework import random as fw_random
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    fw_random.seed(SEED)
+    weights = {k: v.numpy() for k, v in make("cpu").state_dict().items()}
+    rng = np.random.RandomState(SEED)
+    x = (rng.randn(batch, channels, hw, hw) * 0.5).astype(np.float32)
+    y = rng.randint(0, classes, (batch,))
+    runs = {}
+    for tag, device, dtype in (("card", dev, torch.float32),
+                               ("cpu", "cpu", torch.float32),
+                               ("cpu64", "cpu", torch.float64)):
+        m = make(device)
+        load_jax_state(m, weights)
+        m = m.to(dtype)
+        opt = Momentum(learning_rate=0.1, momentum=0.9, weight_decay=1e-4,
+                       parameters=m.named_parameters(),
+                       multi_precision=False)
+        xt = torch.from_numpy(x).to(device, dtype)
+        yt = torch.from_numpy(y).to(device)
+        m.train()
+        logits = m(xt)
+        loss = F.cross_entropy(logits, yt)
+        loss.backward()
+        out = {"loss": loss.detach().reshape(1), "logits": logits.detach()}
+        out.update({f"grad {k}": p.grad for k, p in m.named_parameters()})
+        opt.step()
+        out.update({f"buffer {k}": b for k, b in m.named_buffers()})
+        m.eval()
+        with torch.no_grad():
+            out["eval logits"] = m(xt)
+        runs[tag] = {k: v.detach().double().cpu() for k, v in out.items()}
+    worst, table = 0.0, []
+    for k, ref in runs["cpu64"].items():
+        scale = float(ref.abs().max())
+        own = float((runs["cpu"][k] - ref).abs().max())
+        bound = 1e-4 * scale + 16.0 * own + 1e-12
+        err = float((runs["card"][k] - ref).abs().max())
+        require(err <= bound, f"c2f (1) {name}: {k} on the card is {err} "
+                f"from the float64 CPU run, bound {bound} (the CPU's "
+                f"float32 run: {own}; range {scale})")
+        worst = max(worst, err / bound)
+        table.append((err / max(scale, 1e-30), own / max(scale, 1e-30), k))
+    table.sort(reverse=True)
+    return {"model": name, "B": batch, "hw": hw, "tensors": len(runs["cpu"]),
+            "loss_card": float(runs["card"]["loss"][0]),
+            "loss_cpu": float(runs["cpu"]["loss"][0]),
+            "loss_cpu64": float(runs["cpu64"]["loss"][0]),
+            "worst_err_over_bound": worst,
+            # (card's distance from float64 / range, the CPU float32
+            # run's / range, tensor), the largest five
+            "worst_relative": table[:5]}
+
+
+def vision_timed(torch, np, model, opt, images, labels, kw, what):
+    """WARMUP_STEPS + TIMED_STEPS classification steps on one resident
+    batch, each to the loss readback: finite losses; the fields of the
+    JSON line."""
+    from paddle_tpu_torch.training import classification_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(WARMUP_STEPS + TIMED_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(classification_step(model, opt, images, labels,
+                                                **kw)))
+        times.append(time.perf_counter() - t0)
+    require(all(np.isfinite(losses)), f"nonfinite {what} loss: {losses}")
+    step_ms = [t * 1e3 for t in times[WARMUP_STEPS:]]
+    p50 = statistics.median(step_ms)
+    return {"step_ms_p50": p50, "step_ms": step_ms,
+            "img_per_s": images.shape[0] / (p50 / 1e3),
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "losses": losses,
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def small_net(torch, tnn, device):
+    """The image-classification recipe's SmallNet on the port's layers."""
+    class SmallNet(torch.nn.Module):
+        def __init__(self, num_classes=10):
+            super().__init__()
+            self.features = tnn.Sequential(
+                tnn.Conv2D(1, 8, 3, padding=1, device=device), tnn.ReLU(),
+                tnn.MaxPool2D(2),
+                tnn.Conv2D(8, 16, 3, padding=1, device=device), tnn.ReLU(),
+                tnn.MaxPool2D(2))
+            self.head = tnn.Sequential(
+                tnn.Flatten(), tnn.Linear(16 * 7 * 7, num_classes,
+                                          device=device))
+
+        def forward(self, x):
+            return self.head(self.features(x))
+    return SmallNet()
+
+
+def vision_recipe(torch, np, dev):
+    """(c2f 4): ``examples/image_classification.py``'s recipe on the
+    port."""
+    from paddle_tpu_torch import metric, nn, optimizer
+    from paddle_tpu_torch.framework import random as fw_random
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.vision import transforms as T
+    from paddle_tpu_torch.vision.datasets import MNIST
+    np.random.seed(0)
+    fw_random.seed(0)
+    plain = T.Compose([T.ToTensor(), T.Normalize([0.5], [0.5])])
+    train = MNIST(mode="train", transform=plain, synthetic_size=2048)
+    test = MNIST(mode="test", transform=plain, synthetic_size=512)
+    net = small_net(torch, nn, dev)
+    model = Model(net)
+    sched = optimizer.lr.CosineAnnealingDecay(3e-3, T_max=160)
+    model.prepare(optimizer.Adam(learning_rate=sched,
+                                 parameters=net.named_parameters()),
+                  nn.CrossEntropyLoss(), metric.Accuracy())
+    t0 = time.perf_counter()
+    hist = model.fit(DataLoader(train, batch_size=128, shuffle=True,
+                                places=dev), epochs=10, verbose=0)
+    fit_s = time.perf_counter() - t0
+    res = model.evaluate(DataLoader(test, batch_size=256, places=dev),
+                         verbose=0)
+    require(res["acc"] > 0.9, f"the recipe's accuracy {res['acc']} <= 0.9")
+    return {"epochs": 10, "batches": len(hist["loss"]), "fit_s": fit_s,
+            "loss_first": hist["loss"][0], "loss_last": hist["loss"][-1],
+            "eval": res}
+
+
+def vision(torch, np, dev, _kernels):
+    from paddle_tpu_torch.convert import (lenet_training_workload,
+                                          resnet_training_workload)
+    from paddle_tpu_torch.observability import mfu
+    from paddle_tpu_torch.vision.models import LeNet, resnet50
+    t_phase = time.perf_counter()
+    reference = [
+        vision_card_vs_cpu(torch, np, dev, "resnet50",
+                           lambda d: resnet50(device=d), 4, 64, 3, 1000),
+        vision_card_vs_cpu(torch, np, dev, "LeNet",
+                           lambda d: LeNet(device=d), 8, 28, 1, 10)]
+    for r in reference:
+        log(f"vision reference: float32 {r['model']} B={r['B']} "
+            f"{r['hw']}x{r['hw']} card vs CPU, loss {r['loss_card']:.6f} vs "
+            f"{r['loss_cpu']:.6f}, {r['tensors']} tensors within bound "
+            f"(worst err/bound {r['worst_err_over_bound']:.3f})")
+    _kernels.reset_launches()
+    model, opt, images, labels, kw = resnet_training_workload(dev)
+    require(tuple(images.shape) == (128, 3, 224, 224)
+            and kw == {"level": "O1"} and model.num_classes == 1000
+            and len(model.layer3) == 6,
+            "not the JAX row's ResNet-50 at B=128, 224 x 224, O1")
+    peak = mfu.DEVICE_SPECS["h100"]["bf16_tflops"] * 1e12
+    nchw = vision_timed(torch, np, model, opt, images, labels, kw,
+                        "ResNet-50")
+    require(nchw["loss_last"] < nchw["loss_first"],
+            f"the ResNet-50 loss did not fall: {nchw['losses']}")
+    model = model.to(memory_format=torch.channels_last)
+    images = images.contiguous(memory_format=torch.channels_last)
+    nhwc = vision_timed(torch, np, model, opt, images, labels, kw,
+                        "ResNet-50 channels_last")
+    for line in (nchw, nhwc):
+        line["mfu"] = line["img_per_s"] * 3 * RESNET50_FWD_FLOPS / peak
+    del model, opt, images, labels
+    torch.cuda.empty_cache()
+    lenet = vision_timed(torch, np, *lenet_training_workload(dev), "LeNet")
+    recipe = vision_recipe(torch, np, dev)
+    launches = dict(_kernels.launches)
+    require(not any(launches.values()),
+            f"the vision path launched a kernel of the port: {launches}")
+    log(json.dumps({"vision": {
+        "reference": reference,
+        "resnet50": {"B": 128, "hw": 224, "amp": "O1", "dtype": "bfloat16",
+                     "optimizer": "Momentum(0.1, 0.9, weight_decay=1e-4)",
+                     "flops_per_img_fwd": RESNET50_FWD_FLOPS,
+                     "mfu_peak": "989 TFLOP/s bf16 dense",
+                     "nchw": nchw, "channels_last": nhwc},
+        "lenet": {"B": 64, "hw": 28, "dtype": "float32", **lenet},
+        "recipe": recipe, "launches": launches,
+        "phase_s": time.perf_counter() - t_phase}}))
 
 
 # ---------------------------------------------------------------------------

@@ -32,7 +32,11 @@ GPT-3 1.3B by ``convert.pretraining_workload``; BERT and the MoE GPT
 ``hapi.Model.fit`` over ``io.DataLoader`` with ``metric``, callbacks and
 ``framework/io.py``'s ``.pdparams`` / ``.pdopt``, under
 ``supervisor.RunSupervisor`` (divergence guard, heartbeats, rollback onto
-``distributed/elastic.py``'s committed chain, the integrity guard).
+``distributed/elastic.py``'s committed chain, the integrity guard);
+vision — ``vision.models`` (LeNet, ResNet, ResNeXt), ``vision.transforms``
+and ``vision.datasets`` over ``nn``'s conv, pooling and batch-norm layers
+and ``nn.initializer``, trained by ``training.classification_step``
+(cuDNN and PyTorch's own kernels; none of the port's).
 """
 __version__ = "0.1.0"
 

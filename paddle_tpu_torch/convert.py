@@ -36,7 +36,9 @@ __all__ = ["state_dict_from_jax", "load_jax_state", "random_state",
            "PRETRAINING_WARMUP", "PRETRAINING_T_MAX",
            "bert_pretraining_workload", "BERT_BATCH", "BERT_SEQ",
            "BERT_MASK_RATE", "moe_training_workload",
-           "optimizer_state_from_jax", "optimizer_state_to_jax"]
+           "optimizer_state_from_jax", "optimizer_state_to_jax",
+           "resnet_training_workload", "lenet_training_workload",
+           "VISION_SEED", "RESNET_BATCH", "RESNET_HW", "LENET_BATCH"]
 
 
 def state_dict_from_jax(np_state: Dict[str, np.ndarray],
@@ -367,6 +369,66 @@ def moe_training_workload(device, config=None, *,
                              max_position_embeddings=2048,
                              moe_num_experts=8, moe_every=2)
     return training_workload(device, cfg, batch=batch, seq_len=seq_len)
+
+
+VISION_SEED = 0
+RESNET_BATCH = 128
+RESNET_HW = 224
+LENET_BATCH = 64
+
+
+def _vision_workload(make, device, batch: int, hw: int, channels: int,
+                     num_classes: int, level: str):
+    """The JAX vision rows' set-up (``bench.py`` ``_bench_resnet50``,
+    ``scenarios.py`` ``_vision_train_payload``): the framework's streams
+    seeded with ``VISION_SEED`` before the model draws its parameters from
+    its own initializers, ``Momentum(learning_rate=0.1, momentum=0.9,
+    weight_decay=1e-4)`` over every trainable parameter (BatchNorm's
+    included), and one batch from ``np.random.RandomState(0)``: images
+    ``randn(batch, channels, hw, hw) * 0.5`` as float32, then labels
+    ``randint(0, num_classes, (batch,))``."""
+    from .framework import random as fw_random
+    from .optimizer import Momentum
+    dev = resolve_device(device)
+    fw_random.seed(VISION_SEED)
+    model = make(dev)
+    model.train()
+    optimizer = Momentum(learning_rate=0.1, momentum=0.9, weight_decay=1e-4,
+                         parameters=model.named_parameters())
+    rng = np.random.RandomState(0)
+    images = (rng.randn(batch, channels, hw, hw) * 0.5).astype(np.float32)
+    labels = rng.randint(0, num_classes, (batch,))
+    return (model, optimizer, torch.from_numpy(images).to(dev),
+            torch.from_numpy(labels).to(dev), {"level": level})
+
+
+def resnet_training_workload(device=None, depth: int = 50,
+                             batch: int = RESNET_BATCH, hw: int = RESNET_HW,
+                             level: str = "O1"):
+    """The JAX package's ResNet-50 ImageNet-config row (``bench.py``
+    ``_bench_resnet50``; the ``resnet`` scenario): ``resnet<depth>``
+    (``depth`` 18, 34, 50, 101 or 152) with 1000 classes on ``device``
+    (None means ``cuda``), B=128 images of 224 x 224 under bf16
+    ``level`` O1, Momentum with weight decay; see
+    :func:`_vision_workload`.  Returns ``(model, optimizer, images,
+    labels, step_kwargs)``: run it with ``training.classification_step(
+    model, optimizer, images, labels, **step_kwargs)``."""
+    from .vision import models
+    make = {18: models.resnet18, 34: models.resnet34, 50: models.resnet50,
+            101: models.resnet101, 152: models.resnet152}[depth]
+    return _vision_workload(lambda dev: make(device=dev), device, batch, hw,
+                            3, 1000, level)
+
+
+def lenet_training_workload(device=None, batch: int = LENET_BATCH):
+    """The JAX package's ``mnist`` row (``paddle_tpu/bench/scenarios.py``
+    ``mnist``): ``LeNet`` with 10 classes, B=64 images of 1 x 28 x 28 in
+    float32 without autocast (``level="O0"``), Momentum with weight decay,
+    on ``device`` (None means ``cuda``); see :func:`_vision_workload`.  Returns ``(model, optimizer, images,
+    labels, step_kwargs)`` for ``training.classification_step``."""
+    from .vision.models import LeNet
+    return _vision_workload(lambda dev: LeNet(device=dev), device, batch, 28,
+                            1, 10, "O0")
 
 
 def _to_tensor(value, device) -> torch.Tensor:

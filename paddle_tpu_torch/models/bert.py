@@ -252,8 +252,8 @@ class BertForSequenceClassification(nn.Module):
         self.device = resolve_device(device)
         self.bert = BertModel(config, device=self.device)
         self.dropout = Dropout(config.hidden_dropout)
+        # the JAX Linear's defaults: XavierUniform weight, zero bias
         self.classifier = Linear(config.hidden_size, num_classes,
-                                 std=config.initializer_range,
                                  device=self.device)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,

@@ -1,5 +1,22 @@
-"""Layers and functional ops of the port."""
-from . import functional  # noqa: F401
-from .layers import Dropout, Embedding, LayerNorm, Linear  # noqa: F401
+"""Layers, functional ops and initializers of the port.  ``Sequential``
+and ``LayerList`` are torch's ``nn.Sequential`` and ``nn.ModuleList``,
+whose ``"0"``, ``"1"``, ... keys are the JAX containers' keys."""
+from torch.nn import ModuleList as LayerList  # noqa: F401
+from torch.nn import Sequential  # noqa: F401
 
-__all__ = ["functional", "Dropout", "Embedding", "LayerNorm", "Linear"]
+from . import functional, initializer  # noqa: F401
+from .initializer import ParamAttr  # noqa: F401
+from .layers import (AdaptiveAvgPool2D, AdaptiveMaxPool2D,  # noqa: F401
+                     AvgPool2D, BatchNorm1D, BatchNorm2D, BatchNorm3D,
+                     Conv2D, CrossEntropyLoss, Dropout, Embedding, Flatten,
+                     GELU, Hardsigmoid, Hardswish, Identity, LayerNorm,
+                     LeakyReLU, Linear, LogSoftmax, MaxPool2D, ReLU, ReLU6,
+                     Sigmoid, SiLU, Softmax, Tanh)
+
+__all__ = ["functional", "initializer", "ParamAttr", "AdaptiveAvgPool2D",
+           "AdaptiveMaxPool2D", "AvgPool2D", "BatchNorm1D", "BatchNorm2D",
+           "BatchNorm3D", "Conv2D", "CrossEntropyLoss", "Dropout",
+           "Embedding", "Flatten", "GELU", "Hardsigmoid", "Hardswish",
+           "Identity", "LayerNorm", "LeakyReLU", "Linear", "LogSoftmax",
+           "MaxPool2D", "ReLU", "ReLU6", "Sigmoid", "SiLU", "Softmax", "Tanh",
+           "Sequential", "LayerList"]

@@ -12,16 +12,20 @@ recompute at B=4, S=2048; A under O1 at dropout 0, B the recipe: O2,
 GradScaler, clipping, AdamW with decay selection, the warmup-cosine
 schedule, dropout 0.1), ``bert`` (``bert_pretraining_workload``:
 full-width BERT-base, MLM + NSP, bf16 O1, B=16, S=512, the non-causal
-flash attention) and ``moe`` (``moe_training_workload``: GPT-125M with 8
-experts on every other layer, GShard top-2, bf16 O1, B=8, S=2048): 3
-warm-up steps, 5 steps timed without the
-profiler (host clock, each ending in the loss readback), then 3 steps
-under ``torch.profiler`` with CUDA activity.  Prints one JSON line: the
-timed steps' ms and the peak device memory; from the profiled steps, the
-device's busy time (the union of kernel intervals) per step, the idle
-share, and the device time per step by kernel name, largest first, and
-per group (each of the port's kernels, GEMMs, everything else).  Needs a
-CUDA card.
+flash attention), ``moe`` (``moe_training_workload``: GPT-125M with 8
+experts on every other layer, GShard top-2, bf16 O1, B=8, S=2048),
+``resnet50`` (``resnet_training_workload``: ResNet-50, B=128, 224 x 224,
+bf16 O1, Momentum; ``training.classification_step``) and ``lenet``
+(``lenet_training_workload``: LeNet, B=64, float32): 3 warm-up steps, 5
+steps timed without the profiler (host clock, each ending in the loss
+readback), then 3 steps under ``torch.profiler`` with CUDA activity.
+Prints one JSON line: the timed steps' ms and the peak device memory;
+from the profiled steps, the device's busy time (the union of kernel
+intervals) per step, the idle share, and the device time per step by
+kernel name, largest first, and per group (each of the port's kernels,
+GEMMs, everything else; for the vision workloads the cuDNN
+convolutions, layout transposes, batch norm, pooling, GEMMs, the
+optimizer's step and the other elementwise work).  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -37,10 +41,11 @@ import torch
 
 from . import _kernels
 from .convert import (bert_pretraining_workload, fused_training_workload,
-                      moe_training_workload, pretraining_workload,
+                      lenet_training_workload, moe_training_workload,
+                      pretraining_workload, resnet_training_workload,
                       training_workload)
 from .profile_serving import _short, _union_us
-from .training import train_step
+from .training import classification_step, train_step
 
 WARMUP, TIMED, PROFILED = 3, 5, 3
 
@@ -54,14 +59,40 @@ def _group(name: str) -> str:
     return "other (elementwise, reductions, copies)"
 
 
+# the vision workloads' groups, by kernel name (first match); kernels that
+# run inside the optimizer's step are "optimizer" whatever their name
+_VISION_GROUPS = (
+    ("layout transposes", ("nchwtonhwc", "nhwctonchw", "transpose")),
+    ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+    ("convolution (cuDNN)", ("fprop", "dgrad", "wgrad", "convolve",
+                             "conv2d", "conv_", "cudnn", "implicit")),
+    ("pooling", ("pool",)),
+    ("GEMM (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
+)
+
+
+def _vision_group(name: str) -> str:
+    low = name.lower()
+    for group, keys in _VISION_GROUPS:
+        if any(key in low for key in keys):
+            return group
+    return "other elementwise (relu, residual adds, casts, loss)"
+
+
 WORKLOADS = ("training", "fused", "pretraining-a", "pretraining-b", "bert",
-             "moe")
+             "moe", "resnet50", "lenet")
+VISION = {"resnet50": resnet_training_workload,
+          "lenet": lenet_training_workload}
 MODELS = {"pretraining-a": "gpt_1p3b", "pretraining-b": "gpt_1p3b",
-          "bert": "bert_base", "moe": "gpt_125m, 8 experts every 2nd layer"}
+          "bert": "bert_base", "moe": "gpt_125m, 8 experts every 2nd layer",
+          "resnet50": "resnet50", "lenet": "LeNet"}
 
 
 def _workload(name: str, device):
-    """``(model, optimizer, ids, labels, step_kwargs)`` of a workload."""
+    """``(model, optimizer, ids, labels, step_kwargs)`` of a workload (for
+    the vision ones, the images in place of ids)."""
+    if name in VISION:
+        return VISION[name](device)
     if name.startswith("pretraining-"):
         return pretraining_workload(device, leg=name[-1].upper())
     if name == "bert":
@@ -74,13 +105,15 @@ def _workload(name: str, device):
 
 def profile(workload: str = "training") -> Dict[str, object]:
     model, opt, ids, labels, kw = _workload(workload, torch.device("cuda"))
+    vision = workload in VISION
+    step_fn = classification_step if vision else train_step
     torch.cuda.reset_peak_memory_stats()
 
     def steps(n: int) -> List[float]:
         out = []
         for _ in range(n):
             t0 = time.perf_counter()
-            float(train_step(model, opt, ids, labels, **kw))
+            float(step_fn(model, opt, ids, labels, **kw))
             out.append((time.perf_counter() - t0) * 1e3)
         return out
 
@@ -95,29 +128,43 @@ def profile(workload: str = "training") -> Dict[str, object]:
         prof_wall = (time.perf_counter() - t0) * 1e3
     # device events, less the annotation ranges the profiler also puts on
     # the device's timeline (the optimizer's step)
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = [e for e in events
+               if not getattr(e, "is_user_annotation", False)]
+    # the optimizer's step as the profiler annotates it on the device
+    opt_ranges = [(e.time_range.start, e.time_range.end) for e in events
+                  if getattr(e, "is_user_annotation", False)
+                  and "Optimizer.step" in e.name]
     per_name: Dict[str, List[float]] = defaultdict(lambda: [0.0, 0])
+    groups: Dict[str, float] = defaultdict(float)
     intervals = []
     for e in kernels:
         s, t = e.time_range.start, e.time_range.end
         intervals.append((s, t))
-        per_name[_short(e.name)][0] += (t - s) / 1e3 / PROFILED
-        per_name[_short(e.name)][1] += 1
+        name = _short(e.name)
+        per_name[name][0] += (t - s) / 1e3 / PROFILED
+        per_name[name][1] += 1
+        if not vision:
+            group = _group(name)
+        elif any(a <= s < b for a, b in opt_ranges):
+            group = "optimizer (Momentum step)"
+        else:
+            group = _vision_group(e.name)
+        groups[group] += (t - s) / 1e3 / PROFILED
     busy = _union_us(intervals) / 1e3 / PROFILED if kernels else None
-    groups: Dict[str, float] = defaultdict(float)
-    for name, (ms, _) in per_name.items():
-        groups[_group(name)] += ms
+    cfg = getattr(model, "config", None)
     return {
         "device": torch.cuda.get_device_name(0),
         "workload": workload,
         "model": MODELS.get(workload, "gpt_125m"),
-        "B": int(ids.shape[0]), "S": int(ids.shape[1]),
-        "use_fused_block": getattr(model.config, "use_fused_block", False),
-        "use_recompute": getattr(model.config, "use_recompute", False),
+        "B": int(ids.shape[0]),
+        **({"image": list(ids.shape[1:])} if vision
+           else {"S": int(ids.shape[1])}),
+        "use_fused_block": getattr(cfg, "use_fused_block", False),
+        "use_recompute": getattr(cfg, "use_recompute", False),
         "amp": kw.get("level", "O1"),
-        "dropout": model.config.hidden_dropout,
+        "dropout": getattr(cfg, "hidden_dropout", 0.0),
         "step_ms": timed, "step_ms_p50": statistics.median(timed),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "profiled_step_ms": prof_wall / PROFILED,
@@ -138,7 +185,8 @@ def main(argv=None) -> int:
                         help="fused: the fused-block leg (K1 -> flash -> "
                         "K2, K3; dropout 0.1); pretraining-a / -b: GPT-3 "
                         "1.3B with recompute, legs A and B; bert: BERT-base "
-                        "MLM + NSP; moe: the MoE GPT-125M")
+                        "MLM + NSP; moe: the MoE GPT-125M; resnet50 / "
+                        "lenet: the vision rows")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_training: needs a CUDA device", file=sys.stderr)

@@ -16,6 +16,15 @@ finite); with a scheduler, ``scheduler.step()`` after the update.
 
 The loss comes back as a tensor on the model's device; reading it back is
 the caller's choice (a readback waits for the card).
+
+:func:`classification_step` is the step of an image classifier that
+returns logits (the vision rows' ``_vision_train_payload`` /
+``_bench_resnet50`` steps): the loss is the float32 cross-entropy of the
+logits, computed outside ``auto_cast``.
+
+    model, optimizer, images, labels, kw = \
+        convert.resnet_training_workload("cuda")
+    loss = classification_step(model, optimizer, images, labels, **kw)
 """
 from __future__ import annotations
 
@@ -24,9 +33,10 @@ from typing import Optional
 import torch
 
 from . import amp
+from .nn import functional as F
 from .optimizer.lr import LRScheduler
 
-__all__ = ["train_step"]
+__all__ = ["train_step", "classification_step"]
 
 
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
@@ -57,4 +67,27 @@ def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
         scaler.step(optimizer)
     if scheduler is not None:
         scheduler.step()
+    return loss.detach()
+
+
+def classification_step(model: torch.nn.Module,
+                        optimizer: torch.optim.Optimizer,
+                        images: torch.Tensor, labels: torch.Tensor, *,
+                        level: str = "O1") -> torch.Tensor:
+    """One step in place: zero the grads, ``logits = model(images)`` under
+    ``auto_cast(level=level, dtype="bfloat16")`` (no autocast for
+    ``level="O0"``), the mean ``F.cross_entropy(logits.float(), labels)``,
+    backward, ``optimizer.step()``.  BatchNorm buffers take their running
+    update in place (the JAX bench steps discard theirs; outputs in
+    training mode do not read them).  Returns the detached loss."""
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    if level == "O0":
+        logits = model(images)
+    else:
+        with amp.auto_cast(level=level, dtype="bfloat16"):
+            logits = model(images)
+    loss = F.cross_entropy(logits.float(), labels)
+    loss.backward()
+    optimizer.step()
     return loss.detach()

@@ -83,6 +83,15 @@ def test_package_imports_with_jax_blocked():
             "import paddle_tpu_torch.supervisor.rollback\n"
             "import paddle_tpu_torch.supervisor.integrity\n"
             "import paddle_tpu_torch.utils.tree\n"
+            "import paddle_tpu_torch.nn.initializer\n"
+            "import paddle_tpu_torch.nn.layers\n"
+            "import paddle_tpu_torch.vision\n"
+            "import paddle_tpu_torch.vision.transforms\n"
+            "import paddle_tpu_torch.vision.datasets\n"
+            "import paddle_tpu_torch.vision.models\n"
+            "import paddle_tpu_torch.vision.models.lenet\n"
+            "import paddle_tpu_torch.vision.models.resnet\n"
+            "import paddle_tpu_torch.vision.models.resnext\n"
             "loaded = [m for m in sys.modules if sys.modules[m] is not None]\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
             "               for m in loaded)\n"
