@@ -311,7 +311,34 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               img/s; (4) the image-classification recipe (the synthetic
               MNIST, ToTensor + Normalize, SmallNet, Adam over
               CosineAnnealingDecay, 10 epochs of Model.fit over
-              DataLoader(shuffle=True)): evaluate's acc > 0.9;
+              DataLoader(shuffle=True)): evaluate's acc > 0.9.  (1) also
+              locates the card's distance for ResNet-50: the same step
+              in float64 on the card, and in float32 under cuDNN's
+              deterministic algorithms and without cuDNN, each one's
+              distance from the float64 CPU run logged;
+  (c2g) the encoder-decoder Transformer (models/translation.py
+              over nn.Transformer; convert.transformer_training_workload,
+              translation_recipe, training.seq2seq_step): (1) float32
+              card against CPU at full width, 2 + 2 layers, vocab 30000,
+              B=4, S=64: the loss, the logits and every gradient within
+              4 x the CPU float32 run's own distance from a float64 CPU
+              run; (2) Transformer-base (6 + 6 layers, d_model 512, vocab
+              30000, B=32, S=128 a side, bf16 O1, dropout 0.1, Adam under
+              NoamDecay, label smoothing 0.1): 3 warm-up and 10 timed
+              steps, step p50, source and target tokens/s, MFU and peak
+              memory; (3) beam search on the decoder cache (B=8 sources
+              of 32, beam 4, at most 48 steps): float32 2 + 2 layers on
+              the card gives the CPU's ids, then full width under bf16 O1,
+              ms a step; (4) the translation recipe: loss from above
+              0.05 to below it, beam search exact on 8 of 8; (5)
+              rotary=True in the fused blocks at GPT-125M width: the
+              training block (B=8, S=2048, bf16 O1, dropout 0.1, forward
+              and backward) and a float32 decode step at L=640 against
+              their plain compositions on the card, each kernel of both
+              launched (the counters zeroed before each call); (6)
+              incubate's FusedTransformerEncoderLayer at BERT-base width
+              against a plain TransformerEncoderLayer with its weights.
+              (1)-(4) and (6) launch none of the eight kernels;
   (c3) generate GPTForCausalLM.generate at full width (convert.
               generate_workload: B=8, prompt 512, 128 greedy tokens, bf16),
               unfused (use_pallas_attention) and fused (use_fused_block):
@@ -478,6 +505,11 @@ def main() -> int:
     # -- (c2f) vision: LeNet, ResNet-50 and the image-classification recipe --
     vision(torch, np, dev, _kernels)
     torch.cuda.empty_cache()
+
+    # -- (c2g) the encoder-decoder Transformer --------------------------------
+    rotary = translation(torch, np, dev, _kernels)
+    for name, n in rotary.items():
+        results[name]["launches_rotary"] = n
 
     # -- (c3) generate -------------------------------------------------------
     generating = generate(torch, np, dev, _kernels)
@@ -4731,8 +4763,18 @@ RESNET50_FWD_FLOPS = 4.089e9    # a ResNet-50 forward at 224 x 224, an
 # image (bench.py _bench_resnet50); a training step counts it 3 times
 
 
+def cudnn_mode(torch, mode):
+    """(deterministic, benchmark, enabled) of ``torch.backends.cudnn`` for
+    a card run of (c2f 1): the defaults, cuDNN's deterministic algorithms,
+    or no cuDNN (PyTorch's native convolutions: im2col and cuBLAS
+    products, and its native batch norm)."""
+    return {"default": (False, False, True),
+            "deterministic": (True, False, True),
+            "native": (False, False, False)}[mode]
+
+
 def vision_card_vs_cpu(torch, np, dev, name, make, batch, hw, channels,
-                       classes):
+                       classes, diagnose=False):
     """(c2f 1): one float32 training step of ``make(device)`` on the card
     and on the CPU from the same numpy weights and data, and a float64 CPU
     run as the anchor: for each compared tensor the card must lie within
@@ -4740,7 +4782,15 @@ def vision_card_vs_cpu(torch, np, dev, name, make, batch, hw, channels,
     distance from the anchor (small-batch BatchNorm amplifies float32
     rounding, by another constant in each convolution algorithm: cuDNN's
     float32 ones against oneDNN's).  Returns the worst err / bound and the
-    worst tensors."""
+    worst tensors.
+
+    With ``diagnose`` three more card runs locate the card's distance: the
+    same step in float64 on the card (its distance from the float64 CPU
+    run is the card's arithmetic apart from float32 rounding), and float32
+    under cuDNN's deterministic algorithms and without cuDNN.  For each
+    run: the worst distance from the anchor over all tensors and over
+    layer4's convolution gradients, each a share of the tensor's
+    range."""
     from paddle_tpu_torch.convert import load_jax_state
     from paddle_tpu_torch.framework import random as fw_random
     from paddle_tpu_torch.nn import functional as F
@@ -4751,9 +4801,18 @@ def vision_card_vs_cpu(torch, np, dev, name, make, batch, hw, channels,
     x = (rng.randn(batch, channels, hw, hw) * 0.5).astype(np.float32)
     y = rng.randint(0, classes, (batch,))
     runs = {}
-    for tag, device, dtype in (("card", dev, torch.float32),
-                               ("cpu", "cpu", torch.float32),
-                               ("cpu64", "cpu", torch.float64)):
+    plan = [("card", dev, torch.float32, "default"),
+            ("cpu", "cpu", torch.float32, "default"),
+            ("cpu64", "cpu", torch.float64, "default")]
+    if diagnose:
+        plan += [("card64", dev, torch.float64, "default"),
+                 ("card_deterministic", dev, torch.float32, "deterministic"),
+                 ("card_native", dev, torch.float32, "native")]
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark, torch.backends.cudnn.enabled)
+    for tag, device, dtype, mode in plan:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.enabled) = cudnn_mode(torch, mode)
         m = make(device)
         load_jax_state(m, weights)
         m = m.to(dtype)
@@ -4774,6 +4833,8 @@ def vision_card_vs_cpu(torch, np, dev, name, make, batch, hw, channels,
         with torch.no_grad():
             out["eval logits"] = m(xt)
         runs[tag] = {k: v.detach().double().cpu() for k, v in out.items()}
+    (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+     torch.backends.cudnn.enabled) = saved
     worst, table = 0.0, []
     for k, ref in runs["cpu64"].items():
         scale = float(ref.abs().max())
@@ -4786,7 +4847,21 @@ def vision_card_vs_cpu(torch, np, dev, name, make, batch, hw, channels,
         worst = max(worst, err / bound)
         table.append((err / max(scale, 1e-30), own / max(scale, 1e-30), k))
     table.sort(reverse=True)
+    diagnosis = {}
+    if diagnose:
+        ref = runs["cpu64"]
+        layer4 = [k for k in ref if k.startswith("grad layer4")
+                  and "conv" in k]
+
+        def rel(run, keys):
+            return max(float((run[k] - ref[k]).abs().max())
+                       / max(float(ref[k].abs().max()), 1e-30)
+                       for k in keys)
+        diagnosis = {tag: {"worst_relative": rel(runs[tag], ref),
+                           "layer4_conv_grads": rel(runs[tag], layer4)}
+                     for tag, *_ in plan if tag != "cpu64"}
     return {"model": name, "B": batch, "hw": hw, "tensors": len(runs["cpu"]),
+            "diagnosis": diagnosis,
             "loss_card": float(runs["card"]["loss"][0]),
             "loss_cpu": float(runs["cpu"]["loss"][0]),
             "loss_cpu64": float(runs["cpu64"]["loss"][0]),
@@ -4878,7 +4953,8 @@ def vision(torch, np, dev, _kernels):
     t_phase = time.perf_counter()
     reference = [
         vision_card_vs_cpu(torch, np, dev, "resnet50",
-                           lambda d: resnet50(device=d), 4, 64, 3, 1000),
+                           lambda d: resnet50(device=d), 4, 64, 3, 1000,
+                           diagnose=True),
         vision_card_vs_cpu(torch, np, dev, "LeNet",
                            lambda d: LeNet(device=d), 8, 28, 1, 10)]
     for r in reference:
@@ -4886,6 +4962,10 @@ def vision(torch, np, dev, _kernels):
             f"{r['hw']}x{r['hw']} card vs CPU, loss {r['loss_card']:.6f} vs "
             f"{r['loss_cpu']:.6f}, {r['tensors']} tensors within bound "
             f"(worst err/bound {r['worst_err_over_bound']:.3f})")
+        for tag, d in r["diagnosis"].items():
+            log(f"  {r['model']} {tag}: worst distance from float64 "
+                f"{d['worst_relative']:.3e} of a range, layer4's conv "
+                f"gradients {d['layer4_conv_grads']:.3e}")
     _kernels.reset_launches()
     model, opt, images, labels, kw = resnet_training_workload(dev)
     require(tuple(images.shape) == (128, 3, 224, 224)
@@ -4920,6 +5000,542 @@ def vision(torch, np, dev, _kernels):
         "lenet": {"B": 64, "hw": 28, "dtype": "float32", **lenet},
         "recipe": recipe, "launches": launches,
         "phase_s": time.perf_counter() - t_phase}}))
+
+
+# ---------------------------------------------------------------------------
+# (c2g) the encoder-decoder Transformer
+# ---------------------------------------------------------------------------
+# the kernels of the rotary fused blocks (5): a bf16 O1 training block (K1
+# and K2 on the tensor cores, the three flash kernels) and a float32 decode
+# step (K1 and K2 streaming float32 weights, flash decode)
+ROTARY_TRAINING_KERNELS = ("ln_linear_mma", "linear_residual_mma",
+                           *TRAINING_KERNELS)
+ROTARY_DECODE_KERNELS = ("ln_linear_stream", "linear_residual_stream",
+                         "flash_decode")
+ROTARY_KERNELS = (*ROTARY_TRAINING_KERNELS, *ROTARY_DECODE_KERNELS)
+XLATE_CHECK = {"layers": 2, "batch": 4, "seq": 64}    # (1)
+XLATE_BEAM = {"batch": 8, "src_len": 32, "beam": 4, "max_steps": 48}   # (3)
+ROTARY_SHAPE = {"B": 8, "S": 2048, "h": 768, "heads": 12, "p": 0.1}    # (5)
+ROTARY_DECODE = {"B": 8, "L": 640, "used": 575}                        # (5)
+INCUBATE_SHAPE = {"B": 16, "S": 512, "h": 768, "heads": 12, "ffn": 3072}
+
+
+def transformer_matmul_flops(model, b, s_src, s_tgt):
+    """Training FLOPs of one step of a ``TranslationModel``: 6 x the matmul
+    weights each token passes through (source tokens: every encoder
+    projection and FFN weight and the decoder's cross-attention k / v
+    projections, which read the memory; target tokens: the decoder's
+    self-attention, cross-attention q / out and FFN weights and the head),
+    plus 3 x the forward score and value products (2 x 2 x d_model x q x
+    k a batch row) of every self- and cross-attention, counted whole (the
+    decoder's additive causal mask computes every score)."""
+    core = model.core
+    d = core.d_model
+    enc = sum(p.numel() for n, p in core.encoder.named_parameters()
+              if n.endswith("weight") and "norm" not in n)
+    dec = sum(p.numel() for n, p in core.decoder.named_parameters()
+              if n.endswith("weight") and "norm" not in n)
+    cross_kv = sum(p.numel() for n, p in core.decoder.named_parameters()
+                   if ".cross_attn.k_proj.weight" in n
+                   or ".cross_attn.v_proj.weight" in n)
+    head = model.head.weight.numel()
+    src_w, tgt_w = enc + cross_kv, dec - cross_kv + head
+    n_enc, n_dec = len(core.encoder.layers), len(core.decoder.layers)
+    attn = 3 * 4 * d * b * (n_enc * s_src * s_src
+                            + n_dec * (s_tgt * s_tgt + s_tgt * s_src))
+    return {"source_weights": src_w, "target_weights": tgt_w,
+            "matmul": 6.0 * (src_w * b * s_src + tgt_w * b * s_tgt),
+            "attention": float(attn),
+            "total": 6.0 * (src_w * b * s_src + tgt_w * b * s_tgt) + attn}
+
+
+def translation_card_vs_cpu(torch, np, dev):
+    """(c2g 1): one float32 training step of the full-width translation
+    model cut to 2 + 2 layers (vocab 30000, dropout 0) on the card and on
+    the CPU from the same weights and ids, and a float64 CPU run as the
+    anchor: the loss, the logits and every gradient on the card within 4 x
+    the CPU float32 run's own distance from the anchor (never less than
+    one float32 unit, 2^-23, of the tensor's range; the key biases'
+    gradients, zero in exact arithmetic, never less than the CPU's
+    distance on the same projection's weight gradient).  Reports the
+    worst tensors; fails listing every tensor over its bound."""
+    from paddle_tpu_torch.convert import (TRANSFORMER_VOCAB,
+                                          load_jax_state,
+                                          transformer_training_workload)
+    from paddle_tpu_torch.models.translation import TranslationModel
+    from paddle_tpu_torch.nn import functional as F
+    c = XLATE_CHECK
+    base, _, _, _ = transformer_training_workload(
+        "cpu", layers=c["layers"], batch=1, seq_len=c["seq"], dropout=0.0)
+    weights = {k: v.numpy() for k, v in base.state_dict().items()}
+    del base
+    rng = np.random.RandomState(SEED)
+    src = rng.randint(3, TRANSFORMER_VOCAB, (c["batch"], c["seq"]))
+    tgt = rng.randint(3, TRANSFORMER_VOCAB, (c["batch"], c["seq"]))
+    tin = np.concatenate([np.zeros((c["batch"], 1), np.int64),
+                          tgt[:, :-1]], axis=1)
+    runs = {}
+    for tag, device, dtype in (("card", dev, torch.float32),
+                               ("cpu", "cpu", torch.float32),
+                               ("cpu64", "cpu", torch.float64)):
+        m = TranslationModel(TRANSFORMER_VOCAB, c["seq"],
+                             num_encoder_layers=c["layers"],
+                             num_decoder_layers=c["layers"], dropout=0.0,
+                             device=device)
+        load_jax_state(m, weights)
+        m = m.to(dtype).train()
+        ids = [torch.from_numpy(a).to(device) for a in (src, tin, tgt)]
+        logits = m(ids[0], ids[1])
+        loss = F.cross_entropy(logits, ids[2], label_smoothing=0.1)
+        loss.backward()
+        out = {"loss": loss.detach().reshape(1), "logits": logits.detach()}
+        out.update({f"grad {k}": p.grad for k, p in m.named_parameters()})
+        runs[tag] = {k: v.detach().double().cpu() for k, v in out.items()}
+        del m, logits, loss, out
+    def own_of(k):
+        return float((runs["cpu"][k] - runs["cpu64"][k]).abs().max())
+    table, over = [], []
+    for k, ref in runs["cpu64"].items():
+        scale = float(ref.abs().max())
+        own = own_of(k)
+        floor = 2.0 ** -23 * scale
+        if k.endswith("k_proj.bias"):
+            # zero in exact arithmetic (softmax is invariant to a shift
+            # shared by every key): rounding noise in every run, held to
+            # the noise of the same projection's weight gradient
+            floor = max(floor, own_of(k[:-len("bias")] + "weight"))
+        bound = 4.0 * max(own, floor) + 1e-30
+        err = float((runs["card"][k] - ref).abs().max())
+        table.append((err / bound, err / max(scale, 1e-30),
+                      own / max(scale, 1e-30), k))
+        if err > bound:
+            over.append((k, err, bound, own, scale))
+    table.sort(reverse=True)
+    require(not over, f"c2g (1): {len(over)} tensors on the card lie "
+            f"beyond 4 x the CPU float32 run's distance from float64 "
+            f"(tensor, card err, bound, CPU err, range): {over[:8]}")
+    return {"layers": c["layers"], "B": c["batch"], "S": c["seq"],
+            "vocab": TRANSFORMER_VOCAB, "tensors": len(table),
+            "loss_card": float(runs["card"]["loss"][0]),
+            "loss_cpu": float(runs["cpu"]["loss"][0]),
+            "loss_cpu64": float(runs["cpu64"]["loss"][0]),
+            "worst_err_over_bound": table[0][0],
+            # (err / bound, card's distance / range, the CPU's / range,
+            # tensor), the largest five
+            "worst": table[:5]}
+
+
+def translation_step(torch, np, dev, _kernels):
+    """(c2g 2): the full-width Transformer-base step (convert.
+    transformer_training_workload): WARMUP_STEPS + TIMED_STEPS steps of
+    training.seq2seq_step, each to its loss readback; finite losses near
+    ln V at the start."""
+    from paddle_tpu_torch.convert import transformer_training_workload
+    from paddle_tpu_torch.training import seq2seq_step
+    model, opt, (src, tin, tnx), kw = transformer_training_workload(dev)
+    core = model.core
+    require(core.d_model == 512 and core.nhead == 8
+            and len(core.encoder.layers) == 6
+            and len(core.decoder.layers) == 6
+            and core.encoder.layers[0].linear1.weight.shape == (512, 2048)
+            and core.encoder.layers[0].dropout1.p == 0.1
+            and model.vocab == 30000 and tuple(src.shape) == (32, 128)
+            and kw["level"] == "O1" and kw["label_smoothing"] == 0.1,
+            "not the Transformer-base workload at vocab 30000, B=32, "
+            "S=128, O1, dropout 0.1, label smoothing 0.1")
+    b, s = src.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(WARMUP_STEPS + TIMED_STEPS):
+        t0 = time.perf_counter()
+        losses.append(seq2seq_step(model, opt, src, tin, tnx, **kw))
+        times.append((time.perf_counter() - t0) * 1e3)
+    require(all(np.isfinite(losses)), f"c2g (2): nonfinite loss {losses}")
+    step_ms = times[WARMUP_STEPS:]
+    p50 = statistics.median(step_ms)
+    flops = transformer_matmul_flops(model, b, s, s)
+    line = {"model": "transformer_base", "vocab": model.vocab,
+            "params": sum(p.numel() for p in model.parameters()),
+            "B": b, "S_src": s, "S_tgt": s, "amp": "O1", "dropout": 0.1,
+            "label_smoothing": 0.1,
+            "optimizer": "Adam(beta1 0.9, beta2 0.98, epsilon 1e-9), "
+                         "NoamDecay(d_model=512, warmup_steps=4000)",
+            "steps": {"warmup": WARMUP_STEPS, "timed": TIMED_STEPS},
+            "step_ms_p50": p50, "step_ms": step_ms,
+            "src_tokens_per_s": b * s / (p50 / 1e3),
+            "tgt_tokens_per_s": b * s / (p50 / 1e3),
+            "flops_per_step": flops,
+            "mfu": flops["total"] / (p50 / 1e3) / BF16_FLOPS,
+            "mfu_peak": "989 TFLOP/s bf16 dense",
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "ln_vocab": float(np.log(model.vocab)), "losses": losses}
+    del model, opt
+    return line
+
+
+def translation_beam(torch, np, dev):
+    """(c2g 3): beam search on the incremental decoder cache
+    (TranslationModel.cached_cell) over B sources of seeded ids: float32
+    at 2 + 2 layers on the card and on the CPU from the same weights (ids
+    equal; where they differ, the top-2 total margin of the first step
+    that differs is reported and the phase fails), then full width under
+    bf16 O1, timed (wall time over the steps, each step reading back
+    whether every beam has finished)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.convert import (TRANSFORMER_VOCAB,
+                                          load_jax_state,
+                                          transformer_training_workload)
+    from paddle_tpu_torch.nn import BeamSearchDecoder, dynamic_decode
+    c = XLATE_BEAM
+    rng = np.random.RandomState(SEED + 7)
+    src_np = rng.randint(3, TRANSFORMER_VOCAB, (c["batch"], c["src_len"]))
+
+    def search(model, device, record=None):
+        src = torch.from_numpy(src_np).to(device)
+        cell = model.cached_cell()
+        if record is not None:
+            def cell(tok, state, inner=cell):
+                logits, new = inner(tok, state)
+                record.append(logits.float().cpu())
+                return logits, new
+        memory = model.encode(src)
+        dec = BeamSearchDecoder(cell, start_token=0, end_token=1,
+                                beam_size=c["beam"])
+        return dynamic_decode(dec, inits={
+            "memory": memory, "cache": model.empty_cache(src.shape[0],
+                                                         memory)},
+            max_step_num=c["max_steps"])
+
+    small, _, _, _ = transformer_training_workload(
+        "cpu", layers=2, batch=1, dropout=0.0)
+    weights = {k: v.numpy() for k, v in small.state_dict().items()}
+    outs, logs = {}, {}
+    for tag, device in (("card", dev), ("cpu", "cpu")):
+        m, _, _, _ = transformer_training_workload(
+            device, layers=2, batch=1, dropout=0.0)
+        load_jax_state(m, weights)
+        m.eval()
+        logs[tag] = []
+        with torch.no_grad():
+            ids, lp = search(m, device, logs[tag])
+        outs[tag] = (ids.cpu(), lp.cpu())
+        del m
+    same = torch.equal(outs["card"][0], outs["cpu"][0])
+    margin = None
+    if not same:
+        # the first step at which a row's best token differs, and the
+        # smallest top-2 log-prob margin of the CPU's rows there
+        steps = min(len(logs["card"]), len(logs["cpu"]))
+        step = next((t for t in range(steps)
+                     if not torch.equal(logs["card"][t].argmax(-1),
+                                        logs["cpu"][t].argmax(-1))),
+                    steps - 1)
+        top2 = torch.topk(torch.log_softmax(logs["cpu"][step], -1), 2,
+                          dim=-1).values
+        margin = {"step": step,
+                  "min_top2_margin": float((top2[:, 0] - top2[:, 1]).min())}
+    require(same, f"c2g (3): float32 beam search at 2 + 2 layers: the "
+            f"card's ids differ from the CPU's ({margin})")
+    lp_err = float((outs["card"][1] - outs["cpu"][1]).abs().max())
+
+    model, _, _, _ = transformer_training_workload(dev, dropout=0.0)
+    model.eval()
+    with torch.no_grad(), amp.auto_cast(level="O1", dtype="bfloat16"):
+        search(model, dev)                          # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, lp = search(model, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    steps = ids.shape[2]
+    require(tuple(ids.shape[:2]) == (c["batch"], c["beam"])
+            and bool(((ids >= 0) & (ids < model.vocab)).all())
+            and bool(torch.isfinite(lp).all()),
+            f"c2g (3): bad beam search output {tuple(ids.shape)}")
+    del model
+    return {"B": c["batch"], "src_len": c["src_len"], "beam": c["beam"],
+            "max_steps": c["max_steps"],
+            "float32_2x2": {"ids_equal": same, "steps": outs["cpu"][0]
+                            .shape[2], "log_prob_max_abs_err": lp_err},
+            "full_width_bf16_o1": {"steps": steps, "wall_s": wall,
+                                   "ms_per_step": wall * 1e3 / steps}}
+
+
+def translation_recipe_check(torch, np, dev):
+    """(c2g 4): convert.translation_recipe on the card: the loss falls from
+    above 0.05 to below it, and beam search is exact on 8 of 8."""
+    from paddle_tpu_torch.convert import translation_recipe
+    t0 = time.perf_counter()
+    out = translation_recipe(dev)
+    out["seconds"] = time.perf_counter() - t0
+    require(out["loss_last"] < 0.05 < out["loss_first"],
+            f"c2g (4): recipe losses {out['loss_first']} -> "
+            f"{out['loss_last']}, not from above 0.05 to below it")
+    require(out["exact"] == out["items"] == 8,
+            f"c2g (4): beam search exact on {out['exact']} of "
+            f"{out['items']}: {out['hypotheses']}")
+    out.pop("losses")
+    return out
+
+
+def plain_rotary_block(torch, fb, amp_state, x, qkv_w, qkv_b, out_w, out_b,
+                       g, beta, heads, p, seed):
+    """fused_attention_block(rotary=True)'s plain composition on the same
+    device: K1's and K2's plain versions under the same O1 casts, the
+    plain rope and _attention_ref (hash dropout of the same seed)."""
+    b, s, h = x.shape
+    d = h // heads
+    _, w = amp_state.cast_for_op("linear", x, qkv_w)
+    qkv = fb.ln_linear_reference(x.reshape(-1, h), w, qkv_b, g, beta, 1e-5)
+    q, k, v = fb._split_heads(qkv, b, s, heads, d)
+    q, k = fb._apply_rope(q, k, 10000.0)
+    out = fb._attention_ref(q, k, v, d ** -0.5, True, p, seed)
+    a, w2 = amp_state.cast_for_op("linear", out.reshape(b, s, h), out_w)
+    y = fb.linear_residual_reference(a.reshape(-1, h), w2, out_b,
+                                     x.reshape(-1, h), seed, p,
+                                     fb._SALT_RESID)
+    return y.reshape(b, s, h)
+
+
+def rotary_blocks(torch, np, dev, _kernels):
+    """(c2g 5): rotary=True in the fused blocks at GPT-125M width.
+    Training: fused_attention_block at B=8, S=2048, bf16 O1, dropout 0.1,
+    forward and backward, against its plain composition on the card (one
+    bf16 unit at the top of each tensor's range, c2b's bound).  Decode: one
+    float32 fused_attention_block_kvcache step at L=640 with 575 cached
+    positions against the plain composition (1e-4 of the range).  The
+    counters are zeroed just before each fused call and read after it."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.amp import state as amp_state
+    from paddle_tpu_torch.ops import fused_block as fb
+    c = ROTARY_SHAPE
+    b, s, h, heads, p = c["B"], c["S"], c["h"], c["heads"], c["p"]
+    rng = np.random.default_rng(SEED + 11)
+
+    def t(*shape, std=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * std).astype(
+            np.float32)).to(dev)
+    params = [t(h, 3 * h, std=0.02), t(3 * h, std=0.02), t(h, h, std=0.02),
+              t(h, std=0.02), 1 + t(h, std=0.1), t(h, std=0.1)]
+    x0, ct = t(b, s, h), t(b, s, h)
+    seed = 424242
+    runs, launches = {}, {}
+    for tag in ("fused", "plain"):
+        ps = [q.clone().requires_grad_() for q in params]
+        x = x0.clone().requires_grad_()
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            if tag == "fused":
+                y = fb.fused_attention_block(
+                    x, *ps, num_heads=heads, attn_dropout=p,
+                    hidden_dropout=p, rotary=True, seed=seed)
+            else:
+                y = plain_rotary_block(torch, fb, amp_state, x, *ps, heads,
+                                       p, seed)
+        y.backward(ct)
+        torch.cuda.synchronize()
+        launches[tag] = dict(_kernels.launches)
+        runs[tag] = [y.detach(), x.grad] + [q.grad for q in ps]
+        del y, x, ps
+        torch.cuda.empty_cache()
+    names = ["out", "grad x", "grad qkv_w", "grad qkv_b", "grad out_w",
+             "grad out_b", "grad ln_scale", "grad ln_bias"]
+    train_cmp = {n: compare(torch, f"c2g (5) rotary block {n}", a, r,
+                            bf16_tol(r))
+                 for n, a, r in zip(names, runs["fused"], runs["plain"])}
+    for name in ROTARY_TRAINING_KERNELS:
+        require(launches["fused"][name] > 0,
+                f"c2g (5): {name} did not launch in the rotary block")
+    require(not any(launches["plain"].values()),
+            f"c2g (5): the plain composition launched {launches['plain']}")
+    del runs
+
+    c = ROTARY_DECODE
+    bd, cap, used = c["B"], c["L"], c["used"]
+    d = h // heads
+    xs = t(bd, 1, h)
+    kb, vb = t(bd, heads, cap, d), t(bd, heads, cap, d)
+    outs = {}
+    for tag in ("fused", "plain"):
+        k_buf, v_buf = kb.clone(), vb.clone()
+        _kernels.reset_launches()
+        with torch.no_grad():
+            if tag == "fused":
+                y, k_buf, v_buf = fb.fused_attention_block_kvcache(
+                    xs, *params, k_buf, v_buf, used, num_heads=heads,
+                    rotary=True)
+            else:
+                qkv = fb.ln_linear_reference(xs.reshape(-1, h), params[0],
+                                             params[1], params[4],
+                                             params[5], 1e-5)
+                q, k, v = fb._split_heads(qkv, bd, 1, heads, d)
+                q, k = fb._apply_rope(q, k, 10000.0)
+                k_buf[:, :, used] = k[:, 0]
+                v_buf[:, :, used] = v[:, 0]
+                scores = torch.einsum("bhqd,bhkd->bhqk", q.transpose(1, 2),
+                                      k_buf[:, :, :used + 1]) * d ** -0.5
+                o = torch.einsum("bhqk,bhkd->bhqd",
+                                 torch.softmax(scores, -1),
+                                 v_buf[:, :, :used + 1])
+                y = fb.linear_residual_reference(
+                    o.transpose(1, 2).reshape(bd, h), params[2], params[3],
+                    xs.reshape(bd, h)).reshape(bd, 1, h)
+        torch.cuda.synchronize()
+        launches[f"decode {tag}"] = dict(_kernels.launches)
+        outs[tag] = (y, k_buf, v_buf)
+    decode_cmp = {n: compare(torch, f"c2g (5) rotary decode {n}", a, r,
+                             1e-4 * float(r.abs().max()) + 1e-6)
+                  for n, a, r in zip(("out", "k cache", "v cache"),
+                                     outs["fused"], outs["plain"])}
+    for name in ROTARY_DECODE_KERNELS:
+        require(launches["decode fused"][name] > 0,
+                f"c2g (5): {name} did not launch in the rotary decode step")
+    counts = {n: launches["fused"][n] for n in ROTARY_TRAINING_KERNELS}
+    counts.update({n: launches["decode fused"][n]
+                   for n in ROTARY_DECODE_KERNELS})
+    return {"training": {"B": b, "S": s, "h": h, "heads": heads,
+                         "amp": "O1", "dropout": p,
+                         "worst_err_over_tol": max(
+                             r["err_over_tol"] for r in train_cmp.values()),
+                         "tensors": train_cmp},
+            "decode": {"B": bd, "L": cap, "used": used, "dtype": "float32",
+                       "worst_err_over_tol": max(
+                           r["err_over_tol"] for r in decode_cmp.values()),
+                       "tensors": decode_cmp},
+            "launches": counts}
+
+
+def incubate_layers(torch, np, dev):
+    """(c2g 6): incubate's FusedTransformerEncoderLayer at BERT-base width
+    (768, 12 heads, FFN 3072, gelu, post-LN, B=16, S=512, float32, dropout
+    0) against a plain TransformerEncoderLayer carrying its weights, forward
+    and backward on the card: each tensor within 1e-4 of its range;
+    forward + backward ms of each (CUDA events, median of 5)."""
+    from paddle_tpu_torch import incubate, nn
+    from paddle_tpu_torch.framework import random as fw_random
+    c = INCUBATE_SHAPE
+    h = c["h"]
+    fw_random.seed(SEED)
+    fused = incubate.nn.FusedTransformerEncoderLayer(
+        h, c["heads"], c["ffn"], dropout_rate=0.0, activation="gelu",
+        device=dev)
+    plain = nn.TransformerEncoderLayer(h, c["heads"], c["ffn"], dropout=0.0,
+                                       activation="gelu", device=dev)
+    sd = fused.state_dict()
+    w, bias = sd["fused_attn.qkv_proj.weight"], sd["fused_attn.qkv_proj.bias"]
+    mapped = {f"self_attn.out_proj.{k}": sd[f"fused_attn.out_proj.{k}"]
+              for k in ("weight", "bias")}
+    for dst, src in (("norm1", "fused_attn.norm"), ("norm2", "ffn.norm"),
+                     ("linear1", "ffn.linear1"), ("linear2", "ffn.linear2")):
+        for k in ("weight", "bias"):
+            mapped[f"{dst}.{k}"] = sd[f"{src}.{k}"]
+    for i, n in enumerate("qkv"):
+        mapped[f"self_attn.{n}_proj.weight"] = w[:, i * h:(i + 1) * h]
+        mapped[f"self_attn.{n}_proj.bias"] = bias[i * h:(i + 1) * h]
+    plain.load_state_dict(mapped)
+    rng = np.random.default_rng(SEED + 13)
+    x0 = torch.from_numpy(rng.standard_normal(
+        (c["B"], c["S"], h)).astype(np.float32)).to(dev)
+    ct = torch.from_numpy(rng.standard_normal(
+        (c["B"], c["S"], h)).astype(np.float32)).to(dev)
+    res, ms = {}, {}
+    for tag, layer in (("fused", fused), ("plain", plain)):
+        x = x0.clone().requires_grad_()
+        y = layer(x)
+        y.backward(ct)
+        res[tag] = [y.detach(), x.grad]
+        res[tag + " params"] = {n: q.grad.clone()
+                                for n, q in layer.named_parameters()}
+
+        def fwd_bwd(layer=layer):
+            xx = x0.clone().requires_grad_()
+            layer(xx).backward(ct)
+        ms[tag] = time_ms(torch, fwd_bwd, reps=5)
+        layer.zero_grad(set_to_none=True)
+    cmp = {n: compare(torch, f"c2g (6) incubate {n}", a, r,
+                      1e-4 * float(r.abs().max()) + 1e-6)
+           for n, a, r in zip(("out", "grad x"), res["fused"],
+                              res["plain"])}
+    pf, pp = res["fused params"], res["plain params"]
+    gw = pf["fused_attn.qkv_proj.weight"]
+    pairs = [(f"self_attn.{n}_proj.weight",
+              gw[:, i * h:(i + 1) * h].contiguous())
+             for i, n in enumerate("qkv")]
+    pairs += [(dst, pf[src]) for dst, src in (
+        ("linear1.weight", "ffn.linear1.weight"),
+        ("linear2.weight", "ffn.linear2.weight"),
+        ("norm1.weight", "fused_attn.norm.weight"),
+        ("norm2.bias", "ffn.norm.bias"))]
+    for dst, got in pairs:
+        ref = pp[dst]
+        cmp[f"grad {dst}"] = compare(torch, f"c2g (6) incubate grad {dst}",
+                                     got, ref,
+                                     1e-4 * float(ref.abs().max()) + 1e-6)
+    return {**c, "dtype": "float32", "fwd_bwd_ms": ms,
+            "worst_err_over_tol": max(r["err_over_tol"]
+                                      for r in cmp.values()),
+            "tensors": cmp}
+
+
+def translation(torch, np, dev, _kernels):
+    """(c2g) the encoder-decoder Transformer: (1) card against CPU, (2) the
+    full-width Transformer-base step, (3) beam search, (4) the recipe, (5)
+    rotary in the fused blocks, (6) the incubate layers.  (1)-(4) and (6)
+    run plain PyTorch and cuBLAS: the eight kernels must launch 0 times
+    there (counters zeroed before, read after).  Returns the rotary
+    launches by kernel."""
+    t_phase = time.perf_counter()
+    _kernels.reset_launches()
+    check = translation_card_vs_cpu(torch, np, dev)
+    log(f"translation reference: float32 {check['layers']} + "
+        f"{check['layers']} layers, vocab {check['vocab']}, B={check['B']}, "
+        f"S={check['S']}: card vs CPU loss {check['loss_card']:.6f} vs "
+        f"{check['loss_cpu']:.6f} (float64 {check['loss_cpu64']:.6f}), "
+        f"{check['tensors']} tensors within 4 x the CPU's float32 distance "
+        f"(worst err/bound {check['worst_err_over_bound']:.3f})")
+    torch.cuda.empty_cache()
+    step = translation_step(torch, np, dev, _kernels)
+    log(f"translation step (Transformer-base, B=32, S=128 a side, O1): p50 "
+        f"{step['step_ms_p50']:.2f} ms, {step['src_tokens_per_s']:.0f} "
+        f"source + {step['tgt_tokens_per_s']:.0f} target tokens/s, MFU "
+        f"{step['mfu']:.4f}, peak {step['peak_memory_gb']:.2f} GB, loss "
+        f"{step['losses'][0]:.4f} -> {step['losses'][-1]:.4f}")
+    torch.cuda.empty_cache()
+    beam = translation_beam(torch, np, dev)
+    log(f"translation beam search: float32 2 + 2 layers card ids == CPU "
+        f"ids ({beam['float32_2x2']['steps']} steps); full width bf16 O1 "
+        f"{beam['full_width_bf16_o1']['ms_per_step']:.3f} ms a step over "
+        f"{beam['full_width_bf16_o1']['steps']} steps (B=8, beam 4)")
+    torch.cuda.empty_cache()
+    recipe = translation_recipe_check(torch, np, dev)
+    log(f"translation recipe: {len(recipe['hypotheses'])} items, loss "
+        f"{recipe['loss_first']:.4f} -> {recipe['loss_last']:.4f}, exact "
+        f"{recipe['exact']}/{recipe['items']} in {recipe['seconds']:.1f} s")
+    incubate = incubate_layers(torch, np, dev)
+    log(f"incubate FusedTransformerEncoderLayer (BERT-base width, B=16, "
+        f"S=512, float32) vs plain layer: worst err/tol "
+        f"{incubate['worst_err_over_tol']:.3f}; fwd+bwd "
+        f"{incubate['fwd_bwd_ms']['fused']:.2f} ms vs "
+        f"{incubate['fwd_bwd_ms']['plain']:.2f} ms")
+    launches = dict(_kernels.launches)
+    require(not any(launches.values()),
+            f"c2g: the Transformer path launched a kernel of the port: "
+            f"{launches}")
+    torch.cuda.empty_cache()
+    rotary = rotary_blocks(torch, np, dev, _kernels)
+    log(f"rotary fused blocks: training (B=8, S=2048, h=768, O1, dropout "
+        f"0.1) worst err/tol {rotary['training']['worst_err_over_tol']:.3f}"
+        f"; decode (float32, L=640) worst err/tol "
+        f"{rotary['decode']['worst_err_over_tol']:.3f}; launches "
+        f"{rotary['launches']}")
+    torch.cuda.empty_cache()
+    log(json.dumps({"translation": {
+        "reference": check, "step": step, "beam_search": beam,
+        "recipe": recipe, "rotary": rotary, "incubate": incubate,
+        "phase_s": time.perf_counter() - t_phase}}))
+    return rotary["launches"]
 
 
 # ---------------------------------------------------------------------------

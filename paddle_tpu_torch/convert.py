@@ -38,7 +38,10 @@ __all__ = ["state_dict_from_jax", "load_jax_state", "random_state",
            "BERT_MASK_RATE", "moe_training_workload",
            "optimizer_state_from_jax", "optimizer_state_to_jax",
            "resnet_training_workload", "lenet_training_workload",
-           "VISION_SEED", "RESNET_BATCH", "RESNET_HW", "LENET_BATCH"]
+           "VISION_SEED", "RESNET_BATCH", "RESNET_HW", "LENET_BATCH",
+           "transformer_training_workload", "translation_recipe",
+           "TRANSFORMER_SEED", "TRANSFORMER_VOCAB", "TRANSFORMER_BATCH",
+           "TRANSFORMER_SEQ"]
 
 
 def state_dict_from_jax(np_state: Dict[str, np.ndarray],
@@ -429,6 +432,125 @@ def lenet_training_workload(device=None, batch: int = LENET_BATCH):
     from .vision.models import LeNet
     return _vision_workload(lambda dev: LeNet(device=dev), device, batch, 28,
                             1, 10, "O0")
+
+
+TRANSFORMER_SEED = 0
+TRANSFORMER_VOCAB = 30000     # WMT14's default dictionary
+TRANSFORMER_BATCH = 32
+TRANSFORMER_SEQ = 128
+
+
+def transformer_training_workload(device=None, *,
+                                  layers: Optional[int] = None,
+                                  batch: int = TRANSFORMER_BATCH,
+                                  seq_len: int = TRANSFORMER_SEQ,
+                                  vocab: int = TRANSFORMER_VOCAB,
+                                  dropout: float = 0.1):
+    """Transformer-base translation training: the model of
+    ``examples/seq2seq_translation.py`` (``models.translation.
+    TranslationModel``) at ``nn.Transformer()``'s defaults (d_model 512, 8
+    heads, 6 + 6 layers, FFN 2048, post-LN, dropout 0.1; Vaswani et al.
+    2017, Table 3, "base") over ``vocab`` (WMT14's default 30000) with a
+    position table of ``seq_len`` rows; ``layers`` cuts both stacks to that
+    many.  Adam(beta1 0.9, beta2 0.98, epsilon 1e-9) under
+    ``NoamDecay(d_model=512, warmup_steps=4000)``, the loss with label
+    smoothing 0.1, bf16 O1.  Reduced from the paper: the batch
+    (``batch`` x ``seq_len`` tokens a side against ~25,000) and the data,
+    seeded ids from ``np.random.RandomState(TRANSFORMER_SEED)``: sources
+    and targets in [3, vocab), the decoder input the target shifted right
+    behind ``<s>`` (0).  Weights are drawn after
+    ``framework.random.seed(TRANSFORMER_SEED)``.
+
+    Returns ``(model, optimizer, (src, tgt_in, tgt_next), step_kwargs)``:
+    run ``training.seq2seq_step(model, optimizer, src, tgt_in, tgt_next,
+    **step_kwargs)``."""
+    from .framework import random as fw_random
+    from .models.translation import TranslationModel
+    from .optimizer import Adam
+    from .optimizer.lr import NoamDecay
+    dev = resolve_device(device)
+    fw_random.seed(TRANSFORMER_SEED)
+    n = 6 if layers is None else layers
+    model = TranslationModel(vocab, seq_len, num_encoder_layers=n,
+                             num_decoder_layers=n, dropout=dropout,
+                             device=dev)
+    model.train()
+    sched = NoamDecay(d_model=512, warmup_steps=4000)
+    opt = Adam(learning_rate=sched, beta1=0.9, beta2=0.98, epsilon=1e-9,
+               parameters=model.named_parameters())
+    rng = np.random.RandomState(TRANSFORMER_SEED)
+    src = rng.randint(3, vocab, (batch, seq_len))
+    tgt = rng.randint(3, vocab, (batch, seq_len))
+    tgt_in = np.concatenate([np.zeros((batch, 1), np.int64), tgt[:, :-1]],
+                            axis=1)
+    data = tuple(torch.from_numpy(a.astype(np.int64)).to(dev)
+                 for a in (src, tgt_in, tgt))
+    return model, opt, data, {"level": "O1", "scheduler": sched,
+                              "label_smoothing": 0.1}
+
+
+RECIPE = {"vocab": 64, "length": 18, "d_model": 64, "nhead": 4,
+          "layers": 2, "ffn": 128, "train_size": 2048, "gen_size": 8,
+          "batch": 64, "lr": 3e-3, "epochs": 8, "beam": 3}
+
+
+def translation_recipe(device=None, *, epochs: int = RECIPE["epochs"]):
+    """``examples/seq2seq_translation.py`` on the port at its own size: a
+    ``TranslationModel`` of vocab 64, 18 positions, d_model 64, 4 heads,
+    2 + 2 layers, FFN 128, dropout 0, float32, trained by AdamW(3e-3) for
+    ``epochs`` epochs over ``WMT14(dict_size=64, synthetic_size=2048)``
+    through ``io.DataLoader`` (batch 64, shuffled, last batch dropped;
+    ``np.random`` and the framework's streams seeded 0); then beam search
+    (beam 3, the example's re-encoding cell) over the 8 ``gen`` items.
+    Returns the first and last losses, every loss, and the exact matches
+    of the best beam against the reference translations."""
+    from .framework import random as fw_random
+    from .io import DataLoader
+    from .models.translation import TranslationModel, collate
+    from .nn import BeamSearchDecoder, dynamic_decode
+    from .optimizer import AdamW
+    from .text import WMT14
+    from .training import seq2seq_step
+    r = RECIPE
+    dev = resolve_device(device)
+    np.random.seed(0)
+    fw_random.seed(0)
+    train = WMT14(mode="train", dict_size=r["vocab"],
+                  synthetic_size=r["train_size"])
+    gen = WMT14(mode="gen", dict_size=r["vocab"],
+                synthetic_size=r["gen_size"])
+    loader = DataLoader(train, places=dev, batch_size=r["batch"],
+                        shuffle=True, drop_last=True,
+                        collate_fn=lambda b: collate(b, r["length"]))
+    model = TranslationModel(r["vocab"], r["length"], r["d_model"],
+                             r["nhead"], r["layers"], r["layers"], r["ffn"],
+                             dropout=0.0, device=dev)
+    opt = AdamW(learning_rate=r["lr"], parameters=model.named_parameters())
+    losses = []
+    for _ in range(epochs):
+        for src, tin, tnx in loader:
+            losses.append(seq2seq_step(model, opt, src, tin, tnx,
+                                       level="O0"))
+    model.eval()
+    exact, hyps = 0, []
+    with torch.no_grad():
+        for i in range(len(gen)):
+            s, _, tn = gen[i]
+            src = torch.from_numpy(np.pad(
+                s, (0, r["length"] - len(s)),
+                constant_values=2)[None]).to(dev)
+            dec = BeamSearchDecoder(model.reencode_cell(), start_token=0,
+                                    end_token=1, beam_size=r["beam"])
+            seqs, _ = dynamic_decode(
+                dec, inits={"src": src, "prefix": torch.zeros(
+                    (1, 0), dtype=torch.int64, device=dev)},
+                max_step_num=len(s) + 2)
+            got = seqs[0, 0].cpu().numpy()[:len(tn)]
+            hyps.append(got.tolist())
+            exact += int(np.array_equal(got, tn))
+    return {"loss_first": losses[0], "loss_last": losses[-1],
+            "losses": losses, "exact": exact, "items": len(gen),
+            "hypotheses": hyps}
 
 
 def _to_tensor(value, device) -> torch.Tensor:

@@ -4,6 +4,14 @@ The port is written for one NVIDIA H100: an entry point given no device runs
 on ``cuda`` and raises when there is no card.  It never falls back to the
 CPU by itself; the CPU runs only when the caller asks for it (the tests pass
 ``device="cpu"``), and there every kernel wrapper takes its plain version.
+
+**Float32 precision policy.**  Float32 operands get IEEE float32 products
+on the card: importing the port turns TF32 off for cuBLAS matmuls and for
+cuDNN convolutions (:func:`apply_precision_policy`), as the JAX package's
+tests run at "highest" precision and K1-K3 multiply float32 weights in
+float32.  bfloat16 and float16 operands are not affected: under
+``amp.auto_cast`` they run on the tensor cores as before.  A caller who
+wants TF32 sets the two torch flags after importing the port.
 """
 from __future__ import annotations
 
@@ -13,7 +21,17 @@ import torch
 
 from .framework.errors import UnavailableError, enforce
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "apply_precision_policy"]
+
+
+def apply_precision_policy() -> None:
+    """IEEE float32 products for float32 operands: no TF32 in cuBLAS
+    matmuls or cuDNN convolutions."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+apply_precision_policy()
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None

@@ -38,7 +38,7 @@ __all__ = ["gelu", "tanh", "layer_norm", "linear", "matmul", "embedding",
            "hardswish", "hardsigmoid", "softmax", "log_softmax", "conv2d",
            "conv1d", "max_pool2d", "avg_pool2d", "adaptive_avg_pool2d",
            "adaptive_max_pool2d", "batch_norm", "group_norm", "flatten",
-           "one_hot", "nll_loss", "mse_loss"]
+           "one_hot", "nll_loss", "mse_loss", "rms_norm", "gather_tree"]
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -71,6 +71,19 @@ def layer_norm(x, normalized_shape=None, weight=None, bias=None,
     return y.to(orig_dtype)
 
 
+def rms_norm(x, weight=None, epsilon: float = 1e-6):
+    """``x / sqrt(mean(x^2) + epsilon) * weight`` over the last dim, in
+    float32 under autocast (the ``layer_norm`` rule), returned in x's
+    dtype."""
+    orig_dtype = x.dtype
+    xf = cast_for_op("layer_norm", x)
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + epsilon)
+    if weight is not None:
+        y = y * weight.to(y.dtype)
+    return y.to(orig_dtype)
+
+
 def linear(x, weight, bias=None):
     """``y = x @ W + b`` with ``W`` shaped (in, out), the paddle layout."""
     x, weight = cast_for_op("linear", x, weight)
@@ -91,8 +104,15 @@ def matmul(x, y, transpose_x: bool = False, transpose_y: bool = False):
     return torch.matmul(x.to(dt), y.to(dt))
 
 
-def embedding(ids, weight):
-    return weight[ids.long()]
+def embedding(ids, weight, padding_idx: Optional[int] = None):
+    """Rows of ``weight`` at ``ids``; the rows of ids equal to
+    ``padding_idx`` are zeros, so no gradient reaches that weight row."""
+    out = weight[ids.long()]
+    if padding_idx is not None:
+        out = torch.where((ids == padding_idx)[..., None],
+                          torch.zeros((), dtype=out.dtype,
+                                      device=out.device), out)
+    return out
 
 
 def dropout(x, p: float = 0.5, training: bool = True,
@@ -158,8 +178,9 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None,
                                  scale: Optional[float] = None):
     """q, k, v: (batch, heads, seq, head_dim); ``attn_mask`` is additive.
     ``is_causal`` aligns the triangle bottom-right (the query block is the
-    suffix of the key sequence).  Scores and softmax run in float32; the
-    probabilities are cast to ``v``'s dtype for the value product.
+    suffix of the key sequence).  Scores and softmax run in float32
+    (float64 for float64 inputs, which the JAX op would round to float32);
+    the probabilities are cast to ``v``'s dtype for the value product.
 
     Causal attention with no mask and no dropout, both lengths multiples of
     128 and ``head_dim % 8 == 0`` goes to the flash kernels when the tensors
@@ -177,9 +198,9 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None,
                                dropout_p=0.0)
     dt = torch.promote_types(q.dtype, k.dtype)
     scores = torch.einsum("bhqd,bhkd->bhqk", q.to(dt), k.to(dt)) * scale
-    scores = scores.float()
+    scores = scores.to(torch.promote_types(dt, torch.float32))
     if attn_mask is not None:
-        scores = scores + attn_mask.float()
+        scores = scores + attn_mask.to(scores.dtype)
     if is_causal:
         ql, kl = scores.shape[-2], scores.shape[-1]
         causal = torch.ones((ql, kl), dtype=torch.bool,
@@ -476,3 +497,19 @@ def nll_loss(log_probs, label, reduction: str = "mean"):
 
 def mse_loss(input, label, reduction: str = "mean"):
     return _reduce((input - label).square(), reduction)
+
+
+# ---------------------------------------------------------------------------
+# Decoding (paddle_tpu/nn/_functional_ext.py:823)
+# ---------------------------------------------------------------------------
+def gather_tree(ids, parents):
+    """Backtrace beam-search parent pointers into whole sequences: ``ids``
+    and ``parents`` are (T, B, beam); the result (T, B, beam) holds, for
+    each final beam, the token it took at every step."""
+    beam = torch.arange(ids.shape[2], device=ids.device).expand(
+        ids.shape[1], -1)
+    toks = []
+    for t in range(ids.shape[0] - 1, -1, -1):
+        toks.append(ids[t].gather(1, beam))
+        beam = parents[t].gather(1, beam).long()
+    return torch.stack(toks[::-1])

@@ -1,8 +1,9 @@
-"""The layers the serving, training and vision slices need: the port of the
-matching parts of ``paddle_tpu/nn/layers.py``.  Parameter names and layouts
-match the JAX package (``weight`` / ``bias``; Linear weights are (in,
-out), Conv2D weights OIHW; BatchNorm's float32 buffers ``_mean`` and
-``_variance``), so ``state_dict`` keys carry over unchanged.
+"""The layers the serving, training, vision and translation slices need:
+the port of the matching parts of ``paddle_tpu/nn/layers.py``.  Parameter
+names and layouts match the JAX package (``weight`` / ``bias``; Linear
+weights are (in, out), Conv2D weights OIHW; BatchNorm's float32 buffers
+``_mean`` and ``_variance``), so ``state_dict`` keys carry over
+unchanged.
 ``nn.Sequential`` / ``nn.ModuleList`` take the place of the JAX
 ``Sequential`` / ``LayerList``: their ``"0"``, ``"1"``, ... keys are the
 JAX ones.
@@ -18,10 +19,14 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..framework.errors import enforce
 from . import functional as F
 from . import initializer as I
 
-__all__ = ["LayerNorm", "Dropout", "Linear", "Embedding", "Conv2D",
+__all__ = ["LayerNorm", "RMSNorm", "Dropout", "Linear", "Embedding",
+           "MultiHeadAttention", "TransformerEncoderLayer",
+           "TransformerEncoder", "TransformerDecoderLayer",
+           "TransformerDecoder", "Transformer", "Conv2D",
            "MaxPool2D", "AvgPool2D", "AdaptiveAvgPool2D",
            "AdaptiveMaxPool2D", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
            "Flatten", "Identity", "ReLU", "ReLU6", "GELU", "SiLU",
@@ -45,6 +50,17 @@ class LayerNorm(nn.Module):
     def forward(self, x):
         return F.layer_norm(x, self.normalized_shape, self.weight, self.bias,
                             self.epsilon)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, hidden_size: int, epsilon: float = 1e-6,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(hidden_size, device=device))
+
+    def forward(self, x):
+        return F.rms_norm(x, self.weight, self.epsilon)
 
 
 class Dropout(nn.Module):
@@ -90,15 +106,34 @@ class Linear(nn.Module):
 
 
 class Embedding(nn.Module):
+    """Rows of ``weight`` (num_embeddings, embedding_dim) at the ids.
+
+    By default the weight is ``Normal(0, 1)``, as the JAX ``Embedding``;
+    ``weight_attr`` (``ParamAttr``) names another initializer, and the
+    rows of ids equal to ``padding_idx`` come out zero (their weight row
+    gets no gradient).  ``std`` is the GPT / BERT rule instead: torch's
+    ``normal_(0, std)``."""
+
     def __init__(self, num_embeddings: int, embedding_dim: int,
-                 std: float = 0.02, device: Optional[torch.device] = None):
+                 padding_idx: Optional[int] = None, sparse: bool = False,
+                 weight_attr=None, std: Optional[float] = None,
+                 device: Optional[torch.device] = None):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(num_embeddings, embedding_dim,
-                                               device=device))
-        nn.init.normal_(self.weight, 0.0, std)
+        self.num_embeddings, self.embedding_dim = num_embeddings, embedding_dim
+        self.padding_idx = padding_idx
+        if std is not None:
+            self.weight = nn.Parameter(torch.empty(
+                num_embeddings, embedding_dim, device=device))
+            nn.init.normal_(self.weight, 0.0, std)
+            return
+        self.weight = I.create_parameter(
+            (num_embeddings, embedding_dim),
+            default_initializer=(I.Normal(0.0, 1.0) if weight_attr is None
+                                 else None),
+            attr=weight_attr, device=device)
 
     def forward(self, ids):
-        return F.embedding(ids, self.weight)
+        return F.embedding(ids, self.weight, self.padding_idx)
 
 
 # ---------------------------------------------------------------------------
@@ -270,3 +305,260 @@ class CrossEntropyLoss(nn.Module):
                                reduction=self.reduction,
                                ignore_index=self.ignore_index,
                                label_smoothing=self.label_smoothing)
+
+
+# ---------------------------------------------------------------------------
+# The Transformer family (paddle_tpu/nn/layers.py:345-567): plain PyTorch
+# and cuBLAS products, as XLA computes them in the JAX package (its
+# MultiHeadAttention passes an additive mask or no causal flag, which the
+# flash route never takes)
+# ---------------------------------------------------------------------------
+def _activation(name: str):
+    enforce(name in ("relu", "gelu"), f"unknown activation {name!r}")
+    return {"relu": F.relu, "gelu": F.gelu}[name]
+
+
+class MultiHeadAttention(nn.Module):
+    """Attention of ``query`` over ``key`` / ``value`` (both ``query`` when
+    left out) through q / k / v / out projections; ``kdim`` / ``vdim`` are
+    the key's and value's widths.  ``attn_mask`` is additive over the
+    (batch, heads, q, k) scores.  With ``cache=(k, v)`` (batch, heads, t,
+    head_dim) the new keys and values are appended to it, and the result
+    is ``(out, (k, v))``."""
+
+    def __init__(self, embed_dim: int, num_heads: int, dropout: float = 0.0,
+                 kdim: Optional[int] = None, vdim: Optional[int] = None,
+                 need_weights: bool = False, weight_attr=None,
+                 bias_attr=None, device: Optional[torch.device] = None):
+        super().__init__()
+        enforce(num_heads > 0 and embed_dim % num_heads == 0,
+                f"num_heads {num_heads} must divide embed_dim {embed_dim}")
+        self.embed_dim, self.num_heads = embed_dim, num_heads
+        self.head_dim = embed_dim // num_heads
+        self.dropout = dropout
+        kdim, vdim = kdim or embed_dim, vdim or embed_dim
+        self.q_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr,
+                             device=device)
+        self.k_proj = Linear(kdim, embed_dim, weight_attr, bias_attr,
+                             device=device)
+        self.v_proj = Linear(vdim, embed_dim, weight_attr, bias_attr,
+                             device=device)
+        self.out_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr,
+                               device=device)
+
+    def _split(self, x):
+        b, s, _ = x.shape
+        return x.reshape(b, s, self.num_heads, self.head_dim).transpose(1, 2)
+
+    def forward(self, query, key=None, value=None, attn_mask=None,
+                cache=None):
+        key = query if key is None else key
+        value = query if value is None else value
+        q = self._split(self.q_proj(query))
+        k = self._split(self.k_proj(key))
+        v = self._split(self.v_proj(value))
+        if cache is not None:
+            k = torch.cat([cache[0].to(k.dtype), k], dim=2)
+            v = torch.cat([cache[1].to(v.dtype), v], dim=2)
+        out = F.scaled_dot_product_attention(
+            q, k, v, attn_mask=attn_mask, dropout_p=self.dropout,
+            training=self.training)
+        b, h, s, d = out.shape
+        out = self.out_proj(out.transpose(1, 2).reshape(b, s, h * d))
+        return out if cache is None else (out, (k, v))
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Self-attention, then the FFN, each with dropout and a residual;
+    LayerNorm after each (post-LN, the default) or before
+    (``normalize_before``)."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
+                 dropout: float = 0.1, activation: str = "relu",
+                 attn_dropout: Optional[float] = None,
+                 act_dropout: Optional[float] = None,
+                 normalize_before: bool = False,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadAttention(
+            d_model, nhead,
+            dropout=attn_dropout if attn_dropout is not None else dropout,
+            device=device)
+        self.linear1 = Linear(d_model, dim_feedforward, device=device)
+        self.linear2 = Linear(dim_feedforward, d_model, device=device)
+        self.norm1 = LayerNorm(d_model, device=device)
+        self.norm2 = LayerNorm(d_model, device=device)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.act_dropout = Dropout(
+            act_dropout if act_dropout is not None else dropout)
+        self.activation = _activation(activation)
+
+    def forward(self, src, src_mask=None):
+        residual = src
+        if self.normalize_before:
+            src = self.norm1(src)
+        src = residual + self.dropout1(self.self_attn(src,
+                                                      attn_mask=src_mask))
+        if not self.normalize_before:
+            src = self.norm1(src)
+        residual = src
+        if self.normalize_before:
+            src = self.norm2(src)
+        src = self.linear2(self.act_dropout(self.activation(
+            self.linear1(src))))
+        src = residual + self.dropout2(src)
+        if not self.normalize_before:
+            src = self.norm2(src)
+        return src
+
+
+class TransformerEncoder(nn.Module):
+    """``num_layers`` layers from ``encoder_layer_fn()`` (``layers.<i>``),
+    then ``norm`` when given."""
+
+    def __init__(self, encoder_layer_fn, num_layers: int, norm=None):
+        super().__init__()
+        self.layers = nn.ModuleList([encoder_layer_fn()
+                                     for _ in range(num_layers)])
+        self.norm = norm
+
+    def forward(self, src, src_mask=None):
+        for layer in self.layers:
+            src = layer(src, src_mask=src_mask)
+        return src if self.norm is None else self.norm(src)
+
+
+class TransformerDecoderLayer(nn.Module):
+    """Self-attention (``tgt_mask``; with ``cache`` the incremental form),
+    cross-attention over ``memory`` (``memory_mask``) and the FFN, each
+    with dropout and a residual, post-LN or pre-LN.  With ``cache`` the
+    result is ``(out, new_cache)``."""
+
+    def __init__(self, d_model: int, nhead: int, dim_feedforward: int,
+                 dropout: float = 0.1, activation: str = "relu",
+                 attn_dropout: Optional[float] = None,
+                 act_dropout: Optional[float] = None,
+                 normalize_before: bool = False,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        self.normalize_before = normalize_before
+        ad = attn_dropout if attn_dropout is not None else dropout
+        self.self_attn = MultiHeadAttention(d_model, nhead, dropout=ad,
+                                            device=device)
+        self.cross_attn = MultiHeadAttention(d_model, nhead, dropout=ad,
+                                             device=device)
+        self.linear1 = Linear(d_model, dim_feedforward, device=device)
+        self.linear2 = Linear(dim_feedforward, d_model, device=device)
+        self.norm1 = LayerNorm(d_model, device=device)
+        self.norm2 = LayerNorm(d_model, device=device)
+        self.norm3 = LayerNorm(d_model, device=device)
+        self.dropout1 = Dropout(dropout)
+        self.dropout2 = Dropout(dropout)
+        self.dropout3 = Dropout(dropout)
+        self.act_dropout = Dropout(
+            act_dropout if act_dropout is not None else dropout)
+        self.activation = _activation(activation)
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm1(tgt)
+        if cache is None:
+            tgt = self.self_attn(tgt, attn_mask=tgt_mask)
+        else:
+            tgt, new_cache = self.self_attn(tgt, attn_mask=tgt_mask,
+                                            cache=cache)
+        tgt = residual + self.dropout1(tgt)
+        if not self.normalize_before:
+            tgt = self.norm1(tgt)
+
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm2(tgt)
+        tgt = self.cross_attn(tgt, memory, memory, attn_mask=memory_mask)
+        tgt = residual + self.dropout2(tgt)
+        if not self.normalize_before:
+            tgt = self.norm2(tgt)
+
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm3(tgt)
+        tgt = self.linear2(self.act_dropout(self.activation(
+            self.linear1(tgt))))
+        tgt = residual + self.dropout3(tgt)
+        if not self.normalize_before:
+            tgt = self.norm3(tgt)
+        return tgt if cache is None else (tgt, new_cache)
+
+
+class TransformerDecoder(nn.Module):
+    """``num_layers`` layers from ``decoder_layer_fn()``, then ``norm``
+    when given; with ``cache`` (one ``(k, v)`` a layer) the result is
+    ``(out, new_caches)``."""
+
+    def __init__(self, decoder_layer_fn, num_layers: int, norm=None):
+        super().__init__()
+        self.layers = nn.ModuleList([decoder_layer_fn()
+                                     for _ in range(num_layers)])
+        self.norm = norm
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        new_caches = []
+        for i, layer in enumerate(self.layers):
+            if cache is None:
+                tgt = layer(tgt, memory, tgt_mask=tgt_mask,
+                            memory_mask=memory_mask)
+            else:
+                tgt, c = layer(tgt, memory, tgt_mask=tgt_mask,
+                               memory_mask=memory_mask, cache=cache[i])
+                new_caches.append(c)
+        if self.norm is not None:
+            tgt = self.norm(tgt)
+        return tgt if cache is None else (tgt, new_caches)
+
+
+class Transformer(nn.Module):
+    """The encoder-decoder Transformer; the defaults are Transformer-base
+    (d_model 512, 8 heads, 6 + 6 layers, FFN 2048, dropout 0.1, post-LN).
+    Pre-LN stacks end in a LayerNorm each (``encoder.norm``,
+    ``decoder.norm``)."""
+
+    def __init__(self, d_model: int = 512, nhead: int = 8,
+                 num_encoder_layers: int = 6, num_decoder_layers: int = 6,
+                 dim_feedforward: int = 2048, dropout: float = 0.1,
+                 activation: str = "relu", normalize_before: bool = False,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        self.d_model, self.nhead = d_model, nhead
+        self.encoder = TransformerEncoder(
+            lambda: TransformerEncoderLayer(
+                d_model, nhead, dim_feedforward, dropout, activation,
+                normalize_before=normalize_before, device=device),
+            num_encoder_layers,
+            norm=(LayerNorm(d_model, device=device) if normalize_before
+                  else None))
+        self.decoder = TransformerDecoder(
+            lambda: TransformerDecoderLayer(
+                d_model, nhead, dim_feedforward, dropout, activation,
+                normalize_before=normalize_before, device=device),
+            num_decoder_layers,
+            norm=(LayerNorm(d_model, device=device) if normalize_before
+                  else None))
+
+    @staticmethod
+    def generate_square_subsequent_mask(length: int, device=None):
+        """The additive causal mask: float32 min above the diagonal, 0 on
+        and below it."""
+        return torch.triu(torch.full((length, length),
+                                     torch.finfo(torch.float32).min,
+                                     device=device), diagonal=1)
+
+    def forward(self, src, tgt, src_mask=None, tgt_mask=None,
+                memory_mask=None):
+        memory = self.encoder(src, src_mask=src_mask)
+        return self.decoder(tgt, memory, tgt_mask=tgt_mask,
+                            memory_mask=memory_mask)

@@ -1,13 +1,21 @@
-"""Fused linear + softmax cross-entropy, the memory-efficient LM loss: the
-port of ``paddle_tpu/ops/fused.py`` ``linear_softmax_cross_entropy``.
+"""Fused transformer epilogues, rotary embedding and the memory-efficient
+LM loss: the port of ``paddle_tpu/ops/fused.py``.
 
-The loss of ``softmax(hidden @ table.T)`` against ``labels`` without the
-full (B, S, V) logits: forward loops over sequence chunks and keeps only
-the per-token logsumexp; backward recomputes each chunk's logits and fuses
-the softmax gradient into the dW and dh products (:class:`_LinearCE`, the
-counterpart of the JAX ``custom_vjp`` ``_linear_ce``).  The products are
-plain large matrix products, which the JAX package leaves to XLA; here
-they go to ``torch.matmul`` / ``torch.mm``.
+The epilogues (:func:`fused_bias_dropout_residual_layer_norm`,
+:func:`fused_bias_dropout_residual`), :func:`fused_feedforward` and
+:func:`rotary_position_embedding` are compositions in the JAX package too,
+which XLA fuses on a TPU; here they are the same compositions in plain
+PyTorch, op for op (the JAX module keeps them as named ops for API parity).
+Dropout draws from the device's stream of ``framework/random.py``.
+
+:func:`linear_softmax_cross_entropy` is the loss of ``softmax(hidden @
+table.T)`` against ``labels`` without the full (B, S, V) logits: forward
+loops over sequence chunks and keeps only the per-token logsumexp;
+backward recomputes each chunk's logits and fuses the softmax gradient
+into the dW and dh products (:class:`_LinearCE`, the counterpart of the
+JAX ``custom_vjp`` ``_linear_ce``).  The products are plain large matrix
+products, which the JAX package leaves to XLA; here they go to
+``torch.matmul`` / ``torch.mm``.
 
 As in the JAX op, every product returns float32 from operands of the
 input dtype (``preferred_element_type=float32``): the logits reach the
@@ -19,13 +27,120 @@ at the float32 rate.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..distributed.mp_ops import masked_token_reduce, parallel_cross_entropy
+from ..nn import functional as F
 
-__all__ = ["linear_softmax_cross_entropy"]
+__all__ = ["fused_bias_dropout_residual_layer_norm",
+           "fused_bias_dropout_residual", "fused_feedforward",
+           "rotary_position_embedding", "linear_softmax_cross_entropy"]
+
+
+def fused_bias_dropout_residual_layer_norm(
+        x, residual, bias=None, ln_scale=None, ln_bias=None,
+        dropout_rate: float = 0.0, epsilon: float = 1e-5,
+        training: bool = True):
+    """``LayerNorm(residual + dropout(x + bias))``."""
+    y = fused_bias_dropout_residual(x, residual, bias, dropout_rate,
+                                    training)
+    return F.layer_norm(y, (y.shape[-1],), ln_scale, ln_bias, epsilon)
+
+
+def fused_bias_dropout_residual(x, residual, bias=None,
+                                dropout_rate: float = 0.0,
+                                training: bool = True):
+    """``residual + dropout(x + bias)``; the bias takes x's dtype."""
+    if bias is not None:
+        x = x + bias.to(x.dtype)
+    if dropout_rate > 0.0 and training:
+        x = F.dropout(x, dropout_rate, training=True)
+    dt = torch.promote_types(residual.dtype, x.dtype)
+    return residual.to(dt) + x.to(dt)
+
+
+def fused_feedforward(x, w1, b1, w2, b2, ln_scale=None, ln_bias=None,
+                      activation: str = "gelu", dropout1: float = 0.0,
+                      dropout2: float = 0.0, epsilon: float = 1e-5,
+                      pre_layer_norm: bool = True, training: bool = True):
+    """The FFN block: [pre-LN] -> ``x @ w1 + b1`` -> act -> dropout1 ->
+    ``@ w2`` -> + b2, dropout2, + x -> [post-LN].  ``activation`` is
+    ``"gelu"`` (exact) or ``"relu"``."""
+    residual = x
+    if pre_layer_norm:
+        x = F.layer_norm(x, (x.shape[-1],), ln_scale, ln_bias, epsilon)
+    act = {"gelu": F.gelu, "relu": F.relu}[activation]
+    h = act(F.linear(x, w1, b1))
+    if dropout1 > 0.0 and training:
+        h = F.dropout(h, dropout1, training=True)
+    out = F.linear(h, w2, None)
+    out = fused_bias_dropout_residual(out, residual, b2, dropout2, training)
+    if not pre_layer_norm:
+        out = F.layer_norm(out, (out.shape[-1],), ln_scale, ln_bias, epsilon)
+    return out
+
+
+def _inv_freq(head_dim: int, base: float, device=None) -> torch.Tensor:
+    """``1 / base ** (arange(0, d, 2) / d)`` in float32."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (base ** exps)
+
+
+@functools.lru_cache(maxsize=64)
+def _rope_tables(seq_len: int, head_dim: int, base: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The float32 cos / sin tables, (seq_len, head_dim / 2) each, on the
+    host: computed once per ``(seq_len, head_dim, base)``."""
+    angles = (torch.arange(seq_len, dtype=torch.float32)[:, None]
+              * _inv_freq(head_dim, base))
+    return torch.cos(angles), torch.sin(angles)
+
+
+@functools.lru_cache(maxsize=64)
+def _rope_tables_on(seq_len: int, head_dim: int, base: float,
+                    device: torch.device
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_rope_tables` copied to ``device`` once."""
+    cos, sin = _rope_tables(seq_len, head_dim, base)
+    return cos.to(device), sin.to(device)
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor,
+            sin: torch.Tensor) -> torch.Tensor:
+    """GPT-NeoX rotation of the two halves of the last dim, in float32,
+    returned in x's dtype."""
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2].float(), x[..., d2:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def rotary_position_embedding(q, k, position_ids=None,
+                              base: float = 10000.0):
+    """GPT-NeoX rotary embedding of (batch, heads, seq, head_dim) q and k.
+    The positions are ``arange(seq)`` by default, or ``position_ids``
+    ((batch | 1, seq)): host values (numpy, lists) index the cached tables;
+    a tensor computes the angles on its own device."""
+    b, h, s, d = q.shape
+    if position_ids is None:
+        cos, sin = _rope_tables_on(s, d, float(base), q.device)
+        cos, sin = cos[None, None], sin[None, None]
+    elif not torch.is_tensor(position_ids):
+        pos = np.asarray(position_ids)
+        cos, sin = _rope_tables_on(int(pos.max()) + 1, d, float(base),
+                                   q.device)
+        idx = torch.from_numpy(pos.astype(np.int64)).to(q.device)
+        cos, sin = cos[idx][:, None], sin[idx][:, None]
+    else:
+        angles = (position_ids.to(q.device).float()[..., None]
+                  * _inv_freq(d, float(base), q.device))
+        cos, sin = torch.cos(angles)[:, None], torch.sin(angles)[:, None]
+    return _rotate(q, cos, sin), _rotate(k, cos, sin)
 
 # aten::mm.dtype: the bf16 x bf16 -> float32 product, on CUDA only
 _MM_OUT_DTYPE = hasattr(torch.ops.aten.mm, "dtype")

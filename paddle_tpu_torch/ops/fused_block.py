@@ -40,10 +40,12 @@ addresses none of them can stage) runs the SIMT float32 kernel beside
 them.
 
 the attention half of a training block, :func:`fused_attention_block`: K1
--> flash attention (``ops/flash_attention.py``, attention dropout in the
-kernel) -> K2; and the decode-step attention half over a fixed-shape cache,
-:func:`fused_attention_block_kvcache`: K1 -> cache write -> the flash
-decode kernel -> K2.
+-> [rope] -> flash attention (``ops/flash_attention.py``, attention dropout
+in the kernel) -> K2; and the decode-step attention half over a fixed-shape
+cache, :func:`fused_attention_block_kvcache`: K1 -> [rope] -> cache write
+-> the flash decode kernel -> K2.  With ``rotary=True`` the rotary
+embedding runs between the kernels in plain PyTorch (:func:`_apply_rope`),
+as XLA computes it outside Pallas in the JAX package.
 
 Routing is by the tensor's device: a CPU tensor takes the plain version, a
 CUDA tensor launches the kernel (or raises).  The plain versions repeat the
@@ -79,9 +81,10 @@ import torch
 from .. import _kernels
 from ..amp import state as amp_state
 from ..framework import random as fw_random
-from ..framework.errors import UnimplementedError, enforce
+from ..framework.errors import enforce
 from .flash_attention import (_M32, _NEG_INF, _keep_mask, flash_attention,
                               flash_attention_kvcache)
+from .fused import _rope_tables_on, _rotate
 
 __all__ = ["fused_ln_linear", "fused_linear_residual", "fused_ffn_block",
            "fused_attention_block", "fused_attention_block_kvcache",
@@ -1257,6 +1260,19 @@ def _split_heads(qkv, b: int, s: int, num_heads: int, head_dim: int):
     return qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
 
 
+def _apply_rope(q, k, base: float):
+    """GPT-NeoX rope of (b, s, heads, d) q and k from the cached tables, at
+    positions 0 .. s-1 of this call, as the JAX package's ``_apply_rope``
+    (``paddle_tpu/ops/fused_block.py:527``) rotates them: a decode step of
+    :func:`fused_attention_block_kvcache` is rotated as position 0 whatever
+    the cache already holds.  That is a defect of the reference, kept here
+    so the two packages agree (``ROADMAP.md`` Queue 3)."""
+    s, d = q.shape[1], q.shape[-1]
+    cos, sin = _rope_tables_on(s, d, float(base), q.device)
+    cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    return _rotate(q, cos, sin), _rotate(k, cos, sin)
+
+
 def _attention_ref(q, k, v, scale: float, causal: bool, dropout_p: float,
                    seed: int) -> torch.Tensor:
     """Attention in (b, s, heads, d) layout, the JAX package's
@@ -1293,17 +1309,14 @@ def fused_attention_block(x, qkv_w, qkv_b, out_w, out_b, ln_scale, ln_bias,
 
         out = x + drop(W_out · attention(split(W_qkv · LN(x) + b)) + b)
 
-    K1 (``fused_ln_linear``), then the flash kernels on the card
-    (attention dropout in the kernel; they raise on a head dim they have
-    no instantiation for) or :func:`_attention_ref` on the CPU, then K2
-    (``fused_linear_residual``).  One seed serves the block: the flash
-    dropout (salted by ``b * heads + h``) and K2's (``_SALT_RESID``), as in
-    the JAX package.  ``qkv_w`` is (h, 3h) in head-major column order
+    K1 (``fused_ln_linear``), with ``rotary`` the rope of q and k
+    (:func:`_apply_rope`, base ``rope_base``), then the flash kernels on
+    the card (attention dropout in the kernel; they raise on a head dim
+    they have no instantiation for) or :func:`_attention_ref` on the CPU,
+    then K2 (``fused_linear_residual``).  One seed serves the block: the
+    flash dropout (salted by ``b * heads + h``) and K2's (``_SALT_RESID``),
+    as in the JAX package.  ``qkv_w`` is (h, 3h) in head-major column order
     (head0: q|k|v, head1: ...), the GPTAttention layout."""
-    if rotary:
-        raise UnimplementedError(
-            "fused_attention_block: rotary=True is not ported yet "
-            "(_apply_rope, ROADMAP Queue 1)")
     b, s, hidden = x.shape
     enforce(hidden % num_heads == 0,
             f"hidden {hidden} not divisible by num_heads {num_heads}")
@@ -1317,6 +1330,8 @@ def fused_attention_block(x, qkv_w, qkv_b, out_w, out_b, ln_scale, ln_bias,
                           epsilon=epsilon)
     q, k, v = _split_heads(qkv.reshape(b * s, -1), b, s, num_heads,
                            head_dim)
+    if rotary:
+        q, k = _apply_rope(q, k, rope_base)
     if x.is_cuda:
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal, scale=scale,
@@ -1339,8 +1354,10 @@ def fused_attention_block_kvcache(x, qkv_w, qkv_b, out_w, out_b, ln_scale,
                                   scale=None, rotary: bool = False,
                                   rope_base: float = 10000.0):
     """Decode step of the attention half against a fixed-shape cache:
-    fused LN -> QKV (K1), the new k / v written at ``used`` (a 0-d int32
-    tensor), attention over the cache, out-projection + residual (K2).
+    fused LN -> QKV (K1), with ``rotary`` the rope of q and k at their
+    positions within this call (:func:`_apply_rope`), the new k / v written
+    at ``used`` (a 0-d int32 tensor), attention over the cache,
+    out-projection + residual (K2).
     Inference only.  Returns ``(out, k_buf, v_buf)``; the buffers are
     written in place (the JAX package builds new arrays).
 
@@ -1350,10 +1367,6 @@ def fused_attention_block_kvcache(x, qkv_w, qkv_b, out_w, out_b, ln_scale,
     q's dtype (K1's, the weights'), as on a TPU; every other call runs the
     einsum route of the JAX package's CPU path, whose probabilities and
     output take the cache dtype."""
-    if rotary:
-        raise UnimplementedError(
-            "fused_attention_block_kvcache: rotary=True is not ported yet "
-            "(_apply_rope, ROADMAP Queue 1)")
     b, s, hidden = x.shape
     head_dim = hidden // num_heads
     if scale is None:
@@ -1363,6 +1376,8 @@ def fused_attention_block_kvcache(x, qkv_w, qkv_b, out_w, out_b, ln_scale,
                           epsilon=epsilon)
     q, k, v = _split_heads(qkv.reshape(b * s, -1), b, s, num_heads,
                            head_dim)
+    if rotary:
+        q, k = _apply_rope(q, k, rope_base)
     q = q.transpose(1, 2)                             # (b, heads, s, d)
     rows = used.long() + torch.arange(s, device=x.device)
     k_buf.index_copy_(2, rows, k.transpose(1, 2).to(k_buf.dtype))

@@ -15,17 +15,21 @@ full-width BERT-base, MLM + NSP, bf16 O1, B=16, S=512, the non-causal
 flash attention), ``moe`` (``moe_training_workload``: GPT-125M with 8
 experts on every other layer, GShard top-2, bf16 O1, B=8, S=2048),
 ``resnet50`` (``resnet_training_workload``: ResNet-50, B=128, 224 x 224,
-bf16 O1, Momentum; ``training.classification_step``) and ``lenet``
-(``lenet_training_workload``: LeNet, B=64, float32): 3 warm-up steps, 5
-steps timed without the profiler (host clock, each ending in the loss
-readback), then 3 steps under ``torch.profiler`` with CUDA activity.
-Prints one JSON line: the timed steps' ms and the peak device memory;
-from the profiled steps, the device's busy time (the union of kernel
-intervals) per step, the idle share, and the device time per step by
-kernel name, largest first, and per group (each of the port's kernels,
-GEMMs, everything else; for the vision workloads the cuDNN
+bf16 O1, Momentum; ``training.classification_step``), ``lenet``
+(``lenet_training_workload``: LeNet, B=64, float32) and ``transformer``
+(``transformer_training_workload``: Transformer-base translation over a
+vocabulary of 30000, B=32, S=128 a side, bf16 O1, dropout 0.1, Adam under
+``NoamDecay``, label smoothing 0.1; ``training.seq2seq_step``): 3
+warm-up steps, 5 steps timed without the profiler (host clock, each
+ending in the loss readback), then 3 steps under ``torch.profiler`` with
+CUDA activity.  Prints one JSON line: the timed steps' ms and the peak
+device memory; from the profiled steps, the device's busy time (the union
+of kernel intervals) per step, the idle share, and the device time per
+step by kernel name, largest first, and per group (each of the port's
+kernels, GEMMs, everything else; for the vision workloads the cuDNN
 convolutions, layout transposes, batch norm, pooling, GEMMs, the
-optimizer's step and the other elementwise work).  Needs a CUDA card.
+optimizer's step and the other elementwise work; for the Transformer the
+GEMMs, the optimizer's step and the rest).  Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -43,9 +47,9 @@ from . import _kernels
 from .convert import (bert_pretraining_workload, fused_training_workload,
                       lenet_training_workload, moe_training_workload,
                       pretraining_workload, resnet_training_workload,
-                      training_workload)
+                      training_workload, transformer_training_workload)
 from .profile_serving import _short, _union_us
-from .training import classification_step, train_step
+from .training import classification_step, seq2seq_step, train_step
 
 WARMUP, TIMED, PROFILED = 3, 5, 3
 
@@ -80,17 +84,23 @@ def _vision_group(name: str) -> str:
 
 
 WORKLOADS = ("training", "fused", "pretraining-a", "pretraining-b", "bert",
-             "moe", "resnet50", "lenet")
+             "moe", "resnet50", "lenet", "transformer")
 VISION = {"resnet50": resnet_training_workload,
           "lenet": lenet_training_workload}
 MODELS = {"pretraining-a": "gpt_1p3b", "pretraining-b": "gpt_1p3b",
           "bert": "bert_base", "moe": "gpt_125m, 8 experts every 2nd layer",
-          "resnet50": "resnet50", "lenet": "LeNet"}
+          "resnet50": "resnet50", "lenet": "LeNet",
+          "transformer": "transformer_base, vocab 30000"}
 
 
 def _workload(name: str, device):
     """``(model, optimizer, ids, labels, step_kwargs)`` of a workload (for
-    the vision ones, the images in place of ids)."""
+    the vision ones, the images in place of ids; for the Transformer the
+    source ids, and the decoder inputs and labels as ``labels``)."""
+    if name == "transformer":
+        model, opt, (src, tgt_in, tgt_next), kw = \
+            transformer_training_workload(device)
+        return model, opt, src, (tgt_in, tgt_next), kw
     if name in VISION:
         return VISION[name](device)
     if name.startswith("pretraining-"):
@@ -107,6 +117,9 @@ def profile(workload: str = "training") -> Dict[str, object]:
     model, opt, ids, labels, kw = _workload(workload, torch.device("cuda"))
     vision = workload in VISION
     step_fn = classification_step if vision else train_step
+    if workload == "transformer":
+        def step_fn(model, opt, src, labels, **kw):
+            return seq2seq_step(model, opt, src, *labels, **kw)
     torch.cuda.reset_peak_memory_stats()
 
     def steps(n: int) -> List[float]:
@@ -145,10 +158,11 @@ def profile(workload: str = "training") -> Dict[str, object]:
         name = _short(e.name)
         per_name[name][0] += (t - s) / 1e3 / PROFILED
         per_name[name][1] += 1
-        if not vision:
+        if any(a <= s < b for a, b in opt_ranges) and (
+                vision or workload == "transformer"):
+            group = f"optimizer ({type(opt).__name__} step)"
+        elif not vision:
             group = _group(name)
-        elif any(a <= s < b for a, b in opt_ranges):
-            group = "optimizer (Momentum step)"
         else:
             group = _vision_group(e.name)
         groups[group] += (t - s) / 1e3 / PROFILED
@@ -164,7 +178,9 @@ def profile(workload: str = "training") -> Dict[str, object]:
         "use_fused_block": getattr(cfg, "use_fused_block", False),
         "use_recompute": getattr(cfg, "use_recompute", False),
         "amp": kw.get("level", "O1"),
-        "dropout": getattr(cfg, "hidden_dropout", 0.0),
+        "dropout": (model.core.encoder.layers[0].dropout1.p
+                    if workload == "transformer"
+                    else getattr(cfg, "hidden_dropout", 0.0)),
         "step_ms": timed, "step_ms_p50": statistics.median(timed),
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "profiled_step_ms": prof_wall / PROFILED,
@@ -186,7 +202,8 @@ def main(argv=None) -> int:
                         "K2, K3; dropout 0.1); pretraining-a / -b: GPT-3 "
                         "1.3B with recompute, legs A and B; bert: BERT-base "
                         "MLM + NSP; moe: the MoE GPT-125M; resnet50 / "
-                        "lenet: the vision rows")
+                        "lenet: the vision rows; transformer: "
+                        "Transformer-base translation")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_training: needs a CUDA device", file=sys.stderr)

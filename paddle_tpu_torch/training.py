@@ -25,6 +25,15 @@ logits, computed outside ``auto_cast``.
     model, optimizer, images, labels, kw = \
         convert.resnet_training_workload("cuda")
     loss = classification_step(model, optimizer, images, labels, **kw)
+
+:func:`seq2seq_step` is the step of an encoder-decoder translation model
+(``models.translation.TranslationModel``): the float32 cross-entropy of
+its logits against the next target tokens, optionally with label
+smoothing and a scheduler step; it reads the loss back once.
+
+    model, optimizer, (src, tgt_in, tgt_next), kw = \
+        convert.transformer_training_workload("cuda")
+    loss = seq2seq_step(model, optimizer, src, tgt_in, tgt_next, **kw)
 """
 from __future__ import annotations
 
@@ -36,7 +45,7 @@ from . import amp
 from .nn import functional as F
 from .optimizer.lr import LRScheduler
 
-__all__ = ["train_step", "classification_step"]
+__all__ = ["train_step", "classification_step", "seq2seq_step"]
 
 
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
@@ -91,3 +100,31 @@ def classification_step(model: torch.nn.Module,
     loss.backward()
     optimizer.step()
     return loss.detach()
+
+
+def seq2seq_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                 src: torch.Tensor, tgt_in: torch.Tensor,
+                 tgt_next: torch.Tensor, *, level: str = "O1",
+                 scheduler: Optional[LRScheduler] = None,
+                 label_smoothing: float = 0.0) -> float:
+    """One step in place: zero the grads, ``logits = model(src, tgt_in)``
+    under ``auto_cast(level=level, dtype="bfloat16")`` (none for
+    ``level="O0"``), the mean ``F.cross_entropy`` of the float32 logits
+    against ``tgt_next`` (labels of -100, the padding, count zero;
+    ``label_smoothing`` mixes in the mean log-probability), backward,
+    ``optimizer.step()``, then ``scheduler.step()``.  Returns the loss as
+    a float: the step's one readback."""
+    model.train()
+    optimizer.zero_grad(set_to_none=True)
+    if level == "O0":
+        logits = model(src, tgt_in)
+    else:
+        with amp.auto_cast(level=level, dtype="bfloat16"):
+            logits = model(src, tgt_in)
+    loss = F.cross_entropy(logits.float(), tgt_next,
+                           label_smoothing=label_smoothing)
+    loss.backward()
+    optimizer.step()
+    if scheduler is not None:
+        scheduler.step()
+    return float(loss.detach())

@@ -92,6 +92,12 @@ def test_package_imports_with_jax_blocked():
             "import paddle_tpu_torch.vision.models.lenet\n"
             "import paddle_tpu_torch.vision.models.resnet\n"
             "import paddle_tpu_torch.vision.models.resnext\n"
+            "import paddle_tpu_torch.nn.layers_ext\n"
+            "import paddle_tpu_torch.models.translation\n"
+            "import paddle_tpu_torch.incubate\n"
+            "import paddle_tpu_torch.incubate.nn\n"
+            "import paddle_tpu_torch.text\n"
+            "import paddle_tpu_torch.text.datasets\n"
             "loaded = [m for m in sys.modules if sys.modules[m] is not None]\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
             "               for m in loaded)\n"
@@ -119,3 +125,12 @@ def test_scan_pattern():
     assert not _FORBIDDEN.search("import paddle_tpu_torch")
     assert not _FORBIDDEN.search("from paddle_tpu_torch.models import gpt")
     assert not _FORBIDDEN.search("# see paddle_tpu/ops/fused_block.py")
+
+
+def test_ops_submodules_are_not_shadowed():
+    # the package re-exports the fused ops, never a name of its modules:
+    # ``from paddle_tpu_torch.ops import flash_attention`` is the module
+    import types
+    from paddle_tpu_torch.ops import flash_attention, fused, fused_block
+    for module in (flash_attention, fused, fused_block):
+        assert isinstance(module, types.ModuleType), module

@@ -1555,3 +1555,107 @@ def test_dropping_the_model_frees_its_decode_loop(dev):
     assert ref() is None
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated(dev) <= during - held
+
+
+# ---------------------------------------------------------------------------
+# the float32 precision policy, rotary in the fused blocks, padding_idx
+# ---------------------------------------------------------------------------
+_POLICY_CHECK = """
+import torch
+from paddle_tpu_torch.nn import functional as F
+g = torch.Generator().manual_seed(0)
+x = torch.randn(8, 64, 32, 32, generator=g)
+w = torch.randn(128, 64, 3, 3, generator=g) * 0.05
+a = torch.randn(512, 1024, generator=g)
+b = torch.randn(1024, 768, generator=g) * 0.03
+out = {}
+for name, fn, args in (("conv2d", F.conv2d, (x, w, None, 1, 1)),
+                       ("linear", F.linear, (a, b))):
+    ref = fn(*(t.double().cuda() if torch.is_tensor(t) else t
+               for t in args))
+    got = fn(*(t.cuda() if torch.is_tensor(t) else t for t in args))
+    assert got.dtype == torch.float32
+    # float32 products summed over K terms: a few units of 2^-24 times
+    # sqrt(K) of the range; TF32's 10-bit mantissa is ~1e-3 of it
+    k = 64 * 9 if name == "conv2d" else 1024
+    scale = float(ref.abs().max())
+    err = float((got.double() - ref).abs().max())
+    assert err <= 8 * 2.0 ** -24 * k ** 0.5 * scale, (name, err, scale)
+    out[name] = err / scale
+print(out)
+"""
+
+
+def test_float32_products_are_ieee_by_the_package_policy(dev):
+    # a fresh process that sets no flag: importing the port turns TF32 off
+    # for cuBLAS matmuls and cuDNN convolutions (device.py)
+    import subprocess
+    import sys
+    from pathlib import Path
+    out = subprocess.run([sys.executable, "-c", _POLICY_CHECK],
+                         cwd=Path(__file__).resolve().parent.parent,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("s", [64, 100])
+def test_rotary_attention_block_on_card_matches_cpu(dev, s):
+    # K1 -> rope -> flash -> K2 under autograd on the card against the
+    # plain route on the CPU (rope, _attention_ref), float32, dropout 0.1
+    params, x_np = _block_params(128, 512, s=s)
+    results = []
+    for device in (dev, torch.device("cpu")):
+        ps = [torch.from_numpy(p).to(device).requires_grad_()
+              for p in params[:6]]
+        x = torch.from_numpy(x_np).to(device).requires_grad_()
+        _kernels.reset_launches()
+        y = fb.fused_attention_block(
+            x, *ps, num_heads=4, attn_dropout=0.1, hidden_dropout=0.1,
+            rotary=True, rope_base=500.0, seed=11)
+        y.backward(torch.ones_like(y))
+        launched = {k for k, c in _kernels.launches.items() if c}
+        results.append([y.detach().cpu(), x.grad.cpu()]
+                       + [p.grad.cpu() for p in ps])
+        if device == dev:
+            assert launched == {"ln_linear_tiled", "linear_residual_tiled",
+                                "flash_fwd", "flash_dkdv", "flash_dq"}
+    for i, (a, b) in enumerate(zip(*results)):
+        tol = 1e-4 * float(b.abs().max()) + 1e-6
+        assert float((a - b).abs().max()) <= tol, i
+
+
+def test_rotary_kvcache_step_on_card_matches_cpu(dev):
+    # a prefill of 8 and two decode steps into a cache of 64: the decode
+    # steps launch flash_decode on the card
+    params, x_np = _block_params(128, 512, s=8)
+    steps = [x_np] + [x_np[:, i:i + 1] * 0.5 for i in range(2)]
+    results = []
+    for device in (dev, torch.device("cpu")):
+        ps = [torch.from_numpy(p).to(device) for p in params[:6]]
+        kb = torch.zeros(2, 4, 64, 32, device=device)
+        vb = torch.zeros_like(kb)
+        _kernels.reset_launches()
+        used, outs = 0, []
+        for x in steps:
+            y, kb, vb = fb.fused_attention_block_kvcache(
+                torch.from_numpy(x).to(device), *ps, kb, vb, used,
+                num_heads=4, rotary=True)
+            outs.append(y.cpu())
+            used += x.shape[1]
+        results.append(outs + [kb.cpu(), vb.cpu()])
+        if device == dev:
+            assert _kernels.launches["flash_decode"] == 2
+    for i, (a, b) in enumerate(zip(*results)):
+        tol = 1e-4 * float(b.abs().max()) + 1e-6
+        assert float((a - b).abs().max()) <= tol, i
+
+
+def test_embedding_padding_row_gets_no_gradient_on_card(dev):
+    from paddle_tpu_torch import nn as tnn
+    emb = tnn.Embedding(50, 16, padding_idx=7, device=dev)
+    ids = torch.tensor([[7, 1, 7, 3], [2, 7, 9, 7]], device=dev)
+    out = emb(ids)
+    assert not bool(out[ids == 7].any())
+    out.square().sum().backward()
+    assert not bool(emb.weight.grad[7].any())
+    assert bool(emb.weight.grad[1].any())
