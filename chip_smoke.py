@@ -339,6 +339,41 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               incubate's FusedTransformerEncoderLayer at BERT-base width
               against a plain TransformerEncoderLayer with its weights.
               (1)-(4) and (6) launch none of the eight kernels;
+  (c2h) the rest of the vision zoo and the detection ops (vision/models,
+              vision/ops.py, convert.vision_training_workload; none of the
+              eight kernels: the counters are zeroed before the phase and
+              must read 0 after it): (1) every family's default
+              constructor at full width and 1000 classes (alexnet at 224
+              x 224, vgg16 with batch_norm, squeezenet1_1 at 96,
+              mobilenet_v1, mobilenet_v2, mobilenet_v3_large and _small,
+              shufflenet_v2_x1_0, densenet121 at 64, googlenet and
+              inception_v3 at 128), one Momentum step at B=4 with Dropout
+              at p=0 (GoogLeNet: the sum of its three heads'
+              cross-entropies) on the card and on the CPU from the same
+              numpy weights: the same step in float64 on the card within
+              1e-9 of each tensor's range of the float64 CPU run; in
+              float32 the loss, the logits and the BatchNorm buffers
+              within c2f's bound, and each gradient's and the eval
+              logits' distance reported against it; (2) each family but
+              GoogLeNet through vision_training_workload (B=128, 224 x
+              224, InceptionV3 299 x 299, bf16 O1, Momentum with weight
+              decay), MobileNetV2 also in channels_last: 3 warm-up and 10
+              timed steps, step p50, img/s, peak memory and MFU (img/s x
+              3 x hapi.flops' forward FLOPs / 989 TFLOP/s; MobileNetV2's
+              count about 0.6 GFLOP and within 1% of a count by hand),
+              finite losses, MobileNetV2's falling; (3) the detection ops
+              in float32 on the card against a float64 CPU anchor, each
+              value and gradient within 4 x the CPU float32 run's distance
+              from it plus 1e-6 of its range, at published detector
+              shapes: roi_align (7 x 7, and 14 x 14 for the mask head) and
+              roi_pool over Mask R-CNN R50-FPN's P2 map (2, 256, 200, 336)
+              with 512 boxes an image, psroi_pool at R-FCN's 21 x 7 x 7
+              channels, nms over 6000 RPN proposals at IoU 0.7 and over
+              1000 boxes in 80 categories with top_k 100 (indices equal
+              the CPU's), yolo_box and yolo_loss on YOLOv3's three heads
+              at 608 x 608 (80 classes, 50 padded boxes), deform_conv2d
+              v2 at a DCNv2 ResNet-50 stage-5 conv; each op's ms (CUDA
+              events; nms by the host clock); one vision_zoo JSON line;
   (c3) generate GPTForCausalLM.generate at full width (convert.
               generate_workload: B=8, prompt 512, 128 greedy tokens, bf16),
               unfused (use_pallas_attention) and fused (use_fused_block):
@@ -510,6 +545,12 @@ def main() -> int:
     rotary = translation(torch, np, dev, _kernels)
     for name, n in rotary.items():
         results[name]["launches_rotary"] = n
+
+    torch.cuda.empty_cache()
+
+    # -- (c2h) the rest of the vision zoo and the detection ops ----------------
+    vision_zoo(torch, np, dev, _kernels)
+    torch.cuda.empty_cache()
 
     # -- (c3) generate -------------------------------------------------------
     generating = generate(torch, np, dev, _kernels)
@@ -4773,8 +4814,18 @@ def cudnn_mode(torch, mode):
             "native": (False, False, False)}[mode]
 
 
+def heads(name, out):
+    """``{name: out}``, or one entry a head of a model with several
+    (GoogLeNet's main, aux1 and aux2)."""
+    if isinstance(out, tuple):
+        return {name if i == 0 else f"{name} aux{i}": t.detach()
+                for i, t in enumerate(out)}
+    return {name: out.detach()}
+
+
 def vision_card_vs_cpu(torch, np, dev, name, make, batch, hw, channels,
-                       classes, diagnose=False):
+                       classes, diagnose=False, prepare=None, loss_fn=None,
+                       phase="c2f (1)", float64_gate=False):
     """(c2f 1): one float32 training step of ``make(device)`` on the card
     and on the CPU from the same numpy weights and data, and a float64 CPU
     run as the anchor: for each compared tensor the card must lie within
@@ -4790,7 +4841,21 @@ def vision_card_vs_cpu(torch, np, dev, name, make, batch, hw, channels,
     under cuDNN's deterministic algorithms and without cuDNN.  For each
     run: the worst distance from the anchor over all tensors and over
     layer4's convolution gradients, each a share of the tensor's
-    range."""
+    range.  ``prepare(model)`` runs after the weights are loaded (c2h:
+    Dropout at p=0); ``loss_fn(logits, labels)`` replaces the
+    cross-entropy (c2h: GoogLeNet's three heads).
+
+    ``float64_gate`` (c2h): the same step in float64 on the card must lie
+    within 1e-9 of each tensor's range of the float64 CPU run (plus 1e-12
+    of the largest gradient range: the noise of tensors that are zero in
+    exact arithmetic), so the card computes the CPU's function; the
+    float32 bound above then holds the loss, the logits and the BatchNorm
+    buffers (the forward), and the float32 distance of each gradient and
+    of the eval logits after the step (which move with the gradients) is
+    reported against it: the card's float32 convolutions and reductions
+    (cuDNN's and PyTorch's CUDA kernels) sum in another order than
+    oneDNN's and, where a gradient is a large cancellation, land further
+    than 16 x the CPU's distance from float64 (PERF.md §6)."""
     from paddle_tpu_torch.convert import load_jax_state
     from paddle_tpu_torch.framework import random as fw_random
     from paddle_tpu_torch.nn import functional as F
@@ -4804,6 +4869,8 @@ def vision_card_vs_cpu(torch, np, dev, name, make, batch, hw, channels,
     plan = [("card", dev, torch.float32, "default"),
             ("cpu", "cpu", torch.float32, "default"),
             ("cpu64", "cpu", torch.float64, "default")]
+    if float64_gate and not diagnose:
+        plan.append(("card64", dev, torch.float64, "default"))
     if diagnose:
         plan += [("card64", dev, torch.float64, "default"),
                  ("card_deterministic", dev, torch.float32, "deterministic"),
@@ -4822,31 +4889,50 @@ def vision_card_vs_cpu(torch, np, dev, name, make, batch, hw, channels,
         xt = torch.from_numpy(x).to(device, dtype)
         yt = torch.from_numpy(y).to(device)
         m.train()
+        if prepare is not None:
+            prepare(m)
         logits = m(xt)
-        loss = F.cross_entropy(logits, yt)
+        loss = (loss_fn or F.cross_entropy)(logits, yt)
         loss.backward()
-        out = {"loss": loss.detach().reshape(1), "logits": logits.detach()}
+        out = {"loss": loss.detach().reshape(1), **heads("logits", logits)}
         out.update({f"grad {k}": p.grad for k, p in m.named_parameters()})
         opt.step()
         out.update({f"buffer {k}": b for k, b in m.named_buffers()})
         m.eval()
         with torch.no_grad():
-            out["eval logits"] = m(xt)
+            out.update(heads("eval logits", m(xt)))
         runs[tag] = {k: v.detach().double().cpu() for k, v in out.items()}
     (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
      torch.backends.cudnn.enabled) = saved
-    worst, table = 0.0, []
+    worst, table, over = 0.0, [], []
     for k, ref in runs["cpu64"].items():
         scale = float(ref.abs().max())
         own = float((runs["cpu"][k] - ref).abs().max())
         bound = 1e-4 * scale + 16.0 * own + 1e-12
         err = float((runs["card"][k] - ref).abs().max())
-        require(err <= bound, f"c2f (1) {name}: {k} on the card is {err} "
+        table.append((err / max(scale, 1e-30), own / max(scale, 1e-30), k))
+        if (float64_gate and k.startswith(("grad ", "eval logits"))
+                and err > bound):
+            over.append((err / bound, k, err, own, scale))
+            continue
+        require(err <= bound, f"{phase} {name}: {k} on the card is {err} "
                 f"from the float64 CPU run, bound {bound} (the CPU's "
                 f"float32 run: {own}; range {scale})")
         worst = max(worst, err / bound)
-        table.append((err / max(scale, 1e-30), own / max(scale, 1e-30), k))
     table.sort(reverse=True)
+    over.sort(reverse=True)
+    gate64 = None
+    if float64_gate:
+        ref = runs["cpu64"]
+        floor = 1e-12 * max(float(v.abs().max()) for k, v in ref.items()
+                            if k.startswith("grad "))
+        gate64 = 0.0
+        for k, r in ref.items():
+            err = float((runs["card64"][k] - r).abs().max())
+            bound = 1e-9 * float(r.abs().max()) + floor
+            require(err <= bound, f"{phase} {name}: {k} in float64 on the "
+                    f"card is {err} from the float64 CPU run, bound {bound}")
+            gate64 = max(gate64, err / bound)
     diagnosis = {}
     if diagnose:
         ref = runs["cpu64"]
@@ -4866,6 +4952,11 @@ def vision_card_vs_cpu(torch, np, dev, name, make, batch, hw, channels,
             "loss_cpu": float(runs["cpu"]["loss"][0]),
             "loss_cpu64": float(runs["cpu64"]["loss"][0]),
             "worst_err_over_bound": worst,
+            **({"float64_worst_err_over_bound": gate64,
+                "float32_grads_and_eval_over_bound": len(over),
+                # (err / bound, tensor, err, the CPU's, range), largest 3
+                "float32_grads_and_eval_worst": over[:3]}
+               if float64_gate else {}),
             # (card's distance from float64 / range, the CPU float32
             # run's / range, tensor), the largest five
             "worst_relative": table[:5]}
@@ -5000,6 +5091,400 @@ def vision(torch, np, dev, _kernels):
         "lenet": {"B": 64, "hw": 28, "dtype": "float32", **lenet},
         "recipe": recipe, "launches": launches,
         "phase_s": time.perf_counter() - t_phase}}))
+
+
+# ---------------------------------------------------------------------------
+# (c2h) the rest of the vision zoo and the detection ops
+# ---------------------------------------------------------------------------
+# (1): every family's default constructor at full width and 1000 classes,
+# one float32 Momentum step at B=4 at the smallest resolution each takes in
+# tests/test_vision_zoo.py
+ZOO_CHECK = (("alexnet", {}, 224), ("vgg16", {"batch_norm": True}, 64),
+             ("squeezenet1_1", {}, 96), ("mobilenet_v1", {}, 64),
+             ("mobilenet_v2", {}, 64), ("mobilenet_v3_large", {}, 64),
+             ("mobilenet_v3_small", {}, 64), ("shufflenet_v2_x1_0", {}, 64),
+             ("densenet121", {}, 64), ("googlenet", {}, 128),
+             ("inception_v3", {}, 128))
+ZOO_CHECK_B = 4
+# (2): vision_training_workload at B=128 and the family's ImageNet size
+# (GoogLeNet's three heads do not fit classification_step's one logits)
+ZOO_TIMED = tuple((n, kw) for n, kw, _ in ZOO_CHECK if n != "googlenet")
+MOBILENET_V2_FWD = (0.55e9, 0.65e9)   # ~0.3 G multiply-adds an image
+# (3): detector shapes.  Mask R-CNN R50-FPN: the P2 map (stride 4 of 800 x
+# 1333), boxes of the sizes FPN assigns to P2 (under 112 px a side)
+MASKRCNN = {"x": (2, 256, 200, 336), "scale": 0.25, "image": (800, 1333),
+            "box_side": (16, 112), "boxes": 512, "mask_boxes": 128}
+# R-FCN (ResNet-101, stride 16 of 600 x 1000): 21 classes x 7 x 7
+RFCN = {"x": (2, 21 * 49, 38, 63), "scale": 1 / 16, "image": (600, 1000),
+        "boxes": 300, "out": 7}
+NMS_RPN = {"boxes": 6000, "iou": 0.7}
+NMS_DET = {"boxes": 1000, "classes": 80, "iou": 0.5, "top_k": 100}
+# YOLOv3 at 608 x 608: three heads, the standard anchors, 80 classes
+YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326]
+YOLO_HEADS = ((19, [6, 7, 8], 32), (38, [3, 4, 5], 16), (76, [0, 1, 2], 8))
+YOLO = {"N": 2, "gt": 50, "real": 20, "classes": 80, "img": 608,
+        "conf": 0.01, "ignore": 0.7}
+# DCNv2 ResNet-50 stage 5: a 3 x 3 conv of 512 channels at 1/32 of 800 x
+# 1333
+DCN = {"x": (2, 512, 25, 42), "out": 512}
+
+
+def zoo_dropout_off(model):
+    """Every Dropout of ``model`` at p=0 (c2h (1): masks differ between
+    the card and the CPU)."""
+    from paddle_tpu_torch.nn.layers import Dropout
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+
+
+def zoo_loss(logits, labels):
+    """The cross-entropy, summed over GoogLeNet's three heads."""
+    from paddle_tpu_torch.nn import functional as F
+    if isinstance(logits, tuple):
+        return sum(F.cross_entropy(t, labels) for t in logits)
+    return F.cross_entropy(logits, labels)
+
+
+def zoo_card_vs_cpu(torch, np, dev):
+    from paddle_tpu_torch.vision import models
+    out = []
+    for name, kw, hw in ZOO_CHECK:
+        t0 = time.perf_counter()
+        r = vision_card_vs_cpu(
+            torch, np, dev, name,
+            lambda d, name=name, kw=kw: getattr(models, name)(device=d, **kw),
+            ZOO_CHECK_B, hw, 3, 1000, prepare=zoo_dropout_off,
+            loss_fn=zoo_loss, phase="c2h (1)", float64_gate=True)
+        r["seconds"] = time.perf_counter() - t0
+        log(f"c2h (1) {name}{'_bn' if kw else ''} B={ZOO_CHECK_B} {hw}x{hw}: "
+            f"float64 card within 1e-9 (worst err/bound "
+            f"{r['float64_worst_err_over_bound']:.3f}); float32 forward and "
+            f"buffers within c2f's bound (worst {r['worst_err_over_bound']:.3f}"
+            f"), {r['float32_grads_and_eval_over_bound']} of {r['tensors']} "
+            f"float32 gradients / eval logits over it "
+            f"{r['float32_grads_and_eval_worst'][:1]}; loss "
+            f"{r['loss_card']:.6f} vs {r['loss_cpu']:.6f} "
+            f"({r['seconds']:.1f} s)")
+        out.append(r)
+    return out
+
+
+def hand_flops(torch, model, hw):
+    """Forward FLOPs of one ``hw`` x ``hw`` image counted by hand: 2 x
+    Cout x Cin / groups x kh x kw x Ho x Wo for each Conv2D (its output
+    size read by a hook) and 2 x in x out for each Linear."""
+    from paddle_tpu_torch.nn.layers import Conv2D, Linear
+    total = [0]
+
+    def conv(m, _, out):
+        o, i, kh, kw = m.weight.shape
+        total[0] += 2 * o * i * kh * kw * out.shape[-2] * out.shape[-1]
+
+    def linear(m, _, out):
+        total[0] += 2 * m.weight.shape[0] * m.weight.shape[1]
+    hooks = [m.register_forward_hook(conv if isinstance(m, Conv2D)
+                                     else linear)
+             for m in model.modules() if isinstance(m, (Conv2D, Linear))]
+    training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            model(torch.zeros(1, 3, hw, hw,
+                              device=next(model.parameters()).device))
+    finally:
+        model.train(training)
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def zoo_timed(torch, np, dev):
+    """(2): each family's bf16 O1 training at B=128 and its ImageNet size,
+    MobileNetV2 also in channels_last."""
+    from paddle_tpu_torch.convert import VISION_HW, vision_training_workload
+    from paddle_tpu_torch.hapi import flops
+    lines = {}
+    for name, kw in ZOO_TIMED:
+        model, opt, images, labels, step_kw = vision_training_workload(
+            name, dev, **kw)
+        hw = VISION_HW.get(name, 224)
+        require(tuple(images.shape) == (128, 3, hw, hw)
+                and step_kw == {"level": "O1"} and model.num_classes == 1000,
+                f"c2h (2) {name}: not B=128, {hw} x {hw}, O1, 1000 classes")
+        fwd = flops(model, (1, 3, hw, hw))
+        if name == "mobilenet_v2":
+            lo, hi = MOBILENET_V2_FWD
+            hand = hand_flops(torch, model, hw)
+            require(lo < fwd < hi and abs(fwd - hand) <= 0.01 * hand,
+                    f"c2h (2): MobileNetV2's forward counts {fwd} FLOPs by "
+                    f"hapi.flops and {hand} by hand, not both about 0.6 G "
+                    "(0.3 G multiply-adds)")
+            log(f"c2h (2) MobileNetV2 forward: {fwd} FLOPs by hapi.flops, "
+                f"{hand} by hand")
+        layouts = [("nchw", model, images)]
+        if name == "mobilenet_v2":
+            layouts.append(("channels_last", None, None))
+        for layout, m, x in layouts:
+            if layout == "channels_last":
+                m = model.to(memory_format=torch.channels_last)
+                x = images.contiguous(memory_format=torch.channels_last)
+            line = vision_timed(torch, np, m, opt, x, labels, step_kw,
+                                f"{name} {layout}")
+            line["flops_fwd_per_img"] = fwd
+            line["mfu"] = line["img_per_s"] * 3 * fwd / BF16_FLOPS
+            key = name + ("_bn" if kw else "") + (
+                "" if layout == "nchw" else "_channels_last")
+            lines[key] = line
+            log(f"c2h (2) {key}: B=128 {hw}x{hw} bf16 O1, step p50 "
+                f"{line['step_ms_p50']:.2f} ms, {line['img_per_s']:.0f} "
+                f"img/s, MFU {line['mfu']:.4f} ({fwd / 1e9:.3f} GFLOP a "
+                f"forward), peak {line['peak_memory_gb']:.2f} GB, loss "
+                f"{line['loss_first']:.4f} -> {line['loss_last']:.4f}")
+        if name == "mobilenet_v2":
+            ls = lines["mobilenet_v2"]
+            require(ls["loss_last"] < ls["loss_first"],
+                    f"c2h (2): the MobileNetV2 loss did not fall: "
+                    f"{ls['losses']}")
+        del model, opt, images, labels
+        torch.cuda.empty_cache()
+    return lines
+
+
+def detection_compare(torch, np, dev, name, fn, inputs, grad_of, seed):
+    """(3): ``fn(*tensors)`` in float32 on the card and on the CPU and in
+    float64 on the CPU from the same numpy ``inputs``; the value and the
+    gradients of sum(value * g) (g seeded) with respect to the inputs
+    named in ``grad_of``.  Each tensor on the card within 4 x the CPU
+    float32 run's distance from float64 plus 1e-6 of its range.  Returns
+    the worst err / bound and the card's ms of the value (forward) and of
+    the value with its gradients."""
+    runs = {}
+    for tag, device, dtype in (("card", dev, torch.float32),
+                               ("cpu", "cpu", torch.float32),
+                               ("cpu64", "cpu", torch.float64)):
+        ts = {k: torch.from_numpy(v).to(
+            device=device, dtype=dtype if v.dtype.kind == "f" else None)
+            for k, v in inputs.items()}
+        for k in grad_of:
+            ts[k].requires_grad_()
+        out = fn(**ts)
+        g = np.random.RandomState(seed).randn(*out.shape)
+        (out * torch.from_numpy(g).to(device, out.dtype)).sum().backward()
+        runs[tag] = {"value": out.detach().double().cpu(),
+                     **{f"grad {k}": ts[k].grad.double().cpu()
+                        for k in grad_of}}
+    worst = 0.0
+    for k, ref in runs["cpu64"].items():
+        scale = float(ref.abs().max())
+        own = float((runs["cpu"][k] - ref).abs().max())
+        bound = 4.0 * own + 1e-6 * scale + 1e-30
+        err = float((runs["card"][k] - ref).abs().max())
+        require(err <= bound, f"c2h (3) {name}: {k} on the card is {err} "
+                f"from the float64 CPU run, bound {bound} (the CPU's float32 "
+                f"run: {own}; range {scale})")
+        worst = max(worst, err / bound)
+    ts = {k: torch.from_numpy(v).to(
+        device=dev, dtype=torch.float32 if v.dtype.kind == "f" else None)
+        for k, v in inputs.items()}
+
+    def forward():
+        with torch.no_grad():
+            fn(**ts)
+
+    def both():
+        for k in grad_of:
+            ts[k].requires_grad_()
+            ts[k].grad = None
+        fn(**ts).sum().backward()
+    return {"worst_err_over_bound": worst, "ms": time_ms(torch, forward, 5),
+            "ms_with_grads": time_ms(torch, both, 5),
+            "tensors": len(runs["card"])}
+
+
+def rois(np, rng, n_img, per_img, image, side):
+    """``per_img`` boxes (x1, y1, x2, y2) an image, sides uniform in
+    ``side`` pixels, inside the image."""
+    h, w = image
+    bw = rng.uniform(*side, (n_img * per_img, 1))
+    bh = rng.uniform(*side, (n_img * per_img, 1))
+    x1 = rng.uniform(0, w - bw)
+    y1 = rng.uniform(0, h - bh)
+    return np.concatenate([x1, y1, x1 + bw, y1 + bh], 1).astype(np.float32)
+
+
+def nms_boxes(np, rng, n, image, objects):
+    """RPN-like proposals: ``n`` boxes jittered around ``objects`` seeded
+    objects of a ``image`` frame, uniform scores."""
+    h, w = image
+    ow = rng.uniform(32, 400, (objects, 1))
+    oh = rng.uniform(32, 400, (objects, 1))
+    ox = rng.uniform(0, w - ow)
+    oy = rng.uniform(0, h - oh)
+    obj = np.concatenate([ox, oy, ox + ow, oy + oh], 1)
+    pick = rng.randint(0, objects, n)
+    size = np.concatenate([ow, oh, ow, oh], 1)[pick]
+    boxes = obj[pick] + rng.randn(n, 4) * 0.1 * size
+    boxes[:, 2:] = np.maximum(boxes[:, 2:], boxes[:, :2] + 1)
+    return boxes.astype(np.float32), rng.uniform(0, 1, n).astype(np.float32)
+
+
+def detection_ops(torch, np, dev):
+    from paddle_tpu_torch.vision import ops
+    rng = np.random.RandomState(SEED)
+    out = {}
+    m = MASKRCNN
+    x = rng.randn(*m["x"]).astype(np.float32)
+    n_img = m["x"][0]
+    boxes = rois(np, rng, n_img, m["boxes"], m["image"], m["box_side"])
+    mask_boxes = rois(np, rng, n_img, m["mask_boxes"], m["image"],
+                      m["box_side"])
+    for name, fn, b, size in (
+            ("roi_align_7x7", ops.roi_align, boxes, 7),
+            ("roi_align_14x14", ops.roi_align, mask_boxes, 14),
+            ("roi_pool_7x7", ops.roi_pool, boxes, 7)):
+        per = b.shape[0] // n_img
+        out[name] = detection_compare(
+            torch, np, dev, name,
+            lambda x, boxes, fn=fn, size=size, per=per: fn(
+                x, boxes, [per] * n_img, size, m["scale"]),
+            {"x": x, "boxes": b}, ("x",), SEED + len(out))
+        out[name]["shape"] = {"x": list(m["x"]), "boxes": int(b.shape[0]),
+                              "output": size}
+    r = RFCN
+    xr = rng.randn(*r["x"]).astype(np.float32)
+    br = rois(np, rng, r["x"][0], r["boxes"], r["image"], (32, 400))
+    out["psroi_pool"] = detection_compare(
+        torch, np, dev, "psroi_pool",
+        lambda x, boxes: ops.psroi_pool(x, boxes, [r["boxes"]] * r["x"][0],
+                                        r["out"], r["scale"]),
+        {"x": xr, "boxes": br}, ("x",), SEED + 7)
+    out["psroi_pool"]["shape"] = {"x": list(r["x"]),
+                                  "boxes": int(br.shape[0]),
+                                  "output": r["out"]}
+    out.update(detection_nms(torch, np, dev, rng))
+    out.update(detection_yolo(torch, np, dev, rng))
+    d = DCN
+    n, c, h, w = d["x"]
+    out["deform_conv2d_v2"] = detection_compare(
+        torch, np, dev, "deform_conv2d_v2",
+        lambda x, offset, weight, mask: ops.deform_conv2d(
+            x, offset, weight, None, 1, 1, 1, mask=mask),
+        {"x": rng.randn(n, c, h, w).astype(np.float32),
+         "offset": (rng.randn(n, 18, h, w) * 2).astype(np.float32),
+         "weight": (rng.randn(d["out"], c, 3, 3) / np.sqrt(c * 9)).astype(
+             np.float32),
+         "mask": rng.uniform(0, 1, (n, 9, h, w)).astype(np.float32)},
+        ("x", "offset", "weight", "mask"), SEED + 9)
+    out["deform_conv2d_v2"]["shape"] = {"x": list(d["x"]), "out": d["out"],
+                                        "kernel": 3}
+    for name, r in out.items():
+        log(f"c2h (3) {name}: {json.dumps(r)}")
+    return out
+
+
+def detection_nms(torch, np, dev, rng):
+    """(3) nms: the card's kept indices equal the CPU's; host-clock ms of
+    the call (it ends in the kept mask's readback)."""
+    from paddle_tpu_torch.vision import ops
+    out = {}
+    b, s = nms_boxes(np, rng, NMS_RPN["boxes"], MASKRCNN["image"], 150)
+    b2, s2 = nms_boxes(np, rng, NMS_DET["boxes"], MASKRCNN["image"], 60)
+    cats = rng.randint(0, NMS_DET["classes"], NMS_DET["boxes"])
+    cases = {
+        "nms_rpn": (b, dict(iou_threshold=NMS_RPN["iou"], scores=s)),
+        "nms_detections": (b2, dict(
+            iou_threshold=NMS_DET["iou"], scores=s2, category_idxs=cats,
+            categories=list(range(NMS_DET["classes"])),
+            top_k=NMS_DET["top_k"]))}
+    for name, (boxes, kw) in cases.items():
+        def call(device):
+            args = {k: (torch.from_numpy(v).to(device)
+                        if isinstance(v, np.ndarray) else v)
+                    for k, v in kw.items()}
+            return ops.nms(torch.from_numpy(boxes).to(device), **args)
+        cpu = call("cpu")
+        card = call(dev)
+        require(card.device.type == "cuda" and card.dtype == torch.int64,
+                f"c2h (3) {name}: indices {card.dtype} on {card.device}")
+        require(torch.equal(card.cpu(), cpu),
+                f"c2h (3) {name}: the card kept {card.tolist()[:20]}... "
+                f"({card.numel()}), the CPU {cpu.tolist()[:20]}... "
+                f"({cpu.numel()})")
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call(dev)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = {"boxes": int(boxes.shape[0]), "kept": int(cpu.numel()),
+                     "ms": statistics.median(times), "exact": True,
+                     **{k: v for k, v in kw.items()
+                        if k in ("iou_threshold", "top_k")}}
+    return out
+
+
+def detection_yolo(torch, np, dev, rng):
+    """(3) yolo_box and yolo_loss on YOLOv3's three heads at 608 x 608."""
+    from paddle_tpu_torch.vision import ops
+    y = YOLO
+    n, cls = y["N"], y["classes"]
+    gt = np.zeros((n, y["gt"], 4), np.float32)
+    k = y["real"]
+    gt[:, :k, :2] = rng.uniform(0.05, 0.95, (n, k, 2))
+    gt[:, :k, 2:] = rng.uniform(0.02, 0.6, (n, k, 2))
+    labels = np.zeros((n, y["gt"]), np.int64)
+    labels[:, :k] = rng.randint(0, cls, (n, k))
+    img = np.full((n, 2), y["img"], np.float32)
+    out = {}
+    for grid, mask, stride in YOLO_HEADS:
+        x = (rng.randn(n, 3 * (5 + cls), grid, grid) * 0.5).astype(
+            np.float32)
+        anchors = [v for i in mask for v in YOLO_ANCHORS[2 * i:2 * i + 2]]
+        for part in (0, 1):
+            out[f"yolo_box_{grid}_{'boxes' if part == 0 else 'scores'}"] = \
+                detection_compare(
+                    torch, np, dev, f"yolo_box {grid}",
+                    lambda x, img, part=part, anchors=anchors, stride=stride:
+                    ops.yolo_box(x, img, anchors, cls, y["conf"], stride)[
+                        part], {"x": x, "img": img}, ("x",), SEED + grid)
+        out[f"yolo_loss_{grid}"] = detection_compare(
+            torch, np, dev, f"yolo_loss {grid}",
+            lambda x, gt, labels, mask=mask, stride=stride: ops.yolo_loss(
+                x, gt, labels, YOLO_ANCHORS, mask, cls, y["ignore"], stride),
+            {"x": x, "gt": gt, "labels": labels}, ("x",), SEED + grid + 1)
+        out[f"yolo_loss_{grid}"]["shape"] = {"x": [n, 3 * (5 + cls), grid,
+                                                   grid], "gt": y["gt"],
+                                             "real": k}
+    return out
+
+
+def vision_zoo(torch, np, dev, _kernels):
+    t_phase = time.perf_counter()
+    _kernels.reset_launches()
+    check = zoo_card_vs_cpu(torch, np, dev)
+    t_check = time.perf_counter() - t_phase
+    timed = zoo_timed(torch, np, dev)
+    t_timed = time.perf_counter() - t_phase - t_check
+    detection = detection_ops(torch, np, dev)
+    launches = dict(_kernels.launches)
+    require(not any(launches.values()),
+            f"c2h launched a kernel of the port: {launches}")
+    log(json.dumps({"vision_zoo": {
+        "card_vs_cpu": check, "timed": {
+            "B": 128, "amp": "O1", "dtype": "bfloat16",
+            "optimizer": "Momentum(0.1, 0.9, weight_decay=1e-4)",
+            "mfu_peak": "989 TFLOP/s bf16 dense",
+            "flops": "hapi.flops of the model at one image (2 a "
+                     "multiply-add; grouped convolutions at Cin/groups)",
+            **timed},
+        "detection": detection, "launches": launches,
+        "phase_s": time.perf_counter() - t_phase,
+        "parts_s": {"card_vs_cpu": t_check, "timed": t_timed,
+                    "detection": time.perf_counter() - t_phase - t_check
+                    - t_timed}}}))
 
 
 # ---------------------------------------------------------------------------

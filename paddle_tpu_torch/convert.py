@@ -39,6 +39,7 @@ __all__ = ["state_dict_from_jax", "load_jax_state", "random_state",
            "optimizer_state_from_jax", "optimizer_state_to_jax",
            "resnet_training_workload", "lenet_training_workload",
            "VISION_SEED", "RESNET_BATCH", "RESNET_HW", "LENET_BATCH",
+           "vision_training_workload", "VISION_BATCH", "VISION_HW",
            "transformer_training_workload", "translation_recipe",
            "TRANSFORMER_SEED", "TRANSFORMER_VOCAB", "TRANSFORMER_BATCH",
            "TRANSFORMER_SEQ"]
@@ -432,6 +433,33 @@ def lenet_training_workload(device=None, batch: int = LENET_BATCH):
     from .vision.models import LeNet
     return _vision_workload(lambda dev: LeNet(device=dev), device, batch, 28,
                             1, 10, "O0")
+
+
+VISION_BATCH = 128
+# the families' ImageNet resolution where it is not 224 x 224
+VISION_HW = {"inception_v3": 299}
+
+
+def vision_training_workload(name: str, device=None, *,
+                             batch: int = VISION_BATCH,
+                             hw: Optional[int] = None, level: str = "O1",
+                             **ctor_kw):
+    """Any zoo family by its constructor's name (``"mobilenet_v2"``,
+    ``"vgg16"``, ...; ``ctor_kw`` go to the constructor, e.g. ``scale`` or
+    ``batch_norm``) with the JAX vision rows' set-up, as
+    ``paddle_tpu/bench/scenarios.py`` ``_vision_train_payload`` applies it
+    to any zoo model: see :func:`_vision_workload`.  ``hw`` defaults to
+    the family's ImageNet resolution (224, 299 for ``inception_v3``); 1000
+    classes unless ``num_classes`` says otherwise; bf16 ``level`` O1.
+    Returns ``(model, optimizer, images, labels, step_kwargs)`` for
+    ``training.classification_step``.  GoogLeNet returns three heads, which
+    ``classification_step`` does not take."""
+    from .vision import models
+    make = getattr(models, name)
+    classes = ctor_kw.get("num_classes", 1000)
+    size = hw if hw is not None else VISION_HW.get(name, 224)
+    return _vision_workload(lambda dev: make(device=dev, **ctor_kw), device,
+                            batch, size, 3, classes, level)
 
 
 TRANSFORMER_SEED = 0

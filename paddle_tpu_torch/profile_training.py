@@ -15,7 +15,10 @@ full-width BERT-base, MLM + NSP, bf16 O1, B=16, S=512, the non-causal
 flash attention), ``moe`` (``moe_training_workload``: GPT-125M with 8
 experts on every other layer, GShard top-2, bf16 O1, B=8, S=2048),
 ``resnet50`` (``resnet_training_workload``: ResNet-50, B=128, 224 x 224,
-bf16 O1, Momentum; ``training.classification_step``), ``lenet``
+bf16 O1, Momentum; ``training.classification_step``), ``mobilenet_v2``
+(``vision_training_workload("mobilenet_v2")``: MobileNetV2 at scale 1.0
+with the same set-up; its depthwise convolutions fall into the
+convolution group), ``lenet``
 (``lenet_training_workload``: LeNet, B=64, float32) and ``transformer``
 (``transformer_training_workload``: Transformer-base translation over a
 vocabulary of 30000, B=32, S=128 a side, bf16 O1, dropout 0.1, Adam under
@@ -47,7 +50,8 @@ from . import _kernels
 from .convert import (bert_pretraining_workload, fused_training_workload,
                       lenet_training_workload, moe_training_workload,
                       pretraining_workload, resnet_training_workload,
-                      training_workload, transformer_training_workload)
+                      training_workload, transformer_training_workload,
+                      vision_training_workload)
 from .profile_serving import _short, _union_us
 from .training import classification_step, seq2seq_step, train_step
 
@@ -69,7 +73,8 @@ _VISION_GROUPS = (
     ("layout transposes", ("nchwtonhwc", "nhwctonchw", "transpose")),
     ("batch norm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
     ("convolution (cuDNN)", ("fprop", "dgrad", "wgrad", "convolve",
-                             "conv2d", "conv_", "cudnn", "implicit")),
+                             "conv2d", "conv_", "cudnn", "implicit",
+                             "depthwise", "grouped")),
     ("pooling", ("pool",)),
     ("GEMM (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")),
 )
@@ -84,12 +89,15 @@ def _vision_group(name: str) -> str:
 
 
 WORKLOADS = ("training", "fused", "pretraining-a", "pretraining-b", "bert",
-             "moe", "resnet50", "lenet", "transformer")
+             "moe", "resnet50", "mobilenet_v2", "lenet", "transformer")
 VISION = {"resnet50": resnet_training_workload,
+          "mobilenet_v2": lambda device: vision_training_workload(
+              "mobilenet_v2", device),
           "lenet": lenet_training_workload}
 MODELS = {"pretraining-a": "gpt_1p3b", "pretraining-b": "gpt_1p3b",
           "bert": "bert_base", "moe": "gpt_125m, 8 experts every 2nd layer",
-          "resnet50": "resnet50", "lenet": "LeNet",
+          "resnet50": "resnet50", "mobilenet_v2": "mobilenet_v2",
+          "lenet": "LeNet",
           "transformer": "transformer_base, vocab 30000"}
 
 
@@ -202,7 +210,8 @@ def main(argv=None) -> int:
                         "K2, K3; dropout 0.1); pretraining-a / -b: GPT-3 "
                         "1.3B with recompute, legs A and B; bert: BERT-base "
                         "MLM + NSP; moe: the MoE GPT-125M; resnet50 / "
-                        "lenet: the vision rows; transformer: "
+                        "lenet: the vision rows; mobilenet_v2: MobileNetV2 "
+                        "with their set-up; transformer: "
                         "Transformer-base translation")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():

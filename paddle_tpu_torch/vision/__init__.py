@@ -1,8 +1,7 @@
-"""Vision for the port: ``datasets``, ``transforms`` and the ``models`` zoo
-(LeNet, ResNet, ResNeXt), and the image backend of
-``paddle_tpu/vision/__init__.py``.  ``vision/ops.py`` and the other zoo
-families are not ported yet."""
-from . import datasets, models, transforms  # noqa: F401
+"""Vision for the port: ``datasets``, ``transforms``, the ``models`` zoo,
+the detection ``ops``, and the image backend of
+``paddle_tpu/vision/__init__.py``."""
+from . import datasets, models, ops, transforms  # noqa: F401
 from ..framework.errors import enforce
 
 _image_backend = "pil"
@@ -36,4 +35,4 @@ def image_load(path: str, backend=None):
 
 
 __all__ = ["set_image_backend", "get_image_backend", "image_load",
-           "transforms", "datasets", "models"]
+           "transforms", "datasets", "models", "ops"]

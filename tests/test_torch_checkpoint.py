@@ -34,6 +34,19 @@ from paddle_tpu_torch.utils import fsio as tfsio
 from paddle_tpu_torch.utils.retry import (RetriesExhausted, RetryPolicy,
                                           retry_call)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's torch work.  Under the suite's
+    six xdist workers, eight OpenMP threads a worker oversubscribe the
+    eight cores and spin: six translation recipes run at once took 916 s
+    each with eight threads and 5 s each with one."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SLEEPLESS = RetryPolicy(max_attempts=4, base_delay=0.0, sleep=lambda s: None)
 
 

@@ -92,6 +92,18 @@ def test_package_imports_with_jax_blocked():
             "import paddle_tpu_torch.vision.models.lenet\n"
             "import paddle_tpu_torch.vision.models.resnet\n"
             "import paddle_tpu_torch.vision.models.resnext\n"
+            "import paddle_tpu_torch.vision.models.utils\n"
+            "import paddle_tpu_torch.vision.models.alexnet\n"
+            "import paddle_tpu_torch.vision.models.vgg\n"
+            "import paddle_tpu_torch.vision.models.squeezenet\n"
+            "import paddle_tpu_torch.vision.models.mobilenetv1\n"
+            "import paddle_tpu_torch.vision.models.mobilenetv2\n"
+            "import paddle_tpu_torch.vision.models.mobilenetv3\n"
+            "import paddle_tpu_torch.vision.models.shufflenetv2\n"
+            "import paddle_tpu_torch.vision.models.densenet\n"
+            "import paddle_tpu_torch.vision.models.googlenet\n"
+            "import paddle_tpu_torch.vision.models.inceptionv3\n"
+            "import paddle_tpu_torch.vision.ops\n"
             "import paddle_tpu_torch.nn.layers_ext\n"
             "import paddle_tpu_torch.models.translation\n"
             "import paddle_tpu_torch.incubate\n"

@@ -42,6 +42,19 @@ from paddle_tpu_torch.models.gpt import (GPTMLP, GPTConfig, GPTForCausalLM,
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.training import train_step
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's torch work.  Under the suite's
+    six xdist workers, eight OpenMP threads a worker oversubscribe the
+    eight cores and spin: six translation recipes run at once took 916 s
+    each with eight threads and 5 s each with one."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 B, S = 2, 64
 # float32 on both sides with exact products (the suite pins JAX matmuls to
 # "highest"): losses and gradients differ by summation order only (~2e-6 of

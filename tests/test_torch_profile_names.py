@@ -46,3 +46,21 @@ def test_every_kernel_has_a_profile_name(source, kernel):
     assert short.endswith(" (ours)"), (source, kernel, short)
     # under the name of the library it belongs to
     assert short.split()[0] == source[:-3], (source, kernel, short)
+
+
+@pytest.mark.parametrize("kernel", [
+    # PyTorch's native depthwise kernels and cuDNN's grouped / depthwise
+    # ones (MobileNet's 3 x 3 convolutions with groups = channels)
+    "void at::native::(anonymous namespace)::conv_depthwise2d_forward_kernel"
+    "<1, float, int>(at::GenericPackedTensorAccessor<float const, 4ul>)",
+    "void at::native::(anonymous namespace)::"
+    "conv_depthwise2d_grad_weight_kernel<float, float, int>(int)",
+    "void cudnn::cnn::conv2d_grouped_direct_kernel<false, true>(int)",
+    "void cudnn::cnn::wgrad2d_grouped_direct_kernel<float>(int)",
+    "void depthwise_fprop_kernel<__nv_bfloat16, 3>(int)",
+    "sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
+])
+def test_depthwise_convolutions_fall_into_the_convolution_group(kernel):
+    from paddle_tpu_torch.profile_training import VISION, _vision_group
+    assert "mobilenet_v2" in VISION
+    assert _vision_group(kernel) == "convolution (cuDNN)"

@@ -29,6 +29,19 @@ from paddle_tpu_torch.nn import functional as tF
 from paddle_tpu_torch.text import WMT14
 from paddle_tpu_torch.training import seq2seq_step
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's torch work.  Under the suite's
+    six xdist workers, eight OpenMP threads a worker oversubscribe the
+    eight cores and spin: six translation recipes run at once took 916 s
+    each with eight threads and 5 s each with one."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 F32_TOL = 2e-5
 GRAD_TOL = 5e-4
 D, HEADS, FFN = 32, 4, 64

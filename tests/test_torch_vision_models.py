@@ -57,6 +57,19 @@ from paddle_tpu_torch.framework.errors import UnavailableError
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.vision import models as tmodels
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's torch work.  Under the suite's
+    six xdist workers, eight OpenMP threads a worker oversubscribe the
+    eight cores and spin: six translation recipes run at once took 916 s
+    each with eight threads and 5 s each with one."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # name: (constructor kwargs, batch, image size, channels, classes)
 MODELS = {
     "LeNet": ({}, 4, 28, 1, 10),
@@ -267,7 +280,12 @@ def test_workload_data_is_the_jax_rows_draw(make, kw, shape, classes):
 
 @pytest.mark.parametrize("make", [
     convert.resnet_training_workload, convert.lenet_training_workload,
-    tmodels.LeNet, tmodels.resnet18])
+    tmodels.LeNet, tmodels.resnet18, tmodels.alexnet, tmodels.vgg16,
+    tmodels.squeezenet1_1, tmodels.mobilenet_v1, tmodels.mobilenet_v2,
+    tmodels.mobilenet_v3_large, tmodels.mobilenet_v3_small,
+    tmodels.shufflenet_v2_x1_0, tmodels.densenet121, tmodels.googlenet,
+    tmodels.inception_v3,
+    lambda: convert.vision_training_workload("mobilenet_v2")])
 def test_entry_points_need_a_card_unless_cpu_is_asked(make):
     """No device means ``cuda``: without a card every entry point raises."""
     if torch.cuda.is_available():
