@@ -374,6 +374,41 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               at 608 x 608 (80 classes, 50 padded boxes), deform_conv2d
               v2 at a DCNv2 ResNet-50 stage-5 conv; each op's ms (CUDA
               events; nms by the host clock); one vision_zoo JSON line;
+  (c2i) recurrent layers, CTC and the rest of nn (nn/rnn.py, the rest of
+              nn/functional.py, _functional_ext.py, layers.py,
+              layers_ext.py and utils.py; none of the eight kernels: the
+              counters are zeroed before the phase and must read 0 after
+              it): (1) the PTB word-level LSTM language model (Zaremba et
+              al. 2014, medium: H=650, dropout 0.5; large: H=1500, 0.65;
+              Embedding(10000) -> 2-layer LSTM -> Linear(10000), B=20, 35
+              unrolled steps, the state carried and detached, SGD lr 1
+              with the global norm clipped at 5 / 10): the medium step at
+              p=0 on the card and on the CPU from the same weights, the
+              loss, logits, carried (h, c) and every gradient, gated on
+              float64 as c2h (1) (the float64 card run within 1e-9 of each
+              range; float32 forward within c2f's bound, float32 gradients
+              reported); 3 warm-up and 10 timed steps of each size at its
+              dropout: step p50, words/s, peak memory, kernels a step and
+              the device's idle share (torch.profiler), the loss falling
+              over the timed steps, and the 2-layer LSTM's forward and
+              backward alone against cuDNN's (torch.nn.LSTM); (2) a
+              DeepSpeech2-shaped stack (3 bidirectional GRU layers of
+              1024 over 161-bin frames, Linear(2048, 29), log_softmax,
+              ctc_loss; B=16, 200-400 frames through sequence_length,
+              labels of 40-100): card against CPU at B=4 and 40-80 frames
+              (the loss, log-probs and the gradients by every weight, the
+              frames and the log-probs) by the same gate; step p50 and
+              kernels a step, ctc_loss's forward and backward ms against
+              torch.nn.functional.ctc_loss's (equal losses); (3) DCGAN at
+              64 x 64 (ngf = ndf = 64, z 100, Adam(2e-4, 0.5), B=128),
+              plain and with D's convolutions under spectral_norm: card
+              against CPU at B=4 by the same gate, then a D and a G step's
+              p50, img/s and peak memory; (4) every case of
+              paddle_tpu_torch/testing/nn_cases.py (the CPU parity tests'
+              tables) on the card in float32: values and gradients within
+              4 x the CPU float32 run's distance from its float64 run plus
+              1e-6 of the range, integers exact; the random ops by their
+              statistics; one nn_rest JSON line;
   (c3) generate GPTForCausalLM.generate at full width (convert.
               generate_workload: B=8, prompt 512, 128 greedy tokens, bf16),
               unfused (use_pallas_attention) and fused (use_fused_block):
@@ -550,6 +585,10 @@ def main() -> int:
 
     # -- (c2h) the rest of the vision zoo and the detection ops ----------------
     vision_zoo(torch, np, dev, _kernels)
+    torch.cuda.empty_cache()
+
+    # -- (c2i) recurrent layers, CTC and the rest of nn ----------------------
+    nn_rest(torch, np, dev, _kernels)
     torch.cuda.empty_cache()
 
     # -- (c3) generate -------------------------------------------------------
@@ -4823,6 +4862,49 @@ def heads(name, out):
     return {name: out.detach()}
 
 
+def gate_runs(runs, name, phase, float64_gate,
+              reported=("grad ", "eval logits")):
+    """The bounds of :func:`vision_card_vs_cpu` over ``runs`` ("card",
+    "cpu", "cpu64" and, with ``float64_gate``, "card64": each a dict of
+    float64 CPU tensors by name): each card float32 tensor within 1e-4
+    of the float64 CPU run's range plus 16 x the CPU float32 run's own
+    distance from it; with ``float64_gate`` the card's float64 run within
+    1e-9 of each range (plus 1e-12 of the largest gradient range), and
+    the tensors named ``reported*`` only reported against the float32
+    bound.  Returns ``(worst err / bound, the five largest relative
+    distances, the reported tensors over their bound, the float64 worst
+    err / bound)``."""
+    worst, table, over = 0.0, [], []
+    for k, ref in runs["cpu64"].items():
+        scale = float(ref.abs().max())
+        own = float((runs["cpu"][k] - ref).abs().max())
+        bound = 1e-4 * scale + 16.0 * own + 1e-12
+        err = float((runs["card"][k] - ref).abs().max())
+        table.append((err / max(scale, 1e-30), own / max(scale, 1e-30), k))
+        if float64_gate and k.startswith(reported) and err > bound:
+            over.append((err / bound, k, err, own, scale))
+            continue
+        require(err <= bound, f"{phase} {name}: {k} on the card is {err} "
+                f"from the float64 CPU run, bound {bound} (the CPU's "
+                f"float32 run: {own}; range {scale})")
+        worst = max(worst, err / bound)
+    table.sort(reverse=True)
+    over.sort(reverse=True)
+    gate64 = None
+    if float64_gate:
+        ref = runs["cpu64"]
+        floor = 1e-12 * max([float(v.abs().max()) for k, v in ref.items()
+                             if k.startswith("grad ")] + [0.0])
+        gate64 = 0.0
+        for k, r in ref.items():
+            err = float((runs["card64"][k] - r).abs().max())
+            bound = 1e-9 * float(r.abs().max()) + floor
+            require(err <= bound, f"{phase} {name}: {k} in float64 on the "
+                    f"card is {err} from the float64 CPU run, bound {bound}")
+            gate64 = max(gate64, err / bound)
+    return worst, table[:5], over, gate64
+
+
 def vision_card_vs_cpu(torch, np, dev, name, make, batch, hw, channels,
                        classes, diagnose=False, prepare=None, loss_fn=None,
                        phase="c2f (1)", float64_gate=False):
@@ -4904,35 +4986,7 @@ def vision_card_vs_cpu(torch, np, dev, name, make, batch, hw, channels,
         runs[tag] = {k: v.detach().double().cpu() for k, v in out.items()}
     (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
      torch.backends.cudnn.enabled) = saved
-    worst, table, over = 0.0, [], []
-    for k, ref in runs["cpu64"].items():
-        scale = float(ref.abs().max())
-        own = float((runs["cpu"][k] - ref).abs().max())
-        bound = 1e-4 * scale + 16.0 * own + 1e-12
-        err = float((runs["card"][k] - ref).abs().max())
-        table.append((err / max(scale, 1e-30), own / max(scale, 1e-30), k))
-        if (float64_gate and k.startswith(("grad ", "eval logits"))
-                and err > bound):
-            over.append((err / bound, k, err, own, scale))
-            continue
-        require(err <= bound, f"{phase} {name}: {k} on the card is {err} "
-                f"from the float64 CPU run, bound {bound} (the CPU's "
-                f"float32 run: {own}; range {scale})")
-        worst = max(worst, err / bound)
-    table.sort(reverse=True)
-    over.sort(reverse=True)
-    gate64 = None
-    if float64_gate:
-        ref = runs["cpu64"]
-        floor = 1e-12 * max(float(v.abs().max()) for k, v in ref.items()
-                            if k.startswith("grad "))
-        gate64 = 0.0
-        for k, r in ref.items():
-            err = float((runs["card64"][k] - r).abs().max())
-            bound = 1e-9 * float(r.abs().max()) + floor
-            require(err <= bound, f"{phase} {name}: {k} in float64 on the "
-                    f"card is {err} from the float64 CPU run, bound {bound}")
-            gate64 = max(gate64, err / bound)
+    worst, table, over, gate64 = gate_runs(runs, name, phase, float64_gate)
     diagnosis = {}
     if diagnose:
         ref = runs["cpu64"]
@@ -4959,7 +5013,7 @@ def vision_card_vs_cpu(torch, np, dev, name, make, batch, hw, channels,
                if float64_gate else {}),
             # (card's distance from float64 / range, the CPU float32
             # run's / range, tensor), the largest five
-            "worst_relative": table[:5]}
+            "worst_relative": table}
 
 
 def vision_timed(torch, np, model, opt, images, labels, kw, what):
@@ -5485,6 +5539,678 @@ def vision_zoo(torch, np, dev, _kernels):
         "parts_s": {"card_vs_cpu": t_check, "timed": t_timed,
                     "detection": time.perf_counter() - t_phase - t_check
                     - t_timed}}}))
+
+
+# ---------------------------------------------------------------------------
+# (c2i) recurrent layers, CTC and the rest of nn
+# ---------------------------------------------------------------------------
+# Zaremba et al. 2014 (arXiv:1409.2329), the PTB word-level LSTM language
+# model, "medium" and "large": 2 layers, 35 unrolled steps, B=20, SGD lr 1
+# with the gradient's global norm clipped, weights uniform in +-init
+PTB = {"medium": {"H": 650, "p": 0.5, "init": 0.05, "clip": 5.0},
+       "large": {"H": 1500, "p": 0.65, "init": 0.04, "clip": 10.0}}
+PTB_VOCAB, PTB_B, PTB_T = 10000, 20, 35
+# a DeepSpeech2-shaped stack (Amodei et al. 2016, arXiv:1512.02595) without
+# its convolutional front end: 3 bidirectional GRU layers over 161-bin
+# spectrogram frames, 28 characters + the CTC blank; (1) checks at a cut
+# batch and length, full widths
+DS2 = {"B": 16, "frames": (200, 400), "labels": (40, 100), "H": 1024,
+       "layers": 3, "feat": 161, "chars": 29}
+DS2_CHECK = {"B": 4, "frames": (40, 80), "labels": (10, 20)}
+# DCGAN at 64 x 64 (Radford et al. 2016, arXiv:1511.06434) with the
+# reference implementation's widths; Adam(2e-4, beta1 0.5)
+DCGAN = {"B": 128, "nz": 100, "ngf": 64, "ndf": 64, "nc": 3}
+DS2_WARMUP, DS2_TIMED = 1, 3   # a step takes seconds (the loop's launches)
+DCGAN_CHECK_B = 4
+C2I_PROFILED = 2
+
+
+def wall_ms(torch, fn, reps: int = 5) -> float:
+    """Median host wall ms of ``fn()`` to a synchronize, after one warm
+    call: what a launch-bound loop costs its caller."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def profile_steps(torch, step, n=C2I_PROFILED):
+    """``n`` calls of ``step`` under torch.profiler, tracing the device
+    only (the host's operator events of a DeepSpeech2 step, 145,000
+    kernels, take the profiler a minute to process): device kernels (and
+    memsets / copies) a call, device-busy ms a call (the union of their
+    intervals) and the device's idle share of the profiled wall time."""
+    from paddle_tpu_torch.profile_serving import _union_us
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy = _union_us([(e.time_range.start, e.time_range.end)
+                      for e in kernels]) / 1e3
+    return {"kernels_per_step": len(kernels) / n,
+            "device_busy_ms_per_step": busy / n,
+            "profiled_ms_per_step": wall / n,
+            "device_idle_share": 1.0 - busy / wall if kernels else None}
+
+
+def c2i_runs(torch, dev, one_run):
+    """``one_run(device, dtype)`` (a dict of tensors) on the card and the
+    CPU in float32 and float64, as float64 CPU tensors: the runs of
+    :func:`gate_runs`."""
+    runs = {}
+    for tag, device, dtype in (("card", dev, torch.float32),
+                               ("cpu", "cpu", torch.float32),
+                               ("cpu64", "cpu", torch.float64),
+                               ("card64", dev, torch.float64)):
+        runs[tag] = {k: v.detach().double().cpu()
+                     for k, v in one_run(device, dtype).items()}
+    return runs
+
+
+def c2i_gate(torch, dev, name, one_run):
+    """(c2i 1-3): c2h's float64 gate over ``one_run``; the float32
+    forward within c2f's bound, the float32 gradients reported."""
+    worst, table, over, gate64 = gate_runs(
+        c2i_runs(torch, dev, one_run), name, "c2i", True,
+        reported=("grad ",))
+    return {"float64_worst_err_over_bound": gate64,
+            "float32_forward_worst_err_over_bound": worst,
+            "float32_grads_over_bound": len(over),
+            "float32_grads_worst": over[:3], "worst_relative": table}
+
+
+def ptb_tokens(np, n):
+    """A seeded stream of n PTB-vocabulary ids: Zipf-distributed, and half
+    of the ids follow their predecessor by a fixed map (something for the
+    LSTM to learn)."""
+    rng = np.random.RandomState(SEED)
+    zipf = 1.0 / np.arange(1, PTB_VOCAB + 1)
+    toks = rng.choice(PTB_VOCAB, n, p=zipf / zipf.sum())
+    follow = rng.rand(n) < 0.5
+    for i in range(1, n):
+        if follow[i]:
+            toks[i] = (toks[i - 1] * 7 + 3) % PTB_VOCAB
+    return toks
+
+
+def ptb_model(torch, cfg, device, p):
+    """Embedding(10000, H) -> dropout -> LSTM(H, H, 2 layers, dropout p)
+    -> dropout -> Linear(H, 10000), every weight uniform in +-init from a
+    seeded generator."""
+    from paddle_tpu_torch import nn as tnn
+
+    class PTBLanguageModel(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            h = cfg["H"]
+            self.embedding = tnn.Embedding(PTB_VOCAB, h, device=device)
+            self.lstm = tnn.LSTM(h, h, num_layers=2, dropout=p,
+                                 device=device)
+            self.drop = tnn.Dropout(p)
+            self.head = tnn.Linear(h, PTB_VOCAB, device=device)
+
+        def forward(self, ids, state):
+            out, state = self.lstm(self.drop(self.embedding(ids)), state)
+            return self.head(self.drop(out)), state
+    model = PTBLanguageModel()
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    with torch.no_grad():
+        for w in model.parameters():
+            w.uniform_(-cfg["init"], cfg["init"], generator=gen)
+    return model
+
+
+def ptb_check(torch, np, dev):
+    """(c2i 1) the medium model's step at p=0: loss, logits, every
+    gradient and the carried (h, c), card against CPU."""
+    import copy
+    from paddle_tpu_torch.nn import functional as F
+    cfg = PTB["medium"]
+    base = ptb_model(torch, cfg, "cpu", 0.0)
+    toks = ptb_tokens(np, PTB_B * (PTB_T + 1))
+    data = toks.reshape(PTB_B, PTB_T + 1)
+    rng = np.random.RandomState(SEED + 1)
+    h0 = rng.randn(2, PTB_B, cfg["H"]) * 0.1
+    c0 = rng.randn(2, PTB_B, cfg["H"]) * 0.1
+
+    def one_run(device, dtype):
+        m = copy.deepcopy(base).to(device, dtype)
+        ids = torch.from_numpy(data[:, :-1]).to(device)
+        labels = torch.from_numpy(data[:, 1:]).to(device)
+        state = (torch.from_numpy(h0).to(device, dtype),
+                 torch.from_numpy(c0).to(device, dtype))
+        logits, (h, c) = m(ids, state)
+        loss = F.cross_entropy(logits.reshape(-1, PTB_VOCAB),
+                               labels.reshape(-1))
+        loss.backward()
+        return {"loss": loss.reshape(1), "logits": logits, "h": h, "c": c,
+                **{f"grad {k}": w.grad for k, w in m.named_parameters()}}
+    return c2i_gate(torch, dev, "ptb medium", one_run)
+
+
+def ptb_timed(torch, np, dev, size):
+    """(c2i 1) WARMUP_STEPS + TIMED_STEPS truncated-BPTT steps at the
+    published dropout, the state carried and detached; then the LSTM
+    stack's forward and backward alone, the port's loop against cuDNN's
+    (``torch.nn.LSTM``, the ``torch._VF.lstm`` route) on the same input."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import SGD, ClipGradByGlobalNorm
+    cfg = PTB[size]
+    model = ptb_model(torch, cfg, dev, cfg["p"])
+    model.train()
+    opt = SGD(learning_rate=1.0, parameters=model.named_parameters(),
+              grad_clip=ClipGradByGlobalNorm(cfg["clip"]))
+    steps = WARMUP_STEPS + TIMED_STEPS + C2I_PROFILED
+    data = torch.from_numpy(ptb_tokens(np, PTB_B * (steps * PTB_T + 1))
+                            ).to(dev)
+    n = PTB_B * steps * PTB_T
+    ids_all = data[:n].reshape(PTB_B, -1)
+    lab_all = data[1:n + 1].reshape(PTB_B, -1)
+    z = torch.zeros(2, PTB_B, cfg["H"], device=dev)
+    carried = [(z, z)]
+    cursor = [0]
+
+    def step():
+        i = cursor[0]
+        cursor[0] += 1
+        sl = slice(i * PTB_T, (i + 1) * PTB_T)
+        logits, state = model(ids_all[:, sl], carried[0])
+        loss = F.cross_entropy(logits.reshape(-1, PTB_VOCAB),
+                               lab_all[:, sl].reshape(-1))
+        opt.clear_grad()
+        loss.backward()
+        opt.step()
+        carried[0] = tuple(s.detach() for s in state)
+        return loss
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(WARMUP_STEPS + TIMED_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(step().detach()))
+        times.append((time.perf_counter() - t0) * 1e3)
+    prof = profile_steps(torch, step)
+    require(all(np.isfinite(losses)), f"c2i (1) {size}: losses {losses}")
+    timed = losses[WARMUP_STEPS:]
+    require(timed[-1] < timed[0], f"c2i (1) {size}: the loss did not fall "
+            f"over the timed steps: {timed}")
+    p50 = statistics.median(times[WARMUP_STEPS:])
+    # the two-layer LSTM alone, forward and backward at the step's shape
+    h = cfg["H"]
+    x = torch.randn(PTB_B, PTB_T, h, device=dev, requires_grad=True)
+    lib = torch.nn.LSTM(h, h, num_layers=2, dropout=cfg["p"],
+                        batch_first=True).to(dev)
+
+    def port_lstm():
+        out, _ = model.lstm(x)
+        out.sum().backward()
+
+    def cudnn_lstm():
+        out, _ = lib(x)
+        out.sum().backward()
+    line = {"H": h, "dropout": cfg["p"], "B": PTB_B, "T": PTB_T,
+            "clip": cfg["clip"], "step_ms_p50": p50,
+            "step_ms": times[WARMUP_STEPS:],
+            "words_per_s": PTB_B * PTB_T / (p50 / 1e3),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "loss_first": timed[0], "loss_last": timed[-1], "losses": losses,
+            **prof,
+            "lstm_fwd_bwd_ms": wall_ms(torch, port_lstm),
+            "cudnn_lstm_fwd_bwd_ms": wall_ms(torch, cudnn_lstm)}
+    log(f"c2i (1) PTB {size} (H={h}, p={cfg['p']}): step p50 "
+        f"{p50:.2f} ms, {line['words_per_s']:.0f} words/s, "
+        f"{prof['kernels_per_step']:.0f} kernels a step, device idle "
+        f"{prof['device_idle_share']:.3f}, peak {line['peak_memory_gb']:.2f}"
+        f" GB, loss {timed[0]:.4f} -> {timed[-1]:.4f}; the LSTM alone "
+        f"{line['lstm_fwd_bwd_ms']:.2f} ms, cuDNN's "
+        f"{line['cudnn_lstm_fwd_bwd_ms']:.2f} ms")
+    return line
+
+
+def ds2_model(torch, device):
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.nn import functional as F
+
+    class DeepSpeech2Rnn(torch.nn.Module):
+        """3 bidirectional GRU layers over spectrogram frames, then
+        Linear(2H, 29) and log_softmax; the convolutional front end is
+        cut."""
+
+        def __init__(self):
+            super().__init__()
+            self.rnn = tnn.GRU(DS2["feat"], DS2["H"],
+                               num_layers=DS2["layers"],
+                               direction="bidirect", device=device)
+            self.head = tnn.Linear(2 * DS2["H"], DS2["chars"], device=device)
+
+        def forward(self, feats, lengths):
+            out, _ = self.rnn(feats, sequence_length=lengths)
+            return F.log_softmax(self.head(out), axis=-1)
+    fw_random_seed(SEED)
+    return DeepSpeech2Rnn()
+
+
+def fw_random_seed(value):
+    from paddle_tpu_torch.framework import random as fw_random
+    fw_random.seed(value)
+
+
+def ds2_data(np, b, frames, labels):
+    """Seeded features (B, T, 161) with ragged frame counts (the longest
+    row at the top of ``frames``) and 1..28 labels of ragged lengths."""
+    rng = np.random.RandomState(SEED + 2)
+    lengths = rng.randint(frames[0], frames[1] + 1, b)
+    lengths[0] = frames[1]
+    feats = rng.randn(b, frames[1], DS2["feat"]).astype(np.float32)
+    lab_len = rng.randint(labels[0], labels[1] + 1, b)
+    lab = rng.randint(1, DS2["chars"], (b, labels[1]))
+    return feats, lengths, lab, lab_len
+
+
+def ds2_loss(torch, model, feats, lengths, lab, lab_len):
+    from paddle_tpu_torch.nn import functional as F
+    log_probs = model(feats, lengths).transpose(0, 1)
+    return F.ctc_loss(log_probs, lab, lengths, lab_len), log_probs
+
+
+def ds2_check(torch, np, dev):
+    """(c2i 2) at the cut batch and length: the loss, the log-probs and
+    the gradients with respect to every weight, the features and the
+    log-probs, card against CPU."""
+    import copy
+    base = ds2_model(torch, "cpu")
+    arrays = ds2_data(np, DS2_CHECK["B"], DS2_CHECK["frames"],
+                      DS2_CHECK["labels"])
+
+    def one_run(device, dtype):
+        m = copy.deepcopy(base).to(device, dtype)
+        feats, lengths, lab, lab_len = [torch.from_numpy(a).to(device)
+                                        for a in arrays]
+        feats = feats.to(dtype).requires_grad_()
+        loss, log_probs = ds2_loss(torch, m, feats, lengths, lab, lab_len)
+        log_probs.retain_grad()
+        loss.backward()
+        return {"loss": loss.reshape(1), "log_probs": log_probs,
+                "grad log_probs": log_probs.grad, "grad features": feats.grad,
+                **{f"grad {k}": w.grad for k, w in m.named_parameters()}}
+    return c2i_gate(torch, dev, "deepspeech2", one_run)
+
+
+def ds2_timed(torch, np, dev):
+    """(c2i 2) DS2_WARMUP + DS2_TIMED steps at B=16, 200-400 frames: step
+    ms p50 and kernels a step; the port's ctc_loss forward and backward
+    against torch's on the step's log-probs."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import ClipGradByGlobalNorm, Momentum
+    model = ds2_model(torch, dev)
+    opt = Momentum(learning_rate=5e-4, momentum=0.99, use_nesterov=True,
+                   parameters=model.named_parameters(),
+                   grad_clip=ClipGradByGlobalNorm(400.0))
+    feats, lengths, lab, lab_len = [torch.from_numpy(a).to(dev) for a in
+                                    ds2_data(np, DS2["B"], DS2["frames"],
+                                             DS2["labels"])]
+
+    def step():
+        loss, _ = ds2_loss(torch, model, feats, lengths, lab, lab_len)
+        opt.clear_grad()
+        loss.backward()
+        opt.step()
+        return loss
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(DS2_WARMUP + DS2_TIMED):
+        t0 = time.perf_counter()
+        losses.append(float(step().detach()))
+        times.append((time.perf_counter() - t0) * 1e3)
+    require(all(np.isfinite(losses)), f"c2i (2): losses {losses}")
+    prof = profile_steps(torch, step, 1)
+    with torch.no_grad():
+        lp = model(feats, lengths).transpose(0, 1).contiguous()
+    lp.requires_grad_()
+
+    def port_ctc():
+        F.ctc_loss(lp, lab, lengths, lab_len).backward()
+
+    def torch_ctc():
+        torch.nn.functional.ctc_loss(lp, lab, lengths, lab_len).backward()
+    with torch.no_grad():
+        port_v = float(F.ctc_loss(lp, lab, lengths, lab_len))
+        lib_v = float(torch.nn.functional.ctc_loss(lp, lab, lengths,
+                                                   lab_len))
+    require(abs(port_v - lib_v) <= 1e-4 * abs(lib_v), f"c2i (2): ctc_loss "
+            f"{port_v} against torch's {lib_v}")
+    p50 = statistics.median(times[DS2_WARMUP:])
+    line = {"B": DS2["B"], "frames": list(DS2["frames"]),
+            "label_lengths": list(DS2["labels"]), "H": DS2["H"],
+            "step_ms_p50": p50, "step_ms": times[DS2_WARMUP:],
+            "frames_per_s": float(lengths.sum()) / (p50 / 1e3),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "losses": losses, **prof,
+            "ctc_loss": port_v, "ctc_loss_torch": lib_v,
+            "ctc_fwd_bwd_ms": wall_ms(torch, port_ctc),
+            "ctc_torch_fwd_bwd_ms": wall_ms(torch, torch_ctc)}
+    log(f"c2i (2) DeepSpeech2-shaped B={DS2['B']}: step p50 {p50:.2f} ms, "
+        f"{prof['kernels_per_step']:.0f} kernels a step, device idle "
+        f"{prof['device_idle_share']:.3f}, peak "
+        f"{line['peak_memory_gb']:.2f} GB; ctc_loss {line['ctc_fwd_bwd_ms']:.2f}"
+        f" ms forward and backward, torch's {line['ctc_torch_fwd_bwd_ms']:.2f}"
+        f" ms (loss {port_v:.6f} vs {lib_v:.6f})")
+    return line
+
+
+def dcgan_models(torch, device, sn):
+    """The DCGAN generator and discriminator at 64 x 64 from the port's
+    layers, weights N(0, 0.02) (BatchNorm scales N(1, 0.02)) from a
+    seeded generator; ``sn`` wraps D's convolutions in spectral_norm."""
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.nn.utils import spectral_norm
+    nz, g, d, nc = DCGAN["nz"], DCGAN["ngf"], DCGAN["ndf"], DCGAN["nc"]
+
+    def up(i, o, s, p, last=False):
+        conv = tnn.Conv2DTranspose(i, o, 4, s, p, bias_attr=False,
+                                   device=device)
+        return [conv, tnn.Tanh()] if last else [
+            conv, tnn.BatchNorm2D(o, device=device), tnn.ReLU()]
+
+    def down(i, o, bn=True):
+        conv = tnn.Conv2D(i, o, 4, 2, 1, bias_attr=False, device=device)
+        return [conv] + ([tnn.BatchNorm2D(o, device=device)] if bn else []) \
+            + [tnn.LeakyReLU(0.2)]
+    fw_random_seed(SEED)
+    G = tnn.Sequential(*up(nz, g * 8, 1, 0), *up(g * 8, g * 4, 2, 1),
+                       *up(g * 4, g * 2, 2, 1), *up(g * 2, g, 2, 1),
+                       *up(g, nc, 2, 1, last=True))
+    D = tnn.Sequential(*down(nc, d, bn=False), *down(d, d * 2),
+                       *down(d * 2, d * 4), *down(d * 4, d * 8),
+                       tnn.Conv2D(d * 8, 1, 4, 1, 0, bias_attr=False,
+                                  device=device), tnn.Sigmoid())
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    with torch.no_grad():
+        for name, w in list(G.named_parameters()) + list(
+                D.named_parameters()):
+            if w.dim() == 4:
+                w.normal_(0.0, 0.02, generator=gen)
+            elif name.endswith("weight"):
+                w.normal_(1.0, 0.02, generator=gen)
+    if sn:
+        for m in D:
+            if isinstance(m, tnn.Conv2D):
+                spectral_norm(m)
+    return G, D
+
+
+def gan_losses(torch, G, D, real, z):
+    """D's loss on real and detached fake images, then G's through D."""
+    from paddle_tpu_torch import nn as tnn
+    bce = tnn.BCELoss()
+    b = real.shape[0]
+    ones = torch.ones(b, dtype=real.dtype, device=real.device)
+    fake = G(z)
+    d_real = D(real).reshape(-1)
+    d_fake = D(fake.detach()).reshape(-1)
+    err_d = bce(d_real, ones) + bce(d_fake, torch.zeros_like(ones))
+    return fake, d_real, d_fake, err_d, lambda: bce(D(fake).reshape(-1),
+                                                    ones)
+
+
+def dcgan_check(torch, np, dev, sn):
+    """(c2i 3) at B=4: the fake images, D's outputs and both losses, D's
+    gradients from its loss and G's from its own, card against CPU."""
+    import copy
+    G0, D0 = dcgan_models(torch, "cpu", sn)
+    rng = np.random.RandomState(SEED + 3)
+    real = rng.uniform(-1, 1, (DCGAN_CHECK_B, DCGAN["nc"], 64, 64))
+    z = rng.randn(DCGAN_CHECK_B, DCGAN["nz"], 1, 1)
+
+    def one_run(device, dtype):
+        G = copy.deepcopy(G0).to(device, dtype)
+        D = copy.deepcopy(D0).to(device, dtype)
+        fake, d_real, d_fake, err_d, g_loss = gan_losses(
+            torch, G, D, torch.from_numpy(real).to(device, dtype),
+            torch.from_numpy(z).to(device, dtype))
+        err_d.backward()
+        out = {"fake": fake, "d_real": d_real, "d_fake": d_fake,
+               "err_d": err_d.reshape(1),
+               **{f"grad D.{k}": w.grad.clone()
+                  for k, w in D.named_parameters()}}
+        D.zero_grad()
+        err_g = g_loss()
+        err_g.backward()
+        out["err_g"] = err_g.reshape(1)
+        out.update({f"grad G.{k}": w.grad for k, w in G.named_parameters()})
+        return out
+    return c2i_gate(torch, dev, "dcgan" + ("_sn" if sn else ""), one_run)
+
+
+def dcgan_timed(torch, np, dev, sn):
+    from paddle_tpu_torch.optimizer import Adam
+    G, D = dcgan_models(torch, dev, sn)
+    opt_g = Adam(learning_rate=2e-4, beta1=0.5,
+                 parameters=G.named_parameters())
+    opt_d = Adam(learning_rate=2e-4, beta1=0.5,
+                 parameters=D.named_parameters())
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b = DCGAN["B"]
+    real = torch.rand(b, DCGAN["nc"], 64, 64, generator=gen,
+                      device=dev) * 2 - 1
+
+    def step():
+        z = torch.randn(b, DCGAN["nz"], 1, 1, generator=gen, device=dev)
+        _, _, _, err_d, g_loss = gan_losses(torch, G, D, real, z)
+        opt_d.clear_grad()
+        err_d.backward()
+        opt_d.step()
+        err_g = g_loss()
+        opt_g.clear_grad()
+        err_g.backward()
+        opt_g.step()
+        return err_d, err_g
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(WARMUP_STEPS + TIMED_STEPS):
+        t0 = time.perf_counter()
+        err_d, err_g = step()
+        losses.append((float(err_d.detach()), float(err_g.detach())))
+        times.append((time.perf_counter() - t0) * 1e3)
+    require(bool(np.isfinite(losses).all()), f"c2i (3): losses {losses}")
+    p50 = statistics.median(times[WARMUP_STEPS:])
+    prof = profile_steps(torch, step, 1)
+    line = {"B": b, "spectral_norm": sn, "step_ms_p50": p50,
+            "step_ms": times[WARMUP_STEPS:],
+            "img_per_s": b / (p50 / 1e3),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "losses_d_g": losses, **prof}
+    log(f"c2i (3) DCGAN{' + spectral_norm' if sn else ''} B={b}: D + G "
+        f"step p50 {p50:.2f} ms, {line['img_per_s']:.0f} img/s, device "
+        f"idle {prof['device_idle_share']:.3f}, peak "
+        f"{line['peak_memory_gb']:.2f} GB")
+    return line
+
+
+def c2i_case_run(torch, np, case, layer, device, dtype, built=None):
+    """One case of ``testing/nn_cases`` on ``device`` in ``dtype``: its
+    outputs and the gradients of sum(out[0] * ct) by its float inputs
+    (and a layer's parameters), as float64 / int64 CPU tensors."""
+    import copy
+    from paddle_tpu_torch.nn import functional as F
+
+    def conv(a):
+        if isinstance(a, (np.ndarray, np.generic)):
+            t = torch.from_numpy(np.array(a)).to(device)
+            return t.to(dtype) if t.is_floating_point() else t
+        return a
+    if layer:
+        mod = copy.deepcopy(built).to(device, dtype)
+        args = [conv(a) for a in case.inputs]
+        kw = dict(case.call)
+        fn = mod
+    else:
+        args = [conv(a) for a in case.args]
+        kw = {k: conv(v) if isinstance(v, np.ndarray) else v
+              for k, v in case.kwargs.items()}
+        fn = getattr(F, case.fn)
+    for i in case.grad:
+        args[i].requires_grad_()
+    out = fn(*args, **kw)
+    outs = list(out) if isinstance(out, (tuple, list)) else [out]
+    res = {f"out {i}": o.detach() for i, o in enumerate(outs)}
+    if case.grad:
+        ct = np.asarray(np.random.RandomState(99).randn(*outs[0].shape))
+        (outs[0] * torch.from_numpy(ct).to(device, outs[0].dtype)
+         ).sum().backward()
+        res.update({f"grad input {i}": args[i].grad for i in case.grad})
+        if layer:
+            res.update({f"grad {k}": w.grad
+                        for k, w in mod.named_parameters()})
+    return {k: (v.double() if v.is_floating_point() else v).cpu()
+            for k, v in res.items()}
+
+
+def nn_cases_on_card(torch, np, dev):
+    """(c2i 4) every case of the CPU parity tests' tables on the card in
+    float32 against the CPU's float64: each value and gradient within 4 x
+    the CPU float32 run's distance from float64 plus 1e-6 of its range
+    (c2g (1)'s rule), integer outputs exact.  Every miss is collected
+    before the phase fails."""
+    import inspect
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.testing.nn_cases import (functional_cases,
+                                                   layer_cases)
+    worst, misses, n = {}, [], 0
+    tables = [(c, False, None) for c in functional_cases()]
+    for c in layer_cases():
+        cls = getattr(tnn, c.cls)
+        kw = dict(c.kwargs)
+        if "device" in inspect.signature(cls.__init__).parameters:
+            kw["device"] = "cpu"
+        fw_random_seed(SEED)
+        tables.append((c, True, cls(*c.args, **kw)))
+    for case, layer, built in tables:
+        runs = {tag: c2i_case_run(torch, np, case, layer, d, t, built)
+                for tag, d, t in (("card", dev, torch.float32),
+                                  ("cpu", "cpu", torch.float32),
+                                  ("cpu64", "cpu", torch.float64))}
+        ratio = 0.0
+        for k, ref in runs["cpu64"].items():
+            got = runs["card"][k]
+            n += 1
+            if not ref.is_floating_point():
+                if not torch.equal(got, ref):
+                    misses.append((case.name, k, "integer output differs"))
+                continue
+            if got.numel() == 0:
+                continue
+            scale = float(ref.abs().max())
+            own = float((runs["cpu"][k] - ref).abs().max())
+            err = float((got - ref).abs().max())
+            bound = 4.0 * own + 1e-6 * scale + 1e-30
+            if not err <= bound:
+                misses.append((case.name, k, err, own, scale))
+            ratio = max(ratio, err / bound)
+        worst[case.name] = ratio
+    misses.sort(key=lambda m: str(m))
+    for m in misses:
+        log(f"c2i (4) miss: {m}")
+    require(not misses, f"c2i (4): {len(misses)} of {n} tensors outside "
+            f"c2g (1)'s bound: {misses[:8]}")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:8]
+    log(f"c2i (4) {len(tables)} cases, {n} tensors on the card within "
+        f"c2g (1)'s bound; the closest {top}")
+    return {"cases": len(tables), "tensors": n, "closest": top}
+
+
+def random_ops_on_card(torch, dev):
+    """(c2i 4) the random ops on the card by their statistics, as the CPU
+    tests hold them: channel dropout's whole channels and keep rate, alpha
+    dropout's dropped value, rate and moments, gumbel-softmax's one-hot
+    rows and frequencies."""
+    from paddle_tpu_torch.nn import functional as F
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    p = 0.3
+    x = torch.rand(64, 64, 3, 2, generator=gen, device=dev) + 0.5
+    flat = F.dropout2d(x, p=p, generator=gen).reshape(64, 64, -1)
+    dropped = (flat == 0).all(-1)
+    kept = torch.isclose(flat, x.reshape_as(flat) / (1 - p)).all(-1)
+    rate = float(kept.float().mean())
+    require(bool((dropped | kept).all()) and abs(rate - 0.7) < 4 * (
+        0.21 / 4096) ** 0.5, f"c2i (4) dropout2d: keep rate {rate}")
+    q = 0.2
+    neg = -1.6732632423543772 * 1.0507009873554805
+    a = (1 - q + q * neg ** 2) ** -0.5
+    y = F.alpha_dropout(torch.randn(400_000, generator=gen, device=dev),
+                        p=q, generator=gen)
+    drop_rate = float(torch.isclose(y, torch.tensor(
+        a * neg - a * q * neg, device=dev)).float().mean())
+    mean, var = float(y.mean()), float(y.var())
+    require(abs(drop_rate - q) < 0.005 and abs(mean) < 0.01
+            and abs(var - (1 - (q * neg * a) ** 2)) < 0.01,
+            f"c2i (4) alpha_dropout: rate {drop_rate}, mean {mean}, "
+            f"var {var}")
+    probs = torch.tensor([0.6, 0.3, 0.1], device=dev)
+    g = F.gumbel_softmax(probs.log().expand(20000, 3).contiguous(),
+                         hard=True, generator=gen)
+    onehot = torch.nn.functional.one_hot(g.argmax(-1), 3).float()
+    freq = onehot.mean(0)
+    require(float((g - onehot).abs().max()) <= 1e-6
+            and float((freq - probs).abs().max()) < 0.015,
+            f"c2i (4) gumbel_softmax: frequencies {freq.tolist()}")
+    return {"dropout2d_keep_rate": rate, "alpha_dropout": {
+        "drop_rate": drop_rate, "mean": mean, "var": var},
+        "gumbel_frequencies": freq.tolist()}
+
+
+def nn_rest(torch, np, dev, _kernels):
+    t_phase = time.perf_counter()
+    _kernels.reset_launches()
+    parts, line = {}, {}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        parts[name] = time.perf_counter() - t0
+        log(f"c2i {name}: {parts[name]:.1f} s")
+        torch.cuda.empty_cache()
+        return out
+    line["ptb_check"] = part("ptb_check", lambda: ptb_check(torch, np, dev))
+    log(f"c2i (1) PTB medium card vs CPU: {json.dumps(line['ptb_check'])}")
+    line["ptb"] = {size: part(f"ptb_{size}", lambda size=size: ptb_timed(
+        torch, np, dev, size)) for size in PTB}
+    line["deepspeech2_check"] = part(
+        "deepspeech2_check", lambda: ds2_check(torch, np, dev))
+    log(f"c2i (2) DeepSpeech2-shaped card vs CPU: "
+        f"{json.dumps(line['deepspeech2_check'])}")
+    line["deepspeech2"] = part("deepspeech2",
+                               lambda: ds2_timed(torch, np, dev))
+    for sn in (False, True):
+        key = "dcgan_sn" if sn else "dcgan"
+        line[f"{key}_check"] = part(f"{key}_check", lambda sn=sn: dcgan_check(
+            torch, np, dev, sn))
+        log(f"c2i (3) {key} card vs CPU: {json.dumps(line[f'{key}_check'])}")
+        line[key] = part(key, lambda sn=sn: dcgan_timed(torch, np, dev, sn))
+    line["cases"] = part("cases", lambda: nn_cases_on_card(torch, np, dev))
+    line["random_ops"] = part("random_ops",
+                              lambda: random_ops_on_card(torch, dev))
+    launches = dict(_kernels.launches)
+    require(not any(launches.values()),
+            f"c2i launched a kernel of the port: {launches}")
+    line.update({"launches": launches, "parts_s": parts,
+                 "phase_s": time.perf_counter() - t_phase})
+    log(json.dumps({"nn_rest": line}))
+    return line
 
 
 # ---------------------------------------------------------------------------

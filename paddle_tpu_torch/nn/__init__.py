@@ -1,30 +1,26 @@
-"""Layers, functional ops, initializers and beam-search decoding of the
-port.  ``Sequential``
-and ``LayerList`` are torch's ``nn.Sequential`` and ``nn.ModuleList``,
-whose ``"0"``, ``"1"``, ... keys are the JAX containers' keys."""
+"""Layers, functional ops, initializers, recurrent layers, weight
+reparameterizations and beam-search decoding of the port: every public
+name of the JAX ``paddle_tpu.nn`` but ``Layer`` and ``Parameter`` (the
+port's layers are ``torch.nn.Module``\\ s and their parameters
+``torch.nn.Parameter``\\ s).  ``Sequential``, ``LayerList`` and
+``ParameterList`` are torch's ``nn.Sequential``, ``nn.ModuleList`` and
+``nn.ParameterList``, whose ``"0"``, ``"1"``, ... keys are the JAX
+containers' keys."""
 from torch.nn import ModuleList as LayerList  # noqa: F401
-from torch.nn import Sequential  # noqa: F401
+from torch.nn import ParameterList, Sequential  # noqa: F401
 
-from . import functional, initializer  # noqa: F401
+from ..optimizer import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
+                         ClipGradByValue)
+from . import functional, initializer, utils  # noqa: F401
 from .initializer import ParamAttr  # noqa: F401
-from .layers import (AdaptiveAvgPool2D, AdaptiveMaxPool2D,  # noqa: F401
-                     AvgPool2D, BatchNorm1D, BatchNorm2D, BatchNorm3D,
-                     Conv2D, CrossEntropyLoss, Dropout, Embedding, Flatten,
-                     GELU, Hardsigmoid, Hardswish, Identity, LayerNorm,
-                     LeakyReLU, Linear, LogSoftmax, MaxPool2D,
-                     MultiHeadAttention, ReLU, ReLU6, RMSNorm, Sigmoid, SiLU,
-                     Softmax, Tanh, Transformer, TransformerDecoder,
-                     TransformerDecoderLayer, TransformerEncoder,
-                     TransformerEncoderLayer)
-from .layers_ext import BeamSearchDecoder, dynamic_decode  # noqa: F401
+from .layers import *  # noqa: F401,F403
+from .layers import __all__ as _layers_all
+from .layers_ext import *  # noqa: F401,F403
+from .layers_ext import __all__ as _ext_all
+from .rnn import *  # noqa: F401,F403
+from .rnn import __all__ as _rnn_all
 
-__all__ = ["functional", "initializer", "ParamAttr", "AdaptiveAvgPool2D",
-           "AdaptiveMaxPool2D", "AvgPool2D", "BatchNorm1D", "BatchNorm2D",
-           "BatchNorm3D", "Conv2D", "CrossEntropyLoss", "Dropout",
-           "Embedding", "Flatten", "GELU", "Hardsigmoid", "Hardswish",
-           "Identity", "LayerNorm", "LeakyReLU", "Linear", "LogSoftmax",
-           "MaxPool2D", "ReLU", "ReLU6", "Sigmoid", "SiLU", "Softmax", "Tanh",
-           "Sequential", "LayerList", "RMSNorm", "MultiHeadAttention",
-           "TransformerEncoderLayer", "TransformerEncoder",
-           "TransformerDecoderLayer", "TransformerDecoder", "Transformer",
-           "BeamSearchDecoder", "dynamic_decode"]
+__all__ = (["functional", "initializer", "utils", "ParamAttr", "Sequential",
+            "LayerList", "ParameterList", "ClipGradByGlobalNorm",
+            "ClipGradByNorm", "ClipGradByValue"]
+           + _layers_all + _ext_all + _rnn_all)

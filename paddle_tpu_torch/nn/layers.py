@@ -1,5 +1,4 @@
-"""The layers the serving, training, vision and translation slices need:
-the port of the matching parts of ``paddle_tpu/nn/layers.py``.  Parameter
+"""The layers: the port of ``paddle_tpu/nn/layers.py``.  Parameter
 names and layouts match the JAX package (``weight`` / ``bias``; Linear
 weights are (in, out), Conv2D weights OIHW; BatchNorm's float32 buffers
 ``_mean`` and ``_variance``), so ``state_dict`` keys carry over
@@ -19,6 +18,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..device import resolve_device
+from ..framework import random as fw_random
 from ..framework.errors import enforce
 from . import functional as F
 from . import initializer as I
@@ -31,7 +32,16 @@ __all__ = ["LayerNorm", "RMSNorm", "Dropout", "Linear", "Embedding",
            "AdaptiveMaxPool2D", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
            "Flatten", "Identity", "ReLU", "ReLU6", "GELU", "SiLU",
            "Sigmoid", "Tanh", "LeakyReLU", "Hardswish", "Hardsigmoid",
-           "Softmax", "LogSoftmax", "CrossEntropyLoss"]
+           "Softmax", "LogSoftmax", "CrossEntropyLoss", "GroupNorm", "Mish",
+           "Softplus", "MSELoss", "L1Loss", "NLLLoss", "BCEWithLogitsLoss",
+           "SmoothL1Loss", "Conv1D", "Conv3D", "Conv2DTranspose",
+           "MaxPool1D", "AvgPool1D", "InstanceNorm1D", "InstanceNorm2D",
+           "InstanceNorm3D", "SpectralNorm", "PReLU", "Unflatten",
+           "Upsample", "UpsamplingBilinear2D", "UpsamplingNearest2D",
+           "PixelShuffle", "PixelUnshuffle", "CosineSimilarity",
+           "PairwiseDistance", "GLU", "KLDivLoss", "MarginRankingLoss",
+           "HingeEmbeddingLoss", "CosineEmbeddingLoss", "TripletMarginLoss",
+           "CTCLoss"]
 
 
 class LayerNorm(nn.Module):
@@ -562,3 +572,414 @@ class Transformer(nn.Module):
         memory = self.encoder(src, src_mask=src_mask)
         return self.decoder(tgt, memory, tgt_mask=tgt_mask,
                             memory_mask=memory_mask)
+
+
+# ---------------------------------------------------------------------------
+# The rest of paddle_tpu/nn/layers.py (:214-227, :273-338, :568-943).
+# Constructors that make a parameter or buffer run on ``cuda`` unless
+# ``device="cpu"`` is passed (``device.resolve_device``)
+# ---------------------------------------------------------------------------
+class GroupNorm(nn.Module):
+    """``weight`` (ones) and ``bias`` (zeros) of ``num_channels``."""
+
+    def __init__(self, num_groups: int, num_channels: int,
+                 epsilon: float = 1e-5, weight_attr=None, bias_attr=None,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.num_groups, self.epsilon = num_groups, epsilon
+        self.weight = (None if weight_attr is False else I.create_parameter(
+            (num_channels,), default_initializer=I.Constant(1.0),
+            device=dev))
+        self.bias = (None if bias_attr is False else I.create_parameter(
+            (num_channels,), is_bias=True, device=dev))
+
+    def forward(self, x):
+        return F.group_norm(x, self.num_groups, self.weight, self.bias,
+                            self.epsilon)
+
+
+Mish = _act_layer(F.mish, "Mish")
+Softplus = _act_layer(F.softplus, "Softplus")
+
+
+class _Loss(nn.Module):
+    def __init__(self, reduction: str = "mean"):
+        super().__init__()
+        self.reduction = reduction
+
+
+class MSELoss(_Loss):
+    def forward(self, input, label):
+        return F.mse_loss(input, label, self.reduction)
+
+
+class L1Loss(_Loss):
+    def forward(self, input, label):
+        return F.l1_loss(input, label, self.reduction)
+
+
+class NLLLoss(_Loss):
+    def forward(self, log_probs, label):
+        return F.nll_loss(log_probs, label, self.reduction)
+
+
+class BCEWithLogitsLoss(_Loss):
+    def forward(self, logit, label):
+        return F.binary_cross_entropy_with_logits(logit, label,
+                                                  self.reduction)
+
+
+class SmoothL1Loss(_Loss):
+    def __init__(self, reduction: str = "mean", delta: float = 1.0):
+        super().__init__(reduction)
+        self.delta = delta
+
+    def forward(self, input, label):
+        return F.smooth_l1_loss(input, label, self.reduction, self.delta)
+
+
+def _conv_params(module, shape, out_channels, fan_in, weight_attr,
+                 bias_attr, dev):
+    """``weight`` of ``shape`` and ``bias`` (``bias_attr=False``: none),
+    both ``Uniform(-1 / sqrt(fan_in), 1 / sqrt(fan_in))``."""
+    bound = 1.0 / math.sqrt(fan_in)
+    module.weight = I.create_parameter(
+        shape, default_initializer=I.Uniform(-bound, bound),
+        attr=weight_attr, device=dev)
+    module.bias = (None if bias_attr is False else I.create_parameter(
+        (out_channels,), default_initializer=I.Uniform(-bound, bound),
+        is_bias=True, attr=bias_attr, device=dev))
+
+
+class Conv1D(nn.Module):
+    """(N, C, L) input, weight (O, I / groups, K)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int, stride: int = 1, padding: int = 0,
+                 dilation: int = 1, groups: int = 1, weight_attr=None,
+                 bias_attr=None, device: Optional[torch.device] = None):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.dilation, self.groups = dilation, groups
+        _conv_params(self, (out_channels, in_channels // groups,
+                            kernel_size), out_channels,
+                     in_channels * kernel_size // groups, weight_attr,
+                     bias_attr, resolve_device(device))
+
+    def forward(self, x):
+        return F.conv1d(x, self.weight, self.bias, self.stride,
+                        self.padding, self.dilation, self.groups)
+
+
+class Conv3D(nn.Module):
+    """NCDHW (or NDHWC) input, weight (O, I / groups, kD, kH, kW)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size,
+                 stride=1, padding=0, dilation=1, groups: int = 1,
+                 weight_attr=None, bias_attr=None, data_format="NCDHW",
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        k = F._ntuple(kernel_size, 3)
+        self.stride, self.padding = stride, padding
+        self.dilation, self.groups = dilation, groups
+        self.data_format = data_format
+        _conv_params(self, (out_channels, in_channels // groups, *k),
+                     out_channels, in_channels * math.prod(k) // groups,
+                     weight_attr, bias_attr, resolve_device(device))
+
+    def forward(self, x):
+        return F.conv3d(x, self.weight, self.bias, self.stride,
+                        self.padding, self.dilation, self.groups,
+                        self.data_format)
+
+
+class Conv2DTranspose(nn.Module):
+    """Weight (in, out / groups, kh, kw), the paddle IOHW layout; weight
+    and bias ``Uniform(-1 / sqrt(fan_in), 1 / sqrt(fan_in))`` with fan_in
+    = in x kh x kw / groups.  ``forward(x, output_size)`` picks the
+    output padding that gives ``output_size`` exactly, which must lie in
+    [base, base + stride) for base = (in - 1) s - 2 p + d (k - 1) + 1."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size,
+                 stride=1, padding=0, output_padding=0, dilation=1,
+                 groups: int = 1, weight_attr=None, bias_attr=None,
+                 data_format="NCHW", device: Optional[torch.device] = None):
+        super().__init__()
+        k = F._ntuple(kernel_size, 2)
+        self.stride, self.padding = stride, padding
+        self.output_padding, self.dilation = output_padding, dilation
+        self.groups, self.data_format = groups, data_format
+        _conv_params(self, (in_channels, out_channels // groups, *k),
+                     out_channels, in_channels * k[0] * k[1] // groups,
+                     weight_attr, bias_attr, resolve_device(device))
+
+    def forward(self, x, output_size=None):
+        out_pad = self.output_padding
+        if output_size is not None:
+            s = F._ntuple(self.stride, 2)
+            p = F._ntuple(self.padding, 2)
+            d = F._ntuple(self.dilation, 2)
+            hw = x.shape[2:4] if self.data_format == "NCHW" else x.shape[1:3]
+            k = self.weight.shape[2:4]
+            out_pad = []
+            for i in range(2):
+                base = (hw[i] - 1) * s[i] - 2 * p[i] + d[i] * (k[i] - 1) + 1
+                extra = int(output_size[i]) - base
+                enforce(0 <= extra < max(s[i], 1),
+                        f"output_size[{i}]={output_size[i]} unreachable "
+                        f"(base {base}, stride {s[i]})")
+                out_pad.append(extra)
+        return F.conv2d_transpose(x, self.weight, self.bias, self.stride,
+                                  self.padding, out_pad, self.dilation,
+                                  self.groups, self.data_format)
+
+
+class MaxPool1D(nn.Module):
+    def __init__(self, kernel_size, stride=None, padding=0):
+        super().__init__()
+        self.kernel_size, self.stride, self.padding = (kernel_size, stride,
+                                                       padding)
+
+    def forward(self, x):
+        return F.max_pool1d(x, self.kernel_size, self.stride, self.padding)
+
+
+class AvgPool1D(MaxPool1D):
+    def forward(self, x):
+        return F.avg_pool1d(x, self.kernel_size, self.stride, self.padding)
+
+
+class _InstanceNormBase(nn.Module):
+    """Each sample's channels normalised over their spatial dims;
+    parameters ``scale`` (ones) and ``bias`` (zeros), the JAX names."""
+
+    def __init__(self, num_features: int, epsilon: float = 1e-5,
+                 weight_attr=None, bias_attr=None,
+                 device: Optional[torch.device] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.epsilon = epsilon
+        self.scale = (None if weight_attr is False else I.create_parameter(
+            (num_features,), default_initializer=I.Constant(1.0),
+            attr=weight_attr, device=dev))
+        self.bias = (None if bias_attr is False else I.create_parameter(
+            (num_features,), is_bias=True, attr=bias_attr, device=dev))
+
+    def forward(self, x):
+        return F.instance_norm(x, weight=self.scale, bias=self.bias,
+                               eps=self.epsilon)
+
+
+class InstanceNorm1D(_InstanceNormBase):
+    pass
+
+
+class InstanceNorm2D(_InstanceNormBase):
+    pass
+
+
+class InstanceNorm3D(_InstanceNormBase):
+    pass
+
+
+class SpectralNorm(nn.Module):
+    """``forward(weight)`` = weight / sigma, sigma the largest singular
+    value of the weight seen as (shape[dim], rest) by ``power_iters``
+    steps of power iteration from the ``weight_u`` (shape[dim],) and
+    ``weight_v`` (rest,) buffers.  Those start as standard normal draws
+    from ``generator`` (the device's stream when None; JAX's draws differ,
+    so parity loads them from the JAX state) and take the iteration's
+    result only in training.  As in the JAX layer, sigma = u W v with u
+    and v the iterates of this call, so the gradient also flows through
+    the iteration (``torch.nn.utils.spectral_norm`` detaches them)."""
+
+    def __init__(self, weight_shape, dim: int = 0, power_iters: int = 1,
+                 epsilon: float = 1e-12,
+                 device: Optional[torch.device] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.dim, self.power_iters, self.epsilon = dim, power_iters, epsilon
+        h = weight_shape[dim]
+        w = math.prod(s for i, s in enumerate(weight_shape) if i != dim)
+        gen = generator if generator is not None else fw_random.generator(
+            dev)
+        self.register_buffer("weight_u", torch.randn(h, generator=gen,
+                                                     device=dev))
+        self.register_buffer("weight_v", torch.randn(w, generator=gen,
+                                                     device=dev))
+
+    def forward(self, weight):
+        w = weight.movedim(self.dim, 0).reshape(weight.shape[self.dim], -1)
+        u = self.weight_u.to(w.dtype, copy=True)
+        v = self.weight_v.to(w.dtype, copy=True)
+        for _ in range(self.power_iters):
+            v = w.t() @ u
+            v = v / (torch.linalg.vector_norm(v) + self.epsilon)
+            u = w @ v
+            u = u / (torch.linalg.vector_norm(u) + self.epsilon)
+        if self.training:
+            with torch.no_grad():
+                self.weight_u.copy_(u)
+                self.weight_v.copy_(v)
+        return weight / (u @ w @ v)
+
+
+class PReLU(nn.Module):
+    """``weight`` (num_parameters,) of ``init`` (0.25)."""
+
+    def __init__(self, num_parameters: int = 1, init: float = 0.25,
+                 weight_attr=None, device: Optional[torch.device] = None):
+        super().__init__()
+        self.weight = I.create_parameter(
+            (num_parameters,), default_initializer=I.Constant(init),
+            attr=weight_attr, device=resolve_device(device))
+
+    def forward(self, x):
+        return F.prelu(x, self.weight)
+
+
+class Unflatten(nn.Module):
+    def __init__(self, axis: int, shape):
+        super().__init__()
+        self.axis, self.shape = axis, tuple(shape)
+
+    def forward(self, x):
+        ax = self.axis % x.dim()
+        return x.reshape(tuple(x.shape[:ax]) + self.shape
+                         + tuple(x.shape[ax + 1:]))
+
+
+class Upsample(nn.Module):
+    """``F.interpolate`` with fixed arguments."""
+
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners: bool = False, data_format="NCHW"):
+        super().__init__()
+        self.size, self.scale_factor = size, scale_factor
+        self.mode, self.align_corners = mode, align_corners
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    """Bilinear with ``align_corners=True``."""
+
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW"):
+        super().__init__(size, scale_factor, "bilinear", align_corners=True,
+                         data_format=data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW"):
+        super().__init__(size, scale_factor, "nearest",
+                         data_format=data_format)
+
+
+class PixelShuffle(nn.Module):
+    def __init__(self, upscale_factor: int, data_format="NCHW"):
+        super().__init__()
+        self.upscale_factor, self.data_format = upscale_factor, data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.upscale_factor, self.data_format)
+
+
+class PixelUnshuffle(nn.Module):
+    def __init__(self, downscale_factor: int, data_format="NCHW"):
+        super().__init__()
+        self.downscale_factor = downscale_factor
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, self.downscale_factor, self.data_format)
+
+
+class CosineSimilarity(nn.Module):
+    def __init__(self, axis: int = 1, eps: float = 1e-8):
+        super().__init__()
+        self.axis, self.eps = axis, eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, self.axis, self.eps)
+
+
+class PairwiseDistance(nn.Module):
+    def __init__(self, p: float = 2.0, epsilon: float = 1e-6,
+                 keepdim: bool = False):
+        super().__init__()
+        self.p, self.epsilon, self.keepdim = p, epsilon, keepdim
+
+    def forward(self, x, y):
+        return F.pairwise_distance(x, y, self.p, self.epsilon, self.keepdim)
+
+
+class GLU(nn.Module):
+    def __init__(self, axis: int = -1):
+        super().__init__()
+        self.axis = axis
+
+    def forward(self, x):
+        return F.glu(x, self.axis)
+
+
+class KLDivLoss(_Loss):
+    def forward(self, input, label):
+        return F.kl_div(input, label, self.reduction)
+
+
+class MarginRankingLoss(nn.Module):
+    def __init__(self, margin: float = 0.0, reduction: str = "mean"):
+        super().__init__()
+        self.margin, self.reduction = margin, reduction
+
+    def forward(self, input, other, label):
+        return F.margin_ranking_loss(input, other, label, self.margin,
+                                     self.reduction)
+
+
+class HingeEmbeddingLoss(nn.Module):
+    def __init__(self, margin: float = 1.0, reduction: str = "mean"):
+        super().__init__()
+        self.margin, self.reduction = margin, reduction
+
+    def forward(self, input, label):
+        return F.hinge_embedding_loss(input, label, self.margin,
+                                      self.reduction)
+
+
+class CosineEmbeddingLoss(MarginRankingLoss):
+    def __init__(self, margin: float = 0.0, reduction: str = "mean"):
+        super().__init__(margin, reduction)
+
+    def forward(self, input1, input2, label):
+        return F.cosine_embedding_loss(input1, input2, label, self.margin,
+                                       self.reduction)
+
+
+class TripletMarginLoss(nn.Module):
+    def __init__(self, margin: float = 1.0, p: float = 2.0,
+                 epsilon: float = 1e-6, swap: bool = False,
+                 reduction: str = "mean"):
+        super().__init__()
+        self.margin, self.p, self.epsilon = margin, p, epsilon
+        self.swap, self.reduction = swap, reduction
+
+    def forward(self, anchor, positive, negative):
+        return F.triplet_margin_loss(anchor, positive, negative,
+                                     self.margin, self.p, self.epsilon,
+                                     self.swap, self.reduction)
+
+
+class CTCLoss(nn.Module):
+    def __init__(self, blank: int = 0, reduction: str = "mean"):
+        super().__init__()
+        self.blank, self.reduction = blank, reduction
+
+    def forward(self, log_probs, labels, input_lengths, label_lengths):
+        return F.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                          self.blank, self.reduction)

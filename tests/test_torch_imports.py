@@ -110,6 +110,12 @@ def test_package_imports_with_jax_blocked():
             "import paddle_tpu_torch.incubate.nn\n"
             "import paddle_tpu_torch.text\n"
             "import paddle_tpu_torch.text.datasets\n"
+            "import paddle_tpu_torch.nn\n"
+            "import paddle_tpu_torch.nn.functional\n"
+            "import paddle_tpu_torch.nn._functional_ext\n"
+            "import paddle_tpu_torch.nn.rnn\n"
+            "import paddle_tpu_torch.nn.utils\n"
+            "import paddle_tpu_torch.testing.nn_cases\n"
             "loaded = [m for m in sys.modules if sys.modules[m] is not None]\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
             "               for m in loaded)\n"
