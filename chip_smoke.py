@@ -163,6 +163,35 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               0 leaked blocks.  Each worker's handshake seconds, each
               drill's wall seconds and the accepted tokens at the kill are
               printed; one JSON line per part;
+  (c1d) traced serving  request tracing, the run doctor and the Layer
+              machinery on the card, with PTPU_TRACE_REQUESTS=1.  (i) the
+              float32 serving workload (c1c's) on two in-process replicas
+              of 4 streams each under a journaling Router, the router and
+              each replica streaming to its own worker-<i>.jsonl, the
+              replica of stream 0 stopped at its 3rd token: every stream
+              token for token against one uninterrupted engine of the same
+              settings, paged decode and the stream and tiled K1-K3
+              launched; then from the run directory alone assemble_run
+              gives one complete trace a request, coverage >= 0.95, no
+              orphan span and a trace across both replicas,
+              tail_latency_attribution and doctor.diagnose both name
+              failover_recompute, and the Chrome trace parses back; the
+              seconds of assemble_run and diagnose; then a decode step's
+              wall ms p50 traced and untraced, alternated, and the span
+              emission's own ms a step.  (ii) convert.training_workload's
+              step (GPT-125M, bf16 O1, flash attention, B=8, S=2048)
+              through model.apply(variables, ids, labels), variables the
+              model's own parameters and buffers, gradients by
+              torch.autograd.grad: the loss and every gradient equal to
+              the module's own forward and backward bit for bit (a
+              gradient the module does not reproduce bit for bit in a
+              second run of its own is held within that run's distance
+              and listed), the three flash kernels launched, the buffers
+              unchanged; a forward
+              post-hook replaces the logits; set_state_dict of
+              convert.random_state's JAX-format weights round-trips.
+              (iii) fleet.drills.trace_drill with both workers on the
+              card.  One JSON line per part and a traced_serving line;
   (c2) training one training step (bf16 O1, AdamW) of GPT-125M at full
               width and depth, S=2048, B=8, with flash attention and the
               chunked LM loss (convert.training_workload): 3 warm-up and 10
@@ -542,6 +571,10 @@ def main() -> int:
 
     # -- (c1c) the serving fleet -----------------------------------------------
     serve_fleet(torch, np, dev, _kernels, root)
+    torch.cuda.empty_cache()
+
+    # -- (c1d) traced serving, Layer.apply, the trace drill --------------------
+    traced_serving(torch, np, dev, _kernels, root)
     torch.cuda.empty_cache()
 
     # -- (c2) training -------------------------------------------------------
@@ -3204,6 +3237,262 @@ def serve_fleet(torch, np, dev, _kernels, root):
 
 
 # ---------------------------------------------------------------------------
+# (c1d) traced serving, the Layer machinery, the trace drill
+# ---------------------------------------------------------------------------
+# a replica holds 4 streams: the survivor is full with its own when the
+# victims arrive, so their recompute waits behind it, as in the drill
+TRACE_MAX_SEQS = 4
+TRACE_COST_ROUNDS, TRACE_COST_TOKENS = 3, 16
+
+
+def traced_fleet(torch, np, _kernels, model, prompts, run_dir):
+    """(i): two in-process replicas under a journaling router, each
+    process part (router, replica 0, replica 1) streaming its records to
+    its own worker-<i>.jsonl, the replica of stream 0 stopped once it has
+    FLEET_STOP_AFTER tokens; then the run directory alone is assembled,
+    attributed, diagnosed and exported."""
+    from paddle_tpu_torch.convert import SERVING_ENGINE
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.inference.fleet import LocalReplica, Router, drills
+    from paddle_tpu_torch.observability import doctor, requesttrace
+    from paddle_tpu_torch.observability.registry import MetricsRegistry
+    from paddle_tpu_torch.observability.sinks import (MetricsWriter,
+                                                      metrics_dir)
+
+    engine_kw = {**SERVING_ENGINE, "max_seqs": TRACE_MAX_SEQS}
+    ref = ServingEngine(model, **engine_kw, registry=MetricsRegistry())
+    want = ref.generate(prompts, max_new_tokens=FLEET_NEW_TOKENS)
+    del ref
+    regs = [MetricsRegistry() for _ in range(3)]
+    writers = [reg.add_sink(MetricsWriter(metrics_dir(run_dir), worker_id=i))
+               for i, reg in enumerate(regs)]
+    reps = [LocalReplica(ServingEngine(model, **engine_kw,
+                                       registry=regs[i + 1], replica_id=i,
+                                       run_dir=run_dir), replica_id=i)
+            for i in range(2)]
+    router = Router(reps, registry=regs[0], run_dir=run_dir)
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    rids = [router.submit(p, max_new_tokens=FLEET_NEW_TOKENS)
+            for p in prompts]
+    while len(router.journals[rids[0]].tokens) < FLEET_STOP_AFTER:
+        router.pump()
+    victim = router.journals[rids[0]].replica_id
+    reps[victim].engine._state = "stopped"       # no drain, no spill
+    outs = [router.collect(r, timeout=300) for r in rids]
+    wall_s = time.perf_counter() - t0
+    launches = dict(_kernels.launches)
+    for reg, w in zip(regs, writers):
+        reg.remove_sink(w)                       # flush and close
+    exact = drills.check_exact("traced fleet", [o["tokens"] for o in outs],
+                               want, None)
+    require(router.failovers >= 1, "c1d (i): no failover")
+    for name in SERVING_KERNELS:
+        require(launches[name] > 0,
+                f"c1d (i): {name} launched 0 times in the part")
+
+    t = time.perf_counter()
+    result = requesttrace.assemble_run(run_dir)
+    assemble_s = time.perf_counter() - t
+    traces = result["traces"]
+    require(len(traces) == len(rids) == result["complete"]
+            and {tr["request_id"] for tr in traces} == set(rids),
+            f"c1d (i): {result['complete']} complete of {len(traces)} "
+            f"traces for {len(rids)} requests")
+    require(not result["orphan_spans"],
+            f"c1d (i): orphan spans {result['orphan_spans']}")
+    coverage = min(tr["coverage"] for tr in traces)
+    require(coverage >= 0.95, f"c1d (i): coverage floor {coverage}")
+    stitched = sum(1 for tr in traces
+                   if {"replica-0", "replica-1"} <= set(tr["procs"]))
+    require(stitched >= 1, "c1d (i): no trace across both replicas")
+    attrib = requesttrace.tail_latency_attribution(traces)
+    require(attrib is not None
+            and attrib["dominant"] == "failover_recompute",
+            f"c1d (i): tail attribution {attrib}")
+    t = time.perf_counter()
+    diagnosis = doctor.diagnose(run_dir)
+    diagnose_s = time.perf_counter() - t
+    tail = [f for f in diagnosis["findings"] if f["kind"] == "tail_latency"]
+    require(tail and tail[0]["data"]["dominant"] == "failover_recompute",
+            f"c1d (i): doctor findings "
+            f"{[(f['kind'], f['title']) for f in diagnosis['findings']]}")
+    chrome = os.path.join(run_dir, "trace_chrome.json")
+    events = requesttrace.export_chrome_trace(chrome, traces)
+    with open(chrome) as f:
+        require(len(json.load(f)["traceEvents"]) == events > 0,
+                "c1d (i): the Chrome trace does not parse back")
+    return {"streams": len(rids), "token_exact": exact,
+            "failovers": router.failovers, "wall_s": wall_s,
+            "traces": len(traces), "coverage_min": coverage,
+            "stitched_across_replicas": stitched,
+            "wal_matched": result["wal_matched"],
+            "tail_dominant": attrib["dominant"],
+            "tail_p99_ms": attrib["p99_ms"],
+            "tail_median_ms": attrib["median_ms"],
+            "doctor_findings": [f["kind"] for f in diagnosis["findings"]],
+            "chrome_events": events, "assemble_s": assemble_s,
+            "diagnose_s": diagnose_s,
+            "launches": {n: launches[n] for n in SERVING_KERNELS}}
+
+
+def trace_cost(torch, model, prompts):
+    """The host cost of tracing a step: one engine traced (a registry with
+    a sink, request tracing on) and untraced (the same registry, tracing
+    off), alternated, each step's wall ms (the step reads its tokens
+    back) and the span emission's own seconds a step (its meter)."""
+    from paddle_tpu_torch.convert import SERVING_ENGINE
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.observability import requesttrace
+    from paddle_tpu_torch.observability.registry import MetricsRegistry
+
+    steps = {"traced": [], "untraced": []}
+    emission = []
+    for _ in range(TRACE_COST_ROUNDS):
+        for mode in ("traced", "untraced"):
+            os.environ["PTPU_TRACE_REQUESTS"] = \
+                "1" if mode == "traced" else "0"
+            reg = MetricsRegistry()
+            reg.add_sink(RecordSink())
+            eng = ServingEngine(model, **SERVING_ENGINE, registry=reg)
+            for p in prompts:
+                eng.submit(p, max_new_tokens=TRACE_COST_TOKENS)
+            eng.step()                             # the prefills
+            requesttrace.emission_cost.start()
+            n = 0
+            while eng.has_work():
+                t = time.perf_counter()
+                eng.step()
+                steps[mode].append((time.perf_counter() - t) * 1e3)
+                n += 1
+            requesttrace.emission_cost.stop()
+            if mode == "traced":
+                emission.append(requesttrace.emission_cost.seconds * 1e3
+                                / max(1, n))
+    p50 = {k: statistics.median(v) for k, v in steps.items()}
+    return {"step_ms_p50": p50,
+            "traced_minus_untraced_ms": p50["traced"] - p50["untraced"],
+            "emission_ms_a_step": emission, "rounds": TRACE_COST_ROUNDS}
+
+
+def layer_apply(torch, np, dev, _kernels):
+    """(ii): the training step of convert.training_workload (GPT-125M,
+    bf16 O1, flash attention) through ``model.apply(variables, ids,
+    labels)`` with gradients by ``torch.autograd.grad``, against the
+    module's own forward and backward; a forward post-hook; and
+    ``set_state_dict`` of convert's JAX-format weights."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.convert import (TRAINING_SEED, random_state,
+                                          training_workload)
+    from paddle_tpu_torch.nn import Layer
+
+    model, _, ids, labels = training_workload(dev)
+    require(isinstance(model, Layer), "c1d (ii): the model is no Layer")
+    names = [n for n, _ in model.named_parameters()]
+    variables = {**dict(model.named_parameters()),
+                 **dict(model.named_buffers())}
+    buffers = {n: b.clone() for n, b in model.named_buffers()}
+
+    def step(fn):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss, _ = fn()
+        return loss, torch.autograd.grad(loss,
+                                         [variables[n] for n in names])
+
+    ref_loss, ref_grads = step(lambda: model(ids, labels=labels))
+    # the module against itself: a gradient it does not reproduce bit for
+    # bit (an atomic accumulation) is held within its own repeat distance
+    again_loss, again = step(lambda: model(ids, labels=labels))
+    spread = {n: (g - r).abs().max().item()
+              for n, g, r in zip(names, again, ref_grads)
+              if not torch.equal(g, r)}
+    require(torch.equal(again_loss, ref_loss),
+            "c1d (ii): the module's loss is not reproducible")
+    del again
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    t = time.perf_counter()
+    loss, grads = step(lambda: model.apply(variables, ids, labels))
+    torch.cuda.synchronize()
+    apply_s = time.perf_counter() - t
+    launches = {k: _kernels.launches[k] for k in TRAINING_KERNELS}
+    require(all(v > 0 for v in launches.values()),
+            f"c1d (ii): flash launches {launches}")
+    differ = [n for n, g, r in zip(names, grads, ref_grads)
+              if not torch.equal(g, r)
+              and (n not in spread
+                   or (g - r).abs().max().item() > spread[n])]
+    require(torch.equal(loss, ref_loss) and not differ,
+            f"c1d (ii): loss {loss.item()} vs {ref_loss.item()}, "
+            f"gradients differing: {differ[:5]} ({len(differ)})")
+    require(all(torch.equal(b, buffers[n])
+                for n, b in model.named_buffers()),
+            "c1d (ii): apply changed a buffer")
+    model.eval()
+    with torch.no_grad():
+        x = ids[:1, :128]
+        plain = model(x)
+        handle = model.register_forward_post_hook(
+            lambda layer, args, out: out + 1.0)
+        hooked = model(x)
+        handle.remove()
+        require(torch.equal(hooked, plain + 1.0)
+                and torch.equal(model(x), plain),
+                "c1d (ii): the post-hook did not replace the logits")
+    state = random_state(model, TRAINING_SEED + 1)
+    model.set_state_dict(state)
+    back = model.state_dict()
+    require(set(back) == set(state)
+            and all(torch.equal(back[k], torch.from_numpy(v).to(
+                back[k].device, back[k].dtype)) for k, v in state.items()),
+            "c1d (ii): set_state_dict did not round-trip")
+    return {"loss": loss.item(), "gradients": len(grads),
+            "bit_exact": len(grads) - len(spread),
+            "module_not_reproducible": spread, "apply_s": apply_s,
+            "launches": launches, "buffers": len(buffers)}
+
+
+def traced_serving(torch, np, dev, _kernels, root):
+    import shutil
+    from paddle_tpu_torch.convert import serving_workload
+    from paddle_tpu_torch.inference.fleet import drills
+
+    work = os.path.join(root, "build", "traced_serving")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    before = os.environ.get("PTPU_TRACE_REQUESTS")
+    t0 = time.perf_counter()
+    try:
+        os.environ["PTPU_TRACE_REQUESTS"] = "1"
+        model, prompts = serving_workload(dev, dtype="float32")
+        fleet = traced_fleet(torch, np, _kernels, model, prompts,
+                             os.path.join(work, "fleet"))
+        log(json.dumps({"traced_serving_fleet": fleet}))
+        cost = trace_cost(torch, model, prompts)
+        log(json.dumps({"traced_serving_cost": cost}))
+    finally:
+        if before is None:
+            os.environ.pop("PTPU_TRACE_REQUESTS", None)
+        else:
+            os.environ["PTPU_TRACE_REQUESTS"] = before
+    del model
+    torch.cuda.empty_cache()
+    applied = layer_apply(torch, np, dev, _kernels)
+    log(json.dumps({"layer_apply": applied}))
+    torch.cuda.empty_cache()
+    drill = drills.trace_drill(os.path.join(work, "drill"), device="cuda")
+    log(json.dumps({"trace_drill": drill}))
+    log(json.dumps({"traced_serving": {
+        "wall_s": time.perf_counter() - t0,
+        "assemble_s": fleet["assemble_s"],
+        "diagnose_s": fleet["diagnose_s"],
+        "drill_assemble_s": drill["assemble_s"],
+        "drill_diagnose_s": drill["diagnose_s"],
+        "trace_step_ms_p50": cost["step_ms_p50"],
+        "emission_ms_a_step": cost["emission_ms_a_step"]}}))
+
+
+# ---------------------------------------------------------------------------
 # (c2) training
 # ---------------------------------------------------------------------------
 WARMUP_STEPS, TIMED_STEPS = 3, 10
@@ -5093,7 +5382,7 @@ def vision_recipe(torch, np, dev):
 def vision(torch, np, dev, _kernels):
     from paddle_tpu_torch.convert import (lenet_training_workload,
                                           resnet_training_workload)
-    from paddle_tpu_torch.observability import mfu
+    from paddle_tpu_torch.observability.mfu import DEVICE_SPECS
     from paddle_tpu_torch.vision.models import LeNet, resnet50
     t_phase = time.perf_counter()
     reference = [
@@ -5117,7 +5406,7 @@ def vision(torch, np, dev, _kernels):
             and kw == {"level": "O1"} and model.num_classes == 1000
             and len(model.layer3) == 6,
             "not the JAX row's ResNet-50 at B=128, 224 x 224, O1")
-    peak = mfu.DEVICE_SPECS["h100"]["bf16_tflops"] * 1e12
+    peak = DEVICE_SPECS["h100"]["bf16_tflops"] * 1e12
     nchw = vision_timed(torch, np, model, opt, images, labels, kw,
                         "ResNet-50")
     require(nchw["loss_last"] < nchw["loss_first"],

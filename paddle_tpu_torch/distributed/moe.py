@@ -35,6 +35,7 @@ from torch import nn
 
 from ..framework.errors import enforce
 from ..nn import functional as F
+from ..nn.layer import Layer
 
 __all__ = ["switch_gating", "gshard_gating", "limit_by_capacity", "route",
            "Routing", "MoELayer", "ExpertFFN", "collect_aux_losses"]
@@ -187,7 +188,7 @@ _GATES: Dict[str, Callable] = {"switch": switch_gating,
 # ---------------------------------------------------------------------------
 # Expert + layer
 # ---------------------------------------------------------------------------
-class ExpertFFN(nn.Module):
+class ExpertFFN(Layer):
     """E stacked FFN experts: ``w1`` (E, H, F), ``b1`` (E, 1, F), ``w2``
     (E, F, H), ``b2`` (E, 1, H).  The weights are cast to the input's
     dtype and each expert's rows go through two batched products (plain
@@ -215,7 +216,7 @@ class ExpertFFN(nn.Module):
         return torch.matmul(h, self.w2.to(dt)) + self.b2.to(dt)
 
 
-class MoELayer(nn.Module):
+class MoELayer(Layer):
     """Mixture-of-experts FFN: gate -> capacity-limited dispatch by index
     -> :class:`ExpertFFN` -> combine by index (see the module docstring),
     then the residual dropout.  The load-balance aux reaches the training

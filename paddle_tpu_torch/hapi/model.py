@@ -41,7 +41,8 @@ from ..framework.log import vlog
 from ..io import DataLoader
 from ..metric import Metric, _host
 from ..observability import memory as obs_memory
-from ..observability import mfu as obs_mfu
+from ..observability.mfu import (flops_per_token, mfu,
+                                 param_count, peak_flops_per_sec)
 from ..observability.registry import get_registry
 from ..observability.tracing import span
 from ..utils.tree import tree_map
@@ -475,12 +476,12 @@ class Model:
             tokens = max(1, int(np.prod(shape)) if shape else 1)
             seq_len = int(shape[-1]) if len(shape) >= 2 else None
             if self._obs_n_params is None:
-                self._obs_n_params = obs_mfu.param_count(
+                self._obs_n_params = param_count(
                     self.network.state_dict())
-                self._obs_peak = obs_mfu.peak_flops_per_sec()
+                self._obs_peak = peak_flops_per_sec()
             if self._obs_flops_token is None or seq_len != self._obs_seq_len:
                 cfg = getattr(self.network, "config", None)
-                self._obs_flops_token = obs_mfu.flops_per_token(
+                self._obs_flops_token = flops_per_token(
                     self._obs_n_params,
                     num_layers=getattr(cfg, "num_layers", None),
                     hidden_size=getattr(cfg, "hidden_size", None),
@@ -488,7 +489,7 @@ class Model:
                 self._obs_seq_len = seq_len
             total_s = max(1e-9, data_s + step_s)
             tps = tokens / total_s
-            mfu_v = obs_mfu.mfu(tps, self._obs_flops_token, self._obs_peak)
+            mfu_v = mfu(tps, self._obs_flops_token, self._obs_peak)
             compute_ms = timing.get("dispatch_s", 0.0) * 1e3
             readback_ms = timing.get("readback_s", 0.0) * 1e3
             reg.histogram("step.time_ms").observe(total_s * 1e3)

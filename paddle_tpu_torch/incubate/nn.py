@@ -10,10 +10,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch import nn
 
 from ..framework.errors import enforce
 from ..nn import functional as F
+from ..nn.layer import Layer
 from ..nn.layers import LayerNorm, Linear
 from ..ops import fused as fused_ops
 
@@ -21,7 +21,7 @@ __all__ = ["FusedMultiHeadAttention", "FusedFeedForward",
            "FusedTransformerEncoderLayer"]
 
 
-class FusedMultiHeadAttention(nn.Module):
+class FusedMultiHeadAttention(Layer):
     """[pre-LN] -> one (E, 3E) QKV product (columns q | k | v) ->
     attention -> out projection -> bias + dropout + residual -> [post-LN]
     (``fused_attention_op`` semantics)."""
@@ -64,7 +64,7 @@ class FusedMultiHeadAttention(nn.Module):
         return out
 
 
-class FusedFeedForward(nn.Module):
+class FusedFeedForward(Layer):
     """[pre-LN] -> GEMM + act (+ dropout) -> GEMM -> bias + dropout +
     residual -> [post-LN], by ``ops.fused.fused_feedforward``."""
 
@@ -94,7 +94,7 @@ class FusedFeedForward(nn.Module):
             pre_layer_norm=self.normalize_before, training=self.training)
 
 
-class FusedTransformerEncoderLayer(nn.Module):
+class FusedTransformerEncoderLayer(Layer):
     """:class:`FusedMultiHeadAttention` then :class:`FusedFeedForward`:
     one encoder block (``fused_attn``, ``ffn``)."""
 

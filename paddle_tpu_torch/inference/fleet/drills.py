@@ -31,6 +31,16 @@ counterpart of ``examples/serve_fleet.py``.
         ``fleet.autoscale`` record, and the burst's streams still
         token-exact.
 
+    ... --trace_drill
+        per-request waterfalls survive a replica SIGKILL: each worker
+        writes its own metrics stream, the router's spans go to
+        worker-0, and after replica 0 is killed mid-stream every victim's
+        trace must stitch across both replicas, every request must
+        assemble into exactly one trace with coverage >= 0.95 and no
+        orphan span, and both ``tail_latency_attribution`` and the
+        doctor must name failover recompute as what the p99 tail pays
+        for beyond the median.
+
 Each drill takes a model spec (the worker's: seed, GPTConfig kwargs,
 engine kwargs) and a device; at the command line the spec is a tiny GPT
 and ``--device`` defaults to ``cuda`` (``--device cpu`` runs the plain
@@ -61,7 +71,8 @@ from .worker import build_model
 
 __all__ = ["SPEC", "PROMPTS", "DrillFailed", "reference_outputs",
            "check_exact", "start_fleet", "sigkill_drill", "rolling_upgrade",
-           "router_crash_drill", "autoscale_drill", "main"]
+           "router_crash_drill", "autoscale_drill", "trace_drill",
+           "TRACE_SPEC", "TRACE_PROMPTS", "TRACE_MAX_NEW", "main"]
 
 SPEC = {"seed": 7,
         "config": {"vocab_size": 32, "hidden_size": 32, "num_layers": 2,
@@ -438,6 +449,124 @@ def autoscale_drill(run_dir: str, spec: Dict[str, Any] = SPEC,
             "wall_s": time.perf_counter() - t0}
 
 
+# the JAX example's prompts, with longer ragged streams (160..216 tokens,
+# hence the longer position table): replica 0 dies only once the router
+# has polled its first tokens, after all eight submissions, and the
+# victims' recompute and requeue behind the survivor must still be most
+# of a stream, however fast the card (or the CPU) decodes a tiny model
+TRACE_SPEC = {**SPEC, "config": {**SPEC["config"],
+                                 "max_position_embeddings": 256}}
+TRACE_PROMPTS = [[1, 2, 3 + i % 6, 4 + i % 3] for i in range(8)]
+TRACE_MAX_NEW = [160 + 8 * i for i in range(8)]
+
+
+def trace_drill(run_dir: str, spec: Dict[str, Any] = TRACE_SPEC,
+                prompts: Sequence[Sequence[int]] = TRACE_PROMPTS,
+                max_new: Sequence[int] = TRACE_MAX_NEW, *,
+                device: Optional[str] = None) -> Dict[str, Any]:
+    """Two traced workers, replica 0 SIGKILLed once it holds an
+    unfinished stream with 2 or more accepted tokens; then the run
+    directory alone must give one complete trace a request (coverage >=
+    0.95, no orphan span, a victim stitched across both replicas) and a
+    tail verdict of ``failover_recompute`` from the attribution and the
+    doctor.  Every stream must also be token-exact against one
+    uninterrupted engine."""
+    from ...observability import doctor, requesttrace
+    from ...observability.sinks import MetricsWriter, metrics_dir
+
+    spec = _on(spec, device)
+    t0 = time.perf_counter()
+    mdir = metrics_dir(run_dir)
+    reg = MetricsRegistry()
+    # the router's spans go to worker-0; each engine worker writes its
+    # own stream (worker-<i+1>) through PTPU_METRICS_DIR, flushed a
+    # record at a time, so the SIGKILL victim's spans survive
+    writer = reg.add_sink(MetricsWriter(mdir, worker_id=0, flush_every=1))
+    mgr = ReplicaManager(spec, replicas=2, registry=reg, run_dir=run_dir,
+                         env={"PTPU_METRICS_DIR": mdir,
+                              "PTPU_TRACE_REQUESTS": "1"})
+    mgr.start()
+    router = Router(mgr.replicas, manager=mgr, registry=reg,
+                    run_dir=run_dir)       # journaled: the WAL cross-check
+    try:
+        # warm every replica directly (least-loaded dispatch can pile all
+        # warmup onto one replica): ``"trace_id": None`` is an explicit
+        # not-traced decision, so warmup streams never enter the assembly
+        for i, rep in enumerate(mgr.replicas):
+            warm = [f"warm-{i}-{w}" for w in range(4)]
+            for rid in warm:
+                rep.submit({"request_id": rid, "prompt": [1, 2, 3, 4],
+                            "output": [], "max_new_tokens": 4,
+                            "eos_token_id": None, "preemptions": 0,
+                            "trace_id": None})
+            for rid in warm:
+                deadline = time.monotonic() + 120
+                while not rep.poll(rid, start=0)["finished"]:
+                    _require(time.monotonic() < deadline,
+                             f"warmup stream {rid} never finished")
+                    time.sleep(0.01)
+        rids = [router.submit(p, max_new_tokens=n)
+                for p, n in zip(prompts, max_new)]
+        kill = faults.kill_replica(
+            mgr, index=0,
+            when=lambda: any(
+                len(j.tokens) >= 2 for j in router.journals.values()
+                if j.replica_id == 0 and not j.finished))
+        deadline = time.monotonic() + 120
+        while not kill.fired and time.monotonic() < deadline:
+            router.pump()
+            kill.maybe()
+            time.sleep(0.01)
+        _require(kill.fired == 1, "kill predicate never held")
+        outs = [router.collect(r, timeout=120) for r in rids]
+        _require(router.failovers >= 1, "no failover observed")
+    finally:
+        mgr.stop()
+    reg.remove_sink(writer)                # flush and close worker-0
+    # greedy streams are prefixes of each other's longer runs
+    ref = reference_outputs(spec, prompts, max(max_new))
+    want = [r[:n] for r, n in zip(ref, max_new)]
+    exact = check_exact("trace", [o["tokens"] for o in outs], want, None)
+
+    t_asm = time.perf_counter()
+    result = requesttrace.assemble_run(run_dir)
+    assemble_s = time.perf_counter() - t_asm
+    traces = result["traces"]
+    _require(len(traces) == len(rids),
+             f"{len(traces)} traces for {len(rids)} requests")
+    _require({t["request_id"] for t in traces} == set(rids),
+             "assembled request ids do not match the submitted set")
+    _require(result["complete"] == len(rids), str(result["complete"]))
+    _require(not result["orphan_spans"], str(result["orphan_spans"]))
+    stitched = [t for t in traces
+                if {"replica-0", "replica-1"} <= set(t["procs"])]
+    _require(bool(stitched), "no trace stitched across both replicas")
+    min_cov = min(t["coverage"] for t in traces)
+    _require(min_cov >= 0.95, f"trace coverage floor {min_cov:.1%} < 95%")
+    attrib = requesttrace.tail_latency_attribution(traces)
+    _require(attrib is not None
+             and attrib["dominant"] == "failover_recompute", str(attrib))
+    t_doc = time.perf_counter()
+    diagnosis = doctor.diagnose(run_dir)
+    diagnose_s = time.perf_counter() - t_doc
+    tail = [f for f in diagnosis["findings"] if f["kind"] == "tail_latency"]
+    _require(bool(tail), "doctor produced no tail_latency verdict")
+    _require(tail[0]["data"]["dominant"] == "failover_recompute",
+             str(tail[0]))
+    return {"drill": "trace", "streams": len(rids), "token_exact": exact,
+            "traces": len(traces), "complete": result["complete"],
+            "stitched_across_replicas": len(stitched),
+            "coverage_min": round(min_cov, 4),
+            "orphan_spans": len(result["orphan_spans"]),
+            "wal_matched": result["wal_matched"],
+            "tail_dominant": attrib["dominant"],
+            "tail_p99_ms": attrib["p99_ms"],
+            "tail_median_ms": attrib["median_ms"],
+            "doctor_severity": tail[0]["severity"],
+            "assemble_s": assemble_s, "diagnose_s": diagnose_s,
+            "wall_s": time.perf_counter() - t0}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
@@ -445,6 +574,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rolling_upgrade", action="store_true")
     ap.add_argument("--router_crash_drill", action="store_true")
     ap.add_argument("--autoscale_drill", action="store_true")
+    ap.add_argument("--trace_drill", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     ap.add_argument("--_crash_child", metavar="RUN_DIR", default=None,
@@ -456,11 +586,12 @@ def main(argv=None) -> int:
     drills = {"sigkill_drill": sigkill_drill,
               "rolling_upgrade": rolling_upgrade,
               "router_crash_drill": router_crash_drill,
-              "autoscale_drill": autoscale_drill}
+              "autoscale_drill": autoscale_drill,
+              "trace_drill": trace_drill}
     picked = [name for name in drills if getattr(args, name)]
     if len(picked) != 1:
         ap.error("pick one of --sigkill_drill, --rolling_upgrade, "
-                 "--router_crash_drill, --autoscale_drill")
+                 "--router_crash_drill, --autoscale_drill, --trace_drill")
     import tempfile
     with tempfile.TemporaryDirectory() as run_dir:
         evidence = drills[picked[0]](run_dir, device=args.device)

@@ -46,6 +46,7 @@ Env knobs: ``PTPU_FLEET_REPLICAS``, ``PTPU_FLEET_PORT_BASE``,
 """
 from __future__ import annotations
 
+import http.client
 import json
 import os
 import subprocess
@@ -212,7 +213,10 @@ class HttpReplica:
             raise ConnectionError(
                 f"replica {self.replica_id} {path}: HTTP {e.code} "
                 f"{body[:200]}") from e
-        except (urllib.error.URLError, OSError, TimeoutError) as e:
+        except (urllib.error.URLError, OSError, TimeoutError,
+                http.client.HTTPException) as e:
+            # HTTPException: a replica killed mid-response leaves a
+            # short body (IncompleteRead), a transport failure like any
             raise ConnectionError(
                 f"replica {self.replica_id} {path}: {e}") from e
 

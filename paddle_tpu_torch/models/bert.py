@@ -34,6 +34,7 @@ from ..distributed.mp_layers import (ColumnParallelLinear, RowParallelLinear,
 from ..distributed.mp_ops import parallel_cross_entropy
 from ..framework.errors import enforce
 from ..nn import functional as F
+from ..nn.layer import Layer, LayerList
 from ..nn.layers import Dropout, Embedding, LayerNorm, Linear
 from ..ops.flash_attention import flash_attention
 
@@ -77,7 +78,7 @@ class BertConfig:
         return _DTYPES[self.dtype]
 
 
-class BertSelfAttention(nn.Module):
+class BertSelfAttention(Layer):
     """Bidirectional self-attention; qkv is one (h, 3h) GEMM in head-major
     column order (head0: q|k|v, head1: q|k|v, ...)."""
 
@@ -111,7 +112,7 @@ class BertSelfAttention(nn.Module):
         return self.out_proj(out)
 
 
-class BertLayer(nn.Module):
+class BertLayer(Layer):
     """Post-LN encoder block: attention -> dropout + residual + LN -> FFN
     -> dropout + residual + LN."""
 
@@ -138,7 +139,7 @@ class BertLayer(nn.Module):
         return self.ffn_ln(x + self.ffn_dropout(h))
 
 
-class BertEmbeddings(nn.Module):
+class BertEmbeddings(Layer):
     """word + position + token-type embeddings -> LN -> dropout."""
 
     def __init__(self, config: BertConfig, device=None):
@@ -166,7 +167,7 @@ class BertEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(x))
 
 
-class BertModel(nn.Module):
+class BertModel(Layer):
     """Encoder backbone with the tanh pooler over the first ([CLS])
     position.  Returns ``(hidden (b, s, h), pooled (b, h))``."""
 
@@ -175,8 +176,8 @@ class BertModel(nn.Module):
         c = config
         self.config = c
         self.embeddings = BertEmbeddings(c, device=device)
-        self.encoder = nn.ModuleList([BertLayer(c, device=device)
-                                      for _ in range(c.num_layers)])
+        self.encoder = LayerList([BertLayer(c, device=device)
+                                  for _ in range(c.num_layers)])
         self.pooler = Linear(c.hidden_size, c.hidden_size,
                              std=c.initializer_range, device=device)
 
@@ -197,7 +198,7 @@ class BertModel(nn.Module):
         return x, pooled
 
 
-class BertForPretraining(nn.Module):
+class BertForPretraining(Layer):
     """MLM + NSP pretraining heads; the MLM logits are tied to the word
     embedding, plus ``mlm_bias``.  Parameters are made on ``device``
     (``cuda`` when none is given; the CPU only when asked)."""
@@ -241,7 +242,7 @@ class BertForPretraining(nn.Module):
         return loss, logits
 
 
-class BertForSequenceClassification(nn.Module):
+class BertForSequenceClassification(Layer):
     """The pooled output -> dropout -> a linear classifier; with
     ``labels`` the mean float32 cross-entropy and the logits."""
 

@@ -64,6 +64,7 @@ from ..framework.errors import UnimplementedError, enforce
 from ..inference.kv_cache import PagedLayerCache
 from ..inference.paged_attention import paged_attention
 from ..nn import functional as F
+from ..nn.layer import Layer, LayerList
 from ..nn.layers import Dropout, LayerNorm
 from ..ops.flash_attention import flash_attention, flash_attention_kvcache
 from ..ops.fused import _lce_chunk, linear_softmax_cross_entropy
@@ -147,7 +148,7 @@ class GPTConfig:
         return _DTYPES[self.dtype]
 
 
-class GPTAttention(nn.Module):
+class GPTAttention(Layer):
     """Causal self-attention, cache-free (training) or over the paged
     cache; qkv is one (h, 3h) GEMM in head-major column order (head0:
     q|k|v, head1: q|k|v, ...)."""
@@ -276,7 +277,7 @@ class GPTAttention(nn.Module):
         return y, new_cache
 
 
-class GPTMLP(nn.Module):
+class GPTMLP(Layer):
     """h -> 4h -> h with exact gelu."""
 
     def __init__(self, config: GPTConfig, device=None):
@@ -295,7 +296,7 @@ class GPTMLP(nn.Module):
         return self.dropout(self.fc_out(F.gelu(self.fc_in(x))))
 
 
-class GPTDecoderLayer(nn.Module):
+class GPTDecoderLayer(Layer):
     """Pre-LN block, cache-free or over a cache (paged or fixed-shape).
     With ``config.is_moe_layer(index)`` the FFN is a :class:`MoELayer`."""
 
@@ -397,7 +398,7 @@ class GPTDecoderLayer(nn.Module):
         return x, new_cache
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
     """Embeddings + decoder stack + final LN."""
 
     def __init__(self, config: GPTConfig, device=None):
@@ -411,8 +412,8 @@ class GPTModel(nn.Module):
                                             c.hidden_size, device=device))
         nn.init.normal_(self.wpe, 0.0, c.initializer_range)
         self.drop = Dropout(c.hidden_dropout)
-        self.h = nn.ModuleList([GPTDecoderLayer(c, i, device=device)
-                                for i in range(c.num_layers)])
+        self.h = LayerList([GPTDecoderLayer(c, i, device=device)
+                            for i in range(c.num_layers)])
         self.ln_f = LayerNorm(c.hidden_size, epsilon=c.layer_norm_epsilon,
                               device=device)
 
@@ -444,7 +445,7 @@ class GPTModel(nn.Module):
         return x, new_caches
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(Layer):
     """LM head tied to the embedding; the loss is the softmax cross-entropy
     against the shifted labels.  Parameters are made on ``device``
     (``cuda`` when none is given; the CPU only when asked)."""

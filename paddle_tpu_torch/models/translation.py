@@ -18,9 +18,9 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..device import resolve_device
+from ..nn.layer import Layer
 from ..nn.layers import Embedding, Linear, Transformer
 
 __all__ = ["TranslationModel", "collate"]
@@ -42,7 +42,7 @@ def collate(batch: Sequence, length: int):
     return src, tin, tnx
 
 
-class TranslationModel(nn.Module):
+class TranslationModel(Layer):
     """Embeddings plus a learned position table (``max_len`` rows) into
     ``nn.Transformer``, then the head; the decoder's self-attention takes
     the additive causal mask.  Parameter keys are the JAX example's

@@ -3,9 +3,10 @@ names and layouts match the JAX package (``weight`` / ``bias``; Linear
 weights are (in, out), Conv2D weights OIHW; BatchNorm's float32 buffers
 ``_mean`` and ``_variance``), so ``state_dict`` keys carry over
 unchanged.
-``nn.Sequential`` / ``nn.ModuleList`` take the place of the JAX
-``Sequential`` / ``LayerList``: their ``"0"``, ``"1"``, ... keys are the
-JAX ones.
+Every layer is a ``Layer`` (``nn/layer.py``); the containers are the
+port's ``Sequential`` / ``LayerList``, whose ``"0"``, ``"1"``, ... keys
+are the JAX ones.  A constructor that makes a parameter or buffer runs on
+``cuda`` unless ``device="cpu"`` is passed (``device.resolve_device``).
 
 Parameters without an explicit rule are drawn as the JAX
 ``create_parameter`` draws them (:func:`initializer.create_parameter`),
@@ -23,6 +24,7 @@ from ..framework import random as fw_random
 from ..framework.errors import enforce
 from . import functional as F
 from . import initializer as I
+from .layer import Layer, LayerList
 
 __all__ = ["LayerNorm", "RMSNorm", "Dropout", "Linear", "Embedding",
            "MultiHeadAttention", "TransformerEncoderLayer",
@@ -44,10 +46,11 @@ __all__ = ["LayerNorm", "RMSNorm", "Dropout", "Linear", "Embedding",
            "CTCLoss"]
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     def __init__(self, normalized_shape, epsilon: float = 1e-5,
                  device: Optional[torch.device] = None):
         super().__init__()
+        device = resolve_device(device)
         if isinstance(normalized_shape, int):
             normalized_shape = (normalized_shape,)
         self.normalized_shape = tuple(normalized_shape)
@@ -62,10 +65,11 @@ class LayerNorm(nn.Module):
                             self.epsilon)
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(Layer):
     def __init__(self, hidden_size: int, epsilon: float = 1e-6,
                  device: Optional[torch.device] = None):
         super().__init__()
+        device = resolve_device(device)
         self.epsilon = epsilon
         self.weight = nn.Parameter(torch.ones(hidden_size, device=device))
 
@@ -73,7 +77,7 @@ class RMSNorm(nn.Module):
         return F.rms_norm(x, self.weight, self.epsilon)
 
 
-class Dropout(nn.Module):
+class Dropout(Layer):
     """``F.dropout`` (upscale in train, mask from the device's explicit
     generator) in training mode; the identity in eval."""
 
@@ -85,7 +89,7 @@ class Dropout(nn.Module):
         return F.dropout(x, self.p, training=self.training)
 
 
-class Linear(nn.Module):
+class Linear(Layer):
     """``y = x @ W + b`` with ``W`` (in_features, out_features).
 
     By default W is ``XavierUniform`` and b ``Constant(0)``, as the JAX
@@ -98,6 +102,7 @@ class Linear(nn.Module):
                  std: Optional[float] = None,
                  device: Optional[torch.device] = None):
         super().__init__()
+        device = resolve_device(device)
         self.in_features, self.out_features = in_features, out_features
         if std is not None:
             self.weight = nn.Parameter(torch.empty(in_features, out_features,
@@ -115,7 +120,7 @@ class Linear(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
-class Embedding(nn.Module):
+class Embedding(Layer):
     """Rows of ``weight`` (num_embeddings, embedding_dim) at the ids.
 
     By default the weight is ``Normal(0, 1)``, as the JAX ``Embedding``;
@@ -129,6 +134,7 @@ class Embedding(nn.Module):
                  weight_attr=None, std: Optional[float] = None,
                  device: Optional[torch.device] = None):
         super().__init__()
+        device = resolve_device(device)
         self.num_embeddings, self.embedding_dim = num_embeddings, embedding_dim
         self.padding_idx = padding_idx
         if std is not None:
@@ -149,7 +155,7 @@ class Embedding(nn.Module):
 # ---------------------------------------------------------------------------
 # Conv / pooling
 # ---------------------------------------------------------------------------
-class Conv2D(nn.Module):
+class Conv2D(Layer):
     """NCHW (or NHWC) input, OIHW weight; weight and bias from
     ``Uniform(-1 / sqrt(fan_in), 1 / sqrt(fan_in))``, ``bias_attr=False``
     for none."""
@@ -159,6 +165,7 @@ class Conv2D(nn.Module):
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  device: Optional[torch.device] = None):
         super().__init__()
+        device = resolve_device(device)
         k = ((kernel_size, kernel_size) if isinstance(kernel_size, int)
              else tuple(kernel_size))
         self.stride, self.padding = stride, padding
@@ -179,7 +186,7 @@ class Conv2D(nn.Module):
                         self.dilation, self.groups, self.data_format)
 
 
-class MaxPool2D(nn.Module):
+class MaxPool2D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0,
                  data_format="NCHW"):
         super().__init__()
@@ -197,7 +204,7 @@ class AvgPool2D(MaxPool2D):
                             self.data_format)
 
 
-class AdaptiveAvgPool2D(nn.Module):
+class AdaptiveAvgPool2D(Layer):
     def __init__(self, output_size, data_format="NCHW"):
         super().__init__()
         self.output_size, self.data_format = output_size, data_format
@@ -214,7 +221,7 @@ class AdaptiveMaxPool2D(AdaptiveAvgPool2D):
 # ---------------------------------------------------------------------------
 # Batch normalization
 # ---------------------------------------------------------------------------
-class _BatchNormBase(nn.Module):
+class _BatchNormBase(Layer):
     """``weight`` (ones) and ``bias`` (zeros) parameters, ``_mean`` (zeros)
     and ``_variance`` (ones) float32 buffers.  In training the batch
     statistics normalise and the buffers take the running update in place,
@@ -224,6 +231,7 @@ class _BatchNormBase(nn.Module):
                  epsilon: float = 1e-5, weight_attr=None, bias_attr=None,
                  data_format="NCHW", device: Optional[torch.device] = None):
         super().__init__()
+        device = resolve_device(device)
         self.num_features = num_features
         self.momentum, self.epsilon = momentum, epsilon
         self.data_format = data_format
@@ -264,7 +272,7 @@ class BatchNorm3D(_BatchNormBase):
 # ---------------------------------------------------------------------------
 # Shaping, activations, losses
 # ---------------------------------------------------------------------------
-class Flatten(nn.Module):
+class Flatten(Layer):
     def __init__(self, start_axis: int = 1, stop_axis: int = -1):
         super().__init__()
         self.start_axis, self.stop_axis = start_axis, stop_axis
@@ -273,13 +281,13 @@ class Flatten(nn.Module):
         return F.flatten(x, self.start_axis, self.stop_axis)
 
 
-class Identity(nn.Module):
+class Identity(Layer):
     def forward(self, x):
         return x
 
 
 def _act_layer(fn, name):
-    class _Act(nn.Module):
+    class _Act(Layer):
         def __init__(self, *a, **k):
             super().__init__()
             self._a, self._k = a, k
@@ -303,7 +311,7 @@ Softmax = _act_layer(F.softmax, "Softmax")
 LogSoftmax = _act_layer(F.log_softmax, "LogSoftmax")
 
 
-class CrossEntropyLoss(nn.Module):
+class CrossEntropyLoss(Layer):
     def __init__(self, reduction: str = "mean", soft_label: bool = False,
                  ignore_index: int = -100, label_smoothing: float = 0.0):
         super().__init__()
@@ -328,7 +336,7 @@ def _activation(name: str):
     return {"relu": F.relu, "gelu": F.gelu}[name]
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     """Attention of ``query`` over ``key`` / ``value`` (both ``query`` when
     left out) through q / k / v / out projections; ``kdim`` / ``vdim`` are
     the key's and value's widths.  ``attn_mask`` is additive over the
@@ -341,6 +349,7 @@ class MultiHeadAttention(nn.Module):
                  need_weights: bool = False, weight_attr=None,
                  bias_attr=None, device: Optional[torch.device] = None):
         super().__init__()
+        device = resolve_device(device)
         enforce(num_heads > 0 and embed_dim % num_heads == 0,
                 f"num_heads {num_heads} must divide embed_dim {embed_dim}")
         self.embed_dim, self.num_heads = embed_dim, num_heads
@@ -378,7 +387,7 @@ class MultiHeadAttention(nn.Module):
         return out if cache is None else (out, (k, v))
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     """Self-attention, then the FFN, each with dropout and a residual;
     LayerNorm after each (post-LN, the default) or before
     (``normalize_before``)."""
@@ -390,6 +399,7 @@ class TransformerEncoderLayer(nn.Module):
                  normalize_before: bool = False,
                  device: Optional[torch.device] = None):
         super().__init__()
+        device = resolve_device(device)
         self.normalize_before = normalize_before
         self.self_attn = MultiHeadAttention(
             d_model, nhead,
@@ -424,14 +434,14 @@ class TransformerEncoderLayer(nn.Module):
         return src
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     """``num_layers`` layers from ``encoder_layer_fn()`` (``layers.<i>``),
     then ``norm`` when given."""
 
     def __init__(self, encoder_layer_fn, num_layers: int, norm=None):
         super().__init__()
-        self.layers = nn.ModuleList([encoder_layer_fn()
-                                     for _ in range(num_layers)])
+        self.layers = LayerList([encoder_layer_fn()
+                                 for _ in range(num_layers)])
         self.norm = norm
 
     def forward(self, src, src_mask=None):
@@ -440,7 +450,7 @@ class TransformerEncoder(nn.Module):
         return src if self.norm is None else self.norm(src)
 
 
-class TransformerDecoderLayer(nn.Module):
+class TransformerDecoderLayer(Layer):
     """Self-attention (``tgt_mask``; with ``cache`` the incremental form),
     cross-attention over ``memory`` (``memory_mask``) and the FFN, each
     with dropout and a residual, post-LN or pre-LN.  With ``cache`` the
@@ -453,6 +463,7 @@ class TransformerDecoderLayer(nn.Module):
                  normalize_before: bool = False,
                  device: Optional[torch.device] = None):
         super().__init__()
+        device = resolve_device(device)
         self.normalize_before = normalize_before
         ad = attn_dropout if attn_dropout is not None else dropout
         self.self_attn = MultiHeadAttention(d_model, nhead, dropout=ad,
@@ -504,15 +515,15 @@ class TransformerDecoderLayer(nn.Module):
         return tgt if cache is None else (tgt, new_cache)
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(Layer):
     """``num_layers`` layers from ``decoder_layer_fn()``, then ``norm``
     when given; with ``cache`` (one ``(k, v)`` a layer) the result is
     ``(out, new_caches)``."""
 
     def __init__(self, decoder_layer_fn, num_layers: int, norm=None):
         super().__init__()
-        self.layers = nn.ModuleList([decoder_layer_fn()
-                                     for _ in range(num_layers)])
+        self.layers = LayerList([decoder_layer_fn()
+                                 for _ in range(num_layers)])
         self.norm = norm
 
     def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
@@ -531,7 +542,7 @@ class TransformerDecoder(nn.Module):
         return tgt if cache is None else (tgt, new_caches)
 
 
-class Transformer(nn.Module):
+class Transformer(Layer):
     """The encoder-decoder Transformer; the defaults are Transformer-base
     (d_model 512, 8 heads, 6 + 6 layers, FFN 2048, dropout 0.1, post-LN).
     Pre-LN stacks end in a LayerNorm each (``encoder.norm``,
@@ -543,6 +554,7 @@ class Transformer(nn.Module):
                  activation: str = "relu", normalize_before: bool = False,
                  device: Optional[torch.device] = None):
         super().__init__()
+        device = resolve_device(device)
         self.d_model, self.nhead = d_model, nhead
         self.encoder = TransformerEncoder(
             lambda: TransformerEncoderLayer(
@@ -575,11 +587,9 @@ class Transformer(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# The rest of paddle_tpu/nn/layers.py (:214-227, :273-338, :568-943).
-# Constructors that make a parameter or buffer run on ``cuda`` unless
-# ``device="cpu"`` is passed (``device.resolve_device``)
+# The rest of paddle_tpu/nn/layers.py (:214-227, :273-338, :568-943)
 # ---------------------------------------------------------------------------
-class GroupNorm(nn.Module):
+class GroupNorm(Layer):
     """``weight`` (ones) and ``bias`` (zeros) of ``num_channels``."""
 
     def __init__(self, num_groups: int, num_channels: int,
@@ -603,7 +613,7 @@ Mish = _act_layer(F.mish, "Mish")
 Softplus = _act_layer(F.softplus, "Softplus")
 
 
-class _Loss(nn.Module):
+class _Loss(Layer):
     def __init__(self, reduction: str = "mean"):
         super().__init__()
         self.reduction = reduction
@@ -652,7 +662,7 @@ def _conv_params(module, shape, out_channels, fan_in, weight_attr,
         is_bias=True, attr=bias_attr, device=dev))
 
 
-class Conv1D(nn.Module):
+class Conv1D(Layer):
     """(N, C, L) input, weight (O, I / groups, K)."""
 
     def __init__(self, in_channels: int, out_channels: int,
@@ -672,7 +682,7 @@ class Conv1D(nn.Module):
                         self.padding, self.dilation, self.groups)
 
 
-class Conv3D(nn.Module):
+class Conv3D(Layer):
     """NCDHW (or NDHWC) input, weight (O, I / groups, kD, kH, kW)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size,
@@ -694,7 +704,7 @@ class Conv3D(nn.Module):
                         self.data_format)
 
 
-class Conv2DTranspose(nn.Module):
+class Conv2DTranspose(Layer):
     """Weight (in, out / groups, kh, kw), the paddle IOHW layout; weight
     and bias ``Uniform(-1 / sqrt(fan_in), 1 / sqrt(fan_in))`` with fan_in
     = in x kh x kw / groups.  ``forward(x, output_size)`` picks the
@@ -735,7 +745,7 @@ class Conv2DTranspose(nn.Module):
                                   self.groups, self.data_format)
 
 
-class MaxPool1D(nn.Module):
+class MaxPool1D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0):
         super().__init__()
         self.kernel_size, self.stride, self.padding = (kernel_size, stride,
@@ -750,7 +760,7 @@ class AvgPool1D(MaxPool1D):
         return F.avg_pool1d(x, self.kernel_size, self.stride, self.padding)
 
 
-class _InstanceNormBase(nn.Module):
+class _InstanceNormBase(Layer):
     """Each sample's channels normalised over their spatial dims;
     parameters ``scale`` (ones) and ``bias`` (zeros), the JAX names."""
 
@@ -783,7 +793,7 @@ class InstanceNorm3D(_InstanceNormBase):
     pass
 
 
-class SpectralNorm(nn.Module):
+class SpectralNorm(Layer):
     """``forward(weight)`` = weight / sigma, sigma the largest singular
     value of the weight seen as (shape[dim], rest) by ``power_iters``
     steps of power iteration from the ``weight_u`` (shape[dim],) and
@@ -826,7 +836,7 @@ class SpectralNorm(nn.Module):
         return weight / (u @ w @ v)
 
 
-class PReLU(nn.Module):
+class PReLU(Layer):
     """``weight`` (num_parameters,) of ``init`` (0.25)."""
 
     def __init__(self, num_parameters: int = 1, init: float = 0.25,
@@ -840,7 +850,7 @@ class PReLU(nn.Module):
         return F.prelu(x, self.weight)
 
 
-class Unflatten(nn.Module):
+class Unflatten(Layer):
     def __init__(self, axis: int, shape):
         super().__init__()
         self.axis, self.shape = axis, tuple(shape)
@@ -851,7 +861,7 @@ class Unflatten(nn.Module):
                          + tuple(x.shape[ax + 1:]))
 
 
-class Upsample(nn.Module):
+class Upsample(Layer):
     """``F.interpolate`` with fixed arguments."""
 
     def __init__(self, size=None, scale_factor=None, mode="nearest",
@@ -880,7 +890,7 @@ class UpsamplingNearest2D(Upsample):
                          data_format=data_format)
 
 
-class PixelShuffle(nn.Module):
+class PixelShuffle(Layer):
     def __init__(self, upscale_factor: int, data_format="NCHW"):
         super().__init__()
         self.upscale_factor, self.data_format = upscale_factor, data_format
@@ -889,7 +899,7 @@ class PixelShuffle(nn.Module):
         return F.pixel_shuffle(x, self.upscale_factor, self.data_format)
 
 
-class PixelUnshuffle(nn.Module):
+class PixelUnshuffle(Layer):
     def __init__(self, downscale_factor: int, data_format="NCHW"):
         super().__init__()
         self.downscale_factor = downscale_factor
@@ -899,7 +909,7 @@ class PixelUnshuffle(nn.Module):
         return F.pixel_unshuffle(x, self.downscale_factor, self.data_format)
 
 
-class CosineSimilarity(nn.Module):
+class CosineSimilarity(Layer):
     def __init__(self, axis: int = 1, eps: float = 1e-8):
         super().__init__()
         self.axis, self.eps = axis, eps
@@ -908,7 +918,7 @@ class CosineSimilarity(nn.Module):
         return F.cosine_similarity(x1, x2, self.axis, self.eps)
 
 
-class PairwiseDistance(nn.Module):
+class PairwiseDistance(Layer):
     def __init__(self, p: float = 2.0, epsilon: float = 1e-6,
                  keepdim: bool = False):
         super().__init__()
@@ -918,7 +928,7 @@ class PairwiseDistance(nn.Module):
         return F.pairwise_distance(x, y, self.p, self.epsilon, self.keepdim)
 
 
-class GLU(nn.Module):
+class GLU(Layer):
     def __init__(self, axis: int = -1):
         super().__init__()
         self.axis = axis
@@ -932,7 +942,7 @@ class KLDivLoss(_Loss):
         return F.kl_div(input, label, self.reduction)
 
 
-class MarginRankingLoss(nn.Module):
+class MarginRankingLoss(Layer):
     def __init__(self, margin: float = 0.0, reduction: str = "mean"):
         super().__init__()
         self.margin, self.reduction = margin, reduction
@@ -942,7 +952,7 @@ class MarginRankingLoss(nn.Module):
                                      self.reduction)
 
 
-class HingeEmbeddingLoss(nn.Module):
+class HingeEmbeddingLoss(Layer):
     def __init__(self, margin: float = 1.0, reduction: str = "mean"):
         super().__init__()
         self.margin, self.reduction = margin, reduction
@@ -961,7 +971,7 @@ class CosineEmbeddingLoss(MarginRankingLoss):
                                        self.reduction)
 
 
-class TripletMarginLoss(nn.Module):
+class TripletMarginLoss(Layer):
     def __init__(self, margin: float = 1.0, p: float = 2.0,
                  epsilon: float = 1e-6, swap: bool = False,
                  reduction: str = "mean"):
@@ -975,7 +985,7 @@ class TripletMarginLoss(nn.Module):
                                      self.swap, self.reduction)
 
 
-class CTCLoss(nn.Module):
+class CTCLoss(Layer):
     def __init__(self, blank: int = 0, reduction: str = "mean"):
         super().__init__()
         self.blank, self.reduction = blank, reduction

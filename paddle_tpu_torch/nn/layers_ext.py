@@ -26,6 +26,7 @@ from ..framework.errors import enforce
 from ..utils.tree import tree_map
 from . import functional as F
 from . import initializer as I
+from .layer import Layer
 from .layers import _BatchNormBase
 from .rnn import RNNCellBase  # noqa: F401  (re-export, as the JAX module)
 
@@ -52,7 +53,7 @@ def _act(name, fn, extra=()):
     keys = [k for k, _ in extra]
 
     def __init__(self, *args, **kwargs):
-        nn.Module.__init__(self)
+        Layer.__init__(self)
         params = dict(extra)
         if len(args) > len(keys):
             raise TypeError(f"{name}() takes at most {len(keys)} positional "
@@ -70,7 +71,7 @@ def _act(name, fn, extra=()):
     def forward(self, x):
         return fn(x, *self._extra)
 
-    return type(name, (nn.Module,), {
+    return type(name, (Layer,), {
         "__init__": __init__, "forward": forward, "__module__": __name__,
         "__doc__": f"Stateless {name} activation."})
 
@@ -90,7 +91,7 @@ ThresholdedReLU = _act("ThresholdedReLU", F.thresholded_relu,
                        (("threshold", 1.0),))
 
 
-class Hardtanh(nn.Module):
+class Hardtanh(Layer):
     def __init__(self, min: float = -1.0, max: float = 1.0):  # noqa: A002
         super().__init__()
         self.min, self.max = min, max
@@ -99,7 +100,7 @@ class Hardtanh(nn.Module):
         return F.hardtanh(x, self.min, self.max)
 
 
-class Maxout(nn.Module):
+class Maxout(Layer):
     def __init__(self, groups: int, axis: int = 1):
         super().__init__()
         self.groups, self.axis = groups, axis
@@ -112,7 +113,7 @@ class Maxout(nn.Module):
 # Padding: a flat [before, after] list per trailing spatial dim, through
 # F.pad's convention
 # ---------------------------------------------------------------------------
-class _PadND(nn.Module):
+class _PadND(Layer):
     SPATIAL = 1
 
     def __init__(self, padding, mode: str = "constant", value: float = 0.0,
@@ -140,7 +141,7 @@ class Pad3D(_PadND):
     SPATIAL = 3
 
 
-class ZeroPad2D(nn.Module):
+class ZeroPad2D(Layer):
     def __init__(self, padding, data_format: str = "NCHW"):
         super().__init__()
         self.padding = [padding] * 4 if isinstance(padding, int) else padding
@@ -153,7 +154,7 @@ class ZeroPad2D(nn.Module):
 # ---------------------------------------------------------------------------
 # Dropout variants: masks from the device's explicit generator
 # ---------------------------------------------------------------------------
-class Dropout2D(nn.Module):
+class Dropout2D(Layer):
     def __init__(self, p: float = 0.5, data_format: str = "NCHW"):
         super().__init__()
         self.p, self.data_format = p, data_format
@@ -163,7 +164,7 @@ class Dropout2D(nn.Module):
                            data_format=self.data_format)
 
 
-class Dropout3D(nn.Module):
+class Dropout3D(Layer):
     def __init__(self, p: float = 0.5, data_format: str = "NCDHW"):
         super().__init__()
         self.p, self.data_format = p, data_format
@@ -173,7 +174,7 @@ class Dropout3D(nn.Module):
                            data_format=self.data_format)
 
 
-class AlphaDropout(nn.Module):
+class AlphaDropout(Layer):
     def __init__(self, p: float = 0.5):
         super().__init__()
         self.p = p
@@ -185,7 +186,7 @@ class AlphaDropout(nn.Module):
 # ---------------------------------------------------------------------------
 # Shape ops and the bilinear layer
 # ---------------------------------------------------------------------------
-class Unfold(nn.Module):
+class Unfold(Layer):
     def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1):
         super().__init__()
         self.args = (kernel_sizes, strides, paddings, dilations)
@@ -194,7 +195,7 @@ class Unfold(nn.Module):
         return F.unfold(x, *self.args)
 
 
-class Fold(nn.Module):
+class Fold(Layer):
     def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
                  dilations=1):
         super().__init__()
@@ -205,7 +206,7 @@ class Fold(nn.Module):
         return F.fold(x, *self.args)
 
 
-class Bilinear(nn.Module):
+class Bilinear(Layer):
     """``weight`` (out, in1, in2) ``XavierUniform`` (the conv fans of that
     shape), ``bias`` (out,) zeros."""
 
@@ -228,7 +229,7 @@ class Bilinear(nn.Module):
 # ---------------------------------------------------------------------------
 # Pooling layers
 # ---------------------------------------------------------------------------
-class MaxPool3D(nn.Module):
+class MaxPool3D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0,
                  data_format: str = "NCDHW"):
         super().__init__()
@@ -244,7 +245,7 @@ class AvgPool3D(MaxPool3D):
         return F.avg_pool3d(x, *self.args, data_format=self.data_format)
 
 
-class AdaptiveAvgPool1D(nn.Module):
+class AdaptiveAvgPool1D(Layer):
     def __init__(self, output_size):
         super().__init__()
         self.output_size = output_size
@@ -253,7 +254,7 @@ class AdaptiveAvgPool1D(nn.Module):
         return F.adaptive_avg_pool1d(x, self.output_size)
 
 
-class AdaptiveMaxPool1D(nn.Module):
+class AdaptiveMaxPool1D(Layer):
     def __init__(self, output_size, return_mask: bool = False):
         super().__init__()
         enforce(not return_mask,
@@ -264,7 +265,7 @@ class AdaptiveMaxPool1D(nn.Module):
         return F.adaptive_max_pool1d(x, self.output_size)
 
 
-class AdaptiveAvgPool3D(nn.Module):
+class AdaptiveAvgPool3D(Layer):
     def __init__(self, output_size, data_format: str = "NCDHW"):
         super().__init__()
         self.output_size, self.data_format = output_size, data_format
@@ -273,7 +274,7 @@ class AdaptiveAvgPool3D(nn.Module):
         return F.adaptive_avg_pool3d(x, self.output_size, self.data_format)
 
 
-class AdaptiveMaxPool3D(nn.Module):
+class AdaptiveMaxPool3D(Layer):
     def __init__(self, output_size, return_mask: bool = False,
                  data_format: str = "NCDHW"):
         super().__init__()
@@ -285,7 +286,7 @@ class AdaptiveMaxPool3D(nn.Module):
         return F.adaptive_max_pool3d(x, self.output_size, self.data_format)
 
 
-class _MaxUnPoolND(nn.Module):
+class _MaxUnPoolND(Layer):
     FN = None
 
     def __init__(self, kernel_size, stride=None, padding=0,
@@ -312,7 +313,7 @@ class MaxUnPool3D(_MaxUnPoolND):
 # ---------------------------------------------------------------------------
 # Transposed convolutions of 1 and 3 spatial dims
 # ---------------------------------------------------------------------------
-class _ConvTransposeND(nn.Module):
+class _ConvTransposeND(Layer):
     """Weight (in, out / groups, *k) ``XavierUniform``, bias zeros."""
 
     ND = 1
@@ -403,7 +404,7 @@ class SyncBatchNorm(_BatchNormBase):
         return layer
 
 
-class LocalResponseNorm(nn.Module):
+class LocalResponseNorm(Layer):
     def __init__(self, size: int = 5, alpha: float = 1e-4,
                  beta: float = 0.75, k: float = 1.0,
                  data_format: str = "NCHW"):
@@ -417,7 +418,7 @@ class LocalResponseNorm(nn.Module):
 # ---------------------------------------------------------------------------
 # Losses
 # ---------------------------------------------------------------------------
-class BCELoss(nn.Module):
+class BCELoss(Layer):
     def __init__(self, weight=None, reduction: str = "mean"):
         super().__init__()
         self.weight, self.reduction = weight, reduction
@@ -427,7 +428,7 @@ class BCELoss(nn.Module):
                                       self.reduction)
 
 
-class HSigmoidLoss(nn.Module):
+class HSigmoidLoss(Layer):
     """``weight`` (num_classes - 1, feature_size) ``XavierUniform`` and
     ``bias`` (num_classes - 1,) zeros: one row a node of the tree."""
 
@@ -455,8 +456,9 @@ class HSigmoidLoss(nn.Module):
 # ---------------------------------------------------------------------------
 # Containers
 # ---------------------------------------------------------------------------
-class LayerDict(nn.ModuleDict):
-    """The ordered dict container of sublayers: ``nn.ModuleDict``, whose
+class LayerDict(nn.ModuleDict, Layer):
+    """The ordered dict container of sublayers: ``nn.ModuleDict`` as a
+    ``Layer``, whose
     state-dict keys (``<key>.<param>``) are the JAX ``LayerDict``'s."""
 
 

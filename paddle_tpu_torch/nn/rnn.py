@@ -29,18 +29,18 @@ import math
 from typing import Optional
 
 import torch
-from torch import nn
 
 from ..device import resolve_device
 from ..framework.errors import enforce
 from . import functional as F
 from . import initializer as I
+from .layer import Layer, LayerList
 
 __all__ = ["SimpleRNNCell", "LSTMCell", "GRUCell", "RNN", "BiRNN",
            "SimpleRNN", "LSTM", "GRU"]
 
 
-class RNNCellBase(nn.Module):
+class RNNCellBase(Layer):
     """A gate-fused single-step cell; ``gates`` is the multiple of the
     hidden width its products have.  Runs on ``cuda`` unless
     ``device="cpu"``."""
@@ -194,7 +194,7 @@ def _time_major(x, time_major: bool):
     return x if time_major else x.transpose(0, 1)
 
 
-class RNN(nn.Module):
+class RNN(Layer):
     """Any cell over a sequence: ``(outputs, final_state)``; inputs (B, T,
     F), or (T, B, F) with ``time_major``."""
 
@@ -213,7 +213,7 @@ class RNN(nn.Module):
         return _time_major(outs, self.time_major), final
 
 
-class BiRNN(nn.Module):
+class BiRNN(Layer):
     """A forward and a backward cell over the sequence, outputs
     concatenated on the last dim; final states ``(fw, bw)``."""
 
@@ -238,7 +238,7 @@ class BiRNN(nn.Module):
         return _time_major(outs, self.time_major), (fin_fw, fin_bw)
 
 
-class _StackedRNN(nn.Module):
+class _StackedRNN(Layer):
     """``num_layers`` x (forward, or forward and backward) cells with
     dropout between layers; ``(outputs, final states)``, the final states
     stacked (L D, B, H) (a pair of them for LSTM)."""
@@ -265,7 +265,7 @@ class _StackedRNN(nn.Module):
             for _ in range(self.num_directions):
                 cells.append(self.cell_cls(in_size, hidden_size, device=dev,
                                            **cell_kw))
-        self.cells = nn.ModuleList(cells)
+        self.cells = LayerList(cells)
 
     def _split_states(self, initial_states, b, dtype):
         n = self.num_layers * self.num_directions

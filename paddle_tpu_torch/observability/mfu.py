@@ -17,7 +17,8 @@ from __future__ import annotations
 from typing import Any, Optional
 
 __all__ = ["DEVICE_SPECS", "device_spec", "peak_flops_per_sec",
-           "param_count", "flops_per_token", "mfu"]
+           "param_count", "flops_per_token", "mfu", "PEAK_TFLOPS",
+           "readback_sync"]
 
 # per-card roofline specs (public datasheet figures, dense): bf16 tensor
 # core TFLOP/s, int8 tensor core TOP/s, HBM GB/s; matched by substring of
@@ -26,6 +27,8 @@ DEVICE_SPECS = {
     "h100": {"bf16_tflops": 989.0, "int8_tops": 1979.0,
              "hbm_gbps": 3350.0},
 }
+
+PEAK_TFLOPS = {gen: spec["bf16_tflops"] for gen, spec in DEVICE_SPECS.items()}
 
 # the row an unlisted card (or the CPU) is given: MFU still produces a
 # number, labelled by ``known=False``
@@ -91,3 +94,8 @@ def mfu(tokens_per_sec: float, flops_token: float,
         peak: Optional[float] = None) -> float:
     """Achieved / peak FLOP throughput."""
     return tokens_per_sec * flops_token / (peak or peak_flops_per_sec())
+
+
+def readback_sync(x) -> float:
+    """Host readback of a scalar: waits for the work that produces it."""
+    return float(x.item() if hasattr(x, "item") else x)

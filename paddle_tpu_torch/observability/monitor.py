@@ -1,5 +1,6 @@
-"""Status server: the port's own copy of ``paddle_tpu/observability/
-monitor.py``'s ``StatusServer`` and ``maybe_start_server``.
+"""The live run monitor: the port's own copy of ``paddle_tpu/
+observability/monitor.py`` (``StatusServer``, ``maybe_start_server`` and
+``LiveAggregator``).
 
 One stdlib HTTP thread answers the three operator questions about a
 serving engine or a supervised training run:
@@ -20,9 +21,23 @@ serving engine or a supervised training run:
   carry a key) and a ``fleet`` section (the replica census, streams,
   client-observed TTFT / TPOT tails and the ``fleet.*`` counters, from
   the registry; the router's own ``stats()`` wins where the router
-  hosts the server); with a supervisor, its ``supervisor``,
-  ``heartbeat``, ``watchdog``, ``integrity`` and ``flight`` sections, and
-  the last device-memory table (``observability/memory.py``).
+  hosts the server); the bench sections from the registry's gauges
+  (``perf``: the ``perf.*`` figures by scenario; ``roofline``: the
+  ``roofline.*`` gap buckets with the doctor's ``mfu_gap`` verdict;
+  ``interconnect``: the ``interconnect.*`` comm sub-budget with the
+  doctor's ``comm_budget`` verdict), ``elastic`` from the ``elastic.*``
+  gauges and ``compile`` (None: the port tracks no compiles yet); with a
+  supervisor, its ``supervisor``, ``heartbeat``, ``watchdog``,
+  ``integrity`` and ``flight`` sections, and the last device-memory table
+  (``observability/memory.py``).
+
+:class:`LiveAggregator` is the in-flight watcher: it tail-reads the
+still-growing ``<run_dir>/metrics/worker-*.jsonl`` streams with the
+drop-tolerant reader, keeps a bounded window of recent records per
+worker and re-runs the doctor's rules over the window every
+``PTPU_MONITOR_INTERVAL`` seconds (default 5).  Verdicts land in a
+rolling ``<run_dir>/live_status.json`` and, the moment one first fires,
+as a ``monitor.alert`` record on the supervisor timeline.
 
 ``RunSupervisor.begin_run`` starts one per worker through
 :func:`maybe_start_server` when ``PTPU_MONITOR_PORT`` is set.  Start one
@@ -34,18 +49,35 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import threading
 import time
+from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 from ..framework.log import vlog
+from ..utils import fsio
+from .aggregate import StreamTail, straggler_stats
 from .registry import get_registry
-from .sinks import render_prometheus
+from .sinks import metrics_dir, render_prometheus
 
-__all__ = ["StatusServer", "maybe_start_server", "MONITOR_PORT_ENV"]
+__all__ = ["MONITOR_PORT_ENV", "MONITOR_INTERVAL_ENV", "StatusServer",
+           "LiveAggregator", "default_monitor_interval",
+           "maybe_start_server", "live_status_path"]
 
 MONITOR_PORT_ENV = "PTPU_MONITOR_PORT"
+MONITOR_INTERVAL_ENV = "PTPU_MONITOR_INTERVAL"
+
+_WORKER_RE = re.compile(r"^worker-(\d+)\.jsonl$")
+
+
+def default_monitor_interval() -> float:
+    return float(os.environ.get(MONITOR_INTERVAL_ENV, "5"))
+
+
+def live_status_path(run_dir: str) -> str:
+    return os.path.join(run_dir, "live_status.json")
 
 
 class StatusServer:
@@ -193,8 +225,186 @@ class StatusServer:
             except Exception as e:  # statusz must render
                 vlog(0, "monitor: statusz could not read the router: %r", e)
         status["fleet"] = fleet or None
+        self._bench_sections(status, snap, gauge, counter)
         self._training_sections(status, snap, gauge, counter, now)
+        # the port tracks no compiles (no jit): the key is kept, empty
+        status["compile"] = None
         return status
+
+    def _bench_sections(self, status, snap, gauge, counter) -> None:
+        """``elastic`` (the ``elastic.*`` gauges), ``perf``, ``roofline``
+        and ``interconnect`` from the registry's gauges, with the doctor's
+        verdicts on the row-alikes rebuilt from them, as the JAX
+        ``statusz``.  ``perf``'s ``perf_regression`` and ``trends`` read
+        the bench's golden rows and ledger series, which the port does not
+        have yet: they are None."""
+        elastic: Dict[str, Any] = {}
+        if any(k.startswith("elastic.") for k in snap):
+            elastic = {
+                "generation": gauge("elastic.generation"),
+                "world_size": gauge("elastic.world_size"),
+                "dp": gauge("elastic.dp"),
+                "resizes": counter("elastic.resizes"),
+            }
+        status["elastic"] = elastic or None
+        perf: Dict[str, Any] = {}
+        perf_gauges = {k: m for k, m in snap.items()
+                       if k.startswith("perf.") and m.get("type") == "gauge"}
+        if perf_gauges:
+            scen: Dict[str, Dict[str, Any]] = {}
+            for name, m in perf_gauges.items():
+                if "[scenario=" not in name:
+                    continue
+                metric, _, rest = name.partition("[scenario=")
+                label = rest[:-1]
+                if metric == "perf.phase_ms" and ",phase=" in label:
+                    sname, _, phase = label.partition(",phase=")
+                    scen.setdefault(sname, {}).setdefault(
+                        "phases_ms", {})[phase] = m["value"]
+                else:
+                    scen.setdefault(label, {})[
+                        metric[len("perf."):]] = m["value"]
+            perf["scenarios"] = scen
+            # the verdicts read the bench's golden rows and ledger series
+            perf["perf_regression"] = None
+            perf["trends"] = None
+        status["perf"] = perf or None
+        # MFU microscope: the bench mirrors each row's
+        # roofline gap budget into `roofline.*` gauges — statusz shows
+        # the per-scenario buckets, coverage, and the doctor's mfu_gap
+        # verdict so a glance answers "where did the step time go"
+        roofline: Dict[str, Any] = {}
+        try:
+            roof_scen: Dict[str, Dict[str, Any]] = {}
+            for name, m in snap.items():
+                if (not name.startswith("roofline.")
+                        or m.get("type") != "gauge"
+                        or "[scenario=" not in name):
+                    continue
+                metric, _, rest = name.partition("[scenario=")
+                label = rest[:-1]
+                if metric == "roofline.bucket_ms" and ",sink=" in label:
+                    sname, _, sink = label.partition(",sink=")
+                    roof_scen.setdefault(sname, {}).setdefault(
+                        "buckets_ms", {})[sink] = m["value"]
+                else:
+                    roof_scen.setdefault(label, {})[
+                        metric[len("roofline."):]] = m["value"]
+            if roof_scen:
+                roofline["scenarios"] = roof_scen
+                # row-alikes from the gauges → the doctor's verdict
+                # (measured = bucket sum: the budget's own invariant;
+                # dominant = largest non-mxu bucket, same rule the
+                # roofline block uses)
+                recs = []
+                for sname, v in roof_scen.items():
+                    buckets = v.get("buckets_ms") or {}
+                    if not buckets:
+                        continue
+                    gaps = {s: b for s, b in buckets.items()
+                            if s != "mxu"}
+                    dom = (max(gaps, key=lambda s: gaps[s])
+                           if gaps and max(gaps.values()) > 0 else None)
+                    recs.append({
+                        "kind": "bench.row", "scenario": sname,
+                        "roofline": {
+                            "buckets_ms": buckets,
+                            "measured_step_ms": sum(
+                                float(b or 0.0)
+                                for b in buckets.values()),
+                            "dominant_sink": dom,
+                            "coverage": v.get("coverage"),
+                        }})
+                try:
+                    from .doctor import check_mfu_gap
+                    verdicts = check_mfu_gap({0: recs})
+                except Exception as e:  # statusz must render
+                    vlog(1, "monitor: statusz verdict failed: %r", e)
+                    verdicts = []
+                roofline["mfu_gap"] = ([
+                    {"scenario": f["data"].get("scenario"),
+                     "dominant": f["data"].get("dominant"),
+                     "share": f["data"].get("share"),
+                     "injected": f["data"].get("injected"),
+                     "title": f["title"]} for f in verdicts] or None)
+        except Exception as e:  # statusz must render
+            vlog(1, "monitor: statusz roofline section failed: %r", e)
+            roofline = {}
+        status["roofline"] = roofline or None
+        # interconnect microscope: the bench mirrors
+        # each row's per-collective comm sub-budget into
+        # `interconnect.*` gauges — statusz shows the per-scenario
+        # entries (op, axis, measured, efficiency-vs-modeled) and the
+        # doctor's comm_budget verdict
+        interconnect: Dict[str, Any] = {}
+        try:
+            ic_scen: Dict[str, Dict[str, Any]] = {}
+            for name, m in snap.items():
+                if (not name.startswith("interconnect.")
+                        or m.get("type") != "gauge"
+                        or "[scenario=" not in name):
+                    continue
+                metric, _, rest = name.partition("[scenario=")
+                metric = metric[len("interconnect."):]
+                label = rest[:-1]
+                if "," in label:
+                    sname, _, rest_lbl = label.partition(",")
+                    labels = dict(p.partition("=")[::2]
+                                  for p in rest_lbl.split(","))
+                    entry = ic_scen.setdefault(sname, {}).setdefault(
+                        "by_op", {}).setdefault(
+                        (labels.get("op"), labels.get("axis")), {})
+                    entry[metric] = m["value"]
+                else:
+                    ic_scen.setdefault(label, {})[metric] = m["value"]
+            if ic_scen:
+                scen_out: Dict[str, Any] = {}
+                recs = []
+                for sname, v in sorted(ic_scen.items()):
+                    entries = []
+                    for (op, axis), fields in sorted(
+                            (v.get("by_op") or {}).items()):
+                        entries.append({
+                            "op": op,
+                            "axis": None if axis in (None, "none") else axis,
+                            "measured_ms": fields.get("entry_ms"),
+                            "efficiency": fields.get("efficiency")})
+                    if v.get("unattributed_ms") is not None:
+                        entries.append({"op": "(unattributed)",
+                                        "axis": None,
+                                        "measured_ms": v["unattributed_ms"]})
+                    scen_out[sname] = {
+                        "comm_bucket_ms": v.get("comm_bucket_ms"),
+                        "overlapped_ms": v.get("overlapped_ms"),
+                        "unattributed_ms": v.get("unattributed_ms"),
+                        "entries": entries,
+                    }
+                    recs.append({
+                        "kind": "bench.row", "scenario": sname,
+                        "roofline": {"measured_step_ms": gauge(
+                            f"perf.step_time_ms[scenario={sname}]")},
+                        "interconnect": {
+                            "comm_bucket_ms": v.get("comm_bucket_ms"),
+                            "overlapped_ms": v.get("overlapped_ms"),
+                            "entries": entries}})
+                interconnect["scenarios"] = scen_out
+                try:
+                    from .doctor import check_comm_budget
+                    verdicts = check_comm_budget({0: recs})
+                except Exception as e:  # statusz must render
+                    vlog(1, "monitor: statusz verdict failed: %r", e)
+                    verdicts = []
+                interconnect["comm_budget"] = ([
+                    {"scenario": f["data"].get("scenario"),
+                     "op": f["data"].get("op"),
+                     "axis": f["data"].get("axis"),
+                     "efficiency": f["data"].get("efficiency"),
+                     "share": f["data"].get("share"),
+                     "title": f["title"]} for f in verdicts] or None)
+        except Exception as e:  # statusz must render
+            vlog(1, "monitor: statusz interconnect section failed: %r", e)
+            interconnect = {}
+        status["interconnect"] = interconnect or None
 
     def _training_sections(self, status, snap, gauge, counter, now) -> None:
         """The supervised run's sections of ``/statusz``: integrity (from
@@ -365,3 +575,217 @@ def maybe_start_server(supervisor=None, worker_id: Optional[int] = None,
         vlog(0, "monitor: cannot bind status server on port %d: %s",
              port, e)
         return None
+
+
+# ---------------------------------------------------------------------------
+# in-flight cross-worker aggregation
+# ---------------------------------------------------------------------------
+class LiveAggregator:
+    """Re-runs the doctor's rule functions over a sliding window of the
+    still-growing worker streams.
+
+    Each :meth:`poll` tail-reads every ``worker-*.jsonl`` under
+    ``<run_dir>/metrics`` (new files are picked up as workers appear),
+    appends the records to a bounded per-worker window, evaluates the
+    retrace-storm / HBM / straggler / data-starvation rules on the
+    window, rewrites ``<run_dir>/live_status.json`` atomically, and —
+    for every verdict *not seen before* — records a ``monitor.alert``
+    event (through ``report``, typically the launcher's
+    ``SupervisorReport``, whose metrics mirror puts it on the shared
+    timeline).  Use ``start()`` for the background-thread form, or call
+    ``poll()`` from your own loop.  The JAX aggregator's perf-regression
+    and perf-trend rules wait on the port's bench.
+    """
+
+    def __init__(self, run_dir: str, interval: Optional[float] = None,
+                 window: int = 512, report=None, registry=None,
+                 clock=time.time):
+        self.run_dir = run_dir
+        self.interval = (default_monitor_interval() if interval is None
+                         else float(interval))
+        self.window = int(window)
+        self.report = report
+        self._registry = registry
+        self._clock = clock
+        # poll() runs on both the background thread (_run) and the main
+        # thread (stop()'s final sweep, or a caller's own loop); all
+        # window/alert state is shared and guarded.  An RLock so the
+        # helpers can self-acquire under a poll() that already holds it.
+        self._poll_lock = threading.RLock()
+        self._tails: Dict[int, StreamTail] = {}      # guarded_by: _poll_lock
+        self._windows: Dict[int, deque] = {}         # guarded_by: _poll_lock
+        self._alerted: set = set()                   # guarded_by: _poll_lock
+        self.alerts: List[Dict[str, Any]] = []       # guarded_by: _poll_lock
+        self.polls = 0                               # guarded_by: _poll_lock
+        self._last_poll = 0.0                        # guarded_by: _poll_lock
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def _reg(self):
+        return self._registry if self._registry is not None \
+            else get_registry()
+
+    # -- discovery + tailing -----------------------------------------------
+    def _discover(self) -> None:
+        mdir = metrics_dir(self.run_dir)
+        if not os.path.isdir(mdir):
+            return
+        with self._poll_lock:
+            for name in sorted(os.listdir(mdir)):
+                m = _WORKER_RE.match(name)
+                if m and int(m.group(1)) not in self._tails:
+                    wid = int(m.group(1))
+                    self._tails[wid] = StreamTail(os.path.join(mdir, name))
+                    self._windows[wid] = deque(maxlen=self.window)
+
+    def _ingest(self) -> int:
+        self._discover()
+        fresh = 0
+        with self._poll_lock:
+            for wid, tail in self._tails.items():
+                recs = tail.poll()
+                if recs:
+                    self._windows[wid].extend(recs)
+                    fresh += len(recs)
+        return fresh
+
+    # -- rules over the window ---------------------------------------------
+    def _evaluate(self) -> List[Dict[str, Any]]:
+        from . import doctor
+        with self._poll_lock:
+            workers = {wid: list(w)
+                       for wid, w in self._windows.items() if w}
+        if not workers:
+            return []
+        findings: List[Dict[str, Any]] = []
+        findings += doctor.check_memory(workers)
+        findings += doctor.check_compilation(workers)
+        findings += doctor.check_straggler(workers)
+        findings += doctor.check_data_starved(workers)
+        findings += doctor.check_comm_bound(workers)
+        findings += doctor.check_serving(workers)
+        findings += doctor.check_fleet(workers)
+        findings += doctor.check_fleet_flapping(workers)
+        findings += doctor.check_fleet_slo_burn(workers)
+        findings += doctor.check_tail_latency(workers)
+        findings += doctor.check_mfu_gap(workers)
+        findings += doctor.check_comm_budget(workers)
+        findings.sort(key=lambda f: (-f["severity"], f["kind"]))
+        return findings
+
+    @staticmethod
+    def _alert_key(finding: Dict[str, Any]) -> tuple:
+        data = finding.get("data") or {}
+        return (finding["kind"], data.get("function"), data.get("device"),
+                data.get("worker"), data.get("scenario"))
+
+    def _raise_alerts(self, findings: List[Dict[str, Any]]) -> None:
+        for f in findings:
+            key = self._alert_key(f)
+            with self._poll_lock:
+                if key in self._alerted:
+                    continue
+                self._alerted.add(key)
+                alert = {"kind": f["kind"], "severity": f["severity"],
+                         "title": f["title"], "evidence": f["evidence"],
+                         "first_seen": float(self._clock())}
+                self.alerts.append(alert)
+            vlog(0, "monitor: ALERT [%d] %s: %s", f["severity"],
+                 f["kind"], f["title"])
+            reg = self._reg()
+            reg.counter("monitor.alerts").inc()
+            reg.emit("monitor.alert", verdict=f["kind"],
+                     severity=f["severity"], title=f["title"])
+            if self.report is not None:
+                try:
+                    self.report.record("monitor.alert", verdict=f["kind"],
+                                       severity=f["severity"],
+                                       title=f["title"],
+                                       evidence=f["evidence"])
+                except Exception as e:  # alerting is best-effort
+                    vlog(1, "monitor: alert record failed: %r", e)
+
+    # -- the poll ----------------------------------------------------------
+    def poll(self, force: bool = False) -> Optional[Dict[str, Any]]:
+        """One tail-read + rule pass; throttled to ``interval`` unless
+        ``force``.  Returns the status dict written to
+        ``live_status.json`` (None when throttled)."""
+        with self._poll_lock:
+            now = float(self._clock())
+            if not force and now - self._last_poll < self.interval:
+                return None
+            self._last_poll = now
+            self.polls += 1
+        self._ingest()
+        findings = self._evaluate()
+        self._raise_alerts(findings)
+        status = self._status(now, findings)
+        try:
+            fsio.atomic_write_bytes(
+                live_status_path(self.run_dir),
+                json.dumps(status, indent=1,
+                           default=str).encode("utf-8"))
+        except OSError as e:
+            vlog(1, "monitor: live_status.json write failed: %s", e)
+        return status
+
+    def _status(self, now: float,
+                findings: List[Dict[str, Any]]) -> Dict[str, Any]:
+        with self._poll_lock:
+            last_step: Dict[str, Any] = {}
+            records_seen: Dict[str, int] = {}
+            for wid, window in self._windows.items():
+                steps = [r.get("step") for r in window
+                         if r.get("kind") == "step"
+                         and r.get("step") is not None]
+                last_step[str(wid)] = steps[-1] if steps else None
+                records_seen[str(wid)] = len(window)
+            drops: Dict[str, int] = {}
+            for tail in self._tails.values():
+                for k, v in tail.drops.items():
+                    drops[k] = drops.get(k, 0) + v
+            workers = {wid: list(w) for wid, w in self._windows.items() if w}
+            return {
+                "ts": now,
+                "run_dir": os.path.abspath(self.run_dir),
+                "polls": self.polls,
+                "workers": sorted(self._tails),
+                "last_step": last_step,
+                "window_records": records_seen,
+                "dropped": drops,
+                "healthy": not findings,
+                "findings": findings,
+                # snapshot: the caller serializes this dict after the
+                # lock is released, while alerts may keep growing
+                "alerts": list(self.alerts),
+                "straggler": straggler_stats(workers) if len(workers) > 1
+                else None,
+            }
+
+    # -- background-thread form --------------------------------------------
+    def start(self) -> "LiveAggregator":
+        if self._thread is None or not self._thread.is_alive():
+            self._stop.clear()
+            self._thread = threading.Thread(
+                target=self._run, name="ptpu-live-aggregator", daemon=True)
+            self._thread.start()
+        return self
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.interval):
+            try:
+                self.poll(force=True)
+            except Exception as e:  # the babysitter must outlive its rules
+                vlog(0, "monitor: live aggregation pass failed: %r", e)
+
+    def stop(self) -> None:
+        """Stop the thread and run one final forced poll, so the status
+        file reflects the stream tails at teardown."""
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2.0)
+            self._thread = None
+        try:
+            self.poll(force=True)
+        except Exception as e:  # the teardown must not raise
+            vlog(1, "monitor: final poll failed: %r", e)

@@ -1,13 +1,18 @@
-"""Metric sinks: the port's own copy of the parts of ``paddle_tpu/
-observability/sinks.py`` that serving and training use.
+"""Metric sinks: the port's own copy of ``paddle_tpu/observability/
+sinks.py``.
 
 - :class:`MetricsWriter` — the run-scoped JSONL stream,
   ``<dir>/worker-<i>.jsonl``, every byte through the fsync'd
   ``utils/fsio`` seam.  Buffered, and lossy-but-alive under I/O faults: a
   failed flush keeps the records for the next attempt, a full buffer
   drops the oldest and counts the drops.
+- :class:`StderrSummary` — a periodic one-line run summary (step, step
+  time, tokens/s, MFU, the non-zero counters) through the package logger;
+- :class:`PrometheusTextfile` — a node_exporter textfile, rewritten
+  atomically from a registry snapshot at most once an interval;
 - :func:`render_prometheus` — every registered instrument in the
-  Prometheus text exposition format (the ``/metrics`` page);
+  Prometheus text exposition format, shared by the textfile and the
+  status server's ``/metrics`` page, so the two are byte-identical;
 - :func:`metrics_dir` — ``<run_dir>/metrics``, where a supervised run
   streams its records.
 
@@ -25,7 +30,8 @@ from typing import Any, Dict, List, Optional
 from ..framework.log import get_logger
 from ..utils import fsio
 
-__all__ = ["MetricsWriter", "render_prometheus", "metrics_dir",
+__all__ = ["MetricsWriter", "StderrSummary", "PrometheusTextfile",
+           "render_prometheus", "metrics_dir",
            "default_interval"]
 
 INTERVAL_ENV = "PTPU_METRICS_INTERVAL"
@@ -108,6 +114,66 @@ _PROM_BAD = re.compile(r"[^a-zA-Z0-9_:]")
 _PROM_LABELED = re.compile(r"^(?P<base>[^\[\]]+)\[(?P<labels>[^\]]*)\]$")
 
 
+class StderrSummary:
+    """Periodic one-line run summary through the package logger.
+
+    Tracks the latest ``step`` record it sees and, every ``interval``
+    seconds, logs step/tokens-per-sec/MFU plus any counters — the
+    glanceable "is this run healthy" line for a console tail.
+    """
+
+    def __init__(self, interval: Optional[float] = None):
+        self.interval = (default_interval() if interval is None
+                         else float(interval))
+        self._registry = None
+        self._last = 0.0
+        self._last_step: Optional[Dict[str, Any]] = None
+        self.emitted = 0
+
+    def bind(self, registry) -> None:
+        self._registry = registry
+
+    def write(self, record: Dict[str, Any]) -> None:
+        if record.get("kind") == "step":
+            self._last_step = record
+        now = time.monotonic()
+        if now - self._last < self.interval:
+            return
+        self._last = now
+        self._log_line()
+
+    def _log_line(self) -> None:
+        parts = []
+        s = self._last_step
+        if s is not None:
+            parts.append(f"step={s.get('step')}")
+            if s.get("step_time_ms") is not None:
+                parts.append(f"step_ms={s['step_time_ms']:.1f}")
+            if s.get("tokens_per_sec") is not None:
+                parts.append(f"tok/s={s['tokens_per_sec']:.0f}")
+            if s.get("mfu") is not None:
+                parts.append(f"mfu={s['mfu']:.3f}")
+        if self._registry is not None:
+            snap = self._registry.snapshot()
+            for name, m in snap.items():
+                if m["type"] == "counter" and m["value"]:
+                    parts.append(f"{name}={m['value']:g}")
+        get_logger().info("metrics: %s", " ".join(parts) or "(no data)")
+        self.emitted += 1
+
+    def flush(self) -> None:
+        self._log_line()
+
+    def close(self) -> None:
+        pass  # nothing buffered; the logger owns stderr
+
+
+_PROM_BAD = re.compile(r"[^a-zA-Z0-9_:]")
+# instrument-name label convention: "memory.bytes_in_use[device=tpu:0]"
+# → metric paddle_tpu_memory_bytes_in_use{device="tpu:0"}
+_PROM_LABELED = re.compile(r"^(?P<base>[^\[\]]+)\[(?P<labels>[^\]]*)\]$")
+
+
 def _prom_name(name: str) -> str:
     return "paddle_tpu_" + _PROM_BAD.sub("_", name)
 
@@ -149,7 +215,8 @@ def _prom_labels(labels: Dict[str, str], extra: Optional[Dict[str, Any]]
 
 def render_prometheus(registry) -> str:
     """Every registered instrument in the Prometheus text exposition
-    format: the status server's ``/metrics`` page."""
+    format: :class:`PrometheusTextfile` and the status server's
+    ``/metrics`` page."""
     lines = []
     if registry is None:
         return ""
@@ -180,3 +247,41 @@ def render_prometheus(registry) -> str:
             lines.append(f"{pname}_sum{lb} {m['sum']:g}")
             lines.append(f"{pname}_count{lb} {m['count']:g}")
     return "\n".join(lines) + ("\n" if lines else "")
+
+
+class PrometheusTextfile:
+    """Textfile-collector exporter: rewrites ``path`` atomically with a
+    snapshot of every instrument, at most once per ``interval`` seconds
+    (plus on ``flush()``/``close()``).  Point node_exporter's
+    ``--collector.textfile.directory`` at the parent directory."""
+
+    def __init__(self, path: str, interval: Optional[float] = None):
+        self.path = path
+        self.interval = (default_interval() if interval is None
+                         else float(interval))
+        self._registry = None
+        self._last = 0.0
+
+    def bind(self, registry) -> None:
+        self._registry = registry
+
+    def write(self, record: Dict[str, Any]) -> None:
+        if time.monotonic() - self._last < self.interval:
+            return
+        self.flush()
+
+    def render(self) -> str:
+        return render_prometheus(self._registry)
+
+    def flush(self) -> None:
+        self._last = time.monotonic()
+        text = self.render()
+        try:
+            fsio.atomic_write_bytes(self.path, text.encode("utf-8"))
+        except OSError as e:
+            get_logger().warning(
+                "observability: prometheus textfile %s failed: %s",
+                self.path, e)
+
+    def close(self) -> None:
+        self.flush()

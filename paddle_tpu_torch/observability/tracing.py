@@ -22,13 +22,17 @@ readback absorbs the card's work before it.
 """
 from __future__ import annotations
 
+import json
 import os
 import threading
 import time
 from collections import deque
 from typing import Dict
 
-__all__ = ["span", "span_tree_totals", "trace_events"]
+from ..utils import fsio
+
+__all__ = ["span", "span_tree_totals", "trace_events",
+           "export_chrome_trace", "reset_tracing"]
 
 TRACE_BUFFER_ENV = "PTPU_TRACE_BUFFER"
 
@@ -124,3 +128,23 @@ def trace_events() -> list:
     return [{"name": path, "ph": "X", "ts": wall0 * 1e6, "dur": dur * 1e6,
              "pid": pid, "tid": tid}
             for path, wall0, dur, tid in items]
+
+
+def export_chrome_trace(path: str, reset: bool = False) -> int:
+    """Write the buffered spans as a chrome://tracing / Perfetto JSON;
+    returns the number of events written."""
+    events = trace_events()
+    payload = json.dumps({"traceEvents": events,
+                          "displayTimeUnit": "ms"}).encode("utf-8")
+    fsio.atomic_write_bytes(path, payload)
+    if reset:
+        with _lock:
+            _buffer.clear()
+    return len(events)
+
+
+def reset_tracing() -> None:
+    """Drop the span tree and the trace buffer."""
+    with _lock:
+        _tree.clear()
+        _buffer.clear()

@@ -2,17 +2,16 @@
 single-tower formulation, its ``dropout`` argument)."""
 from __future__ import annotations
 
-from torch import nn as tnn
-
 from ...device import resolve_device
 from ...nn import functional as F
+from ...nn.layer import Layer, Sequential
 from ...nn.layers import (AdaptiveAvgPool2D, Conv2D, Dropout, Linear,
                           MaxPool2D, ReLU)
 
 __all__ = ["AlexNet", "alexnet"]
 
 
-class AlexNet(tnn.Module):
+class AlexNet(Layer):
     """Five convs and a 6 x 6 adaptive pool, then the classifier with two
     Dropouts of p=``dropout``; ``num_classes=0`` keeps the pooled
     features.  Runs on ``cuda`` unless ``device="cpu"``."""
@@ -22,7 +21,7 @@ class AlexNet(tnn.Module):
         super().__init__()
         dev = resolve_device(device)
         self.num_classes = num_classes
-        self.features = tnn.Sequential(
+        self.features = Sequential(
             Conv2D(3, 64, 11, stride=4, padding=2, device=dev), ReLU(),
             MaxPool2D(3, stride=2),
             Conv2D(64, 192, 5, padding=2, device=dev), ReLU(),
@@ -34,7 +33,7 @@ class AlexNet(tnn.Module):
         )
         self.avgpool = AdaptiveAvgPool2D((6, 6))
         if num_classes > 0:
-            self.classifier = tnn.Sequential(
+            self.classifier = Sequential(
                 Dropout(dropout), Linear(256 * 6 * 6, 4096, device=dev),
                 ReLU(),
                 Dropout(dropout), Linear(4096, 4096, device=dev), ReLU(),

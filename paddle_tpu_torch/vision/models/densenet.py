@@ -15,6 +15,7 @@ from torch import nn as tnn
 from ...device import resolve_device
 from ...framework.errors import enforce
 from ...nn import functional as F
+from ...nn.layer import Layer, Sequential
 from ...nn.layers import (AdaptiveAvgPool2D, AvgPool2D, BatchNorm2D, Conv2D,
                           Linear, MaxPool2D)
 
@@ -30,7 +31,7 @@ _CONFIGS = {
 }
 
 
-class DenseLayer(tnn.Module):
+class DenseLayer(Layer):
     """BN-ReLU-1x1 (bottleneck 4k), BN-ReLU-3x3 (k); the output is the
     input with the k new channels concatenated."""
 
@@ -50,7 +51,7 @@ class DenseLayer(tnn.Module):
         return torch.cat([x, out], dim=1)
 
 
-class Transition(tnn.Module):
+class Transition(Layer):
     def __init__(self, in_ch: int, out_ch: int, device=None):
         super().__init__()
         self.bn = BatchNorm2D(in_ch, device=device)
@@ -61,7 +62,7 @@ class Transition(tnn.Module):
         return self.pool(self.conv(F.relu(self.bn(x))))
 
 
-class DenseNet(tnn.Module):
+class DenseNet(Layer):
     """``layers`` one of 121, 161, 169, 201, 264; ``num_classes`` /
     ``with_pool`` as the JAX class.  Runs on ``cuda`` unless
     ``device="cpu"``."""
@@ -88,11 +89,11 @@ class DenseNet(tnn.Module):
             for _ in range(repeats):
                 dense.append(DenseLayer(ch, growth, device=dev))
                 ch += growth
-            blocks.append(tnn.Sequential(*dense))
+            blocks.append(Sequential(*dense))
             if i != len(block_repeats) - 1:
                 blocks.append(Transition(ch, ch // 2, device=dev))
                 ch //= 2
-        self.blocks = tnn.Sequential(*blocks)
+        self.blocks = Sequential(*blocks)
         self.bn_final = BatchNorm2D(ch, device=dev)
         if with_pool:
             self.pool = AdaptiveAvgPool2D((1, 1))

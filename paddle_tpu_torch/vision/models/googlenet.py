@@ -8,17 +8,17 @@ pool -> 1x1) concatenated on channels.
 from __future__ import annotations
 
 import torch
-from torch import nn as tnn
 
 from ...device import resolve_device
 from ...nn import functional as F
+from ...nn.layer import Layer
 from ...nn.layers import (AdaptiveAvgPool2D, Conv2D, Dropout, Linear,
                           MaxPool2D)
 
 __all__ = ["GoogLeNet", "googlenet"]
 
 
-class _Conv(tnn.Module):
+class _Conv(Layer):
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
                  padding: int = 0, device=None):
         super().__init__()
@@ -29,7 +29,7 @@ class _Conv(tnn.Module):
         return F.relu(self.conv(x))
 
 
-class Inception(tnn.Module):
+class Inception(Layer):
     def __init__(self, in_ch, c1, c3r, c3, c5r, c5, proj, device=None):
         super().__init__()
         self.t1 = _Conv(in_ch, c1, 1, device=device)
@@ -46,7 +46,7 @@ class Inception(tnn.Module):
              self.t4(self.pool(x))], dim=1)
 
 
-class _AuxHead(tnn.Module):
+class _AuxHead(Layer):
     def __init__(self, in_ch: int, num_classes: int, device=None):
         super().__init__()
         self.pool = AdaptiveAvgPool2D((4, 4))
@@ -61,7 +61,7 @@ class _AuxHead(tnn.Module):
         return self.fc2(self.drop(x))
 
 
-class GoogLeNet(tnn.Module):
+class GoogLeNet(Layer):
     """``num_classes`` / ``with_pool`` as the JAX class; with a classifier
     the two auxiliary heads (after ince4a and ince4d) are built and
     returned beside the main logits.  Runs on ``cuda`` unless

@@ -13,13 +13,14 @@ from torch import nn as tnn
 
 from ...device import resolve_device
 from ...nn import functional as F
+from ...nn.layer import Layer, Sequential
 from ...nn.layers import (AdaptiveAvgPool2D, AvgPool2D, BatchNorm2D, Conv2D,
                           Dropout, Linear, MaxPool2D)
 
 __all__ = ["InceptionV3", "inception_v3"]
 
 
-class _Conv(tnn.Module):
+class _Conv(Layer):
     def __init__(self, in_ch: int, out_ch: int, kernel, stride=1, padding=0,
                  device=None):
         super().__init__()
@@ -31,7 +32,7 @@ class _Conv(tnn.Module):
         return F.relu(self.bn(self.conv(x)))
 
 
-class InceptionA(tnn.Module):
+class InceptionA(Layer):
     """35 x 35 block: 1x1 / 5x5 / double-3x3 / pool towers."""
 
     def __init__(self, in_ch: int, pool_ch: int, device=None):
@@ -53,7 +54,7 @@ class InceptionA(tnn.Module):
             dim=1)
 
 
-class ReductionA(tnn.Module):
+class ReductionA(Layer):
     """35 -> 17 grid reduction."""
 
     def __init__(self, in_ch: int, device=None):
@@ -71,7 +72,7 @@ class ReductionA(tnn.Module):
             dim=1)
 
 
-class InceptionB(tnn.Module):
+class InceptionB(Layer):
     """17 x 17 block with 1x7 / 7x1 factorised towers."""
 
     def __init__(self, in_ch: int, mid: int, device=None):
@@ -95,7 +96,7 @@ class InceptionB(tnn.Module):
         return torch.cat([self.b1(x), t7, d7, self.bp(self.pool(x))], dim=1)
 
 
-class ReductionB(tnn.Module):
+class ReductionB(Layer):
     """17 -> 8 grid reduction."""
 
     def __init__(self, in_ch: int, device=None):
@@ -116,7 +117,7 @@ class ReductionB(tnn.Module):
             dim=1)
 
 
-class InceptionC(tnn.Module):
+class InceptionC(Layer):
     """8 x 8 block with branched 1x3 / 3x1 towers."""
 
     def __init__(self, in_ch: int, device=None):
@@ -141,7 +142,7 @@ class InceptionC(tnn.Module):
         return torch.cat([self.b1(x), b3, d3, self.bp(self.pool(x))], dim=1)
 
 
-class InceptionV3(tnn.Module):
+class InceptionV3(Layer):
     """``num_classes`` / ``with_pool`` as the JAX class.  Runs on
     ``cuda`` unless ``device="cpu"``."""
 
@@ -167,7 +168,7 @@ class InceptionV3(tnn.Module):
             ReductionB(768, device=d),
             InceptionC(1280, device=d), InceptionC(2048, device=d),
         ]
-        self.features = tnn.Sequential(*body)
+        self.features = Sequential(*body)
         if with_pool:
             self.pool = AdaptiveAvgPool2D((1, 1))
         if num_classes > 0:

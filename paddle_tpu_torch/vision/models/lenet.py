@@ -2,15 +2,14 @@
 ``paddle_tpu/vision/models/lenet.py``."""
 from __future__ import annotations
 
-from torch import nn as tnn
-
 from ... import nn
 from ...device import resolve_device
+from ...nn.layer import Layer
 
 __all__ = ["LeNet"]
 
 
-class LeNet(tnn.Module):
+class LeNet(Layer):
     """Two conv / relu / max-pool stages and three Linear layers over a
     1 x 28 x 28 image; ``num_classes=0`` keeps the features only.  Runs on
     ``cuda`` unless ``device="cpu"``."""

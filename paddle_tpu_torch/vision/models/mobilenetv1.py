@@ -5,17 +5,16 @@ then a 1x1 pointwise one, each conv-BN-ReLU.
 """
 from __future__ import annotations
 
-from torch import nn as tnn
-
 from ...device import resolve_device
 from ...nn import functional as F
+from ...nn.layer import Layer, Sequential
 from ...nn.layers import AdaptiveAvgPool2D, Linear
 from .utils import ConvNormActivation
 
 __all__ = ["MobileNetV1", "mobilenet_v1"]
 
 
-class DepthwiseSeparable(tnn.Module):
+class DepthwiseSeparable(Layer):
     def __init__(self, in_ch: int, out_ch: int, stride: int, device=None):
         super().__init__()
         self.depthwise = ConvNormActivation(in_ch, in_ch, 3, stride,
@@ -32,7 +31,7 @@ _BLOCKS = [(64, 1), (128, 2), (128, 1), (256, 2), (256, 1), (512, 2),
            (1024, 1)]
 
 
-class MobileNetV1(tnn.Module):
+class MobileNetV1(Layer):
     """Widths ``max(8, int(ch * scale))``; ``num_classes`` / ``with_pool``
     as the JAX class.  Runs on ``cuda`` unless ``device="cpu"``."""
 
@@ -53,7 +52,7 @@ class MobileNetV1(tnn.Module):
             layers.append(DepthwiseSeparable(in_ch, c(out), stride,
                                              device=dev))
             in_ch = c(out)
-        self.features = tnn.Sequential(*layers)
+        self.features = Sequential(*layers)
         if with_pool:
             self.pool = AdaptiveAvgPool2D((1, 1))
         if num_classes > 0:

@@ -7,10 +7,9 @@ weight``, ``features.2.project_bn._mean``, ``fc.weight``, ...).
 """
 from __future__ import annotations
 
-from torch import nn as tnn
-
 from ...device import resolve_device
 from ...nn import functional as F
+from ...nn.layer import Layer, Sequential
 from ...nn.layers import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Dropout,
                           Linear)
 from .utils import ConvNormActivation
@@ -30,7 +29,7 @@ def _conv_bn_relu6(in_ch, out_ch, kernel=3, stride=1, groups=1, device=None):
                               act="relu6", device=device)
 
 
-class InvertedResidual(tnn.Module):
+class InvertedResidual(Layer):
     def __init__(self, in_ch: int, out_ch: int, stride: int, expand: int,
                  device=None):
         super().__init__()
@@ -41,7 +40,7 @@ class InvertedResidual(tnn.Module):
             layers.append(_conv_bn_relu6(in_ch, hidden, 1, device=device))
         layers.append(_conv_bn_relu6(hidden, hidden, 3, stride,
                                      groups=hidden, device=device))
-        self.body = tnn.Sequential(*layers)
+        self.body = Sequential(*layers)
         self.project = Conv2D(hidden, out_ch, 1, bias_attr=False,
                               device=device)
         self.project_bn = BatchNorm2D(out_ch, device=device)
@@ -56,7 +55,7 @@ _SETTINGS = [(1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
              (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1)]
 
 
-class MobileNetV2(tnn.Module):
+class MobileNetV2(Layer):
     """``scale`` multiplies every width (rounded by ``_make_divisible``;
     the last conv keeps at least 1280 channels); ``num_classes=0`` drops
     the classifier and ``with_pool=False`` the global pool, as the JAX
@@ -80,7 +79,7 @@ class MobileNetV2(tnn.Module):
                     in_ch, out_ch, s if i == 0 else 1, t, device=dev))
                 in_ch = out_ch
         layers.append(_conv_bn_relu6(in_ch, last_ch, 1, device=dev))
-        self.features = tnn.Sequential(*layers)
+        self.features = Sequential(*layers)
         if with_pool:
             self.pool = AdaptiveAvgPool2D((1, 1))
         if num_classes > 0:

@@ -12,6 +12,7 @@ from torch import nn as tnn
 
 from ...device import resolve_device
 from ...nn import functional as F
+from ...nn.layer import Layer, Sequential
 from ...nn.layers import AdaptiveAvgPool2D, Conv2D, Dropout, Linear
 from .mobilenetv2 import _make_divisible
 from .utils import ConvNormActivation as ConvBNAct
@@ -20,7 +21,7 @@ __all__ = ["MobileNetV3Small", "MobileNetV3Large", "mobilenet_v3_small",
            "mobilenet_v3_large"]
 
 
-class SqueezeExcite(tnn.Module):
+class SqueezeExcite(Layer):
     def __init__(self, ch: int, reduction: int = 4, device=None):
         super().__init__()
         squeezed = _make_divisible(ch // reduction)
@@ -33,7 +34,7 @@ class SqueezeExcite(tnn.Module):
         return x * F.hardsigmoid(self.expand(s))
 
 
-class InvertedResidualV3(tnn.Module):
+class InvertedResidualV3(Layer):
     def __init__(self, in_ch: int, hidden: int, out_ch: int, kernel: int,
                  stride: int, use_se: bool, act: str, device=None):
         super().__init__()
@@ -48,7 +49,7 @@ class InvertedResidualV3(tnn.Module):
             layers.append(SqueezeExcite(hidden, device=device))
         layers.append(ConvBNAct(hidden, out_ch, 1, act="none",
                                 device=device))
-        self.body = tnn.Sequential(*layers)
+        self.body = Sequential(*layers)
 
     def forward(self, x):
         out = self.body(x)
@@ -77,7 +78,7 @@ _SMALL: List[Tuple] = [
 ]
 
 
-class _MobileNetV3(tnn.Module):
+class _MobileNetV3(Layer):
     def __init__(self, settings: List[Tuple], last_exp: int, last_ch: int,
                  scale: float, num_classes: int, with_pool: bool, device):
         super().__init__()
@@ -96,7 +97,7 @@ class _MobileNetV3(tnn.Module):
         exp_ch = _make_divisible(last_exp * scale)
         layers.append(ConvBNAct(in_ch, exp_ch, 1, act="hardswish",
                                 device=dev))
-        self.features = tnn.Sequential(*layers)
+        self.features = Sequential(*layers)
         if with_pool:
             self.pool = AdaptiveAvgPool2D((1, 1))
         if num_classes > 0:

@@ -14,6 +14,7 @@ from torch import nn as tnn
 
 from ...device import resolve_device
 from ...nn import functional as F
+from ...nn.layer import Layer, Sequential
 from ...nn.layers import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear,
                           MaxPool2D)
 
@@ -30,7 +31,7 @@ def _conv_bn(in_ch: int, out_ch: int, kernel: int, stride: int = 1,
             BatchNorm2D(out_ch, device=device))
 
 
-class BasicBlock(tnn.Module):
+class BasicBlock(Layer):
     """3x3 + 3x3 residual block (resnet18/34)."""
 
     expansion = 1
@@ -52,7 +53,7 @@ class BasicBlock(tnn.Module):
         return F.relu(out + identity)
 
 
-class BottleneckBlock(tnn.Module):
+class BottleneckBlock(Layer):
     """1x1 -> 3x3 -> 1x1 bottleneck (resnet50/101/152)."""
 
     expansion = 4
@@ -78,7 +79,7 @@ class BottleneckBlock(tnn.Module):
         return F.relu(out + identity)
 
 
-class _Downsample(tnn.Module):
+class _Downsample(Layer):
     def __init__(self, in_ch: int, out_ch: int, stride: int, device=None):
         super().__init__()
         self.conv, self.bn = _conv_bn(in_ch, out_ch, 1, stride,
@@ -88,7 +89,7 @@ class _Downsample(tnn.Module):
         return self.bn(self.conv(x))
 
 
-class ResNet(tnn.Module):
+class ResNet(Layer):
     """ResNet backbone and classifier head: ``depth_or_layers`` is 18, 34,
     50, 101, 152 or the four stage counts; ``with_pool`` / ``num_classes``
     as the JAX class.  Runs on ``cuda`` unless ``device="cpu"``."""
@@ -136,7 +137,7 @@ class ResNet(tnn.Module):
             blocks.append(block(self.inplanes, planes, groups=self.groups,
                                 base_width=self.base_width,
                                 device=self.device))
-        return tnn.Sequential(*blocks)
+        return Sequential(*blocks)
 
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))

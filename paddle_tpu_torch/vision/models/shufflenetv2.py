@@ -14,6 +14,7 @@ from torch import nn as tnn
 from ...device import resolve_device
 from ...framework.errors import enforce
 from ...nn import functional as F
+from ...nn.layer import Layer, Sequential
 from ...nn.layers import AdaptiveAvgPool2D, Linear, MaxPool2D
 from .utils import ConvNormActivation
 
@@ -38,7 +39,7 @@ def ConvBN(in_ch, out_ch, kernel, stride=1, groups=1, device=None):
                               act="none", device=device)
 
 
-class ShuffleUnit(tnn.Module):
+class ShuffleUnit(Layer):
     """stride=1 unit: split in half, transform one half, concat and
     shuffle."""
 
@@ -59,7 +60,7 @@ class ShuffleUnit(tnn.Module):
         return channel_shuffle(torch.cat([x1, x2], dim=1), 2)
 
 
-class ShuffleDownUnit(tnn.Module):
+class ShuffleDownUnit(Layer):
     """stride=2 unit: both branches transform and downsample."""
 
     def __init__(self, in_ch: int, out_ch: int, act: str, device=None):
@@ -90,7 +91,7 @@ _STAGE_CHANNELS = {
 }
 
 
-class ShuffleNetV2(tnn.Module):
+class ShuffleNetV2(Layer):
     """``scale`` one of 0.25, 0.33, 0.5, 1.0, 1.5, 2.0; ``act`` ``"relu"``
     or ``"swish"``; ``num_classes`` / ``with_pool`` as the JAX class.
     Runs on ``cuda`` unless ``device="cpu"``."""
@@ -117,9 +118,9 @@ class ShuffleNetV2(tnn.Module):
                                                        device=dev)]
             units += [ShuffleUnit(out_ch, act, device=dev)
                       for _ in range(repeats - 1)]
-            stages.append(tnn.Sequential(*units))
+            stages.append(Sequential(*units))
             in_ch = out_ch
-        self.stages = tnn.Sequential(*stages)
+        self.stages = Sequential(*stages)
         self.conv_last = ConvBN(in_ch, chans[4], 1, device=dev)
         if with_pool:
             self.pool = AdaptiveAvgPool2D((1, 1))

@@ -8,18 +8,18 @@ average pool.
 from __future__ import annotations
 
 import torch
-from torch import nn as tnn
 
 from ...device import resolve_device
 from ...framework.errors import enforce
 from ...nn import functional as F
+from ...nn.layer import Layer, Sequential
 from ...nn.layers import (AdaptiveAvgPool2D, Conv2D, Dropout, MaxPool2D,
                           ReLU)
 
 __all__ = ["SqueezeNet", "squeezenet1_0", "squeezenet1_1"]
 
 
-class Fire(tnn.Module):
+class Fire(Layer):
     def __init__(self, in_ch: int, squeeze: int, expand1x1: int,
                  expand3x3: int, device=None):
         super().__init__()
@@ -34,7 +34,7 @@ class Fire(tnn.Module):
             [F.relu(self.expand1x1(x)), F.relu(self.expand3x3(x))], dim=1)
 
 
-class SqueezeNet(tnn.Module):
+class SqueezeNet(Layer):
     """``version`` ``"1.0"`` or ``"1.1"``; ``num_classes`` / ``with_pool``
     as the JAX class.  Runs on ``cuda`` unless ``device="cpu"``."""
 
@@ -50,7 +50,7 @@ class SqueezeNet(tnn.Module):
         def fire(*chans):
             return Fire(*chans, device=dev)
         if version == "1.0":
-            self.features = tnn.Sequential(
+            self.features = Sequential(
                 Conv2D(3, 96, 7, stride=2, device=dev), ReLU(),
                 MaxPool2D(3, stride=2),
                 fire(96, 16, 64, 64), fire(128, 16, 64, 64),
@@ -62,7 +62,7 @@ class SqueezeNet(tnn.Module):
                 fire(512, 64, 256, 256),
             )
         else:
-            self.features = tnn.Sequential(
+            self.features = Sequential(
                 Conv2D(3, 64, 3, stride=2, device=dev), ReLU(),
                 MaxPool2D(3, stride=2),
                 fire(64, 16, 64, 64), fire(128, 16, 64, 64),

@@ -2,10 +2,9 @@
 stamps out: the port of ``paddle_tpu/vision/models/utils.py``."""
 from __future__ import annotations
 
-from torch import nn as tnn
-
 from ...framework.errors import enforce
 from ...nn import functional as F
+from ...nn.layer import Layer
 from ...nn.layers import BatchNorm2D, Conv2D
 
 __all__ = ["ConvNormActivation"]
@@ -14,7 +13,7 @@ _ACTS = {"relu": F.relu, "relu6": F.relu6, "hardswish": F.hardswish,
          "swish": F.silu, "none": None}
 
 
-class ConvNormActivation(tnn.Module):
+class ConvNormActivation(Layer):
     """Conv2D (same padding, no bias) + BatchNorm2D + the activation
     ``act`` (``"relu"``, ``"relu6"``, ``"hardswish"``, ``"swish"`` or
     ``"none"``).  Keys ``conv.weight``, ``bn.weight``, ``bn._mean``, ..."""

@@ -9,6 +9,7 @@ from torch import nn as tnn
 
 from ...device import resolve_device
 from ...nn import functional as F
+from ...nn.layer import Layer, Sequential
 from ...nn.layers import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Dropout,
                           Linear, MaxPool2D, ReLU)
 
@@ -25,7 +26,7 @@ _CFGS = {
 }
 
 
-def _make_features(cfg: List, batch_norm: bool, device) -> tnn.Sequential:
+def _make_features(cfg: List, batch_norm: bool, device) -> Sequential:
     layers: List[tnn.Module] = []
     in_ch = 3
     for v in cfg:
@@ -37,10 +38,10 @@ def _make_features(cfg: List, batch_norm: bool, device) -> tnn.Sequential:
                 layers.append(BatchNorm2D(v, device=device))
             layers.append(ReLU())
             in_ch = v
-    return tnn.Sequential(*layers)
+    return Sequential(*layers)
 
 
-class VGG(tnn.Module):
+class VGG(Layer):
     """``features`` then a 7 x 7 adaptive pool and the 4096-wide
     classifier (two Dropouts of p=0.5); ``num_classes`` / ``with_pool``
     as the JAX class.  Runs on ``cuda`` unless ``device="cpu"`` (the
@@ -56,7 +57,7 @@ class VGG(tnn.Module):
         if with_pool:
             self.avgpool = AdaptiveAvgPool2D((7, 7))
         if num_classes > 0:
-            self.classifier = tnn.Sequential(
+            self.classifier = Sequential(
                 Linear(512 * 7 * 7, 4096, device=dev), ReLU(), Dropout(),
                 Linear(4096, 4096, device=dev), ReLU(), Dropout(),
                 Linear(4096, num_classes, device=dev),

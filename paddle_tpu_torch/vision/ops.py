@@ -36,11 +36,11 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch import nn as tnn
 
 from ..device import resolve_device
 from ..framework.errors import enforce
 from ..nn import initializer as I
+from ..nn.layer import Layer
 from .models.utils import ConvNormActivation  # noqa: F401
 
 __all__ = ["yolo_box", "roi_align", "roi_pool", "psroi_pool", "RoIAlign",
@@ -276,7 +276,7 @@ def psroi_pool(x, boxes, boxes_num, output_size, spatial_scale: float = 1.0):
     return vals.mean(dim=(4, 5))
 
 
-class RoIAlign(tnn.Module):
+class RoIAlign(Layer):
     def __init__(self, output_size, spatial_scale: float = 1.0):
         super().__init__()
         self.output_size = output_size
@@ -487,7 +487,7 @@ def deform_conv2d(x, offset, weight, bias=None, stride=1, padding=0,
     return out
 
 
-class DeformConv2D(tnn.Module):
+class DeformConv2D(Layer):
     """Learnable ``weight`` (Cout, Cin/groups, kh, kw) and ``bias``, both
     ``Uniform(-1/sqrt(fan_in), 1/sqrt(fan_in))`` (``bias_attr=False`` for
     none); offset (and mask) come in at call time from a companion conv.

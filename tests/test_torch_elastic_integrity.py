@@ -444,7 +444,7 @@ def _jax_worker(run_dir, i):
 class _TNet(torch.nn.Module):
     def __init__(self):
         super().__init__()
-        self.fc = tnn.Linear(8, 4)
+        self.fc = tnn.Linear(8, 4, device="cpu")
 
     def forward(self, x):
         return self.fc(x)
@@ -568,7 +568,7 @@ def test_jax_supervised_checkpoint_restores_into_port_model(tmp_path):
     sup.elastic.wait()
     path = jel.latest_checkpoint(sup.elastic.directory)
     assert os.path.basename(path) == "step-8"
-    tnet = tnn.Linear(4, 2)
+    tnet = tnn.Linear(4, 2, device="cpu")
     load_jax_state(tnet, weights)
     tm = TModel(tnet)
     tm.prepare(optimizer=topt.Adam(learning_rate=1e-2,

@@ -203,8 +203,9 @@ def _mlp_pair(metrics=True, opt="adam", lr=1e-2):
     """The same 4-8-2 tanh MLP in both packages, prepared alike."""
     pt.seed(0)
     jnet = jnn.Sequential(jnn.Linear(4, 8), jnn.Tanh(), jnn.Linear(8, 2))
-    tnet = torch.nn.Sequential(tnn.Linear(4, 8), torch.nn.Tanh(),
-                               tnn.Linear(8, 2))
+    tnet = torch.nn.Sequential(tnn.Linear(4, 8, device="cpu"),
+                               torch.nn.Tanh(),
+                               tnn.Linear(8, 2, device="cpu"))
     load_jax_state(tnet, {k: np.asarray(v)
                           for k, v in jnet.state_dict().items()})
     jopt = (pt.optimizer.Adam if opt == "adam" else pt.optimizer.SGD)(

@@ -116,6 +116,14 @@ def test_package_imports_with_jax_blocked():
             "import paddle_tpu_torch.nn.rnn\n"
             "import paddle_tpu_torch.nn.utils\n"
             "import paddle_tpu_torch.testing.nn_cases\n"
+            "import paddle_tpu_torch.nn.layer\n"
+            "import paddle_tpu_torch.observability\n"
+            "import paddle_tpu_torch.observability.aggregate\n"
+            "import paddle_tpu_torch.observability.doctor\n"
+            "import paddle_tpu_torch.observability.requesttrace\n"
+            "import paddle_tpu_torch.observability.sinks\n"
+            "import paddle_tpu_torch.observability.monitor\n"
+            "assert 'triton' not in sys.modules\n"
             "loaded = [m for m in sys.modules if sys.modules[m] is not None]\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
             "               for m in loaded)\n"
@@ -152,3 +160,30 @@ def test_ops_submodules_are_not_shadowed():
     from paddle_tpu_torch.ops import flash_attention, fused, fused_block
     for module in (flash_attention, fused, fused_block):
         assert isinstance(module, types.ModuleType), module
+
+
+# names of the JAX ``paddle_tpu.observability`` that the port does not
+# export yet, and why: each comes with a later module
+_OBSERVABILITY_LEFT_OUT = {
+    # compile / retrace tracking and the persistent compile cache track
+    # ``jax.jit``; the port has no jit (a tracker of its own is later work)
+    "CompileTracker": "compilation", "arg_signature": "compilation",
+    "diff_signatures": "compilation", "get_tracker": "compilation",
+    "track_jit": "compilation",
+    "maybe_enable_persistent_cache": "compilecache",
+    "persistent_cache_dir": "compilecache",
+    # the roofline observatory parses XLA's compiled HLO; H100 tables
+    # come with the port's bench
+    "RooflineObservatory": "roofline", "get_observatory": "roofline",
+    "capture_window": "roofline", "gap_budget": "roofline",
+    "degraded_block": "roofline", "parse_hlo_ops": "roofline",
+}
+
+
+def test_observability_exports_every_ported_jax_name():
+    import paddle_tpu.observability as jobs
+    import paddle_tpu_torch.observability as tobs
+    missing = sorted(set(jobs.__all__) - set(tobs.__all__))
+    assert missing == sorted(_OBSERVABILITY_LEFT_OUT), missing
+    for name in tobs.__all__:
+        assert hasattr(tobs, name), name

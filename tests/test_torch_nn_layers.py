@@ -199,13 +199,14 @@ def _own_public(module):
 def test_public_names_match_the_jax_package():
     from paddle_tpu.nn import _functional_ext as jfe
     from paddle_tpu.nn import functional as jF
+    from paddle_tpu.nn import layer as jlayer
     from paddle_tpu.nn import layers as jl
     from paddle_tpu.nn import layers_ext as jle
     from paddle_tpu.nn import rnn as jrnn
     from paddle_tpu.nn import utils as jutils
     from paddle_tpu_torch.nn import functional as tF
-    layer_names = (_own_public(jl) | set(jle.__all__) | set(jrnn.__all__)
-                   | {"RNNCellBase"}) - {"Layer", "Parameter"}
+    layer_names = (_own_public(jl) | _own_public(jlayer) | set(jle.__all__)
+                   | set(jrnn.__all__) | {"RNNCellBase"})
     fn_names = _own_public(jF) | set(jfe.__all__)
     assert sorted(n for n in layer_names if not hasattr(tnn, n)) == []
     assert sorted(n for n in fn_names if not hasattr(tF, n)) == []
@@ -225,7 +226,16 @@ def test_public_names_match_the_jax_package():
     lambda: tnn.HSigmoidLoss(4, 5), lambda: tnn.LSTM(3, 4),
     lambda: tnn.GRU(3, 4), lambda: tnn.SimpleRNN(3, 4),
     lambda: tnn.LSTMCell(3, 4), lambda: tnn.GRUCell(3, 4),
-    lambda: tnn.SimpleRNNCell(3, 4)])
+    lambda: tnn.SimpleRNNCell(3, 4),
+    # the slice 9-10 constructors, repaired to the same rule
+    lambda: tnn.LayerNorm(4), lambda: tnn.RMSNorm(4),
+    lambda: tnn.Linear(2, 3), lambda: tnn.Embedding(5, 3),
+    lambda: tnn.Conv2D(2, 2, 3), lambda: tnn.BatchNorm1D(3),
+    lambda: tnn.BatchNorm2D(3), lambda: tnn.BatchNorm3D(3),
+    lambda: tnn.MultiHeadAttention(8, 2),
+    lambda: tnn.TransformerEncoderLayer(8, 2, 16),
+    lambda: tnn.TransformerDecoderLayer(8, 2, 16),
+    lambda: tnn.Transformer(8, 2, 1, 1, 16)])
 def test_entry_points_need_a_card_unless_cpu_is_asked(make):
     if torch.cuda.is_available():
         pytest.skip("a card is visible")

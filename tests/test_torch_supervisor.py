@@ -218,7 +218,7 @@ def _tiny_supervised(P, d, calibrate_watchdog=None, **sup_kw):
                       loss=_mse_jax)
         ds_cls = JTensorDataset
     else:
-        net = tnn.Linear(4, 2)
+        net = tnn.Linear(4, 2, device="cpu")
         load_jax_state(net, weights)
         model = TModel(net)
         model.prepare(optimizer=topt.SGD(
@@ -398,7 +398,7 @@ def test_skipped_step_leaves_the_state_as_it_was(tmp_path):
     """The port's guard decides before ``optimizer.step()``: after a
     skipped batch the parameters, Adam slots and step count are the old
     ones bit for bit (the JAX step computes the update and drops it)."""
-    net = tnn.Linear(4, 2)
+    net = tnn.Linear(4, 2, device="cpu")
     model = TModel(net)
     model.prepare(optimizer=topt.Adam(learning_rate=1e-2,
                                       parameters=net.named_parameters()),
