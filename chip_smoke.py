@@ -438,6 +438,35 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               4 x the CPU float32 run's distance from its float64 run plus
               1e-6 of the range, integers exact; the random ops by their
               statistics; one nn_rest JSON line;
+  (c2j) the paddle tensor API (paddle_tpu_torch's top level,
+              tensor_ops.py, linalg, fft, signal; none of the eight
+              kernels: the counters are zeroed before the phase and must
+              read 0 after it): (1) all 276 entries of the op registry
+              (paddle_tpu_torch/ops/spec.py) in float32 on the card against
+              the port's CPU float64 run and the numpy reference at each
+              entry's rtol / atol, the gradient of sum(fn) by every
+              grad_wrt argument by autograd on the card against the CPU
+              float64 one at grad_rtol / grad_atol, and the bf16 sweep on
+              the card (within 0.1 of the output's scale of the card's
+              float32 result; matrix_rank has no bf16 form and is named as
+              skipped); the worst entries by err / limit; (2)
+              DeepSpeech2's linear spectrogram front end through
+              paddle_tpu_torch.signal and the top-level math:
+              log1p(|stft(x)|^2) of B=16 seeded 4 s utterances at 16 kHz
+              (Hann window 320, hop 160: 161 bins x 401 frames) and its
+              gradient by x, card against CPU by c2g (1)'s rule, the istft
+              round trip's error, the forward's and backward's ms; (3)
+              linalg at GPT-3 1.3B's width (2048 x 2048 float32: cholesky,
+              solve, inv, qr, svd, eigh, lstsq, lu / lu_unpack, det /
+              slogdet, matrix_rank), each held by its residual computed in
+              float64 from the card's factors within n x float32 eps, the
+              singular values, eigenvalues, determinant and rank against
+              the float64 CPU run's, each op's ms; (4) 31 top-level ops at
+              GPT-125M's activation shape (8, 2048, 768) float32: card
+              against CPU by c2g (1)'s rule (integer results exact), each
+              op's ms (CUDA events) beside its bytes bound (bytes read and
+              written over 3.35 TB/s); one tensor_api JSON line with each
+              part's seconds and the phase's;
   (c3) generate GPTForCausalLM.generate at full width (convert.
               generate_workload: B=8, prompt 512, 128 greedy tokens, bf16),
               unfused (use_pallas_attention) and fused (use_fused_block):
@@ -529,7 +558,16 @@ def main() -> int:
         return 3
     sys.path.insert(0, root)
     import numpy as np
+    # each phase's wall seconds, logged as one line before the kernel list
+    phase_s, since = {}, [time.perf_counter()]
+
+    def done(phase):
+        now = time.perf_counter()
+        phase_s[phase] = now - since[0]
+        since[0] = now
+
     from paddle_tpu_torch import _kernels
+    done("import")
 
     # exact float32 products for every reference on the card (no TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -549,6 +587,7 @@ def main() -> int:
     design.update(check_stream_design(torch, _kernels, dev))
     design.update(check_ln_linear_design(_kernels, dev))
     design.update(check_tiled_design(_kernels, dev))
+    done("a_build")
 
     # -- (b) each kernel against its plain version ---------------------------
     results = check_kernels(torch, np, dev)
@@ -561,30 +600,37 @@ def main() -> int:
     results.update(check_flash_decode(torch, np, dev, _kernels))
     for name, d in design.items():
         results[name]["design"] = d
+    done("b_kernels")
 
     # -- (c) serving ---------------------------------------------------------
     serving = serve(torch, np, dev, _kernels)
+    done("c_serving")
 
     # -- (c1b) the serving lifecycle -------------------------------------------
     serve_lifecycle(torch, np, dev, _kernels, root, serving["tokens"])
     torch.cuda.empty_cache()
+    done("c1b_lifecycle")
 
     # -- (c1c) the serving fleet -----------------------------------------------
     serve_fleet(torch, np, dev, _kernels, root)
     torch.cuda.empty_cache()
+    done("c1c_fleet")
 
     # -- (c1d) traced serving, Layer.apply, the trace drill --------------------
     traced_serving(torch, np, dev, _kernels, root)
     torch.cuda.empty_cache()
+    done("c1d_traced")
 
     # -- (c2) training -------------------------------------------------------
     training = train(torch, np, dev, _kernels)
     torch.cuda.empty_cache()
+    done("c2_training")
 
     # -- (c2b) fused-block training ------------------------------------------
     fused_training = train_fused(torch, np, dev, _kernels,
                                  training["step_ms_p50"])
     torch.cuda.empty_cache()
+    done("c2b_fused")
 
     # -- (c2c) GPT-3 1.3B pretraining ---------------------------------------
     d128 = check_flash_d128(torch, np, dev)
@@ -593,39 +639,52 @@ def main() -> int:
         results[name]["d128"] = {
             **cases, "launches_per_step_pretraining": per_step[name]}
     torch.cuda.empty_cache()
+    done("c2c_pretraining")
 
     # -- (c2d) BERT-base pretraining and the MoE GPT --------------------------
     for name, entry in bert_moe(torch, np, dev, _kernels).items():
         results[name]["noncausal"] = entry
     torch.cuda.empty_cache()
+    done("c2d_bert_moe")
 
     # -- (c2e) supervised training through hapi.Model ------------------------
     hapi = supervised_training(torch, np, dev, _kernels, root)
     for name in TRAINING_KERNELS:
         results[name]["launches_per_step_hapi_fit"] = hapi["per_step"][name]
     torch.cuda.empty_cache()
+    done("c2e_hapi")
 
     # -- (c2f) vision: LeNet, ResNet-50 and the image-classification recipe --
     vision(torch, np, dev, _kernels)
     torch.cuda.empty_cache()
+    done("c2f_vision")
 
     # -- (c2g) the encoder-decoder Transformer --------------------------------
     rotary = translation(torch, np, dev, _kernels)
     for name, n in rotary.items():
         results[name]["launches_rotary"] = n
-
     torch.cuda.empty_cache()
+    done("c2g_translation")
 
     # -- (c2h) the rest of the vision zoo and the detection ops ----------------
     vision_zoo(torch, np, dev, _kernels)
     torch.cuda.empty_cache()
+    done("c2h_vision_zoo")
 
     # -- (c2i) recurrent layers, CTC and the rest of nn ----------------------
     nn_rest(torch, np, dev, _kernels)
     torch.cuda.empty_cache()
+    done("c2i_nn_rest")
+
+    # -- (c2j) the paddle tensor API ------------------------------------------
+    tensor_api(torch, np, dev, _kernels)
+    torch.cuda.empty_cache()
+    done("c2j_tensor_api")
 
     # -- (c3) generate -------------------------------------------------------
     generating = generate(torch, np, dev, _kernels)
+    done("c3_generate")
+    log(json.dumps({"phase_seconds": phase_s}))
 
     # -- (d) kernel list: launches from the path each kernel belongs to ------
     for r in results.values():
@@ -6499,6 +6558,397 @@ def nn_rest(torch, np, dev, _kernels):
     line.update({"launches": launches, "parts_s": parts,
                  "phase_s": time.perf_counter() - t_phase})
     log(json.dumps({"nn_rest": line}))
+    return line
+
+
+# ---------------------------------------------------------------------------
+# (c2j) the paddle tensor API
+# ---------------------------------------------------------------------------
+# DeepSpeech2's linear spectrogram (Amodei et al. 2016, arXiv:1512.02595:
+# 20 ms windows, 10 ms hop at 16 kHz) over 4 s utterances: the c2i DS2
+# stack's 161 bins and longest input
+C2J_AUDIO = {"B": 16, "samples": 64_000, "n_fft": 320, "hop": 160}
+C2J_LINALG_N = 2048                 # GPT-3 1.3B's hidden width
+C2J_OPS_SHAPE = (8, 2048, 768)      # GPT-125M's activations, B=8, S=2048
+C2J_LINALG_TOL = C2J_LINALG_N * 2.0 ** -23   # n x float32 eps (gamma_n)
+
+
+def _c2j_ratio(np, got, want, rtol, atol):
+    """max |got - want| / (atol + rtol |want|) (numpy's allclose rule; 1 is
+    the entry's limit), by element; shapes must agree."""
+    if isinstance(want, list):
+        return max(_c2j_ratio(np, g, w, rtol, atol)
+                   for g, w in zip(got, want))
+    got, want = np.asarray(got), np.asarray(want)
+    require(got.shape == want.shape, f"shape {got.shape} != {want.shape}")
+    if want.size == 0:
+        return 0.0
+    g = got.astype(np.complex128 if np.iscomplexobj(got) else np.float64)
+    w = want.astype(np.complex128 if np.iscomplexobj(want) else np.float64)
+    both_nan = np.isnan(np.abs(g)) & np.isnan(np.abs(w))
+    same_inf = np.isinf(np.abs(w)) & (g == w)
+    err = np.where(both_nan | same_inf, 0.0, np.abs(g - w))
+    lim = atol + rtol * np.where(np.isfinite(np.abs(w)), np.abs(w), 0.0)
+    return float(np.nanmax(np.where(np.isnan(err), np.inf, err / lim)))
+
+
+def c2j_registry(torch, np, dev):
+    """(c2j 1) every entry of the op registry on the card in float32
+    against the port's CPU float64 run and the numpy reference, at the
+    entry's rtol / atol; the gradient of sum(fn) by every grad_wrt argument
+    by autograd on the card against the CPU float64 one at grad_rtol /
+    grad_atol; the bf16 sweep on the card (within 0.1 of the output's
+    scale of the card's float32 result).  Every miss is collected before
+    the phase fails."""
+    from paddle_tpu_torch.ops.spec import registry, run
+
+    specs = registry()
+    misses, skipped, worst = [], [], {}
+    n_out = n_grad = n_bf16 = 0
+    for spec in specs:
+        name = spec.name
+        try:
+            args = spec.sample(np.random.RandomState(0))
+            card = run(spec, args, dev, torch.float32)
+            cpu64 = run(spec, args, "cpu", torch.float64)
+            ref = np.asarray(spec.ref(*[np.asarray(a) for a in args]))
+            r = max(_c2j_ratio(np, card, cpu64, spec.rtol, spec.atol),
+                    _c2j_ratio(np, card, ref, spec.rtol, spec.atol))
+            worst[name] = r
+            n_out += 1
+            if not r <= 1.0:
+                misses.append((name, "output", r))
+            if spec.grad_wrt:
+                gargs = spec.sample(np.random.RandomState(1))
+                for i in spec.grad_wrt:
+                    gc = run(spec, gargs, dev, torch.float32, grad_at=i)
+                    g64 = run(spec, gargs, "cpu", torch.float64, grad_at=i)
+                    rg = _c2j_ratio(np, gc, g64, spec.grad_rtol,
+                                    spec.grad_atol)
+                    worst[f"{name} grad {i}"] = rg
+                    n_grad += 1
+                    if not rg <= 1.0:
+                        misses.append((name, f"grad {i}", rg))
+            bargs = spec.sample(np.random.RandomState(2))
+            if spec.bf16 and all(np.issubdtype(np.asarray(a).dtype,
+                                               np.floating) for a in bargs):
+                if name == "linalg.matrix_rank":
+                    skipped.append((name, "bf16: no bfloat16 form (a "
+                                    "rounding of the input changes the "
+                                    "rank)"))
+                    continue
+                f32 = np.asarray(run(spec, bargs, dev, torch.float32),
+                                 np.float32)
+                b16 = np.asarray(run(spec, bargs, dev, torch.bfloat16),
+                                 np.float32)
+                scale = max(1.0, float(np.max(np.abs(f32))))
+                rb = float(np.max(np.abs(b16 - f32))) / scale / 0.1
+                worst[f"{name} bf16"] = rb
+                n_bf16 += 1
+                if not rb < 1.0:
+                    misses.append((name, "bf16", rb))
+        except Exception as e:     # noqa: BLE001 (collected, then raised)
+            misses.append((name, "raised", f"{type(e).__name__}: {e}"[:300]))
+    for m in misses:
+        log(f"c2j (1) miss: {m}")
+    for s in skipped:
+        log(f"c2j (1) skipped: {s}")
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:8]
+    log(f"c2j (1) {len(specs)} entries: {n_out} outputs, {n_grad} "
+        f"gradients, {n_bf16} bf16 runs on the card; worst err/limit "
+        f"{top}")
+    require(len(specs) == 276, f"c2j (1): {len(specs)} registry entries")
+    require(not misses, f"c2j (1): {len(misses)} misses: {misses[:6]}")
+    return {"entries": len(specs), "outputs": n_out, "gradients": n_grad,
+            "bf16": n_bf16, "skipped": skipped,
+            "worst": [[k, v] for k, v in top]}
+
+
+def _c2j_gate(torch, got, cpu32, cpu64):
+    """c2g (1)'s rule: the card within 4 x the CPU float32 run's distance
+    from the float64 anchor plus 1e-6 of the anchor's range."""
+    got, cpu32 = got.detach().double().cpu(), cpu32.detach().double()
+    cpu64 = cpu64.detach().double()
+    scale = float(cpu64.abs().max())
+    own = float((cpu32 - cpu64).abs().max())
+    err = float((got - cpu64).abs().max())
+    lim = 4.0 * own + 1e-6 * scale + 1e-30
+    return {"err": err, "cpu32_err": own, "limit": lim,
+            "err_over_limit": err / lim}
+
+
+def c2j_frontend(torch, np, dev):
+    """(c2j 2) DeepSpeech2's spectrogram front end through the tensor API:
+    log1p(|stft(x)|^2) of B=16 seeded 4 s utterances (Hann window of 320,
+    hop 160, centre padding: 161 bins x 401 frames), and its gradient by x
+    against a seeded cotangent, card against the CPU by c2g (1)'s rule; the
+    istft round trip's error; the forward's and the backward's ms."""
+    import paddle_tpu_torch as pt
+    a = C2J_AUDIO
+    rng = np.random.RandomState(SEED + 7)
+    x_np = (0.1 * rng.randn(a["B"], a["samples"])).astype(np.float32)
+    k = np.arange(a["n_fft"])
+    w_np = (0.5 - 0.5 * np.cos(2 * np.pi * k / a["n_fft"])).astype(np.float32)
+    frames = 1 + a["samples"] // a["hop"]
+    g_np = rng.rand(a["B"], a["n_fft"] // 2 + 1, frames).astype(np.float32)
+
+    def feats(x, w):
+        spec = pt.signal.stft(x, a["n_fft"], a["hop"], window=w)
+        return pt.log1p(pt.abs(spec) ** 2)
+
+    runs = {}
+    for tag, device, dt in (("card", dev, torch.float32),
+                            ("cpu", "cpu", torch.float32),
+                            ("cpu64", "cpu", torch.float64)):
+        x = torch.as_tensor(x_np, dtype=dt, device=device).requires_grad_()
+        w = torch.as_tensor(w_np, dtype=dt, device=device)
+        f = feats(x, w)
+        (gx,) = torch.autograd.grad((f * torch.as_tensor(
+            g_np, dtype=dt, device=device)).sum(), x)
+        runs[tag] = (f.detach(), gx)
+    require(tuple(runs["card"][0].shape) == (a["B"], a["n_fft"] // 2 + 1,
+                                             frames),
+            f"c2j (2): features {tuple(runs['card'][0].shape)}")
+    out = {"features": _c2j_gate(torch, *(r[0] for r in (
+        runs["card"], runs["cpu"], runs["cpu64"]))),
+        "grad_x": _c2j_gate(torch, *(r[1] for r in (
+            runs["card"], runs["cpu"], runs["cpu64"])))}
+    for key, gate in out.items():
+        require(gate["err_over_limit"] <= 1.0 and np.isfinite(gate["err"]),
+                f"c2j (2) {key}: {gate}")
+    x = torch.as_tensor(x_np, device=dev)
+    w = torch.as_tensor(w_np, device=dev)
+    spec = pt.signal.stft(x, a["n_fft"], a["hop"], window=w)
+    y = pt.signal.istft(spec, a["n_fft"], a["hop"], window=w,
+                        length=a["samples"])
+    rt = float((y - x).abs().max() / x.abs().max())
+    require(rt < 1e-5, f"c2j (2) istft round trip: {rt}")
+    xg = x.clone().requires_grad_()
+    loss = (feats(xg, w) * torch.as_tensor(g_np, device=dev)).sum()
+    out.update({
+        "shape": [a["B"], a["n_fft"] // 2 + 1, frames],
+        "istft_round_trip_rel_err": rt,
+        "forward_ms": time_ms(torch, lambda: feats(x, w), reps=10),
+        "backward_ms": time_ms(torch, lambda: torch.autograd.grad(
+            loss, xg, retain_graph=True), reps=10)})
+    log(f"c2j (2) front end: {json.dumps(out)}")
+    return out
+
+
+def c2j_linalg(torch, np, dev):
+    """(c2j 3) linalg at 2048 x 2048 in float32 on the card, each result
+    held by its residual, computed in float64 from the card's factors,
+    within n x float32 eps (gamma_n, the a-priori backward-error bound);
+    the singular values, eigenvalues, determinant and rank against the
+    float64 CPU run's (the determinant of a matrix of condition number
+    below 10, within 10 gamma_n); each op's ms (CUDA events, median of
+    3).  A is a seeded Gaussian matrix, S = A A^T / n + I (symmetric
+    positive definite, condition number about 5), M = I + A / (4 sqrt n)."""
+    import paddle_tpu_torch as pt
+    n = C2J_LINALG_N
+    rng = np.random.RandomState(SEED + 8)
+    A = torch.as_tensor(rng.randn(n, n).astype(np.float32), device=dev)
+    B = torch.as_tensor(rng.randn(n, 16).astype(np.float32), device=dev)
+    R = torch.as_tensor(rng.randn(n // 2, n).astype(np.float32), device=dev)
+    eye = torch.eye(n, device=dev)
+    S = A @ A.T / n + eye
+    M = eye + A / (4 * n ** 0.5)
+    low = S[:, :n // 2] @ R                      # rank n / 2
+    eye64 = eye.double()
+    tol = C2J_LINALG_TOL
+    fro = torch.linalg.matrix_norm
+    rows = {}
+
+    def d(t):
+        return t.double()
+
+    def rel(a, b):
+        return float(fro(a - b) / fro(b))
+
+    def backward_err(a, x, b):
+        return float(fro(d(a) @ d(x) - d(b)) / (fro(d(a)) * fro(d(x))))
+
+    misses = []
+
+    def row(name, fn, resid, limit=tol, **extra):
+        out = fn()
+        r = resid(out)
+        rows[name] = {"ms": time_ms(torch, fn, reps=3), "residual": r,
+                      "limit": limit, **extra}
+        if not r <= limit:
+            misses.append((name, r, limit))
+        return out
+
+    row("cholesky", lambda: pt.linalg.cholesky(S),
+        lambda L: rel(d(L) @ d(L).T, d(S)))
+    row("solve", lambda: pt.linalg.solve(A, B),
+        lambda X: backward_err(A, X, B))
+    row("inv", lambda: pt.linalg.inv(S),
+        lambda X: backward_err(S, X, eye64))
+    row("qr", lambda: pt.linalg.qr(A),
+        lambda qr: max(rel(d(qr[0]) @ d(qr[1]), d(A)),
+                       float(fro(d(qr[0]).T @ d(qr[0]) - eye64)) / n ** 0.5))
+    s64 = torch.linalg.svdvals(A.double().cpu())
+    usv = row("svd", lambda: pt.linalg.svd(A),
+              lambda usv: rel((d(usv[0]) * d(usv[1])) @ d(usv[2]), d(A)))
+    sv_err = float((usv[1].double().cpu() - s64).abs().max() / s64[0])
+    rows["svd"]["singular_values_rel_err"] = sv_err
+    if not sv_err <= tol:
+        misses.append(("singular values", sv_err, tol))
+    w64 = torch.linalg.eigvalsh(S.double().cpu())
+    wv = row("eigh", lambda: pt.linalg.eigh(S),
+             lambda wv: rel(d(S) @ d(wv[1]), d(wv[1]) * d(wv[0])))
+    ev_err = float((wv[0].double().cpu() - w64).abs().max()
+                   / w64.abs().max())
+    rows["eigh"]["eigenvalues_rel_err"] = ev_err
+    if not ev_err <= tol:
+        misses.append(("eigenvalues", ev_err, tol))
+    row("lstsq", lambda: pt.linalg.lstsq(S, B),
+        lambda out: backward_err(S, out[0], B))
+
+    def plu_err(plu):
+        p, l, u = plu
+        return rel(d(p) @ d(l) @ d(u), d(A))
+    lu, piv = row("lu", lambda: pt.linalg.lu(A),
+                  lambda out: plu_err(pt.linalg.lu_unpack(*out)))
+    row("lu_unpack", lambda: pt.linalg.lu_unpack(lu, piv), plu_err)
+    M64 = M.double().cpu()
+    det64 = float(torch.linalg.det(M64))
+    ld64 = float(torch.linalg.slogdet(M64)[1])
+    row("det", lambda: pt.linalg.det(M),
+        lambda v: abs(float(v) - det64) / abs(det64), limit=10 * tol,
+        det64=det64)
+    row("slogdet", lambda: pt.linalg.slogdet(M),
+        lambda v: abs(float(v[1]) - ld64), limit=10 * tol,
+        logabsdet64=ld64)
+    # the float64 rank at float32's tolerance: the float32 product is of
+    # exact rank n / 2 only up to its rounding
+    rank64 = int(torch.linalg.matrix_rank(low.double().cpu(), rtol=tol))
+    rows["matrix_rank"] = {
+        "ms": time_ms(torch, lambda: pt.linalg.matrix_rank(low), reps=3),
+        "rank": int(pt.linalg.matrix_rank(low)), "cpu64_rank": rank64,
+        "rank_of_S": int(pt.linalg.matrix_rank(S))}
+    if not (rows["matrix_rank"]["rank"] == rank64 == n // 2
+            and rows["matrix_rank"]["rank_of_S"] == n):
+        misses.append(("matrix_rank", rows["matrix_rank"]))
+    log(f"c2j (3) linalg at {n}: {json.dumps(rows)}")
+    require(not misses, f"c2j (3) beyond the bound: {misses}")
+    return rows
+
+
+def c2j_ops(torch, np, dev):
+    """(c2j 4) about thirty top-level ops at GPT-125M's activation shape
+    (8, 2048, 768) float32: each on the card against the CPU by c2g (1)'s
+    rule (integer results exact), its ms by CUDA events and its bytes
+    bound (each input read once and the output written once, over 3.35
+    TB/s: gather and index_select read the rows they pick, tril the lower
+    triangle; a view moves no bytes)."""
+    import paddle_tpu_torch as pt
+    rng = np.random.RandomState(SEED + 9)
+    shape = C2J_OPS_SHAPE
+    host = {"x": rng.randn(*shape).astype(np.float32),
+            "y": rng.randn(*shape).astype(np.float32),
+            "idx": rng.randint(0, shape[1], 1024).astype(np.int64)}
+    host["p"] = np.abs(host["x"]) + 0.5
+    ops = [
+        ("exp", lambda m, v: m.exp(v["x"])),
+        ("log", lambda m, v: m.log(v["p"])),
+        ("tanh", lambda m, v: m.tanh(v["x"])),
+        ("sigmoid", lambda m, v: m.sigmoid(v["x"])),
+        ("erf", lambda m, v: m.erf(v["x"])),
+        ("add", lambda m, v: m.add(v["x"], v["y"])),
+        ("multiply", lambda m, v: m.multiply(v["x"], v["y"])),
+        ("divide", lambda m, v: m.divide(v["x"], v["p"])),
+        ("maximum", lambda m, v: m.maximum(v["x"], v["y"])),
+        ("pow", lambda m, v: m.pow(v["p"], 1.5)),
+        ("where", lambda m, v: m.where(v["x"] > 0, v["x"], v["y"])),
+        ("clip", lambda m, v: m.clip(v["x"], -0.5, 0.5)),
+        ("sum", lambda m, v: m.sum(v["x"], axis=-1)),
+        ("mean", lambda m, v: m.mean(v["x"], axis=-1)),
+        ("max", lambda m, v: m.max(v["x"], axis=-1)),
+        ("logsumexp", lambda m, v: m.logsumexp(v["x"], axis=-1)),
+        ("cumsum", lambda m, v: m.cumsum(v["x"], axis=-1)),
+        ("std", lambda m, v: m.std(v["x"], axis=-1)),
+        ("var", lambda m, v: m.var(v["x"], axis=-1)),
+        ("argmax", lambda m, v: m.argmax(v["x"], axis=-1)),
+        ("topk", lambda m, v: m.topk(v["x"], 8, axis=-1)[0]),
+        ("sort", lambda m, v: m.sort(v["x"], axis=-1)),
+        ("transpose", lambda m, v: m.transpose(v["x"], (0, 2, 1))),
+        ("reshape", lambda m, v: m.reshape(v["x"], (-1, shape[-1]))),
+        ("concat", lambda m, v: m.concat([v["x"], v["y"]], axis=-1)),
+        ("split", lambda m, v: m.split(v["x"], 3, axis=-1)[1]),
+        ("gather", lambda m, v: m.gather(v["x"], v["idx"], axis=1)),
+        ("index_select", lambda m, v: m.index_select(v["x"], v["idx"],
+                                                     axis=1)),
+        ("flip", lambda m, v: m.flip(v["x"], -1)),
+        ("roll", lambda m, v: m.roll(v["x"], 7, axis=-1)),
+        ("tril", lambda m, v: m.tril(v["x"])),
+    ]
+    card = {k: torch.as_tensor(a, device=dev) for k, a in host.items()}
+    cpu = {k: torch.as_tensor(a) for k, a in host.items()}
+    cpu64 = {k: (t.double() if t.is_floating_point() else t)
+             for k, t in cpu.items()}
+    used = {"exp": ("x",), "log": ("p",), "tanh": ("x",), "sigmoid": ("x",),
+            "erf": ("x",), "add": ("x", "y"), "multiply": ("x", "y"),
+            "divide": ("x", "p"), "maximum": ("x", "y"), "pow": ("p",),
+            "where": ("x", "y"), "gather": ("x", "idx"),
+            "index_select": ("x", "idx"), "concat": ("x", "y")}
+    rows = []
+    for name, fn in ops:
+        got = fn(pt, card)
+        want32, want64 = fn(pt, cpu), fn(pt, cpu64)
+        view = got.untyped_storage().data_ptr() in {
+            t.untyped_storage().data_ptr() for t in card.values()}
+        if got.is_floating_point():
+            gate = _c2j_gate(torch, got, want32, want64)
+        else:
+            same = torch.equal(got.cpu(), want32)
+            gate = {"err": 0.0 if same else float("inf"),
+                    "err_over_limit": 0.0 if same else float("inf")}
+        out_bytes = got.numel() * got.element_size()
+        if view:
+            moved = 0
+        elif name in ("gather", "index_select"):   # the picked rows only
+            moved = 2 * out_bytes + nbytes(card["idx"])
+        elif name == "tril":                       # the lower triangle
+            moved = out_bytes + int(torch.ones(
+                shape[-2:], device=dev).tril().sum()) * shape[0] * 4
+        else:
+            moved = nbytes(*(card[k] for k in used.get(name, ("x",)))) \
+                + out_bytes
+        rows.append({"op": name, "ms": time_ms(torch, lambda: fn(pt, card),
+                                               reps=10),
+                     "bytes": moved, "bound_ms": moved / HBM_BYTES_PER_S * 1e3,
+                     "view": bool(view), "err": gate["err"],
+                     "err_over_limit": gate["err_over_limit"]})
+        require(gate["err_over_limit"] <= 1.0, f"c2j (4) {name}: {gate}")
+    for r in rows:
+        log(f"c2j (4) {json.dumps(r)}")
+    return rows
+
+
+def tensor_api(torch, np, dev, _kernels):
+    t_phase = time.perf_counter()
+    _kernels.reset_launches()
+    parts, line = {}, {}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        parts[name] = time.perf_counter() - t0
+        log(f"c2j {name}: {parts[name]:.1f} s")
+        torch.cuda.empty_cache()
+        return out
+    line["registry"] = part("registry", lambda: c2j_registry(torch, np, dev))
+    line["frontend"] = part("frontend", lambda: c2j_frontend(torch, np, dev))
+    line["linalg"] = part("linalg", lambda: c2j_linalg(torch, np, dev))
+    line["ops"] = part("ops", lambda: c2j_ops(torch, np, dev))
+    launches = dict(_kernels.launches)
+    require(not any(launches.values()),
+            f"c2j launched a kernel of the port: {launches}")
+    line.update({"launches": launches, "parts_s": parts,
+                 "phase_s": time.perf_counter() - t_phase})
+    log(json.dumps({"tensor_api": line}))
     return line
 
 

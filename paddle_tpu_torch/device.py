@@ -36,14 +36,17 @@ apply_precision_policy()
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
-    """``None`` -> ``cuda``; raise when the resolved device is a CUDA device
-    and no card is visible."""
-    dev = torch.device("cuda" if device is None else device)
+    """``None`` -> the current device of ``set_device`` (``cuda`` unless
+    ``set_device("cpu")`` was called); raise when the resolved device is a
+    CUDA device and no card is visible."""
+    from .framework.dtype import current_device
+    dev = current_device() if device is None else torch.device(device)
     enforce(dev.type in ("cuda", "cpu"),
             f"unsupported device {dev}: the port runs on cuda (or on the "
             "cpu when asked)")
     if dev.type == "cuda":
         enforce(torch.cuda.is_available(),
-                "no CUDA device is visible; pass device='cpu' to run the "
-                "plain PyTorch versions on the CPU", exc=UnavailableError)
+                "no CUDA device is visible; pass device='cpu' (or call "
+                "set_device('cpu')) to run the plain PyTorch versions on "
+                "the CPU", exc=UnavailableError)
     return dev

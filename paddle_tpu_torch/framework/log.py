@@ -2,22 +2,21 @@
 log.py`` (glog ``VLOG(n)``, fluid/log_helper.py).
 
 ``vlog(level, msg)`` emits when the log level is at least ``level``; level
-0 is always on.  The level is the ``FLAGS_log_level`` environment variable
-(0 when unset), the JAX package's flag, read on first use.
+0 is always on.  The level is the ``log_level`` flag of
+``framework/flags.py``: ``set_flags({"log_level": n})``, else the
+``FLAGS_log_level`` environment variable, else 0.
 """
 from __future__ import annotations
 
 import logging
-import os
 import sys
 from typing import Any, Optional
 
-__all__ = ["LOG_LEVEL_ENV", "get_logger", "get_log_level", "vlog"]
+from .flags import get_flag
 
-LOG_LEVEL_ENV = "FLAGS_log_level"
+__all__ = ["get_logger", "get_log_level", "vlog"]
 
 _logger: Optional[logging.Logger] = None
-_level: Optional[int] = None
 
 
 def get_logger() -> logging.Logger:
@@ -36,11 +35,8 @@ def get_logger() -> logging.Logger:
 
 
 def get_log_level() -> int:
-    """The current verbosity; read from ``FLAGS_log_level`` on first use."""
-    global _level
-    if _level is None:
-        _level = int(os.environ.get(LOG_LEVEL_ENV, "0"))
-    return _level
+    """The current verbosity: the ``log_level`` flag."""
+    return int(get_flag("log_level"))
 
 
 def vlog(level: int, msg: str, *args: Any) -> None:

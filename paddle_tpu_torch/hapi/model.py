@@ -36,6 +36,7 @@ from .. import amp as amp_mod
 from ..convert import _to_tensor, optimizer_state_to_jax
 from ..framework import io as fw_io
 from ..framework import random as fw_random
+from ..framework.debug import check_nan_inf_enabled
 from ..framework.errors import UnimplementedError, enforce
 from ..framework.log import vlog
 from ..io import DataLoader
@@ -49,16 +50,9 @@ from ..utils.tree import tree_map
 
 __all__ = ["Model"]
 
-CHECK_NAN_INF_ENV = "FLAGS_check_nan_inf"
-
 
 def _tuplify(x):
     return x if isinstance(x, (tuple, list)) else (x,)
-
-
-def _check_nan_inf_enabled() -> bool:
-    v = os.environ.get(CHECK_NAN_INF_ENV, "")
-    return v.strip() not in ("", "0", "False", "false")
 
 
 def _clone(tree, device=None):
@@ -270,7 +264,7 @@ class Model:
                 obs_memory.oom_postmortem(error=e, step=(
                     sup.gstep if sup is not None else self._obs_step))
             raise
-        if _check_nan_inf_enabled():
+        if check_nan_inf_enabled():
             self._check_finite(loss_v)
         if self._nonfinite_budget is not None and not math.isfinite(loss_v):
             # skip-step: one bad batch degrades gracefully; exhausting the

@@ -507,6 +507,7 @@ def trace_drill(run_dir: str, spec: Dict[str, Any] = TRACE_SPEC,
                     time.sleep(0.01)
         rids = [router.submit(p, max_new_tokens=n)
                 for p, n in zip(prompts, max_new)]
+        dispatched = [router.journals[r].replica_id for r in rids]
         kill = faults.kill_replica(
             mgr, index=0,
             when=lambda: any(
@@ -550,7 +551,10 @@ def trace_drill(run_dir: str, spec: Dict[str, Any] = TRACE_SPEC,
     diagnosis = doctor.diagnose(run_dir)
     diagnose_s = time.perf_counter() - t_doc
     tail = [f for f in diagnosis["findings"] if f["kind"] == "tail_latency"]
-    _require(bool(tail), "doctor produced no tail_latency verdict")
+    _require(bool(tail), "doctor produced no tail_latency verdict (p99 "
+             f"{attrib['p99_ms']} ms, median {attrib['median_ms']} ms; "
+             f"streams dispatched to replicas {dispatched}, latencies "
+             f"{[round(t['latency_ms'], 1) for t in traces]} ms)")
     _require(tail[0]["data"]["dominant"] == "failover_recompute",
              str(tail[0]))
     return {"drill": "trace", "streams": len(rids), "token_exact": exact,
@@ -562,6 +566,7 @@ def trace_drill(run_dir: str, spec: Dict[str, Any] = TRACE_SPEC,
             "tail_dominant": attrib["dominant"],
             "tail_p99_ms": attrib["p99_ms"],
             "tail_median_ms": attrib["median_ms"],
+            "dispatched": dispatched,
             "doctor_severity": tail[0]["severity"],
             "assemble_s": assemble_s, "diagnose_s": diagnose_s,
             "wall_s": time.perf_counter() - t0}

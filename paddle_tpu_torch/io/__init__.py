@@ -21,7 +21,6 @@ than quietly taking the queue.
 from __future__ import annotations
 
 import multiprocessing as mp
-import os
 import queue as queue_mod
 import threading
 from typing import Any, Iterable, List, Optional, Sequence
@@ -29,6 +28,7 @@ from typing import Any, Iterable, List, Optional, Sequence
 import numpy as np
 
 from ..framework.errors import UnimplementedError, enforce
+from ..framework.flags import get_flag
 from ..utils.tree import tree_map
 
 __all__ = [
@@ -38,8 +38,6 @@ __all__ = [
     "WeightedRandomSampler", "DataLoader", "default_collate_fn",
     "WorkerInfo", "get_worker_info",
 ]
-
-NATIVE_FLAG_ENV = "FLAGS_dataloader_use_native"
 
 
 # ---------------------------------------------------------------------------
@@ -463,8 +461,9 @@ class DataLoader:
 
 
 def _native_requested() -> bool:
-    v = os.environ.get(NATIVE_FLAG_ENV, "")
-    return v.strip() not in ("", "0", "False", "false")
+    """The ``dataloader_use_native`` flag (``set_flags``, else the
+    ``FLAGS_dataloader_use_native`` environment variable)."""
+    return bool(get_flag("dataloader_use_native"))
 
 
 def _as_tensor(a):

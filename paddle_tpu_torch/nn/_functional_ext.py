@@ -338,7 +338,12 @@ def max_pool3d(x, kernel_size, stride=None, padding=0,
 
 def avg_pool3d(x, kernel_size, stride=None, padding=0,
                data_format: str = "NCDHW"):
-    """Mean over windows, divided by the in-bounds count."""
+    """Mean over windows, divided by the in-bounds count (a half-precision
+    CPU tensor, which PyTorch's CPU pooling does not take, is pooled in
+    float32 and rounded back)."""
+    if x.device.type == "cpu" and x.dtype in (torch.bfloat16, torch.float16):
+        return avg_pool3d(x.float(), kernel_size, stride, padding,
+                          data_format).to(x.dtype)
     cl = data_format == "NDHWC"
     k = _ntuple(kernel_size, 3)
     s = _ntuple(stride if stride is not None else kernel_size, 3)

@@ -53,13 +53,13 @@ class Parameter(torch.nn.Parameter):
     surface.  ``trainable`` and ``stop_gradient`` read and set
     ``requires_grad``."""
 
-    def __new__(cls, data=None, trainable: bool = True, name: str = "",
+    def __new__(cls, value=None, trainable: bool = True, name: str = "",
                 is_bias: bool = False):
-        if data is None:
-            data = torch.empty(0)
-        elif not isinstance(data, torch.Tensor):
-            data = torch.as_tensor(np.asarray(data))
-        self = super().__new__(cls, data.detach(), bool(trainable))
+        if value is None:
+            value = torch.empty(0)
+        elif not isinstance(value, torch.Tensor):
+            value = torch.as_tensor(np.asarray(value))
+        self = super().__new__(cls, value.detach(), bool(trainable))
         self.name = name
         self.is_bias = is_bias
         return self

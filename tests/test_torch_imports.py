@@ -123,9 +123,53 @@ def test_package_imports_with_jax_blocked():
             "import paddle_tpu_torch.observability.requesttrace\n"
             "import paddle_tpu_torch.observability.sinks\n"
             "import paddle_tpu_torch.observability.monitor\n"
+            "import paddle_tpu_torch.tensor_ops\n"
+            "import paddle_tpu_torch.linalg\n"
+            "import paddle_tpu_torch.fft\n"
+            "import paddle_tpu_torch.signal\n"
+            "import paddle_tpu_torch.autograd\n"
+            "import paddle_tpu_torch.framework.dtype\n"
+            "import paddle_tpu_torch.framework.flags\n"
+            "import paddle_tpu_torch.framework.mode\n"
+            "import paddle_tpu_torch.framework.debug\n"
+            "import paddle_tpu_torch.framework.infermeta\n"
+            "import paddle_tpu_torch.framework.tensor_methods\n"
+            "import paddle_tpu_torch.incubate.graph_ops\n"
+            "import paddle_tpu_torch.ops.spec\n"
             "assert 'triton' not in sys.modules\n"
             "loaded = [m for m in sys.modules if sys.modules[m] is not None]\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
+            "               for m in loaded)\n"
+            "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_top_level_import_pulls_in_the_subpackages():
+    # ``import paddle_tpu_torch`` alone gives the paddle namespace: the
+    # subpackages the JAX top level imports (those the port has), the
+    # Tensor methods, and no JAX, JAX package or Triton
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['paddle_tpu'] = None\n"
+            "import paddle_tpu_torch as paddle\n"
+            "subs = ['amp', 'autograd', 'framework', 'nn', 'optimizer',\n"
+            "        'device', 'fft', 'signal', 'hapi', 'incubate',\n"
+            "        'inference', 'io', 'linalg', 'metric', 'observability',\n"
+            "        'regularizer', 'utils', 'vision', 'text']\n"
+            "for s in subs:\n"
+            "    assert 'paddle_tpu_torch.' + s in sys.modules, s\n"
+            "    assert getattr(paddle, s) is sys.modules[\n"
+            "        'paddle_tpu_torch.' + s], s\n"
+            "import torch\n"
+            "assert torch.Tensor.gather_nd is not None\n"
+            "assert paddle.Tensor is torch.Tensor\n"
+            "assert 'triton' not in sys.modules\n"
+            "loaded = [m for m in sys.modules if sys.modules[m] is not None]\n"
+            "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
+            "               or m == 'paddle_tpu' or m.startswith('paddle_tpu.')\n"
             "               for m in loaded)\n"
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -1659,3 +1659,75 @@ def test_embedding_padding_row_gets_no_gradient_on_card(dev):
     out.square().sum().backward()
     assert not bool(emb.weight.grad[7].any())
     assert bool(emb.weight.grad[1].any())
+
+
+# -- the paddle tensor API on the card (no kernel of the port) ---------------
+def _registry():
+    from paddle_tpu_torch.ops.spec import registry
+    return registry()
+
+
+@pytest.mark.parametrize("spec", _registry(), ids=lambda s: s.name)
+def test_registry_entry_on_card(dev, spec):
+    # float32 on the card against the port's float64 CPU run, at the
+    # entry's tolerances; gradients likewise at the gradient tolerances
+    import numpy as np
+    from paddle_tpu_torch.ops.spec import run
+    args = spec.sample(np.random.RandomState(0))
+    np.testing.assert_allclose(
+        run(spec, args, dev, torch.float32),
+        run(spec, args, "cpu", torch.float64),
+        rtol=spec.rtol, atol=spec.atol)
+    gargs = spec.sample(np.random.RandomState(1))
+    for i in spec.grad_wrt:
+        np.testing.assert_allclose(
+            run(spec, gargs, dev, torch.float32, i),
+            run(spec, gargs, "cpu", torch.float64, i),
+            rtol=spec.grad_rtol, atol=spec.grad_atol)
+
+
+def test_spectrogram_front_end_on_card(dev):
+    # DeepSpeech2's linear spectrogram (n_fft 320, hop 160, Hann) of two
+    # 1 s utterances and its gradient, card against the CPU in float64
+    import numpy as np
+    import paddle_tpu_torch as pt
+    rng = np.random.RandomState(0)
+    x_np = (0.1 * rng.randn(2, 16000))
+    w_np = 0.5 - 0.5 * np.cos(2 * np.pi * np.arange(320) / 320)
+    outs = []
+    for device, dt in ((dev, torch.float32), ("cpu", torch.float64)):
+        x = torch.as_tensor(x_np, dtype=dt, device=device).requires_grad_()
+        w = torch.as_tensor(w_np, dtype=dt, device=device)
+        f = pt.log1p(pt.abs(pt.signal.stft(x, 320, 160, window=w)) ** 2)
+        (g,) = torch.autograd.grad(f.sum(), x)
+        outs.append((f.detach().double().cpu(), g.double().cpu()))
+    assert tuple(outs[0][0].shape) == (2, 161, 101)
+    for a, b in zip(*outs):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    y = pt.signal.istft(pt.signal.stft(torch.as_tensor(
+        x_np, dtype=torch.float32, device=dev), 320, 160, window=torch.as_tensor(
+        w_np, dtype=torch.float32, device=dev)), 320, 160,
+        window=torch.as_tensor(w_np, dtype=torch.float32, device=dev),
+        length=16000)
+    assert float((y.cpu().double() - torch.as_tensor(x_np)).abs().max()) \
+        < 1e-5
+
+
+def test_tensor_api_default_device_is_the_card(dev):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import dtype as fw_dtype
+    prev = fw_dtype._current
+    fw_dtype._current = None
+    try:
+        assert pt.get_device() == "gpu:0"
+        for t in (pt.zeros([2]), pt.to_tensor([1.0]), pt.randn([3]),
+                  pt.arange(4), pt.exp([0.0]), pt.fft.fftfreq(4)):
+            assert t.device.type == "cuda"
+        assert pt.nn.Linear(2, 2).weight.device.type == "cuda"
+        assert pt.to_tensor([1.0], place=pt.CPUPlace()).device.type == "cpu"
+        pinned = pt.to_tensor([1.0], place=pt.CUDAPinnedPlace())
+        assert pinned.is_pinned()
+        assert pt.is_compiled_with_cuda() and pt.device_count() >= 1
+        assert isinstance(pt.get_cudnn_version(), int)
+    finally:
+        fw_dtype._current = prev
