@@ -467,6 +467,35 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               op's ms (CUDA events) beside its bytes bound (bytes read and
               written over 3.35 TB/s); one tensor_api JSON line with each
               part's seconds and the phase's;
+  (c2k) deploy  export and deployment: (1) GPT-125M at full width
+              (float32, use_fused_block, use_pallas_attention, the generate
+              workload's seeded weights) through jit.save with a dynamic
+              batch (InputSpec([None, 512], "int32")), then
+              create_predictor(Config(path)) in a child process (the
+              registered ops imported before torch.export.load) at batches
+              1, 4 and 8: the exported graph holds ptpu::ln_linear,
+              linear_residual, ffn and flash_fwd; each run launches
+              ln_linear_tiled, linear_residual_tiled, ffn_tiled and
+              flash_fwd 12 times and nothing else; the logits bit for bit
+              the eager model's on the card (sha256 of the whole tensor),
+              row 0 within 1e-3 of the float64 plain route on the CPU;
+              run ms against the eager forward's, the artifact's bytes,
+              save and load seconds; (2) PTQ of the unfused GPT-125M's 48
+              linears (4 seeded calibration batches of (8, 512),
+              Int8Linear on torch._int_mm): each linear shape's int32
+              accumulation equal to the CPU's, top-1 agreement with the
+              float32 logits, int8 against float32 ms, the int8 artifact
+              equal to the eager int8 model; (3) PTQ of ResNet-50 (NCHW,
+              float32, B=16, 224^2, 2 calibration batches) with
+              Int8Conv2D: the 7x7 stem's and a 3x3 conv's int32
+              accumulation equal to the CPU's, top-1 agreement, ms; (4) a
+              LeNet-shaped static program (static.nn conv2d / batch_norm
+              / fc) on (64, 1, 28, 28) through save_inference_model ->
+              load_inference_model -> Executor.run, equal to the
+              program's own eval run; (5) the compile tracker: a record
+              for every library phase (a) compiled, three generate
+              captures at batches 1, 2, 4 with two retraces naming
+              ``batch``, /statusz's compile filled; one deploy JSON line;
   (c3) generate GPTForCausalLM.generate at full width (convert.
               generate_workload: B=8, prompt 512, 128 greedy tokens, bf16),
               unfused (use_pallas_attention) and fused (use_fused_block):
@@ -576,6 +605,8 @@ def main() -> int:
     torch.cuda.set_device(dev)
     if len(sys.argv) == 3 and sys.argv[1] == "--c2e-child":
         return c2e_child(json.loads(sys.argv[2]))   # (c2e 4)'s processes
+    if len(sys.argv) == 3 and sys.argv[1] == "--c2k-child":
+        return c2k_child(json.loads(sys.argv[2]))   # (c2k 1)'s predictor
 
     # -- (a) build -----------------------------------------------------------
     built = _kernels.build()
@@ -680,6 +711,14 @@ def main() -> int:
     tensor_api(torch, np, dev, _kernels)
     torch.cuda.empty_cache()
     done("c2j_tensor_api")
+
+    # -- (c2k) export and deployment ------------------------------------------
+    deployed = deploy(torch, np, dev, _kernels, root, built)
+    for b, run in deployed["gpt"]["runs"].items():
+        for name, n in run["launches"].items():
+            results[name].setdefault("launches_per_predictor_run", {})[b] = n
+    torch.cuda.empty_cache()
+    done("c2k_deploy")
 
     # -- (c3) generate -------------------------------------------------------
     generating = generate(torch, np, dev, _kernels)
@@ -7486,6 +7525,408 @@ def translation(torch, np, dev, _kernels):
         "recipe": recipe, "rotary": rotary, "incubate": incubate,
         "phase_s": time.perf_counter() - t_phase}}))
     return rotary["launches"]
+
+
+# ---------------------------------------------------------------------------
+# (c2k) export and deployment
+# ---------------------------------------------------------------------------
+C2K_SEQ = 512
+C2K_BATCHES = (1, 4, 8)
+C2K_TIMED = 5            # timed runs per batch, after one warm run
+# the kernels a float32 fused GPT forward at more than 32 rows launches
+# through the artifact's registered ops, and how many a run of GPT-125M
+C2K_KERNELS = ("ln_linear_tiled", "linear_residual_tiled", "ffn_tiled",
+               "flash_fwd")
+C2K_LAYERS = 12
+C2K_POSITIONS = (0, 255, 511)     # logits compared position by position
+C2K_F32_TOL = 1e-3                # the serving phases' float32 logits bound
+C2K_CAL = {"gpt": (4, 8), "resnet": (2, 16)}     # (calibration batches, B)
+C2K_GEN_BATCHES = (1, 2, 4)
+
+
+class _Records:
+    """A registry sink that keeps the records of some kinds."""
+
+    def __init__(self, kinds):
+        self.kinds, self.records = set(kinds), []
+
+    def write(self, record):
+        if record.get("kind") in self.kinds:
+            self.records.append(record)
+
+    def flush(self):
+        pass
+
+    def close(self):
+        pass
+
+
+def c2k_model(torch, dev, fused: bool, dtype="float32"):
+    """GPT-125M at full width and depth, the generate workload's seeded
+    weights (convert.GENERATE_SEED), the fused block or the flash
+    attention; eval."""
+    from paddle_tpu_torch.convert import (GENERATE_SEED, load_jax_state,
+                                          random_state)
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_125m
+    cfg = gpt_125m(dtype=dtype, use_fused_block=fused,
+                   use_pallas_attention=True, hidden_dropout=0.0,
+                   attention_dropout=0.0, max_position_embeddings=1024)
+    model = GPTForCausalLM(cfg, device=dev)
+    load_jax_state(model, random_state(model, GENERATE_SEED))
+    return model.eval()
+
+
+def c2k_ids(np, batch: int, seed: int):
+    return np.random.default_rng(seed).integers(
+        0, 50304, (batch, C2K_SEQ)).astype(np.int32)
+
+
+def c2k_digest(np, a) -> str:
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def c2k_child(spec):
+    """The artifact in a fresh process: ``create_predictor(Config(path))``
+    (jit.load registers the kernels' ops before ``torch.export.load``),
+    a warm run, then ``C2K_TIMED`` timed runs per batch; each batch's
+    launches in one run, the full logits' sha256 and the logits at
+    ``C2K_POSITIONS`` (saved beside the artifact)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import _kernels
+    from paddle_tpu_torch.inference import Config, create_predictor
+    t0 = time.perf_counter()
+    pred = create_predictor(Config(spec["path"]))
+    out = {"load_s": time.perf_counter() - t0, "runs": {}}
+    targets = {str(n.target) for n in pred._layer.program.graph.nodes
+               if n.op == "call_function"}
+    out["ops"] = sorted(t for t in targets if t.startswith("ptpu."))
+    ids = np.load(spec["ids"])
+    for b in spec["batches"]:
+        handle = pred.get_input_handle("input_ids")
+        handle.copy_from_cpu(ids[:b])
+        pred.run()                                  # warm
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        pred.run()
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in _kernels.launches.items() if v}
+        ms = []
+        for _ in range(C2K_TIMED):
+            t1 = time.perf_counter()
+            pred.run()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+        logits = pred.get_output_handle("output_0").copy_to_cpu()
+        np.save(os.path.join(spec["out"], f"logits_{b}.npy"),
+                logits[:, list(C2K_POSITIONS)])
+        out["runs"][b] = {"launches": launches, "ms": ms,
+                          "sha256": c2k_digest(np, logits),
+                          "finite": bool(np.isfinite(logits).all())}
+    print(json.dumps({"c2k_child": out}), flush=True)
+    return 0
+
+
+def c2k_gpt_artifact(torch, np, dev, _kernels, root):
+    """(1) GPT-125M, fused block, float32: jit.save, then the predictor in
+    a child process at batches 1, 4, 8 against the eager model on the card
+    (bit for bit) and the float64 plain route on the CPU (row 0 within the
+    serving phases' float32 bound); launches per Predictor.run."""
+    from paddle_tpu_torch import jit
+    model = c2k_model(torch, dev, fused=True)
+    path = os.path.join(root, "build", "c2k", "gpt125m")
+    os.makedirs(path, exist_ok=True)
+    ids = c2k_ids(np, max(C2K_BATCHES), SEED + 26)
+    np.save(os.path.join(path, "ids.npy"), ids)
+    t0 = time.perf_counter()
+    jit.save(model, path, [jit.InputSpec([None, C2K_SEQ], "int32",
+                                         name="input_ids")])
+    save_s = time.perf_counter() - t0
+    sizes = {"model.pt2": os.path.getsize(os.path.join(path, "model.pt2")),
+             "params": sum(os.path.getsize(os.path.join(d, f))
+                           for d, _, fs in os.walk(os.path.join(path,
+                                                                "params"))
+                           for f in fs)}
+    child = subprocess.run(
+        [sys.executable, os.path.join(root, "chip_smoke.py"), "--c2k-child",
+         json.dumps({"path": path, "ids": os.path.join(path, "ids.npy"),
+                     "batches": list(C2K_BATCHES), "out": path})],
+        capture_output=True, text=True, timeout=600)
+    require(child.returncode == 0,
+            f"c2k child failed ({child.returncode}): {child.stderr[-3000:]}")
+    res = json.loads([l for l in child.stdout.splitlines()
+                      if l.startswith('{"c2k_child"')][-1])["c2k_child"]
+    require(sorted(res["ops"]) == sorted(
+        f"{op.replace('::', '.')}.default"
+        for op in ("ptpu::ln_linear", "ptpu::linear_residual", "ptpu::ffn",
+                   "ptpu::flash_fwd")),
+            f"the exported graph's registered ops: {res['ops']}")
+    runs = {}
+    for b in C2K_BATCHES:
+        r = res["runs"][str(b)]
+        require(r["finite"], f"batch {b}: non-finite artifact logits")
+        want = {k: C2K_LAYERS for k in C2K_KERNELS}
+        require(r["launches"] == want,
+                f"batch {b}: launches per Predictor.run {r['launches']}, "
+                f"expected {want}")
+        x = torch.from_numpy(ids[:b]).to(dev)
+        with torch.no_grad():
+            eager = model(x)
+            eager_ms = wall_ms(torch, lambda: model(x), C2K_TIMED)
+        eager_np = eager.cpu().numpy()
+        got = np.load(os.path.join(path, f"logits_{b}.npy"))
+        err = float(np.abs(got - eager_np[:, list(C2K_POSITIONS)]).max())
+        same = r["sha256"] == c2k_digest(np, eager_np)
+        # the same kernels on the same inputs: bit for bit
+        require(same and err == 0.0,
+                f"batch {b}: artifact logits differ from the eager model "
+                f"(max_abs_err {err:.3e} at the sampled positions)")
+        runs[b] = {"run_ms_p50": statistics.median(r["ms"]),
+                   "eager_ms_p50": eager_ms,
+                   "launches": r["launches"], "bit_identical": same}
+        if b == 1:
+            row0 = got[0]
+    del model, eager
+    torch.cuda.empty_cache()
+    # the float64 plain route: the unfused model (SDPA keeps float64) on
+    # the CPU with the same weights
+    ref = c2k_model(torch, "cpu", fused=False).double()
+    ref.config.use_pallas_attention = False
+    with torch.no_grad():
+        f64 = ref(torch.from_numpy(ids[:1]))[0, list(C2K_POSITIONS)].numpy()
+    err64 = float(np.abs(row0 - f64).max())
+    require(err64 <= C2K_F32_TOL,
+            f"artifact vs float64 plain route: {err64:.3e} > {C2K_F32_TOL}")
+    line = {"save_s": save_s, "load_s": res["load_s"], "bytes": sizes,
+            "runs": runs, "max_abs_err_f64": err64, "ops": res["ops"]}
+    for b, r in runs.items():
+        log(f"c2k (1) batch {b}: Predictor.run {r['run_ms_p50']:.3f} ms "
+            f"(eager forward {r['eager_ms_p50']:.3f} ms), bit-identical to "
+            f"eager, launches {r['launches']}")
+    log(f"c2k (1) save {save_s:.2f} s, load {res['load_s']:.2f} s (child), "
+        f"model.pt2 {sizes['model.pt2']} B, params/ {sizes['params']} B; "
+        f"row 0 vs float64 plain route {err64:.3e} <= {C2K_F32_TOL}")
+    return line
+
+
+def c2k_exact(torch, layer, x):
+    """The int32 accumulation of ``layer`` (an Int8Linear / Int8Conv2D) on
+    ``x`` on the card and on a CPU copy: must be equal."""
+    import copy
+    card = layer.accumulate(x)
+    cpu = copy.deepcopy(layer).cpu().accumulate(x.cpu())
+    require(card.dtype == torch.int32 and torch.equal(card.cpu(), cpu),
+            f"{type(layer).__name__}: int32 accumulation differs from the "
+            f"CPU's by {int((card.cpu() - cpu).abs().max())}")
+    return list(card.shape)
+
+
+def c2k_ptq_gpt(torch, np, dev, root):
+    """(2) PTQ of the unfused GPT-125M's linears: 4 seeded calibration
+    batches of (8, 512), Int8Linear, eager and through an artifact; each
+    linear shape's int32 accumulation equal to the CPU's."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch import quantization as Q
+    model = c2k_model(torch, dev, fused=False)
+    n_cal, b = C2K_CAL["gpt"]
+    x = torch.from_numpy(c2k_ids(np, b, SEED + 27)).to(dev)
+    with torch.no_grad():
+        want = model(x)
+    with torch.no_grad():
+        f32_ms = wall_ms(torch, lambda: model(x))
+    Q.PostTrainingQuantization().quantize(
+        model, [torch.from_numpy(c2k_ids(np, b, SEED + 28 + i)).to(dev)
+                for i in range(n_cal)])
+    Q.PostTrainingQuantization().convert(model)
+    int8 = [m for m in model.modules() if isinstance(m, Q.Int8Linear)]
+    require(len(int8) == 4 * C2K_LAYERS, f"{len(int8)} Int8Linear layers")
+    with torch.no_grad():
+        got = model(x)
+    require(bool(torch.isfinite(got).all()), "int8 GPT: non-finite logits")
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    with torch.no_grad():
+        int8_ms = wall_ms(torch, lambda: model(x))
+    rng = np.random.default_rng(SEED + 29)
+    shapes = {}
+    h = model.gpt.h[0]
+    for name, layer in (("qkv", h.attn.qkv_proj), ("out", h.attn.out_proj),
+                        ("fc_in", h.mlp.fc_in), ("fc_out", h.mlp.fc_out)):
+        k = layer.qweight.shape[0]
+        xin = torch.from_numpy(rng.standard_normal((b * C2K_SEQ, k))
+                               .astype(np.float32)).to(dev)
+        shapes[name] = c2k_exact(torch, layer, xin)
+    path = os.path.join(root, "build", "c2k", "gpt125m_int8")
+    jit.save(model, path, [jit.InputSpec([None, C2K_SEQ], "int32",
+                                         name="input_ids")])
+    loaded = jit.load(path)
+    art = loaded(x[:2])
+    err = float((art - got[:2]).abs().max())
+    require(err == 0.0, f"int8 artifact differs from eager by {err:.3e}")
+    line = {"top1_agreement": agree, "int8_ms": int8_ms, "f32_ms": f32_ms,
+            "exact_shapes": shapes, "artifact_bit_identical": True}
+    log(f"c2k (2) GPT-125M PTQ: {len(int8)} Int8Linear, int32 accumulation "
+        f"= CPU for {shapes}; top-1 agreement with float32 {agree:.4f}; "
+        f"forward B={b} S={C2K_SEQ} int8 {int8_ms:.3f} ms vs float32 "
+        f"{f32_ms:.3f} ms; artifact = eager")
+    return line
+
+
+def c2k_ptq_resnet(torch, np, dev):
+    """(3) PTQ of ResNet-50 (NCHW, float32, B=16, 224^2, 2 calibration
+    batches) with Int8Conv2D; the 7x7 stem's and a 3x3 conv's int32
+    accumulation equal to the CPU's."""
+    from paddle_tpu_torch import quantization as Q
+    from paddle_tpu_torch.framework import random as fw_random
+    from paddle_tpu_torch.vision.models import resnet50
+    fw_random.seed(SEED)
+    model = resnet50(device=dev).eval()
+    n_cal, b = C2K_CAL["resnet"]
+    rng = np.random.RandomState(SEED + 30)
+
+    def images(n):
+        return torch.from_numpy((rng.randn(n, 3, 224, 224) * 0.5)
+                                .astype(np.float32)).to(dev)
+    x = images(b)
+    with torch.no_grad():
+        want = model(x)
+    with torch.no_grad():
+        f32_ms = wall_ms(torch, lambda: model(x))
+    ptq = Q.PostTrainingQuantization()
+    ptq.quantize(model, [images(b) for _ in range(n_cal)])
+    ptq.convert(model)
+    convs = [m for m in model.modules() if isinstance(m, Q.Int8Conv2D)]
+    with torch.no_grad():
+        got = model(x)
+    require(bool(torch.isfinite(got).all()), "int8 ResNet-50: non-finite")
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    with torch.no_grad():
+        int8_ms = wall_ms(torch, lambda: model(x))
+    stem = c2k_exact(torch, model.conv1, x[:2])
+    mid = torch.from_numpy(rng.randn(2, 64, 56, 56).astype(np.float32))
+    conv3 = c2k_exact(torch, model.layer1[0].conv2, mid.to(dev))
+    line = {"int8_convs": len(convs), "top1_agreement": agree,
+            "int8_ms": int8_ms, "f32_ms": f32_ms,
+            "exact": {"stem_7x7": stem, "layer1.0.conv2_3x3": conv3}}
+    log(f"c2k (3) ResNet-50 PTQ: {len(convs)} Int8Conv2D (unfold + int8 "
+        f"GEMM), int32 accumulation = CPU on the stem {stem} and a 3x3 "
+        f"{conv3}; top-1 agreement {agree:.4f}; B={b} int8 {int8_ms:.3f} ms "
+        f"vs float32 {f32_ms:.3f} ms")
+    return line
+
+
+def c2k_static(torch, np, dev, root):
+    """(4) a LeNet-shaped static program (conv2d, batch_norm, fc) on (64,
+    1, 28, 28): save_inference_model -> load_inference_model ->
+    Executor.run on the card equal to the program's own eval run."""
+    import paddle_tpu_torch.static as st
+    from paddle_tpu_torch.framework import random as fw_random
+    fw_random.seed(SEED)
+
+    def lenet(x):
+        h = st.nn.conv2d(x, 6, 5, padding=2, act="relu")
+        h = st.nn.batch_norm(h)
+        h = st.nn.conv2d(h, 16, 5, stride=2, act="relu")
+        h = st.nn.fc(h, 120, activation="relu")
+        return {"logits": st.nn.fc(st.nn.fc(h, 84, activation="relu"), 10)}
+    prog = st.Program("lenet").set_fn(lenet)
+    exe = st.Executor(st.cuda_places()[0])
+    x = np.random.RandomState(SEED + 31).randn(64, 1, 28, 28).astype(
+        np.float32)
+    exe.run(prog, feed={"x": x})                  # builds the layers
+    want = exe.run(prog.clone(for_test=True), feed={"x": x})[0]
+    path = os.path.join(root, "build", "c2k", "lenet_static")
+    st.save_inference_model(path, [st.data("x", [None, 1, 28, 28])],
+                            None, exe, program=prog)
+    loaded, feeds, _ = st.load_inference_model(path, exe)
+    require(feeds == ["x"], f"feed names {feeds}")
+    got = exe.run(loaded, feed={"x": x})[0]
+    err = float(np.abs(got - want).max())
+    require(err <= 1e-5 * max(1.0, float(np.abs(want).max())),
+            f"static program artifact differs by {err:.3e}")
+    log(f"c2k (4) static LeNet program (64, 1, 28, 28): artifact vs the "
+        f"program's eval run max_abs_err {err:.3e} (slots "
+        f"{sorted(prog._nn_layers)})")
+    return {"max_abs_err": err, "slots": sorted(prog._nn_layers)}
+
+
+def c2k_tracker(torch, np, dev, _kernels, built):
+    """(5) every library compiled in phase a has a compile record (or, on
+    a warm cache, every wanted library was a hit); generate at three batch
+    sizes: three captures, two retraces naming ``batch``; /statusz's
+    compile filled."""
+    from paddle_tpu_torch.observability import compilation, monitor
+    from paddle_tpu_torch.observability.registry import get_registry
+    tr = compilation.get_tracker()
+    for name in built["compiled"]:
+        st = tr.stats(f"kernels.{name}")
+        require(st["traces"] >= 1, f"no compile record for {name}: {st}")
+    snap = get_registry().snapshot()
+    hits = snap.get("compile.persistent_cache_hits", {}).get("value", 0)
+    wanted = snap.get("compile.persistent_cache_requests",
+                      {}).get("value", 0)
+    require(len(built["compiled"]) + hits >= len(_kernels.KERNELS),
+            f"build records: compiled {built['compiled']}, hits {hits}")
+    model = c2k_model(torch, dev, fused=True)
+    compilation.reset_tracker()
+    sink = get_registry().add_sink(_Records(("compile",)))
+    try:
+        prompts = torch.from_numpy(c2k_ids(np, max(C2K_GEN_BATCHES),
+                                           SEED + 32)[:, :16]).to(dev)
+        for b in C2K_GEN_BATCHES:
+            model.generate(prompts[:b], max_new_tokens=8)   # capacity 24
+    finally:
+        get_registry().remove_sink(sink)
+    st = tr.stats("generate.decode_step")
+    require(st["traces"] == 3 and st["retraces"] == 2,
+            f"generate captures: {st}")
+    recs = [r for r in sink.records
+            if r.get("function") == "generate.decode_step"]
+    changed = [[c["arg"] for c in r["changed"]] for r in recs
+               if r["retrace"]]
+    require(changed == [["batch"], ["batch"]],
+            f"retrace diffs name {changed}")
+    page = monitor.StatusServer(registry=get_registry()).statusz()
+    require(page["compile"] is not None, "/statusz compile is None")
+    line = {"compiled": built["compiled"], "cache_hits": hits,
+            "cache_requests": wanted, "generate": st,
+            "diffs": [r["changed"] for r in recs if r["retrace"]],
+            "statusz_compile": page["compile"]}
+    log(f"c2k (5) tracker: {len(built['compiled'])} library compiles "
+        f"recorded, cache hits {hits} of {wanted}; generate at batches "
+        f"{C2K_GEN_BATCHES}: {st}, diffs {line['diffs']}; /statusz compile "
+        f"{page['compile']}")
+    return line
+
+
+def deploy(torch, np, dev, _kernels, root, built):
+    """(c2k): (1) the GPT-125M artifact through the predictor in a child
+    process, (2) PTQ of GPT-125M, (3) PTQ of ResNet-50, (4) a static
+    program's inference model, (5) the compile tracker."""
+    import shutil
+    t_phase = time.perf_counter()
+    parts, line = {}, {}
+
+    def part(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        parts[name] = time.perf_counter() - t0
+        log(f"c2k {name}: {parts[name]:.1f} s")
+        torch.cuda.empty_cache()
+        return out
+    line["tracker"] = part("tracker", lambda: c2k_tracker(torch, np, dev,
+                                                          _kernels, built))
+    line["gpt"] = part("gpt", lambda: c2k_gpt_artifact(torch, np, dev,
+                                                       _kernels, root))
+    line["ptq_gpt"] = part("ptq_gpt", lambda: c2k_ptq_gpt(torch, np, dev,
+                                                          root))
+    line["ptq_resnet"] = part("ptq_resnet",
+                              lambda: c2k_ptq_resnet(torch, np, dev))
+    line["static"] = part("static", lambda: c2k_static(torch, np, dev, root))
+    shutil.rmtree(os.path.join(root, "build", "c2k"), ignore_errors=True)
+    line.update({"parts_s": parts, "phase_s": time.perf_counter() - t_phase})
+    log(json.dumps({"deploy": line}, default=str))
+    return line
 
 
 # ---------------------------------------------------------------------------

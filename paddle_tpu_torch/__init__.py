@@ -68,6 +68,11 @@ from . import regularizer  # noqa: F401,E402
 from . import utils  # noqa: F401,E402
 from . import vision  # noqa: F401,E402
 from . import text  # noqa: F401,E402
+from . import jit  # noqa: F401,E402
+from . import static  # noqa: F401,E402
+from . import quantization  # noqa: F401,E402
+from . import onnx  # noqa: F401,E402
+from . import cost_model  # noqa: F401,E402
 from .hapi import flops, summary  # noqa: F401,E402
 
 from .framework import (CPUPlace, CUDAPinnedPlace, CUDAPlace,  # noqa: F401,E402

@@ -38,14 +38,19 @@ import torch
 
 from .framework.errors import UnavailableError, enforce
 
-__all__ = ["KERNELS", "BUILD_DIR", "launches", "reset_launches", "build",
-           "bind", "check", "dtype_code", "ptr", "stream", "sm_count",
-           "ptxas_functions", "sass_count", "require_cuda", "capture",
-           "replay"]
+__all__ = ["KERNELS", "BUILD_DIR", "DEFAULT_BUILD_DIR", "launches",
+           "reset_launches", "build", "bind", "check", "dtype_code", "ptr",
+           "stream", "sm_count", "ptxas_functions", "sass_count",
+           "require_cuda", "capture", "replay"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = (Path(__file__).resolve().parent.parent / "build"
-             / "paddle_tpu_torch")
+DEFAULT_BUILD_DIR = (Path(__file__).resolve().parent.parent / "build"
+                     / "paddle_tpu_torch")
+# the persistent compile cache (observability/compilecache.py): the
+# libraries of every earlier process, here unless PTPU_COMPILE_CACHE_DIR
+# names another directory
+BUILD_DIR = Path(os.environ.get("PTPU_COMPILE_CACHE_DIR", "").strip()
+                 or DEFAULT_BUILD_DIR)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("paged_decode", "ln_linear", "ln_linear_mma", "ln_linear_stream",
@@ -106,16 +111,29 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, object]:
     """Compile every library in ``names`` that is not built yet, one
     ``nvcc`` per source, all started together.  Returns the wall seconds
     of the build (0.0 when nothing had to be compiled) and the names that
-    were compiled; each compile's output is kept beside its library."""
+    were compiled; each compile's output is kept beside its library.
+
+    Each compiled library is one ``compile`` record of the compile
+    tracker (function ``kernels.<name>``, its signature the library's
+    file name, its wall ms from the start of the build to its ``nvcc``'s
+    end); the libraries wanted and found built count as persistent-cache
+    requests and hits."""
+    from .observability.compilation import get_tracker
+    from .observability.compilecache import maybe_enable_persistent_cache
+    from .observability.registry import get_registry
     names = list(names)
     for name in names:
         enforce(name in KERNELS, f"unknown kernel {name!r}")
+    maybe_enable_persistent_cache()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    reg = get_registry()
     t0 = time.perf_counter()
     jobs = []
     for name in names:
         out = _library(name)
+        reg.counter("compile.persistent_cache_requests").inc()
         if out.exists():
+            reg.counter("compile.persistent_cache_hits").inc()
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
         log = out.with_suffix(".log")
@@ -129,6 +147,9 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, object]:
     for name, proc, tmp, out, log in jobs:
         if proc.wait() == 0:
             os.replace(tmp, out)
+            get_tracker().observe(f"kernels.{name}", [out.name],
+                                  arg_names=["library"],
+                                  wall_ms=(time.perf_counter() - t0) * 1e3)
         else:
             failed.append(f"{name}:\n{log.read_text()}")
     enforce(not failed, "nvcc failed for " + "\n".join(failed),

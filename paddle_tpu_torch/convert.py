@@ -42,7 +42,7 @@ __all__ = ["state_dict_from_jax", "load_jax_state", "random_state",
            "vision_training_workload", "VISION_BATCH", "VISION_HW",
            "transformer_training_workload", "translation_recipe",
            "TRANSFORMER_SEED", "TRANSFORMER_VOCAB", "TRANSFORMER_BATCH",
-           "TRANSFORMER_SEQ"]
+           "TRANSFORMER_SEQ", "program_state_from_jax"]
 
 
 def state_dict_from_jax(np_state: Dict[str, np.ndarray],
@@ -64,7 +64,11 @@ def state_dict_from_jax(np_state: Dict[str, np.ndarray],
 def load_jax_state(model: nn.Module, np_state: Dict[str, np.ndarray]
                    ) -> nn.Module:
     """Load a numpy JAX ``state_dict`` into ``model`` in place (strict: no
-    key may be missing or extra, and shapes must agree)."""
+    key may be missing or extra, and shapes must agree).  Buffers come
+    across with the parameters in their own dtypes: BatchNorm's running
+    statistics, and a quantized model's int8 ``qweight``, ``wscale`` and
+    ``in_scale`` (``Int8Linear`` / ``Int8Conv2D``) and fake-quant
+    ``scale``s, when the port's model was quantized the same way."""
     own = model.state_dict()
     missing = sorted(set(own) - set(np_state))
     extra = sorted(set(np_state) - set(own))
@@ -74,9 +78,39 @@ def load_jax_state(model: nn.Module, np_state: Dict[str, np.ndarray]
         enforce(tuple(own[key].shape) == tuple(np.shape(value)),
                 f"shape mismatch for {key}: {tuple(np.shape(value))} vs "
                 f"{tuple(own[key].shape)}")
-    device = next(model.parameters()).device
+    device = next(iter(own.values())).device
     model.load_state_dict(state_dict_from_jax(np_state, device), strict=True)
     return model
+
+
+def _jax_slot_state(src) -> Dict[str, np.ndarray]:
+    """One slot of a JAX ``static.Program``'s ``_nn_layers`` as the port
+    slot's ``state_dict``: a layer's own, a ``(weight, bias)`` pair of
+    parameters, a lone parameter (``weight``), or ``data_norm``'s
+    accumulators."""
+    def arr(p):
+        return np.asarray(getattr(p, "value", p))
+    if hasattr(src, "state_dict"):
+        return {k: arr(v) for k, v in src.state_dict().items()}
+    if isinstance(src, tuple):
+        return {k: arr(p) for k, p in zip(("weight", "bias"), src)
+                if p is not None}
+    if hasattr(src, "value"):
+        return {"weight": arr(src)}
+    return {k: arr(getattr(src, k)) for k in ("size", "sum", "square_sum")}
+
+
+def program_state_from_jax(program, jax_program) -> None:
+    """Carry a JAX ``static.Program``'s ``static.nn`` parameters into the
+    port Program's slots, by slot name.  The port program must have run
+    once (its layers are made at the first run), with the same helpers in
+    the same order."""
+    for slot, src in jax_program._nn_layers.items():
+        dst = program._nn_layers.get(slot)
+        enforce(dst is not None,
+                f"slot {slot!r} is not in the port program (run it once "
+                f"first; it has {sorted(program._nn_layers)})")
+        load_jax_state(dst, _jax_slot_state(src))
 
 
 SERVING_SEED = 1234

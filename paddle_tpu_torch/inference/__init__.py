@@ -6,10 +6,11 @@ The facade keeps the reference's call shapes (``Config`` /
 ``create_predictor`` / input handles / ``run()`` / output handles) over
 the serving engine: ``Config.enable_continuous_batching`` plus
 ``set_decoder_model`` routes a predictor onto :class:`ServingEngine`, and
-each batch row becomes a ragged engine request.  A ``Predictor`` over a
-``jit.save`` artifact is not ported yet and raises (ROADMAP Queue 1 item
-12: ``jit`` export).  :mod:`.fleet` is the serving fleet above the engine
-(router, journal, replicas, autoscaler).
+each batch row becomes a ragged engine request; any other config is a
+:class:`Predictor` over a ``jit.save`` artifact (``model.pt2``, run on the
+current device with the port's kernels as registered ops).  :mod:`.fleet`
+is the serving fleet above the engine (router, journal, replicas,
+autoscaler).
 """
 from __future__ import annotations
 
@@ -17,8 +18,9 @@ import enum as _enum
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
 
-from ..framework.errors import UnimplementedError, enforce
+from ..framework.errors import enforce
 from .engine import CollectTimeout, ServingEngine
 from .kv_cache import BlockAllocator, PagedKVCache, PagedLayerCache
 from .paged_attention import (paged_attention, paged_attention_cuda,
@@ -27,7 +29,9 @@ from .scheduler import ContinuousBatchingScheduler
 
 __all__ = ["Config", "Predictor", "EnginePredictor", "create_predictor",
            "DataType", "PlaceType", "PrecisionType", "get_version",
-           "PredictorPool", "ServingEngine", "CollectTimeout",
+           "PredictorPool", "Tensor", "get_trt_compile_version",
+           "get_trt_runtime_version", "get_num_bytes_of_data_type",
+           "ServingEngine", "CollectTimeout",
            "BlockAllocator", "PagedKVCache", "PagedLayerCache",
            "ContinuousBatchingScheduler", "paged_attention",
            "paged_attention_cuda", "paged_attention_reference"]
@@ -87,15 +91,37 @@ class Config:
 
 
 class Predictor:
-    """≙ AnalysisPredictor over a saved program.  The port has no
-    ``jit.save`` artifact to load yet (ROADMAP Queue 1 item 12), so this
-    raises; decoder models serve through ``enable_continuous_batching``."""
+    """≙ AnalysisPredictor's python surface over a ``jit.save`` artifact:
+    named input handles, ``run()``, named output fetch.  The program runs
+    on the current device (``set_device``)."""
 
     def __init__(self, config: Config):
-        raise UnimplementedError(
-            "Predictor over a jit.save artifact is not ported (ROADMAP "
-            "Queue 1 item 12); use Config.enable_continuous_batching() "
-            "with set_decoder_model(model)")
+        from .. import jit as pt_jit
+        enforce(config.model_dir(), "Config.set_model(path) first")
+        self._layer = pt_jit.load(config.model_dir())
+        self._input_names = [
+            s.name or f"input_{i}"
+            for i, s in enumerate(self._layer.input_spec)]
+        self._inputs: Dict[str, Any] = {}
+        self._outputs: List[Any] = []
+
+    def get_input_names(self) -> List[str]:
+        return list(self._input_names)
+
+    def get_input_handle(self, name: str) -> "_Handle":
+        return _Handle(self._inputs, name)
+
+    def run(self) -> None:
+        args = [self._inputs[n] for n in self._input_names]
+        out = self._layer(*args)
+        self._outputs = list(out) if isinstance(out, (tuple, list)) \
+            else [out]
+
+    def get_output_names(self) -> List[str]:
+        return [f"output_{i}" for i in range(len(self._outputs))]
+
+    def get_output_handle(self, name: str) -> "_OutHandle":
+        return _OutHandle(self._outputs, int(name.split("_")[-1]))
 
 
 class _Handle:
@@ -114,7 +140,10 @@ class _OutHandle:
         self._outputs, self._idx = outputs, idx
 
     def copy_to_cpu(self) -> np.ndarray:
-        return np.asarray(self._outputs[self._idx])
+        out = self._outputs[self._idx]
+        if isinstance(out, torch.Tensor):
+            return out.detach().cpu().numpy()
+        return np.asarray(out)
 
 
 class EnginePredictor:
@@ -204,9 +233,26 @@ def get_version() -> str:
     return __version__
 
 
+Tensor = _Handle      # the predictor's tensor handle role
+
+
+def get_trt_compile_version():
+    return (0, 0, 0)       # no TensorRT: the port's kernels are its own
+
+
+def get_trt_runtime_version():
+    return (0, 0, 0)
+
+
+def get_num_bytes_of_data_type(dtype) -> int:
+    name = dtype.value if isinstance(dtype, DataType) else str(dtype)
+    return np.dtype(name).itemsize
+
+
 class PredictorPool:
     """Reference PredictorPool(config, size): ``size`` independent
-    predictors (each with its own engine and KV pool)."""
+    predictors (each with its own engine and KV pool, or its own loaded
+    program)."""
 
     def __init__(self, config: Config, size: int = 1):
         self._predictors = [create_predictor(config) for _ in range(size)]

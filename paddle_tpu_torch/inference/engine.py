@@ -182,7 +182,8 @@ class ServingEngine:
 
     Lifecycle knobs: ``nan_guard`` enables the per-step nonfinite-logits
     check (env ``PTPU_SERVE_NAN_GUARD``); ``step_timeout`` arms a watchdog
-    of the engine's own around every step (without it the step is
+    of the engine's own around every step (or pass a shared ``watchdog``,
+    which ``stop()`` leaves open; without either the step is
     ``guarded`` by the process-global watchdog, if one is installed) — set
     it above the slowest step, the first one included (kernel builds, CUDA
     set-up);
@@ -204,6 +205,7 @@ class ServingEngine:
                  clock: Callable[[], float] = time.time,
                  nan_guard: Optional[bool] = None,
                  step_timeout: Optional[float] = None,
+                 watchdog: Optional[Watchdog] = None,
                  run_dir: Optional[str] = None,
                  replica_id: Optional[int] = None,
                  step_fault: Optional[Callable] = None):
@@ -250,8 +252,11 @@ class ServingEngine:
         self.replica_id = None if replica_id is None else int(replica_id)
         self.step_fault = step_fault
         self.step_timeout = step_timeout
+        # a watchdog of its own for step_timeout, else the shared one
+        # passed in (closed by its owner, not by stop())
+        self._owns_watchdog = watchdog is None and step_timeout is not None
         self._watchdog = (Watchdog(timeout=step_timeout)
-                          if step_timeout is not None else None)
+                          if self._owns_watchdog else watchdog)
         self._state = "serving"           # serving | draining | stopped
         self._submit_order: List[str] = []
         self.quarantined: Dict[str, Dict[str, Any]] = {}
@@ -1178,9 +1183,9 @@ class ServingEngine:
 
     def stop(self) -> None:
         self._stop_callbacks(timeout=1.0)
-        if self._watchdog is not None:
+        if self._owns_watchdog and self._watchdog is not None:
             self._watchdog.close()
-            self._watchdog = None
+        self._watchdog = None
         if self.status_server is not None:
             self.status_server.stop()
             self.status_server = None

@@ -184,7 +184,11 @@ class HttpReplica:
     Transport errors surface as ``ConnectionError`` from every call —
     the router's retry/failover signal.  ``process`` (when the manager
     spawned the worker) lets ``alive()`` notice a SIGKILLed worker
-    immediately instead of waiting out a connect timeout."""
+    immediately instead of waiting out a connect timeout, and
+    ``signalled`` (set by whoever sent the worker a signal) does the same
+    while the process is still dying: a worker that tears down a large
+    device context can keep its listening socket open for seconds after
+    the signal, and every call to it would wait out ``timeout``."""
 
     def __init__(self, replica_id: int, port: int,
                  host: str = "127.0.0.1", timeout: float = 5.0,
@@ -194,6 +198,13 @@ class HttpReplica:
         self.port = int(port)
         self.timeout = float(timeout)
         self.process = process
+        self.signalled = False
+
+    def gone(self) -> bool:
+        """True once the worker was signalled or its process exited: no
+        call to it is worth making (and none is made by the router)."""
+        return self.signalled or (self.process is not None
+                                  and self.process.poll() is not None)
 
     def _url(self, path: str) -> str:
         return f"http://{self.host}:{self.port}{path}"
@@ -249,7 +260,7 @@ class HttpReplica:
             raise
 
     def alive(self) -> bool:
-        if self.process is not None and self.process.poll() is not None:
+        if self.gone():
             return False
         try:
             self.healthz()
@@ -264,6 +275,8 @@ class HttpReplica:
                           timeout=http_timeout)
 
     def stop(self) -> None:
+        if self.gone():
+            return                    # nothing would answer
         try:
             self._call("/shutdown", {})
         except ConnectionError:
@@ -428,8 +441,7 @@ class ReplicaManager:
     def _probe(self, idx: int, replica: HttpReplica) -> str:
         if idx in self._retired:
             return "retired"
-        proc = replica.process
-        if proc is not None and proc.poll() is not None:
+        if replica.gone():
             return "dead"
         try:
             code, state = replica.healthz()
@@ -472,12 +484,20 @@ class ReplicaManager:
 
     def kill(self, idx: int, sig=None) -> None:
         """Hard-kill slot ``idx`` (drill seam — see
-        ``testing/faults.kill_replica``)."""
+        ``testing/faults.kill_replica``).  The slot is marked signalled
+        before the signal goes, so the router fails its streams over
+        without another call to it; a signal that ends the process
+        (SIGKILL, SIGTERM) is waited for, any other (SIGSTOP: a worker
+        that stops answering but keeps its socket) is not."""
         import signal as _signal
-        proc = self.replicas[idx].process
+        replica = self.replicas[idx]
+        proc = replica.process
         enforce(proc is not None, f"replica {idx} has no process handle")
-        os.kill(proc.pid, sig if sig is not None else _signal.SIGKILL)
-        proc.wait(timeout=10)
+        sig = sig if sig is not None else _signal.SIGKILL
+        replica.signalled = True
+        os.kill(proc.pid, sig)
+        if sig in (_signal.SIGKILL, _signal.SIGTERM):
+            proc.wait(timeout=10)
         self.poll_states()
 
     def stop(self) -> None:
@@ -487,6 +507,8 @@ class ReplicaManager:
             proc = replica.process
             if proc is None:
                 continue
+            if replica.signalled and proc.poll() is None:
+                proc.kill()           # stopped or dying: it will not exit
             try:
                 proc.wait(timeout=10)
             except subprocess.TimeoutExpired:

@@ -338,8 +338,8 @@ class Router:
         return sum(x for x in loads if x != float("inf"))
 
     # -- dispatch ----------------------------------------------------------
-    def _dispatch(self, journal: StreamJournal,
-                  fresh: bool = True) -> Optional[int]:
+    def _dispatch(self, journal: StreamJournal, fresh: bool = True,
+                  since: Optional[float] = None) -> Optional[int]:
         """Send ``journal``'s record to the best replica, retrying with
         backoff across the healthy set.  The first attempt of a fresh
         submission is free; every further send spends the retry
@@ -349,7 +349,10 @@ class Router:
 
         Fresh submissions fail loudly instead: a dry budget raises
         :class:`FleetOverloaded` (degrade to load-shed), exhaustion
-        raises :class:`DispatchExhausted`."""
+        raises :class:`DispatchExhausted`.  ``since`` starts the first
+        dispatch span earlier than now: a submission's span opens at the
+        submit, so the journal write before it is inside the trace's
+        covered time."""
         reg = self._reg()
         tried: List[str] = []
         backoff = self.retry_backoff_ms / 1e3
@@ -360,7 +363,7 @@ class Router:
         comp = {"failover": "failover",
                 "migration": "migration"}.get(journal.resume_why,
                                               "dispatch")
-        seg0 = time.time()
+        seg0 = time.time() if since is None else since
         for attempt in range(self.retry_max + 1):
             healthy = self._available_ids()
             for rid in self._pick(journal.session, healthy):
@@ -484,7 +487,7 @@ class Router:
         self._reg().gauge("fleet.streams").set(float(len(
             [j for j in self.journals.values() if not j.finished])))
         try:
-            self._dispatch(journal, fresh=True)
+            self._dispatch(journal, fresh=True, since=journal.submit_wall)
         except (FleetOverloaded, DispatchExhausted):
             # the client saw a refusal — no ghost stream may linger
             if journal.trace_id is not None:
@@ -676,6 +679,15 @@ class Router:
             if journal.replica_id is None:
                 # deferred failover/recovery: quiet budgeted retry
                 self._dispatch(journal, fresh=False)
+                continue
+            replica = self.replicas.get(journal.replica_id)
+            gone = getattr(replica, "gone", None)
+            if gone is not None and gone():
+                # signalled or exited: fail over without a call that a
+                # dying worker's open socket would hold for its timeout
+                self._breaker(journal.replica_id).record_failure()
+                self._failover(journal, "replica died (process signalled "
+                               "or exited)")
                 continue
             try:
                 self._poll_journal(journal)

@@ -47,6 +47,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -697,6 +698,12 @@ class _DecodeLoop:
         return self.tokens[:, 0].clone()
 
     def _capture(self, model: GPTForCausalLM) -> None:
+        """Capture the single-token step; one ``compile`` record of the
+        compile tracker (function ``generate.decode_step``), keyed by the
+        loop's ``(batch, capacity, temperature, top_k)``, so a capture
+        for a new key is a retrace whose diff names what changed."""
+        from ..observability.compilation import get_tracker
+        t0 = time.perf_counter()
         dev = self.tokens.device
         main = torch.cuda.current_stream(dev)
         side = torch.cuda.Stream(dev)
@@ -709,6 +716,10 @@ class _DecodeLoop:
         self.recorded = _kernels.capture(
             graph, lambda: self._step(model, self.tokens))
         self.graph = graph
+        get_tracker().observe("generate.decode_step", list(self.key),
+                              arg_names=["batch", "capacity",
+                                         "temperature", "top_k"],
+                              wall_ms=(time.perf_counter() - t0) * 1e3)
 
 
 # -- standard configs (the JAX package's table) ------------------------------

@@ -227,8 +227,11 @@ class StatusServer:
         status["fleet"] = fleet or None
         self._bench_sections(status, snap, gauge, counter)
         self._training_sections(status, snap, gauge, counter, now)
-        # the port tracks no compiles (no jit): the key is kept, empty
-        status["compile"] = None
+        # kernel builds, CUDA-graph captures and exports, per function
+        from .compilation import get_tracker
+        tr = get_tracker()
+        status["compile"] = {fn: tr.stats(fn)
+                             for fn in tr.functions()} or None
         return status
 
     def _bench_sections(self, status, snap, gauge, counter) -> None:

@@ -15,3 +15,4 @@ __all__ = ["fused_bias_dropout_residual",
            "rotary_position_embedding", "fused_attention_block",
            "fused_attention_block_kvcache", "fused_ffn_block",
            "fused_ln_linear", "fused_linear_residual"]
+from . import registered  # noqa: F401,E402

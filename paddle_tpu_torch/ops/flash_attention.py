@@ -362,11 +362,15 @@ def flash_attention(q, k, v, causal: bool = True,
         seed = fw_random.draw_seed() if seed is None else int(seed)
     else:
         seed = 0
-    out = _FlashCore.apply(q.reshape(b * h, sq, d).contiguous(),
-                           k.reshape(b * h, sk, d).contiguous(),
-                           v.reshape(b * h, sk, d).contiguous(), seed,
-                           float(scale), bool(causal), float(dropout_p))
-    return out.reshape(b, h, sq, d)
+    args = (q.reshape(b * h, sq, d).contiguous(),
+            k.reshape(b * h, sk, d).contiguous(),
+            v.reshape(b * h, sk, d).contiguous(), seed, float(scale),
+            bool(causal), float(dropout_p))
+    if torch.compiler.is_exporting():
+        # the registered forward (ops/registered.py) for torch.export
+        from .registered import flash_fwd
+        return flash_fwd(*args).reshape(b, h, sq, d)
+    return _FlashCore.apply(*args).reshape(b, h, sq, d)
 
 
 # ---------------------------------------------------------------------------

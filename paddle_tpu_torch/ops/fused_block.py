@@ -219,7 +219,11 @@ def _route(kernel, plain, tensors, *static):
     """``kernel`` on CUDA tensors, differentiable by recompute
     (:class:`_Recompute`) when a gradient is wanted; ``plain`` on CPU
     tensors, differentiable by autograd.  Both take ``(*tensors,
-    *static)``."""
+    *static)``.  While ``torch.export`` traces, the registered op of
+    ``kernel`` (``ops/registered.py``), which chooses at run time."""
+    if torch.compiler.is_exporting():
+        from .registered import EXPORTED
+        return EXPORTED[kernel](*tensors, *static)
     if not tensors[0].is_cuda:
         return plain(*tensors, *static)
     tensors = tuple(t.contiguous() for t in tensors)
@@ -1332,7 +1336,9 @@ def fused_attention_block(x, qkv_w, qkv_b, out_w, out_b, ln_scale, ln_bias,
                            head_dim)
     if rotary:
         q, k = _apply_rope(q, k, rope_base)
-    if x.is_cuda:
+    if x.is_cuda or torch.compiler.is_exporting():
+        # exported: the flash op, which runs the kernel on the card and
+        # its plain version (bottom-right causal, equal here) on the CPU
         out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                               v.transpose(1, 2), causal=causal, scale=scale,
                               dropout_p=attn_dropout, training=training,

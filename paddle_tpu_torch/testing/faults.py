@@ -481,11 +481,14 @@ class kill_replica:
     def __call__(self) -> int:
         """Fire now; returns the killed pid."""
         pid = self._pid()
-        os.kill(pid, self.sig)
         t = self.target
         if self.index is not None and hasattr(t, "replicas"):
-            t.replicas[self.index].process.wait(timeout=10)
+            t.kill(self.index, self.sig)       # marks the slot signalled
             t.poll_states()
+        else:
+            if hasattr(t, "signalled"):        # an HttpReplica
+                t.signalled = True
+            os.kill(pid, self.sig)
         self.fired += 1
         return pid
 

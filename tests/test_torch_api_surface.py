@@ -1,7 +1,9 @@
 """The paddle API surface of the PyTorch port against the JAX package's:
 every public callable of the JAX top level, ``linalg``, ``fft``,
-``signal`` and ``autograd`` exists in the port, with the same parameter
-names, or is in ``TO_PORT`` below with the ``ROADMAP.md`` item it waits on.
+``signal`` and ``autograd``, and every name that ``jit``, ``static``,
+``quantization`` and ``inference`` export (their ``__all__``), exists in
+the port, with the same parameter names, or is in ``TO_PORT`` below with
+the ``ROADMAP.md`` item it waits on.
 
 Parameter names: the JAX function's named parameters (``*args`` and
 ``**kwargs`` aside) must equal the port's; where the JAX function forwards
@@ -33,14 +35,27 @@ TO_PORT = {
 
 NAMESPACES = [("", jpt, tpt), ("linalg", jpt.linalg, tpt.linalg),
               ("fft", jpt.fft, tpt.fft), ("signal", jpt.signal, tpt.signal),
-              ("autograd", jpt.autograd, tpt.autograd)]
+              ("autograd", jpt.autograd, tpt.autograd),
+              ("jit", jpt.jit, tpt.jit), ("static", jpt.static, tpt.static),
+              ("quantization", jpt.quantization, tpt.quantization),
+              ("inference", jpt.inference, tpt.inference)]
+# held by the names they export: these modules also import helpers that
+# are not theirs (Conv2D, enforce, load_sharded, typing names)
+BY_ALL = {"jit", "static", "quantization", "inference"}
+# parameters the port adds after a JAX signature's, by design
+EXTRA_PARAMS = {("inference", "PagedKVCache"): ["device"]}
 
 
-def _public_callables(mod):
-    return {n: getattr(mod, n) for n in dir(mod)
+def _public_callables(mod, names=None):
+    names = dir(mod) if names is None else names
+    return {n: getattr(mod, n) for n in names
             if not n.startswith("_")
             and not isinstance(getattr(mod, n), types.ModuleType)
             and callable(getattr(mod, n))}
+
+
+def _namespace(ns, mod):
+    return _public_callables(mod, mod.__all__ if ns in BY_ALL else None)
 
 
 def _params(fn):
@@ -54,7 +69,7 @@ def _params(fn):
 
 
 CASES = [(ns, name) for ns, jmod, _ in NAMESPACES
-         for name in sorted(_public_callables(jmod))]
+         for name in sorted(_namespace(ns, jmod))]
 
 
 @pytest.mark.parametrize("ns,name", CASES,
@@ -70,6 +85,10 @@ def test_jax_callable_is_in_the_port(ns, name):
     if jp is None or tp is None:
         return
     (jnames, jvar), (tnames, _) = jp, tp
+    extra = EXTRA_PARAMS.get((ns, name), [])
+    if extra:
+        assert tnames[len(tnames) - len(extra):] == extra, (name, tnames)
+        tnames = tnames[:len(tnames) - len(extra)]
     if jvar:
         assert tnames[:len(jnames)] == jnames, (name, jnames, tnames)
     else:

@@ -1731,3 +1731,58 @@ def test_tensor_api_default_device_is_the_card(dev):
         assert isinstance(pt.get_cudnn_version(), int)
     finally:
         fw_dtype._current = prev
+
+
+# -- deployment (jit.save / load): the kernels as registered ops -------------
+def test_cpu_exported_artifact_launches_the_kernels_on_the_card(dev,
+                                                                 tmp_path):
+    """A gpt_tiny (fused block) artifact exported on the CPU, loaded on the
+    card: each run launches K1-K3 (stream routes at 16 rows, tiled above
+    32) and the flash forward as often as the model on the card does (K1,
+    K2 and the flash forward once a layer), and equals it."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.convert import load_jax_state, random_state
+    from paddle_tpu_torch.framework.dtype import device_scope
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_tiny
+    cfg = gpt_tiny(hidden_dropout=0.0, attention_dropout=0.0,
+                   use_fused_block=True, use_pallas_attention=True)
+    cpu = GPTForCausalLM(cfg, device="cpu")
+    state = random_state(cpu, 0)
+    load_jax_state(cpu, state)
+    with device_scope("cpu"):
+        jit.save(cpu, str(tmp_path / "gpt"),
+                 [jit.InputSpec([None, 16], "int32", name="input_ids")])
+    card = GPTForCausalLM(cfg, device=dev)
+    load_jax_state(card, state)
+    card.eval()
+    loaded = jit.load(str(tmp_path / "gpt"))      # the current device: cuda
+    for b, route in ((1, "stream"), (4, "tiled")):
+        ids = torch.from_numpy(np.random.default_rng(b).integers(
+            0, 1000, (b, 16)).astype(np.int32)).to(dev)
+        _kernels.reset_launches()
+        got = loaded(ids)
+        launched = {k: v for k, v in _kernels.launches.items() if v}
+        _kernels.reset_launches()
+        with torch.no_grad():
+            want = card(ids)
+        assert launched == {k: v for k, v in _kernels.launches.items() if v}
+        assert set(launched) == {f"ln_linear_{route}",
+                                 f"linear_residual_{route}", f"ffn_{route}",
+                                 "flash_fwd"}, launched
+        for name in (f"ln_linear_{route}", f"linear_residual_{route}",
+                     "flash_fwd"):
+            assert launched[name] == 2, launched
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_int8_matmul_is_exact_on_the_card(dev):
+    """``torch._int_mm`` with zero-padded operands equals the CPU's int32
+    product, for shapes it would refuse unpadded."""
+    from paddle_tpu_torch.quantization import int_matmul
+    g = np.random.default_rng(0)
+    for m, k, n in ((1, 8, 8), (5, 30, 13), (4096, 768, 2304)):
+        a = torch.from_numpy(g.integers(-127, 128, (m, k)).astype(np.int8))
+        b = torch.from_numpy(g.integers(-127, 128, (k, n)).astype(np.int8))
+        got = int_matmul(a.to(dev), b.to(dev))
+        assert got.dtype == torch.int32
+        assert torch.equal(got.cpu(), int_matmul(a, b))

@@ -102,6 +102,8 @@ def test_stderr_summary_logs_the_jax_line():
 
 
 def test_status_page_sections_match_jax():
+    from paddle_tpu_torch.observability import compilation
+    compilation.reset_tracker()
     tpage = tmon.StatusServer(registry=_fill(MetricsRegistry())).statusz()
     jpage = jmon.StatusServer(registry=_fill(JRegistry())).statusz()
     for key in ("elastic", "roofline", "interconnect"):
@@ -111,14 +113,22 @@ def test_status_page_sections_match_jax():
     assert tpage["roofline"]["mfu_gap"][0]["dominant"] == "memory_bound"
     assert tpage["interconnect"]["comm_budget"][0]["op"] == "all_reduce"
     assert tpage["perf"]["scenarios"] == jpage["perf"]["scenarios"]
-    # the bench's verdicts wait on the port's bench; the compile tracker
-    # on a tracker of the port's own
+    # the bench's verdicts wait on the port's bench; the compile section
+    # is empty until the port's tracker saw a build
     assert tpage["perf"]["perf_regression"] is None
     assert tpage["perf"]["trends"] is None
     assert "compile" in tpage and tpage["compile"] is None
     bare = tmon.StatusServer(registry=MetricsRegistry()).statusz()
     for key in ("elastic", "perf", "roofline", "interconnect", "compile"):
         assert bare[key] is None, key
+    reg = MetricsRegistry()
+    compilation.get_tracker().observe("kernels.flash_fwd",
+                                      ["libflash_fwd-0.so"],
+                                      arg_names=["library"])
+    page = tmon.StatusServer(registry=reg).statusz()
+    assert page["compile"] == {"kernels.flash_fwd": {
+        "calls": 1, "traces": 1, "retraces": 0, "storms": 0}}
+    compilation.reset_tracker()
 
 
 def _append(mdir, wid, records):
