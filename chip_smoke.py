@@ -496,6 +496,37 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               for every library phase (a) compiled, three generate
               captures at batches 1, 2, 4 with two retraces naming
               ``batch``, /statusz's compile filled; one deploy JSON line;
+  (c2l) the long tail on the training workload (GPT-125M, B=8, S=2048,
+              bf16 O1) and beside it: (1) ASP, the embeddings excluded,
+              every other weight pruned 2:4 (mask_1d), 5 steps under the
+              decorated AdamW (the flash kernels 12 launches a step), the
+              zero pattern and 2:4 kept, three masks recomputed on the
+              host bit for bit; (2) LookAhead (k=5, alpha 0.5) 10 steps,
+              its slow weights the blend of snapshots and the fast ones
+              equal to them bit for bit at steps 5 and 10; ModelAverage 10
+              steps, average() within 1e-5 of the float64 replay of its
+              recurrence, apply / restore exact; DistributedFusedLamb 5
+              steps, each within 1e-5 of a float64 plain LAMB from the
+              same state and gradients; (3) the profiler (make_scheduler)
+              over the fused float32 serving engine's prefills and 8
+              decode steps and 2 training steps: the exported chrome
+              trace names every kernel the counters saw (paged decode,
+              the stream and tiled K1-K3, the flash kernels) as often,
+              each with device time, the RecordEvent ranges, summary(),
+              the decode step's ms with and without the profiler; (4)
+              FLAGS_dataloader_use_native with 2 workers feeds Model.fit
+              4 steps over the ring (its counter 4), the ring's batches
+              the queue's byte for byte, batches/s of both; (5)
+              WordPiece over a 30,522-entry vocabulary and 100k words,
+              the native core's ids the Python path's, tokens/s of both;
+              (6) every distribution's log_prob / entropy / KL on the
+              card against float64 on the CPU, sample moments of 10^6
+              draws within 4 standard errors; a 4096 x 4096 sparse
+              matrix at 1 %, COO and CSR: matmul with (4096, 768),
+              masked_matmul, softmax and attention against dense float64
+              on the CPU, each op's ms; (7) run_check and a
+              cpp_extension host op on the card; one long_tail JSON line
+              with the card's name and power limit;
   (c3) generate GPTForCausalLM.generate at full width (convert.
               generate_workload: B=8, prompt 512, 128 greedy tokens, bf16),
               unfused (use_pallas_attention) and fused (use_fused_block):
@@ -529,6 +560,7 @@ nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -607,6 +639,8 @@ def main() -> int:
         return c2e_child(json.loads(sys.argv[2]))   # (c2e 4)'s processes
     if len(sys.argv) == 3 and sys.argv[1] == "--c2k-child":
         return c2k_child(json.loads(sys.argv[2]))   # (c2k 1)'s predictor
+    if len(sys.argv) == 3 and sys.argv[1] == "--c2l-child":
+        return c2l_child(json.loads(sys.argv[2]))   # (c2l 3)'s window
 
     # -- (a) build -----------------------------------------------------------
     built = _kernels.build()
@@ -720,6 +754,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     done("c2k_deploy")
 
+    # -- (c2l) the long tail ----------------------------------------------------
+    long_tail(torch, np, dev, _kernels, root)
+    torch.cuda.empty_cache()
+    done("c2l_long_tail")
+
     # -- (c3) generate -------------------------------------------------------
     generating = generate(torch, np, dev, _kernels)
     done("c3_generate")
@@ -746,11 +785,7 @@ def main() -> int:
     log(json.dumps({"kernels": list(results.values())}))
 
     # -- (e) card line and the result line ------------------------------------
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()[0]
-    log(card)
+    log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -7926,6 +7961,1105 @@ def deploy(torch, np, dev, _kernels, root, built):
     shutil.rmtree(os.path.join(root, "build", "c2k"), ignore_errors=True)
     line.update({"parts_s": parts, "phase_s": time.perf_counter() - t_phase})
     log(json.dumps({"deploy": line}, default=str))
+    return line
+
+
+# ---------------------------------------------------------------------------
+# (c2l) the long tail
+# ---------------------------------------------------------------------------
+C2L_B, C2L_S = 8, 2048          # convert.training_workload's batch
+C2L_ASP_STEPS, C2L_LA_STEPS, C2L_MA_STEPS, C2L_LAMB_STEPS = 5, 10, 10, 5
+C2L_LA_K, C2L_LA_ALPHA = 5, 0.5
+C2L_MA = dict(average_window_rate=0.5, min_average_window=2,
+              max_average_window=4)
+C2L_DECODES = 8                 # profiled decode steps of the serving engine
+C2L_PROFILED_TRAIN = 2          # profiled training steps
+C2L_OPENER_ROWS = 128           # the K1 launch that opens the window
+C2L_OPENER_WIDTHS = (768, 2304)  # GPT-125M's LN -> qkv: h, 3 h
+C2L_COST_RUNS, C2L_COST_DECODES = 4, 32   # pairs of runs, decodes a run
+C2L_EDGE_WINDOWS = 8            # short windows per tracer, edges probed
+C2L_LOADER_BATCHES = 4          # Model.fit steps over the ring
+C2L_LOADER_TIMED = 400          # batches a transport is timed over
+C2L_LOADER_MADE = 50            # batches made in the main process, timed
+C2L_VOCAB, C2L_WORDS = 30522, 100_000
+C2L_DRAWS = 1_000_000
+C2L_SPARSE_N, C2L_SPARSE_DENSITY, C2L_SPARSE_D = 4096, 0.01, 768
+C2L_ATTN_D = 64
+# float32 on the card against float64 on the CPU: lgamma / digamma and
+# the sums are float32, ~1e-6 of a value; a wrong formula is off by far more
+C2L_DIST_TOL = 2e-5
+# sparse products in float32 against float64 (inner sums of 41-768 terms,
+# no TF32): within 1e-5 of the result's range
+C2L_SPARSE_TOL = 1e-5
+# a float32 LAMB step against float64 (the trust ratios' norms summed in
+# float32 over up to 38.6M elements): within 1e-5 of each weight's range
+C2L_LAMB_TOL = 1e-5
+# ModelAverage's float32 streaming sum against the float64 replay of the
+# same recurrence over the same snapshots
+C2L_MA_TOL = 1e-5
+C2L_EXCLUDED = ["gpt.wte", "gpt.wpe"]     # ASP: the two embeddings
+# the kernel counter -> a substring of the __global__ function that each of
+# its counted launches runs once (ffn_tiled's up and down passes, ffn_stream
+# and its finalize kernel: the first of each pair)
+C2L_TRACE_NAMES = {
+    "paged_decode": "paged_decode_kernel",
+    "ln_linear": "ln_linear_kernel",
+    "ln_linear_mma": "ln_linear_mma_kernel",
+    "ln_linear_stream": "ln_linear_stream_kernel",
+    "ln_linear_tiled": "ln_linear_tiled_kernel",
+    "linear_residual": "linear_residual_kernel",
+    "linear_residual_mma": "linear_residual_mma_kernel",
+    "linear_residual_stream": "linear_residual_stream_kernel",
+    "linear_residual_tiled": "linear_residual_tiled_kernel",
+    "ffn": "ffn_kernel",
+    "ffn_mma": "ffn_mma_kernel",
+    "ffn_stream": "ffn_stream_kernel",
+    "ffn_tiled": "ffn_tiled_up_kernel",
+    "flash_fwd": "flash_fwd_",
+    "flash_dkdv": "flash_dkdv_",
+    "flash_dq": "flash_dq_",
+    "flash_decode": "flash_decode_kernel",
+}
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def c2l_flash(launches, steps, layers):
+    """The three flash training kernels launched once a layer a step and
+    nothing else of the eight but them."""
+    for name in TRAINING_KERNELS:
+        require(launches[name] == layers * steps,
+                f"{name}: {launches[name]} launches in {steps} steps, not "
+                f"{layers} a step")
+    other = {n: c for n, c in launches.items()
+             if c and n not in TRAINING_KERNELS}
+    require(not other, f"training steps launched {other}")
+    return {n: launches[n] for n in TRAINING_KERNELS}
+
+
+def c2l_workload(dev):
+    from paddle_tpu_torch.convert import training_workload
+    return training_workload(dev, None, batch=C2L_B, seq_len=C2L_S)
+
+
+def c2l_steps(torch, _kernels, model, opt, ids, labels, n):
+    """``n`` train_steps with the counters zeroed just before them; the
+    losses (each finite) and the launches."""
+    from paddle_tpu_torch.training import train_step
+    _kernels.reset_launches()
+    losses = [float(train_step(model, opt, ids, labels)) for _ in range(n)]
+    launches = dict(_kernels.launches)
+    require(all(math.isfinite(x) for x in losses),
+            f"a loss is not finite: {losses}")
+    return losses, launches
+
+
+def c2l_asp(torch, np, dev, _kernels, model, ids, labels):
+    """(1) ASP: the embeddings excluded, every other weight pruned 2:4
+    (mask_1d), C2L_ASP_STEPS steps under the decorated AdamW; the pattern
+    kept, three masks recomputed on the host bit for bit."""
+    from paddle_tpu_torch.incubate import sparsity
+    from paddle_tpu_torch.optimizer import AdamW
+    sparsity.reset_excluded_layers()
+    sparsity.reset_masks()
+    sparsity.set_excluded_layers(C2L_EXCLUDED)
+    named = dict(model.named_parameters())
+    picked = [n for n in named if n.endswith("qkv_proj.weight")][:1] + \
+        [n for n in named if n.endswith("fc1.weight")][:1] + \
+        [n for n in named if n.endswith("out_proj.weight")][-1:]
+    host = {n: named[n].detach().float().cpu().numpy() for n in picked}
+    t0 = time.perf_counter()
+    masks = sparsity.prune_model(model, 2, 4, "mask_1d")
+    prune_s = time.perf_counter() - t0
+    require(set(picked) <= set(masks) and not any(
+        n.startswith(tuple(C2L_EXCLUDED)) for n in masks),
+        f"pruned set: {sorted(masks)}")
+    for n in picked:
+        again = sparsity.create_mask(host[n], sparsity.MaskAlgo.MASK_1D, 2, 4)
+        require(again.dtype == masks[n].dtype
+                and np.array_equal(again, masks[n]),
+                f"{n}: the host mask differs from prune_model's")
+    zero0 = {n: named[n] == 0 for n in masks}
+    for n, m in masks.items():
+        want = torch.from_numpy(m == 0).to(dev)
+        require(torch.equal(zero0[n], want), f"{n}: step-0 zeros != mask")
+    opt = sparsity.decorate(AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                  parameters=model.named_parameters()))
+    losses, launches = c2l_steps(torch, _kernels, model, opt, ids, labels,
+                                 C2L_ASP_STEPS)
+    flash = c2l_flash(launches, C2L_ASP_STEPS,
+                      model.config.num_layers)
+    for n in masks:
+        require(torch.equal(named[n] == 0, zero0[n]),
+                f"{n}: the zero pattern moved in training")
+        require(sparsity.check_sparsity(named[n], n=2, m=4),
+                f"{n}: not 2:4 after training")
+    for n in picked:   # the trained weights give the same masks again
+        require(np.array_equal(sparsity.create_mask(
+            named[n], sparsity.MaskAlgo.MASK_1D, 2, 4), masks[n]),
+            f"{n}: the trained weight's mask differs")
+    density = float(np.mean([sparsity.calculate_density(masks[n])
+                             for n in picked]))
+    sparsity.reset_masks()
+    sparsity.reset_excluded_layers()
+    return {"pruned": len(masks), "prune_s": prune_s, "losses": losses,
+            "launches": flash, "density": density}
+
+
+def c2l_lookahead(torch, np, _kernels, model, ids, labels):
+    """(2a) LookAhead over AdamW: at each k-th step the slow weights are
+    slow + alpha (fast - slow) of snapshots taken around the inner step,
+    and the fast weights equal them, bit for bit."""
+    from paddle_tpu_torch.incubate import LookAhead
+    from paddle_tpu_torch.optimizer import AdamW
+    la = LookAhead(AdamW(learning_rate=1e-4, weight_decay=0.01,
+                         parameters=model.named_parameters()),
+                   alpha=C2L_LA_ALPHA, k=C2L_LA_K)
+    inner_step = la.inner.step
+    snaps = {}
+
+    def spy(*a, **kw):
+        inner_step(*a, **kw)
+        if la.step_count + 1 == snaps.get("at"):
+            snaps["fast"] = {n: p.detach().float().clone()
+                             for n, p in zip(la.inner._names,
+                                             la.inner._params)}
+
+    la.inner.step = spy
+    checked = []
+
+    def before(i):
+        if i % C2L_LA_K == 0:
+            snaps["at"] = i
+            snaps["slow"] = ({n: s.clone() for n, s in la.slow.items()}
+                             if la.slow is not None else None)
+
+    def check(i):
+        slow0 = snaps["slow"]
+        for n, p in zip(la.inner._names, la.inner._params):
+            want = slow0[n] + C2L_LA_ALPHA * (snaps["fast"][n] - slow0[n])
+            require(torch.equal(la.slow[n], want),
+                    f"LookAhead step {i}: slow {n} is not the blend")
+            require(torch.equal(p.detach(), la.slow[n].to(p.dtype)),
+                    f"LookAhead step {i}: fast {n} != slow")
+        checked.append(i)
+
+    losses = []
+    _kernels.reset_launches()
+    for i in range(1, C2L_LA_STEPS + 1):
+        from paddle_tpu_torch.training import train_step
+        before(i)
+        losses.append(float(train_step(model, la, ids, labels)))
+        if i % C2L_LA_K == 0:
+            check(i)
+    launches = dict(_kernels.launches)
+    require(all(np.isfinite(losses)), f"LookAhead losses {losses}")
+    require(checked == list(range(C2L_LA_K, C2L_LA_STEPS + 1, C2L_LA_K)),
+            f"LookAhead syncs checked at {checked}")
+    return {"losses": losses, "synced_at": checked,
+            "launches": c2l_flash(launches, C2L_LA_STEPS,
+                                  model.config.num_layers)}
+
+
+def c2l_model_average(torch, np, _kernels, model, ids, labels):
+    """(2b) ModelAverage over AdamW: average() against the float64 replay
+    of the growing-window recurrence over the weights after each step;
+    apply() swaps it in and restore gives back the exact weights."""
+    from paddle_tpu_torch.incubate import ModelAverage
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.training import train_step
+    ma = ModelAverage(AdamW(learning_rate=1e-4, weight_decay=0.01,
+                            parameters=model.named_parameters()), **C2L_MA)
+    names, params = ma.inner._names, ma.inner._params
+    ref = {n: torch.zeros_like(p, dtype=torch.float64)
+           for n, p in zip(names, params)}
+    losses = []
+    _kernels.reset_launches()
+    for t in range(1, C2L_MA_STEPS + 1):
+        losses.append(float(train_step(model, ma, ids, labels)))
+        w = min(max(np.ceil(C2L_MA["average_window_rate"] * t),
+                    C2L_MA["min_average_window"]),
+                C2L_MA["max_average_window"])
+        keep = 1.0 - 1.0 / w if t > w else 1.0
+        for n, p in zip(names, params):
+            ref[n].mul_(keep).add_(p.detach().double())
+    launches = dict(_kernels.launches)
+    require(all(np.isfinite(losses)), f"ModelAverage losses {losses}")
+    t = C2L_MA_STEPS
+    w = min(max(np.ceil(C2L_MA["average_window_rate"] * t),
+                C2L_MA["min_average_window"]),
+            C2L_MA["max_average_window"])
+    eff = max(min(t, w), 1.0)
+    avg = ma.average()
+    worst = 0.0
+    for n in names:
+        want = ref[n] / eff
+        err = float((avg[n].double() - want).abs().max())
+        scale = max(float(want.abs().max()), 1e-30)
+        worst = max(worst, err / scale)
+    require(worst <= C2L_MA_TOL,
+            f"ModelAverage: average() {worst:.3e} of a range from the "
+            f"float64 replay (> {C2L_MA_TOL})")
+    trained = {n: p.detach().clone() for n, p in zip(names, params)}
+    with ma.apply():
+        for n, p in zip(names, params):
+            require(torch.equal(p.detach(), avg[n]),
+                    f"ModelAverage.apply: {n} is not the average")
+    for n, p in zip(names, params):
+        require(torch.equal(p.detach(), trained[n]),
+                f"ModelAverage: restore did not give back {n}")
+    return {"losses": losses, "window": float(w), "max_rel_err": worst,
+            "launches": c2l_flash(launches, C2L_MA_STEPS,
+                                  model.config.num_layers)}
+
+
+def lamb64(torch, w, m, v, g, t, lr, b1, b2, eps, wd, decay):
+    """One float64 LAMB step of one parameter (the plain rule)."""
+    m = b1 * m + (1 - b1) * g
+    v = b2 * v + (1 - b2) * g * g
+    upd = (m / (1 - b1 ** t)) / (torch.sqrt(v / (1 - b2 ** t)) + eps)
+    if decay:
+        upd = upd + wd * w
+    pn, un = float(w.norm()), float(upd.norm())
+    ratio = pn / un if pn > 0 and un > 0 else 1.0
+    return w - lr * ratio * upd, m, v
+
+
+def c2l_lamb(torch, np, _kernels, model, ids, labels):
+    """(2c) DistributedFusedLamb on one card (one flat float32 master,
+    trust ratio per segment, global-norm clip, decay excluded from biases
+    and norms): every step against a float64 plain LAMB on the same
+    (clipped) gradients from the same state."""
+    from paddle_tpu_torch.incubate.optimizer import DistributedFusedLamb
+    from paddle_tpu_torch.optimizer import ClipGradByGlobalNorm
+    from paddle_tpu_torch.training import train_step
+
+    def excluded(name):
+        return name.endswith(".bias") or ".ln_" in name or "ln_f" in name
+
+    kw = dict(learning_rate=1e-3, lamb_weight_decay=0.01, beta1=0.9,
+              beta2=0.999, epsilon=1e-6)
+    lamb = DistributedFusedLamb(
+        parameters=model.named_parameters(),
+        grad_clip=ClipGradByGlobalNorm(1.0),
+        exclude_from_weight_decay_fn=excluded, **kw)
+    step_impl = lamb.step
+    worst = [0.0]
+    sizes = [p.numel() for p in lamb._params]
+
+    def checked_step(grads=None):
+        st = lamb._state
+        if st is not None:
+            offs = np.cumsum([0] + sizes)
+            w0 = [st["master"][a:b].double().clone()
+                  for a, b in zip(offs, offs[1:])]
+            m0 = [st["moment1"][a:b].double().clone()
+                  for a, b in zip(offs, offs[1:])]
+            v0 = [st["moment2"][a:b].double().clone()
+                  for a, b in zip(offs, offs[1:])]
+            t = int(st["step"]) + 1
+        else:
+            w0 = [p.detach().double().reshape(-1).clone()
+                  for p in lamb._params]
+            m0 = [torch.zeros_like(w) for w in w0]
+            v0 = [torch.zeros_like(w) for w in w0]
+            t = 1
+        g = [p.grad.double().reshape(-1) for p in lamb._params]
+        gnorm = float(torch.sqrt(sum((x * x).sum() for x in g)))
+        g = [x * min(1.0, 1.0 / max(gnorm, 1e-12)) for x in g]
+        step_impl(grads)
+        offs = np.cumsum([0] + sizes)
+        master = lamb._state["master"]
+        for a, b, name, w, m, v, gg in zip(offs, offs[1:], lamb._names, w0,
+                                           m0, v0, g):
+            want, _, _ = lamb64(torch, w, m, v, gg, t, kw["learning_rate"],
+                                kw["beta1"], kw["beta2"], kw["epsilon"],
+                                kw["lamb_weight_decay"], not excluded(name))
+            err = float((master[a:b].double() - want).abs().max())
+            worst[0] = max(worst[0], err / max(float(want.abs().max()),
+                                               1e-30))
+        for p, a, b in zip(lamb._params, offs, offs[1:]):
+            require(torch.equal(p.detach().reshape(-1),
+                                master[a:b].to(p.dtype)),
+                    "LAMB: a parameter is not its master segment")
+
+    lamb.step = checked_step
+    losses = []
+    _kernels.reset_launches()
+    for _ in range(C2L_LAMB_STEPS):
+        losses.append(float(train_step(model, lamb, ids, labels)))
+    launches = dict(_kernels.launches)
+    require(all(np.isfinite(losses)), f"LAMB losses {losses}")
+    require(worst[0] <= C2L_LAMB_TOL,
+            f"DistributedFusedLamb: {worst[0]:.3e} of a range from the "
+            f"float64 LAMB (> {C2L_LAMB_TOL})")
+    require(int(lamb._state["step"]) == C2L_LAMB_STEPS, "LAMB step count")
+    return {"losses": losses, "max_rel_err": worst[0],
+            "flat_elements": int(lamb._state["master"].numel()),
+            "launches": c2l_flash(launches, C2L_LAMB_STEPS,
+                                  model.config.num_layers)}
+
+
+def c2l_trace_kernels(trace):
+    """Kernel events of a chrome trace: counts and device us by counter
+    name (C2L_TRACE_NAMES), and the unmatched kernels' total."""
+    counts, dur, other = {}, {}, 0
+    for e in trace.get("traceEvents", []):
+        if str(e.get("cat", "")).lower() != "kernel":
+            continue
+        name = e.get("name", "")
+        hit = [k for k, sub in C2L_TRACE_NAMES.items() if sub in name]
+        if not hit:
+            other += 1
+            continue
+        key = max(hit, key=lambda k: len(C2L_TRACE_NAMES[k]))   # longest
+        counts[key] = counts.get(key, 0) + 1
+        dur[key] = dur.get(key, 0.0) + float(e.get("dur", 0.0))
+    return counts, dur, other
+
+
+def c2l_profiler(torch, np, dev, _kernels, work, train):
+    """(3) the profiler over the fused float32 serving engine (a prefill
+    through the tiled K1-K3, C2L_DECODES decode steps through paged decode
+    and the stream K1-K3) and C2L_PROFILED_TRAIN training steps (the flash
+    kernels), one window of make_scheduler; its chrome trace read back:
+    every kernel the counters saw, as often and with device time; the
+    RecordEvent ranges; the summary; the decode step's ms with and without
+    the profiler."""
+    from paddle_tpu_torch import profiler as P
+    from paddle_tpu_torch.convert import SERVING_ENGINE, serving_workload
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.training import train_step
+    model, prompts = serving_workload(dev, dtype="float32")
+    t_model, t_opt, ids, labels = train
+
+    def engine(decodes=C2L_DECODES):
+        eng = ServingEngine(model, **SERVING_ENGINE)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=decodes + 1)
+        return eng
+
+    def steps(eng, after=None):
+        """Every engine step to the end: (kind, host ms) each."""
+        out = []
+        while eng.has_work():
+            before = {k: len(v) for k, v in eng._step_ms.items()}
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with P.RecordEvent("c2l_serve_step"):
+                eng.step()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            kind = [k for k, v in eng._step_ms.items()
+                    if len(v) > before.get(k, 0)]
+            out.append((kind[0] if kind else "idle", ms))
+            if after is not None:
+                after()
+        return out
+
+    steps(engine())                                   # warm
+    plain = steps(engine())
+    n_steps = len(plain)
+    decodes = [ms for k, ms in plain if k == "decode"]
+    require(len(decodes) == C2L_DECODES,
+            f"{len(decodes)} decode steps, not {C2L_DECODES}: {plain}")
+    out_dir = os.path.join(work, "trace")
+    prof = P.Profiler(
+        targets=[P.ProfilerTarget.CPU, P.ProfilerTarget.GPU],
+        scheduler=P.make_scheduler(closed=1, ready=1,
+                                   record=n_steps + C2L_PROFILED_TRAIN,
+                                   repeat=1),
+        on_trace_ready=P.export_chrome_tracing(out_dir, "c2l"))
+    opener = c2l_k1_opener(torch, dev)
+    P.profiler_summary(reset=True)
+    prof.start()                                      # step 0: closed
+    eng = engine()
+    prof.step()                                       # step 1: ready
+    _kernels.reset_launches()
+    prof.step()                                       # recording
+    opener()            # the window's first kernel: a counted K1 launch
+    steps(eng, after=prof.step)
+    for _ in range(C2L_PROFILED_TRAIN):
+        with P.RecordEvent("c2l_train_step"):
+            loss = float(train_step(t_model, t_opt, ids, labels))
+        require(np.isfinite(loss), f"profiled training loss {loss}")
+        prof.step()
+    prof.stop()
+    launches = dict(_kernels.launches)
+    require(prof.current_state == P.ProfilerState.CLOSED, "profiler open")
+    files = sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []
+    require(len(files) == 1, f"trace files {files}")
+    t0 = time.perf_counter()
+    trace = P.load_profiler_result(os.path.join(out_dir, files[0]))
+    load_s = time.perf_counter() - t0
+    counts, dur, other = c2l_trace_kernels(trace)
+    unrecorded = P.unrecorded_launches(trace)
+    # the window's first launch on the host timeline (the device clock
+    # may place a set-up kernel's record inside the window)
+    records = P.launch_records(trace)
+    first = (records[0][1] or {}) if records else {}
+    if dev.type == "cuda":
+        require(C2L_TRACE_NAMES[opener.kernel] in first.get("name", ""),
+                f"trace: the window's first launch ran {first.get('name')}, "
+                f"not the counted {opener.kernel} launch that opened it")
+    seen = {n: c for n, c in launches.items() if c}
+    for name, c in seen.items():
+        require(counts.get(name, 0) == c,
+                f"trace: {name} {counts.get(name, 0)} kernels, the counter "
+                f"{c} ({unrecorded} launches of the window have no device "
+                "record)")
+        require(dur.get(name, 0.0) > 0.0, f"trace: {name} has no device time")
+    extra = {n: c for n, c in counts.items() if not launches.get(n)}
+    require(not extra, f"trace: kernels the counters did not see: {extra}")
+    if dev.type == "cuda":
+        for name in ("paged_decode", "ln_linear_stream",
+                     "linear_residual_stream", "ffn_stream",
+                     "ln_linear_tiled", "linear_residual_tiled", "ffn_tiled",
+                     *TRAINING_KERNELS):
+            require(seen.get(name, 0) > 0, f"profiled window: no {name}")
+    # the host ranges (on the card each also has a gpu_user_annotation
+    # twin on the device timeline)
+    ranges = [e.get("name") for e in trace["traceEvents"]
+              if e.get("cat") == "user_annotation"]
+    require(ranges.count("c2l_serve_step") == n_steps
+            and ranges.count("c2l_train_step") == C2L_PROFILED_TRAIN,
+            f"trace: RecordEvent ranges {ranges.count('c2l_serve_step')} / "
+            f"{ranges.count('c2l_train_step')}, not {n_steps} / "
+            f"{C2L_PROFILED_TRAIN}")
+    text = prof.summary()
+    require("c2l_serve_step" in text and "c2l_train_step" in text,
+            "summary() lacks the ranges")
+    log("c2l (3) profiler summary (top lines):")
+    for line in text.splitlines()[:12]:
+        log("  " + line)
+    cost = c2l_profiler_cost(P, engine, steps)
+    del model
+    return {"launches": seen, "first_kernel": first.get("name"),
+            "unrecorded_launches": unrecorded,
+            "trace_kernels": counts,
+            "trace_device_ms": {n: d / 1e3 for n, d in dur.items()},
+            "other_kernels": other, "trace_bytes": os.path.getsize(
+                os.path.join(out_dir, files[0])),
+            "load_s": load_s, "engine_steps": n_steps, "cost": cost}
+
+
+def c2l_k1_opener(torch, dev):
+    """A call of the tiled K1 wrapper at GPT-125M's first K1 (LN, then the
+    qkv projection) on C2L_OPENER_ROWS rows of seeded inputs, made and the
+    kernel bound here, so that the call launches nothing but the counted
+    kernel."""
+    from paddle_tpu_torch.ops import fused_block as fb
+    h, cols = C2L_OPENER_WIDTHS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 17)
+    x, w, b, g, beta = (torch.randn(shape, generator=gen, device=dev)
+                        for shape in ((C2L_OPENER_ROWS, h), (h, cols),
+                                      (cols,), (h,), (h,)))
+    w.mul_(0.02)
+
+    def opener():
+        if dev.type == "cuda":
+            fb.ln_linear_tiled_cuda(x, w, b, g, beta, 1e-5)
+
+    opener()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    opener.kernel = "ln_linear_tiled"
+    return opener
+
+
+def c2l_child(spec):
+    """(3)'s profiled window in a fresh process (``chip_smoke.py
+    --c2l-child '<spec>'``) on a fresh training workload: the tracer
+    drops more of a window's first device records the longer a process
+    has run under load, and the edge probe measures that in the smoke's
+    own process."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import _kernels
+    dev = torch.device("cuda", 0)
+    train = c2l_workload(dev)
+    out = c2l_profiler(torch, np, dev, _kernels, spec["work"], train)
+    print(json.dumps({"c2l_child": out}, default=str), flush=True)
+    return 0
+
+
+def c2l_profiled(torch, np, dev, _kernels, work, root):
+    """(3): the profiled window in a child process (:func:`c2l_child`),
+    then the edge probe here."""
+    from paddle_tpu_torch import profiler as P
+    child = subprocess.run(
+        [sys.executable, os.path.join(root, "chip_smoke.py"), "--c2l-child",
+         json.dumps({"work": work})],
+        capture_output=True, text=True, timeout=900)
+    require(child.returncode == 0,
+            f"c2l child failed ({child.returncode}): {child.stderr[-3000:]}")
+    lines = child.stdout.splitlines()
+    for line in lines:
+        if line.startswith("c2l (3)") or line.startswith("  "):
+            log(line)
+    out = json.loads([line for line in lines
+                      if line.startswith('{"c2l_child"')][-1])["c2l_child"]
+    out["edges"] = c2l_trace_edges(torch, P, dev, c2l_k1_opener(torch, dev),
+                                   work)
+    return out
+
+
+def c2l_trace_edges(torch, P, dev, opener, work):
+    """The tracer's dropped device records at a window's opening:
+    C2L_EDGE_WINDOWS short windows, each of three counted K1 launches and
+    three of torch's own kernels 1 ms apart with nothing before them,
+    recorded by torch.profiler.profile alone and by the port's Profiler
+    (an empty READY step, so its set-up's own kernels are all that precede
+    the window); the windows that lost a record and the launches lost."""
+    if dev.type != "cuda":
+        return None
+    y = torch.zeros(1024, device=dev)
+
+    def body():
+        for i in range(6):
+            opener() if i % 2 == 0 else y.add_(1.0)
+            time.sleep(1e-3)
+
+    def plain(path):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            body()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+
+    def port(path):
+        prof = P.Profiler(scheduler=P.make_scheduler(
+            closed=1, ready=1, record=1, repeat=1),
+            on_trace_ready=lambda p: p.export(path))
+        prof.start()
+        prof.step()
+        prof.step()
+        body()
+        prof.step()
+        prof.stop()
+
+    out = {}
+    for name, run in (("torch_profile", plain), ("port_profiler", port)):
+        lost = []
+        for i in range(C2L_EDGE_WINDOWS):
+            path = os.path.join(work, f"edge_{name}_{i}.json")
+            run(path)
+            with open(path) as f:
+                lost.append(P.unrecorded_launches(json.load(f)))
+            os.remove(path)
+        out[name] = {"windows": C2L_EDGE_WINDOWS,
+                     "windows_with_loss": sum(1 for n in lost if n),
+                     "launches_lost": sum(lost),
+                     "launches": 6 * C2L_EDGE_WINDOWS}
+    return out
+
+
+def c2l_profiler_cost(P, engine, steps):
+    """The profiler's cost a decode step: C2L_COST_RUNS pairs of engine
+    runs of C2L_COST_DECODES decode steps, plain then under a recording
+    window that holds every step of the run (no export), each run's
+    decode-step median; resolved when every profiled run's median lies
+    above every plain run's."""
+    plain, profiled = [], []
+    for _ in range(C2L_COST_RUNS):
+        run = steps(engine(C2L_COST_DECODES))
+        plain.append(statistics.median(ms for k, ms in run
+                                       if k == "decode"))
+        prof = P.Profiler(scheduler=P.make_scheduler(
+            closed=0, ready=1, record=len(run), repeat=1))
+        prof.start()
+        eng = engine(C2L_COST_DECODES)
+        prof.step()
+        run = steps(eng, after=prof.step)
+        prof.stop()
+        profiled.append(statistics.median(ms for k, ms in run
+                                          if k == "decode"))
+    return {"decode_ms_runs": plain, "decode_ms_runs_profiled": profiled,
+            "decode_ms_p50": statistics.median(plain),
+            "decode_ms_p50_profiled": statistics.median(profiled),
+            "overhead": statistics.median(profiled)
+            / statistics.median(plain) - 1.0,
+            "resolved": min(profiled) > max(plain)}
+
+
+def c2l_token_dataset(np, n, vocab):
+    from paddle_tpu_torch.io import Dataset
+
+    class Tokens(Dataset):
+        """Seeded (ids, labels, labels) rows of C2L_S tokens."""
+
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            r = np.random.RandomState(SEED + 7919 * i)
+            ids = r.randint(0, vocab, C2L_S).astype(np.int64)
+            labels = r.randint(0, vocab, C2L_S).astype(np.int64)
+            return ids, labels, labels
+
+    return Tokens()
+
+
+def c2l_native_loader(torch, np, dev, _kernels, model):
+    """(4) the native shared-memory ring: FLAGS_dataloader_use_native=1, a
+    DataLoader with 2 workers and shared memory over seeded token rows
+    feeds Model.fit of the training model for C2L_LOADER_BATCHES steps;
+    its batches equal the queue transport's byte for byte, the ring's
+    counter equals the batches; batches/s of both transports."""
+    from paddle_tpu_torch.framework.flags import set_flags
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.io import DataLoader
+    from paddle_tpu_torch.optimizer import AdamW
+    prev = os.environ.get("FLAGS_dataloader_use_native")
+    os.environ["FLAGS_dataloader_use_native"] = "1"
+    try:
+        vocab = model.config.vocab_size
+        ds = c2l_token_dataset(np, C2L_LOADER_BATCHES * C2L_B, vocab)
+
+        def host_batches(native):
+            set_flags({"dataloader_use_native": native})
+            dl = DataLoader(ds, batch_size=C2L_B, num_workers=2,
+                            use_shared_memory=True, to_device=False)
+            return list(dl), dl.ring_batches
+
+        set_flags({"dataloader_use_native": True})
+        loader = DataLoader(ds, batch_size=C2L_B, num_workers=2,
+                            use_shared_memory=True, places=dev)
+        m = Model(model)
+        m.prepare(optimizer=AdamW(learning_rate=1e-4, weight_decay=0.01,
+                                  parameters=model.named_parameters()),
+                  loss=lm_loss, amp_configs="O1")
+        _kernels.reset_launches()
+        hist = m.fit(loader, epochs=1, verbose=0)
+        launches = dict(_kernels.launches)
+        require(loader.ring_batches == C2L_LOADER_BATCHES,
+                f"fit: {loader.ring_batches} ring batches of "
+                f"{C2L_LOADER_BATCHES}")
+        losses = [float(x) for x in hist["loss"]]
+        require(len(losses) >= 1 and all(np.isfinite(losses)),
+                f"fit losses {losses}")
+        ring, n_ring = host_batches(True)
+        queued, n_queue = host_batches(False)
+        require(n_ring == len(ring) == C2L_LOADER_BATCHES and n_queue == 0,
+                f"ring {n_ring} / queue {n_queue} batches")
+        for a, b in zip(ring, queued):
+            for x, y in zip(a, b):
+                require(x.dtype == y.dtype and x.shape == y.shape
+                        and x.tobytes() == y.tobytes(),
+                        "a ring batch differs from the queue's")
+        rates = c2l_loader_rates(np, set_flags, DataLoader, vocab)
+    finally:
+        set_flags({"dataloader_use_native": True})
+        if prev is None:
+            os.environ.pop("FLAGS_dataloader_use_native", None)
+        else:
+            os.environ["FLAGS_dataloader_use_native"] = prev
+    return {"fit_losses": losses, "ring_batches": loader.ring_batches,
+            "launches": c2l_flash(launches, C2L_LOADER_BATCHES,
+                                  model.config.num_layers), **rates}
+
+
+def c2l_loader_rates(np, set_flags, DataLoader, vocab):
+    """Each transport's warm batches/s, ring and queue alternated twice:
+    C2L_LOADER_TIMED batches over 2 workers, the clock running from the
+    first batch's arrival to the last's (the workers' start-up and the
+    shutdown outside it; the wait for the first batch reported apart);
+    beside them the main process's own ms to make and collate a batch's
+    rows, which bounds 2 workers at 2 / that."""
+    from paddle_tpu_torch.io import default_collate_fn
+    timed = c2l_token_dataset(np, C2L_LOADER_TIMED * C2L_B, vocab)
+    rates, first = {}, {}
+    for name, native in (("ring", True), ("queue", False),
+                         ("ring_again", True), ("queue_again", False)):
+        set_flags({"dataloader_use_native": native})
+        dl = DataLoader(timed, batch_size=C2L_B, num_workers=2,
+                        use_shared_memory=True, to_device=False)
+        t0 = time.perf_counter()
+        stamps = [time.perf_counter() for _ in dl]
+        n = len(stamps)
+        require(n == C2L_LOADER_TIMED, f"{name}: {n} batches")
+        require(dl.ring_batches == (n if native else 0),
+                f"{name}: ring counter {dl.ring_batches} of {n}")
+        rates[name] = (n - 1) / (stamps[-1] - stamps[0])
+        first[name] = stamps[0] - t0
+    make = []
+    for i in range(C2L_LOADER_MADE):
+        t0 = time.perf_counter()
+        default_collate_fn([timed[C2L_B * i + j] for j in range(C2L_B)])
+        make.append((time.perf_counter() - t0) * 1e3)
+    return {"batches_per_s": rates, "first_batch_s": first,
+            "make_batch_ms_p50": statistics.median(make)}
+
+
+def c2l_vocab_corpus(np):
+    """A seeded WordPiece vocabulary of C2L_VOCAB entries and a corpus of
+    about C2L_WORDS words (whole words, words with a continuation piece,
+    unknown strings, punctuation, capitals)."""
+    rng = np.random.RandomState(SEED)
+    letters = list("abcdefghijklmnopqrstuvwxyz")
+    singles = letters + list("0123456789")
+    vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    vocab += [chr(c) for c in range(33, 127) if not chr(c).isalnum()]
+    vocab += singles + ["##" + c for c in singles]
+    seen = set(vocab)
+    words, pieces = [], []
+    while len(vocab) < C2L_VOCAB:
+        w = "".join(rng.choice(letters, rng.randint(2, 9)))
+        cont = rng.rand() < 0.3
+        tok = "##" + w if cont else w
+        if tok in seen:
+            continue
+        seen.add(tok)
+        vocab.append(tok)
+        (pieces if cont else words).append(w)
+    out = []
+    for _ in range(C2L_WORDS):
+        r = rng.rand()
+        if r < 0.6:
+            out.append(words[rng.randint(len(words))])
+        elif r < 0.85:
+            out.append(words[rng.randint(len(words))]
+                       + pieces[rng.randint(len(pieces))])
+        elif r < 0.93:
+            out.append("".join(rng.choice(letters, rng.randint(3, 14)))
+                       .capitalize())
+        else:
+            out.append(words[rng.randint(len(words))]
+                       + rng.choice(list(",.!?;:'")))
+    lines = [" ".join(out[i:i + 20]) for i in range(0, len(out), 20)]
+    return vocab, lines
+
+
+def c2l_wordpiece(np):
+    """(5) WordPiece: the port's native core (built from
+    text/_native/wordpiece.c) against its Python path, ids equal; tokens/s
+    of both."""
+    from paddle_tpu_torch.text import WordPieceTokenizer
+    vocab, lines = c2l_vocab_corpus(np)
+    t0 = time.perf_counter()
+    native = WordPieceTokenizer(vocab, use_native=True)
+    build_s = time.perf_counter() - t0
+    python = WordPieceTokenizer(vocab, use_native=False)
+    require(native.uses_native and not python.uses_native,
+            "the native core did not load")
+    out, rate = {}, {}
+    for name, tok in (("native", native), ("python", python)):
+        t0 = time.perf_counter()
+        out[name] = tok.encode_batch(lines)
+        dt = time.perf_counter() - t0
+        rate[name] = sum(len(x) for x in out[name]) / dt
+    require(out["native"] == out["python"], "native ids != Python ids")
+    n_ids = sum(len(x) for x in out["native"])
+    unk = sum(x.count(native.unk_id) for x in out["native"])
+    return {"vocab": len(vocab), "words": C2L_WORDS, "ids": n_ids,
+            "unk_share": unk / n_ids, "tokens_per_s": rate,
+            "build_s": build_s}
+
+
+def c2l_dist_cases(np, seed):
+    """(name, make(D, T), value) of every distribution, the parameters
+    drawn once from ``seed`` (``T`` puts an array on a device in a
+    dtype)."""
+    rng = np.random.RandomState(seed)
+
+    def u(lo, hi, *shape):
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+    probs = u(0.05, 1.0, 64, 7)
+    probs /= probs.sum(-1, keepdims=True)
+    counts = rng.multinomial(9, [1 / 7] * 7, 64).astype(np.float32)
+    nl, ns = u(-2, 2, 4096), u(0.3, 3, 4096)
+    ul, uh = u(-3, 0, 4096), u(0.5, 3, 4096)
+    logits = u(-3, 3, 512, 50)
+    bp = u(0.05, 0.95, 4096)
+    ba, bb = u(0.3, 6, 4096), u(0.3, 6, 4096)
+    conc = u(0.3, 5, 256, 6)
+    il, iscale = u(-1, 1, 64, 32), u(0.5, 2, 64, 32)
+    tl, ts, al, asc = (u(-1, 1, 1024), u(0.5, 1, 1024), u(0, 1, 1024),
+                       u(1, 2, 1024))
+    return [
+        ("Normal", lambda D, T: D.Normal(T(nl), T(ns)), u(-4, 4, 4096)),
+        ("Uniform", lambda D, T: D.Uniform(T(ul), T(uh)), u(0, 0.45, 4096)),
+        ("Categorical", lambda D, T: D.Categorical(T(logits)),
+         rng.randint(0, 50, 512)),
+        ("Bernoulli", lambda D, T: D.Bernoulli(T(bp)),
+         (rng.rand(4096) < 0.5).astype(np.float32)),
+        ("Beta", lambda D, T: D.Beta(T(ba), T(bb)), u(0.02, 0.98, 4096)),
+        ("Dirichlet", lambda D, T: D.Dirichlet(T(conc)),
+         np.full((256, 6), 1 / 6, np.float32)),
+        ("Multinomial", lambda D, T: D.Multinomial(9, T(probs)), counts),
+        ("Independent", lambda D, T: D.Independent(
+            D.Normal(T(il), T(iscale)), 1), u(-2, 2, 64, 32)),
+        ("Transformed", lambda D, T: D.TransformedDistribution(
+            D.Normal(T(tl), T(ts)),
+            [D.ExpTransform(), D.AffineTransform(T(al), T(asc))]),
+         u(1.5, 6, 1024)),
+    ]
+
+
+def c2l_distribution(torch, np, dev):
+    """(6a) every distribution on the card (float32) against float64 on
+    the CPU: log_prob, entropy, the six registered KL pairs; sample moments
+    of C2L_DRAWS draws within 4 standard errors."""
+    from paddle_tpu_torch import distribution as D
+
+    def close(name, card, ref):
+        c, r = card.detach().double().cpu(), ref.detach().double()
+        fin = torch.isfinite(r)
+        require(torch.equal(torch.isfinite(c), fin), f"{name}: non-finite")
+        err = float(((c - r).abs() / (1 + r.abs()))[fin].max()) \
+            if bool(fin.any()) else 0.0
+        require(err <= C2L_DIST_TOL, f"{name}: {err:.3e} > {C2L_DIST_TOL}")
+        return err
+
+    def on(device, dtype):
+        return lambda a: torch.as_tensor(a).to(device=device, dtype=dtype)
+
+    errs = {}
+    cases = c2l_dist_cases(np, SEED + 3)
+    for name, make, value in cases:
+        card = make(D, on(dev, torch.float32))
+        cpu = make(D, on("cpu", torch.float64))
+        ints = name == "Categorical"
+        lp = close(f"{name}.log_prob",
+                   card.log_prob(torch.as_tensor(value).to(
+                       dev, torch.int64 if ints else torch.float32)),
+                   cpu.log_prob(torch.as_tensor(value).to(
+                       "cpu", torch.int64 if ints else torch.float64)))
+        errs[name] = {"log_prob": lp}
+        if name != "Transformed":
+            errs[name]["entropy"] = close(f"{name}.entropy", card.entropy(),
+                                          cpu.entropy())
+    # the registered KL pairs: p and q of one family at the parameters of
+    # two seeds (Uniform: q's support holding p's, so the value is finite)
+    p_cases = {n: mk for n, mk, _ in cases}
+    q_cases = {n: mk for n, mk, _ in c2l_dist_cases(np, SEED + 11)}
+    for name in ("Normal", "Categorical", "Bernoulli", "Beta", "Dirichlet"):
+        errs[name]["kl"] = close(
+            f"kl({name})",
+            D.kl_divergence(p_cases[name](D, on(dev, torch.float32)),
+                            q_cases[name](D, on(dev, torch.float32))),
+            D.kl_divergence(p_cases[name](D, on("cpu", torch.float64)),
+                            q_cases[name](D, on("cpu", torch.float64))))
+    lo = np.random.RandomState(SEED + 5).uniform(-1, 0, 512).astype(
+        np.float32)
+
+    def uniform_kl(T):
+        return D.kl_divergence(D.Uniform(T(lo), T(lo + 1.0)),
+                               D.Uniform(T(lo - 0.5), T(lo + 3.0)))
+    errs["Uniform"]["kl"] = close("kl(Uniform)",
+                                  uniform_kl(on(dev, torch.float32)),
+                                  uniform_kl(on("cpu", torch.float64)))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    z = {}
+
+    def moments(name, s, mean, var):
+        s = s.double()
+        se = torch.sqrt(torch.as_tensor(var, dtype=torch.float64,
+                                        device=s.device) / s.shape[0])
+        zz = float(((s.mean(0) - torch.as_tensor(
+            mean, dtype=torch.float64, device=s.device)).abs() / se).max())
+        require(zz < 4.0, f"{name}: sample mean {zz:.2f} standard errors off")
+        z[name] = zz
+
+    T = on(dev, torch.float32)
+    n = C2L_DRAWS
+    moments("Normal", D.Normal(T([0.5, -1.0]), T([1.0, 2.0])).sample(
+        (n,), generator=gen), [0.5, -1.0], [1.0, 4.0])
+    moments("Uniform", D.Uniform(T([0.0, -2.0]), T([1.0, 4.0])).sample(
+        (n,), generator=gen), [0.5, 1.0], [1 / 12, 3.0])
+    moments("Bernoulli", D.Bernoulli(T([0.2, 0.7])).sample(
+        (n,), generator=gen), [0.2, 0.7], [0.16, 0.21])
+    p = np.array([0.1, 0.2, 0.3, 0.4])
+    moments("Categorical", torch.nn.functional.one_hot(
+        D.Categorical(probs=T(p)).sample((n,), generator=gen), 4),
+        p, p * (1 - p))
+    a, b = np.array([2.0, 0.5]), np.array([3.0, 0.5])
+    moments("Beta", D.Beta(T(a), T(b)).sample((n,), generator=gen),
+            a / (a + b), a * b / ((a + b) ** 2 * (a + b + 1)))
+    c = np.array([1.0, 2.0, 3.0])
+    moments("Dirichlet", D.Dirichlet(T(c)).sample((n,), generator=gen),
+            c / 6, c * (6 - c) / (36 * 7))
+    q = np.array([0.2, 0.3, 0.5])
+    moments("Multinomial", D.Multinomial(10, T(q)).sample(
+        (n,), generator=gen), 10 * q, 10 * q * (1 - q))
+    return {"max_err": errs, "sample_z": z}
+
+
+def c2l_sparse(torch, np, dev):
+    """(6b) a (C2L_SPARSE_N, C2L_SPARSE_N) sparse matrix at
+    C2L_SPARSE_DENSITY, COO and CSR, on the card (float32): matmul with a
+    dense (N, C2L_SPARSE_D), masked_matmul, the row softmax and
+    sparse.nn.functional.attention, each against dense float64 on the
+    CPU, each op's ms (CUDA events)."""
+    from paddle_tpu_torch import sparse as S
+    n, d, hd = C2L_SPARSE_N, C2L_SPARSE_D, C2L_ATTN_D
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 13)
+    keep = torch.rand((n, n), generator=gen, device=dev) < C2L_SPARSE_DENSITY
+    idx = keep.nonzero().t().contiguous()
+    nnz = idx.shape[1]
+    vals = torch.randn(nnz, generator=gen, device=dev)
+    dense_r = torch.randn((n, d), generator=gen, device=dev)
+    a = torch.randn((n, d), generator=gen, device=dev) / d ** 0.5
+    b = torch.randn((d, n), generator=gen, device=dev)
+    q, k, v = (torch.randn((n, hd), generator=gen, device=dev)
+               for _ in range(3))
+    # the float64 CPU references, from the same numbers
+    idx_c, vals_c = idx.cpu(), vals.double().cpu()
+    dense64 = torch.zeros((n, n), dtype=torch.float64)
+    dense64[idx_c[0], idx_c[1]] = vals_c
+    ref_mm = dense64 @ dense_r.double().cpu()
+    a64, b64 = a.double().cpu(), b.double().cpu()
+    ref_sddmm = (a64[idx_c[0]] * b64[:, idx_c[1]].t()).sum(1)
+    masked = torch.full((n, n), -torch.inf, dtype=torch.float64)
+    masked[idx_c[0], idx_c[1]] = vals_c
+    ref_soft = torch.softmax(masked, dim=1)[idx_c[0], idx_c[1]]
+    q64, k64, v64 = q.double().cpu(), k.double().cpu(), v.double().cpu()
+    scores = torch.full((n, n), -torch.inf, dtype=torch.float64)
+    scores[idx_c[0], idx_c[1]] = ((q64 * hd ** -0.5) @ k64.t())[
+        idx_c[0], idx_c[1]]
+    ref_attn = torch.nan_to_num(torch.softmax(scores, dim=1), nan=0.0) @ v64
+    del dense64, masked, scores
+
+    def err(out, ref):
+        o = out.detach().double().cpu()
+        return float((o - ref).abs().max()) / max(float(ref.abs().max()),
+                                                   1e-30)
+
+    line = {"nnz": int(nnz), "n": n}
+    for layout in ("coo", "csr"):
+        x = S.sparse_coo_tensor(idx, vals, (n, n))
+        if layout == "csr":
+            x = x.to_sparse_csr()
+        require(x.nnz() == nnz and x.layout == layout and x.device == dev,
+                f"{layout}: built wrong")
+        ops = {
+            "matmul": (lambda: S.matmul(x, dense_r),
+                       lambda o: err(o, ref_mm)),
+            "masked_matmul": (lambda: S.masked_matmul(a, b, x),
+                              lambda o: err(o.to_sparse_coo().values()
+                                            if layout == "coo"
+                                            else o.csr_values(), ref_sddmm)),
+            "softmax": (lambda: S.softmax(x),
+                        lambda o: err(o.csr_values(), ref_soft)),
+            "attention": (lambda: S.nn.functional.attention(q, k, v, x),
+                          lambda o: err(o, ref_attn)),
+        }
+        res = {}
+        for name, (fn, check) in ops.items():
+            out = fn()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            e = check(out)
+            require(e <= C2L_SPARSE_TOL,
+                    f"sparse {layout} {name}: {e:.3e} of the range from "
+                    f"float64 (> {C2L_SPARSE_TOL})")
+            ms = time_ms(torch, fn, reps=10) if dev.type == "cuda" else None
+            res[name] = {"max_rel_err": e, "ms": ms}
+        line[layout] = res
+    return line
+
+
+C2L_HOST_OP = r'''
+#include <stdint.h>
+extern "C" void c2l_scale_add(const float* in, float* out, int64_t n) {
+  for (int64_t i = 0; i < n; ++i) out[i] = 3.0f * in[i] + 0.5f;
+}
+'''
+
+
+def c2l_utils(torch, dev, work):
+    """(7) utils.run_check() on the card, and cpp_extension.load of a small
+    host op, called on a card tensor."""
+    import contextlib
+    import io
+    from paddle_tpu_torch import utils
+    from paddle_tpu_torch.utils import cpp_extension
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        require(utils.run_check() is True, "run_check failed")
+    require(f"on {dev.type}" in text.getvalue(),
+            f"run_check said {text.getvalue()!r}")
+    src = os.path.join(work, "c2l_scale_add.cc")
+    with open(src, "w") as f:
+        f.write(C2L_HOST_OP)
+    t0 = time.perf_counter()
+    lib = cpp_extension.load("c2l_scale_add", [src])
+    build_s = time.perf_counter() - t0
+    op = cpp_extension.custom_op(lib, "c2l_scale_add")
+    x = torch.arange(4096, dtype=torch.float32, device=dev) / 7.0
+    y = op(x)
+    require(y.device == x.device and torch.equal(y, 3.0 * x + 0.5),
+            "the host op's result is wrong")
+    return {"run_check": text.getvalue().strip(), "load_s": build_s,
+            "library": os.path.basename(lib._name)}
+
+
+def long_tail(torch, np, dev, _kernels, root):
+    """(c2l): (1) ASP, (2) LookAhead, ModelAverage and DistributedFusedLamb
+    on the training workload, (3) the profiler, (4) the native loader, (5)
+    WordPiece, (6) distribution and sparse, (7) run_check and
+    cpp_extension."""
+    import shutil
+    t_phase = time.perf_counter()
+    work = os.path.join(root, "build", "c2l")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    parts, line = {}, {}
+
+    def part(name, fn, kernels_free=False):
+        t0 = time.perf_counter()
+        if kernels_free:
+            _kernels.reset_launches()
+        out = fn()
+        if kernels_free:
+            used = {n: c for n, c in _kernels.launches.items() if c}
+            require(not used, f"c2l {name}: launched {used}")
+        parts[name] = time.perf_counter() - t0
+        log(f"c2l {name}: {parts[name]:.1f} s")
+        log(json.dumps({f"c2l_{name}": out}, default=str))
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return out
+
+    model, _opt, ids, labels = c2l_workload(dev)
+    del _opt
+    line["asp"] = part("asp", lambda: c2l_asp(torch, np, dev, _kernels,
+                                              model, ids, labels))
+    line["lookahead"] = part("lookahead", lambda: c2l_lookahead(
+        torch, np, _kernels, model, ids, labels))
+    line["model_average"] = part("model_average", lambda: c2l_model_average(
+        torch, np, _kernels, model, ids, labels))
+    line["lamb"] = part("lamb", lambda: c2l_lamb(torch, np, _kernels, model,
+                                                 ids, labels))
+    line["profiler"] = part("profiler", lambda: c2l_profiled(
+        torch, np, dev, _kernels, work, root))
+    line["native_loader"] = part("native_loader", lambda: c2l_native_loader(
+        torch, np, dev, _kernels, model))
+    del model, ids, labels
+    line["wordpiece"] = part("wordpiece", lambda: c2l_wordpiece(np),
+                             kernels_free=True)
+    line["distribution"] = part("distribution", lambda: c2l_distribution(
+        torch, np, dev), kernels_free=True)
+    line["sparse"] = part("sparse", lambda: c2l_sparse(torch, np, dev),
+                          kernels_free=True)
+    line["utils"] = part("utils", lambda: c2l_utils(torch, dev, work),
+                         kernels_free=True)
+    shutil.rmtree(work, ignore_errors=True)
+    line.update({"parts_s": parts, "phase_s": time.perf_counter() - t_phase,
+                 "card": card_line()})
+    log(json.dumps({"long_tail": line}, default=str))
     return line
 
 

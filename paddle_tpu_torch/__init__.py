@@ -31,8 +31,12 @@ Transformer; ``generate``; supervised training through ``hapi.Model`` over
 ``supervisor.RunSupervisor``; ``nn`` (every layer and functional, RNNs,
 CTC, ``Layer`` / ``Parameter``), ``vision`` (the model zoo, transforms,
 datasets, detection ops), ``text``'s translation datasets,
-``observability``; and the tensor API above with the op registry
-(``ops/spec.py``).  The eight CUDA kernels serve attention, the fused
+``observability``; the tensor API above with the op registry
+(``ops/spec.py``); and the long tail: ``distribution``, ``sparse``,
+``reader`` / ``dataset`` / ``batch``, the text datasets and the WordPiece
+tokenizer, the native shared-memory loader transport, ``incubate``'s
+optimizers and ASP sparsity, ``profiler``, ``hub``, ``utils``,
+``version``, ``sysconfig`` and ``callbacks``.  The eight CUDA kernels serve attention, the fused
 blocks and decode; the tensor API runs on PyTorch's own kernels, cuBLAS,
 cuSOLVER and cuFFT.  ``ROADMAP.md`` lists what is still to port.
 """
@@ -73,6 +77,16 @@ from . import static  # noqa: F401,E402
 from . import quantization  # noqa: F401,E402
 from . import onnx  # noqa: F401,E402
 from . import cost_model  # noqa: F401,E402
+from . import distribution  # noqa: F401,E402
+from . import sparse  # noqa: F401,E402
+from . import reader  # noqa: F401,E402
+from . import dataset  # noqa: F401,E402
+from . import sysconfig  # noqa: F401,E402
+from . import callbacks  # noqa: F401,E402
+from . import hub  # noqa: F401,E402
+from . import profiler  # noqa: F401,E402
+from . import version  # noqa: F401,E402
+from .reader import batch  # noqa: F401,E402
 from .hapi import flops, summary  # noqa: F401,E402
 
 from .framework import (CPUPlace, CUDAPinnedPlace, CUDAPlace,  # noqa: F401,E402

@@ -26,18 +26,27 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 @contextlib.contextmanager
-def auto_cast(enable: bool = True, level: str = "O1",
+def auto_cast(enable: bool = True, custom_white_list=None,
+              custom_black_list=None, level: str = "O1",
               dtype: str = "bfloat16"):
     """Context under which white-listed ops run in ``dtype`` and
-    black-listed ops in float32 (the custom white / black lists of the JAX
-    ``auto_cast`` are not ported)."""
+    black-listed ops in float32.  ``custom_white_list`` /
+    ``custom_black_list`` add op names to :data:`WHITE_OPS` /
+    :data:`BLACK_OPS` for the context; names already on a list stay on it
+    after the context, as in the JAX package."""
     enforce(level in ("O1", "O2"), f"level must be O1 or O2, got {level!r}")
     enforce(dtype in _DTYPES, f"unsupported amp dtype {dtype!r}")
+    added_w = set(custom_white_list or ()) - WHITE_OPS
+    added_b = set(custom_black_list or ()) - BLACK_OPS
+    WHITE_OPS.update(added_w)
+    BLACK_OPS.update(added_b)
     prev = _state.push(enable, level, _DTYPES[dtype])
     try:
         yield
     finally:
         _state.pop(prev)
+        WHITE_OPS.difference_update(added_w)
+        BLACK_OPS.difference_update(added_b)
 
 
 def decorate(models, optimizers=None, level: str = "O2",

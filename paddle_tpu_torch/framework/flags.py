@@ -12,9 +12,9 @@ flags, ``use_pallas_kernels`` and ``pallas_interpret_routing``: in the port
 a tensor on the card always takes its kernel and a CPU tensor its plain
 version, so :func:`set_flags` of either name raises ``UnimplementedError``
 rather than accepting a value that would change nothing.
-``dataloader_use_native`` defaults to False here: the port has no native
-shared-memory transport (``io.DataLoader`` refuses the flag with worker
-processes).
+``dataloader_use_native`` defaults to True, as in the JAX package: a
+``DataLoader`` with worker processes carries batches over the native
+shared-memory ring (``io/native.py``).
 """
 from __future__ import annotations
 
@@ -104,7 +104,7 @@ define_flag("check_nan_inf", False,
             "operator.cc:1252 FLAGS_check_nan_inf).")
 define_flag("benchmark", False, "Synchronize after each step for timing.")
 define_flag("amp_dtype", "bfloat16", "Low-precision dtype for AMP.")
-define_flag("dataloader_use_native", False,
-            "Ask DataLoader for the native shared-memory transport, which "
-            "the port does not have (it raises with worker processes).")
+define_flag("dataloader_use_native", True,
+            "DataLoader workers hand batches over the native shared-memory "
+            "ring (io/native.py) instead of the multiprocessing queue.")
 define_flag("log_level", 0, "VLOG-style verbosity (higher = chattier).")

@@ -6,17 +6,21 @@ operators/reader/buffered_reader.cc).
 Datasets, samplers and collation are the JAX package's, in numpy, so one
 seeded pipeline gives both packages the same batches in the same order
 (``RandomSampler`` draws from numpy's global stream).  Python worker
-processes produce numpy batches over a multiprocessing queue; a
-background thread then stages each batch on the device ahead of
-consumption: on the card it pins the host arrays and copies them on a
-side CUDA stream, and the consumer's stream waits on that copy's event
-(the counterpart of the JAX prefetcher's ``jax.device_put``).  Batches
-come out as tensors (float64 as float32, as JAX without x64).
+processes produce numpy batches; a background thread then stages each
+batch on the device ahead of consumption: on the card it pins the host
+arrays and copies them on a side CUDA stream, and the consumer's stream
+waits on that copy's event (the counterpart of the JAX prefetcher's
+``jax.device_put``).  Batches come out as tensors (float64 as float32, as
+JAX without x64).
 
-The JAX package's native shared-memory transport (``io/native.py``,
-chosen by ``FLAGS_dataloader_use_native``) is not ported: with that flag
-set, a loader with worker processes raises ``UnimplementedError`` rather
-than quietly taking the queue.
+The workers' batches cross to the parent over the native shared-memory
+ring of :mod:`.native` when ``FLAGS_dataloader_use_native`` is set (the
+default, as in the JAX package) and ``use_shared_memory``: raw array
+buffers gathered into a shared slot, no pickled payload.  A batch larger
+than a slot, a worker's error, or a machine where the ring cannot be
+built takes the multiprocessing queue.  ``ring_batches`` counts the
+batches that came over the ring.  ``DataLoader.from_generator`` /
+``from_dataset`` are the pre-2.0 generator-fed loaders.
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from typing import Any, Iterable, List, Optional, Sequence
 
 import numpy as np
 
-from ..framework.errors import UnimplementedError, enforce
+from ..framework.errors import enforce
 from ..framework.flags import get_flag
 from ..utils.tree import tree_map
 
@@ -290,14 +294,17 @@ def get_worker_info() -> Optional[WorkerInfo]:
 
 
 def _worker_loop(dataset, index_queue, result_queue, collate_fn, worker_id,
-                 worker_init_fn, num_workers: int = 1):
-    """The python mp.Queue carries the collated numpy batches (the JAX
-    package's native shared-memory ``ring`` is not ported)."""
+                 worker_init_fn, ring=None, num_workers: int = 1):
+    """With ``ring`` (:class:`.native.ShmRing`) the collated batches cross
+    as raw array buffers gathered into a shared slot; otherwise, and for
+    an error or a batch larger than a slot, the mp.Queue carries them."""
     global _worker_info
     _worker_info = WorkerInfo(worker_id, num_workers, dataset)
     if worker_init_fn is not None:
         worker_init_fn(worker_id)
     np.random.seed((np.random.SeedSequence().entropy + worker_id) % (2**31))
+    if ring is not None:
+        from .native import encode_batch_parts
     while True:
         item = index_queue.get()
         if item is None:
@@ -306,7 +313,22 @@ def _worker_loop(dataset, index_queue, result_queue, collate_fn, worker_id,
         try:
             samples = [dataset[i] for i in indices]
             batch = collate_fn(samples)
-            result_queue.put((batch_id, batch, None))
+            if ring is None:
+                result_queue.put((batch_id, batch, None))
+                continue
+            try:
+                while True:
+                    try:
+                        ring.put_parts(encode_batch_parts(batch_id, batch))
+                        break
+                    except TimeoutError:
+                        # the consumer is busy (a first step's build):
+                        # keep waiting; closing the ring ends the loop
+                        continue
+            except ValueError:      # larger than a slot: the queue
+                result_queue.put((batch_id, batch, None))
+            except BrokenPipeError:
+                break               # the parent closed the ring
         except Exception as e:  # propagate across the process boundary
             result_queue.put((batch_id, None, repr(e)))
 
@@ -320,8 +342,40 @@ class DataLoader:
     worker.  With ``to_device`` a prefetch thread stages each batch on
     ``places`` (default ``cuda``; the CPU only when asked) while the
     consumer works on the previous one; ``to_device=False`` yields the
-    collated numpy batches.
+    collated numpy batches.  With workers the batches come over the
+    native ring when the flag asks for it (``ring_batches`` counts them;
+    ``native_slot_bytes`` is a slot's size) and over the queue otherwise.
     """
+
+    @staticmethod
+    def from_generator(feed_list=None, capacity: int = 10,
+                       use_double_buffer: bool = True, iterable: bool = True,
+                       return_list: bool = True,
+                       use_multiprocess: bool = False,
+                       drop_last: bool = True):
+        """The pre-2.0 generator-fed loader (reference
+        DataLoader.from_generator): feed it with ``set_batch_generator`` /
+        ``set_sample_generator`` / ``set_sample_list_generator``.  The
+        feed-queue knobs are accepted for the signature only, as in the
+        JAX package."""
+        return _GeneratorLoader()
+
+    @staticmethod
+    def from_dataset(dataset, places=None, drop_last: bool = True):
+        """A re-iterable loader over an in-memory dataset's records
+        (``_records``, filled by ``load_into_memory()``), batched by its
+        ``_batch_size`` (reference DataLoader.from_dataset)."""
+        recs = getattr(dataset, "_records", None)
+        enforce(recs is not None,
+                "from_dataset expects an InMemoryDataset with "
+                "load_into_memory() called")
+        bs = max(int(getattr(dataset, "_batch_size", 1)), 1)
+
+        def gen():
+            for i in range(0, len(recs) - (bs - 1 if drop_last else 0), bs):
+                yield recs[i:i + bs]
+
+        return _GeneratorLoader().set_batch_generator(gen)
 
     def __init__(self, dataset, feed_list=None, places=None,
                  batch_size: int = 1, shuffle: bool = False,
@@ -337,6 +391,8 @@ class DataLoader:
         self.worker_init_fn = worker_init_fn
         self.to_device = to_device
         self.use_shared_memory = use_shared_memory
+        self.native_slot_bytes = 32 << 20
+        self.ring_batches = 0
         if to_device:
             from ..device import resolve_device
             if isinstance(places, (list, tuple)):
@@ -344,12 +400,6 @@ class DataLoader:
             self.device = resolve_device(places)
         else:
             self.device = None
-        if num_workers > 0 and use_shared_memory and _native_requested():
-            raise UnimplementedError(
-                "FLAGS_dataloader_use_native asks for the native "
-                "shared-memory transport, which the port does not have; "
-                "unset it (or pass use_shared_memory=False) to carry "
-                "batches over the worker queue")
         self._iterable_mode = isinstance(dataset, IterableDataset)
         if self._iterable_mode:
             self.batch_sampler = None
@@ -402,16 +452,28 @@ class DataLoader:
         for indices in self.batch_sampler:
             yield self.collate_fn([self.dataset[i] for i in indices])
 
+    def _make_ring(self):
+        """The native ring when the flag and ``use_shared_memory`` ask for
+        it and it can be built; else None (the queue)."""
+        if not self.use_shared_memory or not _native_requested():
+            return None
+        from .native import ShmRing, native_available
+        if not native_available():
+            return None
+        return ShmRing(slots=max(4, 2 * self.num_workers),
+                       slot_bytes=self.native_slot_bytes)
+
     def _iter_multiprocess(self):
         ctx = mp.get_context("fork")
         index_queue = ctx.Queue()
         result_queue = ctx.Queue()
+        ring = self._make_ring()   # before the fork: the workers inherit it
         workers = []
         for wid in range(self.num_workers):
             w = ctx.Process(
                 target=_worker_loop,
                 args=(self.dataset, index_queue, result_queue,
-                      self.collate_fn, wid, self.worker_init_fn,
+                      self.collate_fn, wid, self.worker_init_fn, ring,
                       self.num_workers),
                 daemon=True)
             w.start()
@@ -427,6 +489,27 @@ class DataLoader:
                 w.join(timeout=1.0)
                 if w.is_alive():
                     w.terminate()
+            if ring is not None:
+                ring.close()
+
+        def recv():
+            if ring is None:
+                return result_queue.get()
+            from .native import decode_batch
+            while True:
+                try:  # errors and oversized batches come by the queue
+                    return result_queue.get_nowait()
+                except queue_mod.Empty:
+                    pass
+                try:
+                    bid, err, batch = decode_batch(ring.get(timeout=0.1))
+                except TimeoutError:
+                    if not any(w.is_alive() for w in workers):
+                        raise RuntimeError(
+                            "all DataLoader workers died") from None
+                    continue
+                self.ring_batches += 1
+                return bid, batch, err
 
         try:
             sampler_iter = enumerate(iter(self.batch_sampler))
@@ -442,7 +525,7 @@ class DataLoader:
                 index_queue.put((bid, indices))
                 in_flight[bid] = True
             while in_flight:
-                bid, batch, err = result_queue.get()
+                bid, batch, err = recv()
                 if err is not None:
                     raise RuntimeError(f"DataLoader worker failed: {err}")
                 del in_flight[bid]
@@ -535,6 +618,57 @@ class _DevicePrefetcher:
             tree_map(lambda t: t.record_stream(current)
                  if torch.is_tensor(t) else t, staged)
         return staged
+
+
+def _collate_slots(rows):
+    """[(a0, b0), (a1, b1), ...] -> [stack(a), stack(b)]: the reference
+    loader's per-slot batch arrays."""
+    if not rows:
+        return rows
+    first = rows[0]
+    if not isinstance(first, (tuple, list)):
+        return np.stack([np.asarray(r) for r in rows])
+    return [np.stack([np.asarray(r[i]) for r in rows])
+            for i in range(len(first))]
+
+
+class _GeneratorLoader:
+    """The ``DataLoader.from_generator`` facade: ``set_batch_generator`` /
+    ``set_sample_generator`` / ``set_sample_list_generator`` feed a Python
+    generator function, called afresh each epoch; iteration yields its
+    numpy batches, as the JAX loader's."""
+
+    def __init__(self):
+        self._fn = None
+
+    def set_batch_generator(self, fn, places=None):
+        self._fn = fn
+        return self
+
+    def set_sample_generator(self, fn, batch_size: int = 1, places=None,
+                             drop_last: bool = True):
+        from ..reader import batch as _batch
+        batched = _batch(fn, batch_size, drop_last=drop_last)
+
+        def gen():
+            for rows in batched():
+                yield _collate_slots(list(rows))   # per-slot arrays
+
+        self._fn = gen
+        return self
+
+    def set_sample_list_generator(self, fn, places=None):
+        def gen():
+            for rows in fn():
+                yield _collate_slots(list(rows))
+
+        self._fn = gen
+        return self
+
+    def __iter__(self):
+        enforce(self._fn is not None,
+                "call set_batch_generator/set_sample_generator first")
+        return iter(self._fn())
 
 
 class ChainDataset(IterableDataset):

@@ -287,6 +287,23 @@ class Optimizer(torch.optim.Optimizer):
 
     load_state_dict = set_state_dict
 
+    def append_regularization_ops(self, params_grads, regularization=None):
+        """Add the regularizer's gradient term to each ``(param, grad)``:
+        ``coeff * sign(p)`` for an ``L1Decay``, ``coeff * p`` otherwise
+        (the step folds the optimizer's own decay in at apply time)."""
+        coeff = getattr(regularization, "coeff", None)
+        if coeff is None:
+            return params_grads
+        if isinstance(regularization, L1Decay):
+            return [(p, g + coeff * torch.sign(p)) for p, g in params_grads]
+        return [(p, g + coeff * p) for p, g in params_grads]
+
+    def get_opti_var_name_list(self):
+        """The slot names, ``"<param>.<slot>"`` as the JAX state's."""
+        self._ensure_state()
+        return [f"{n}.{s}" for n, p in zip(self._names, self._params)
+                for s in self.state[p]["slots"]]
+
     # -- subclass hooks ----------------------------------------------------
     def _init_slot(self, p) -> Dict[str, torch.Tensor]:
         return {}

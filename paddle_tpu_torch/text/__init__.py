@@ -1,6 +1,6 @@
-"""``paddle.text`` of the port: the WMT translation datasets and the
-``viterbi_decode`` op.  Imdb, Imikolov, UCIHousing, Conll05st, Movielens
-and the tokenizer are not ported yet (``ROADMAP.md`` Queue 1 item 12)."""
+"""``paddle.text`` of the port: the port of ``paddle_tpu/text/``: the
+datasets (``datasets.py``), the WordPiece tokenizer with its native C core
+(``tokenizer.py``) and the ``viterbi_decode`` op."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -8,9 +8,15 @@ from typing import Tuple
 import torch
 
 from ..framework.dtype import as_tensor
-from .datasets import WMT14, WMT16  # noqa: F401
+from . import datasets  # noqa: F401
+from .datasets import (Conll05st, Imdb, Imikolov, Movielens,  # noqa: F401
+                       MovieInfo, UCIHousing, UserInfo, WMT14, WMT16)
+from .tokenizer import WordPieceTokenizer  # noqa: F401
 
-__all__ = ["WMT14", "WMT16", "viterbi_decode", "ViterbiDecoder"]
+__all__ = ["WordPieceTokenizer",
+           "viterbi_decode", "ViterbiDecoder", "datasets", "Imdb",
+           "Imikolov", "UCIHousing", "Conll05st", "Movielens",
+           "MovieInfo", "UserInfo", "WMT14", "WMT16"]
 
 
 def viterbi_decode(potentials, transition, lengths=None,

@@ -31,7 +31,7 @@ PHASES = ("check_design", "check_stream_design", "check_ln_linear_design",
           "traced_serving", "train", "train_fused", "check_flash_d128",
           "pretrain", "bert_moe", "supervised_training", "vision",
           "translation", "vision_zoo", "nn_rest", "tensor_api", "deploy",
-          "generate")
+          "long_tail", "generate")
 
 IMPORT_PROBE = ("import time; t0 = time.perf_counter(); import torch; "
                 "t1 = time.perf_counter(); import paddle_tpu_torch; "

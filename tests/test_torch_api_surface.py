@@ -1,9 +1,11 @@
 """The paddle API surface of the PyTorch port against the JAX package's:
 every public callable of the JAX top level, ``linalg``, ``fft``,
 ``signal`` and ``autograd``, and every name that ``jit``, ``static``,
-``quantization`` and ``inference`` export (their ``__all__``), exists in
-the port, with the same parameter names, or is in ``TO_PORT`` below with
-the ``ROADMAP.md`` item it waits on.
+``quantization``, ``inference``, ``distribution``, ``sparse``,
+``profiler``, ``incubate`` (with ``incubate.optimizer`` and
+``incubate.sparsity``), ``utils``, ``reader``, ``hub`` and ``text`` export
+(their ``__all__``), exists in the port, with the same parameter names,
+or is in ``TO_PORT`` below with the ``ROADMAP.md`` item it waits on.
 
 Parameter names: the JAX function's named parameters (``*args`` and
 ``**kwargs`` aside) must equal the port's; where the JAX function forwards
@@ -17,13 +19,13 @@ import types
 import pytest
 
 import paddle_tpu as jpt
+import paddle_tpu.text  # noqa: F401  (not imported by the JAX top level)
 import paddle_tpu_torch as tpt
 
 # JAX top-level names the port does not have yet, with the ROADMAP.md
 # item each waits on ("by design" names are in its list of by-design
 # differences)
 TO_PORT = {
-    "batch": "Queue 1 item 12 (reader.py)",
     "key_scope": "by design: JAX key streams; the port draws from "
                  "framework.random's torch.Generator streams",
     "next_key": "by design: JAX key streams; the port draws from "
@@ -38,12 +40,30 @@ NAMESPACES = [("", jpt, tpt), ("linalg", jpt.linalg, tpt.linalg),
               ("autograd", jpt.autograd, tpt.autograd),
               ("jit", jpt.jit, tpt.jit), ("static", jpt.static, tpt.static),
               ("quantization", jpt.quantization, tpt.quantization),
-              ("inference", jpt.inference, tpt.inference)]
+              ("inference", jpt.inference, tpt.inference),
+              ("distribution", jpt.distribution, tpt.distribution),
+              ("sparse", jpt.sparse, tpt.sparse),
+              ("profiler", jpt.profiler, tpt.profiler),
+              ("incubate", jpt.incubate, tpt.incubate),
+              ("incubate.optimizer", jpt.incubate.optimizer,
+               tpt.incubate.optimizer),
+              ("incubate.sparsity", jpt.incubate.sparsity,
+               tpt.incubate.sparsity),
+              ("utils", jpt.utils, tpt.utils),
+              ("reader", jpt.reader, tpt.reader),
+              ("hub", jpt.hub, tpt.hub),
+              ("text", jpt.text, tpt.text)]
 # held by the names they export: these modules also import helpers that
-# are not theirs (Conv2D, enforce, load_sharded, typing names)
-BY_ALL = {"jit", "static", "quantization", "inference"}
+# are not theirs (Conv2D, enforce, load_sharded, typing names, jax.scipy's
+# special functions)
+BY_ALL = {"jit", "static", "quantization", "inference", "distribution",
+          "sparse", "profiler", "incubate", "incubate.optimizer",
+          "incubate.sparsity", "utils", "reader", "hub", "text"}
 # parameters the port adds after a JAX signature's, by design
 EXTRA_PARAMS = {("inference", "PagedKVCache"): ["device"]}
+# port parameter -> the JAX name it stands for, by design: a SparseTensor
+# wraps a torch sparse tensor where the JAX one wraps a BCOO
+RENAMED_PARAMS = {("sparse", "SparseTensor"): {"tensor": "bcoo"}}
 
 
 def _public_callables(mod, names=None):
@@ -85,6 +105,8 @@ def test_jax_callable_is_in_the_port(ns, name):
     if jp is None or tp is None:
         return
     (jnames, jvar), (tnames, _) = jp, tp
+    renamed = RENAMED_PARAMS.get((ns, name), {})
+    tnames = [renamed.get(n, n) for n in tnames]
     extra = EXTRA_PARAMS.get((ns, name), [])
     if extra:
         assert tnames[len(tnames) - len(extra):] == extra, (name, tnames)

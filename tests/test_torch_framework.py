@@ -43,11 +43,10 @@ def test_flag_table_is_the_jax_table_less_the_routing_flags():
     want = set(jflags.get_flags()) - {"use_pallas_kernels",
                                       "pallas_interpret_routing"}
     assert set(tflags.get_flags()) == want
-    for name in want - {"dataloader_use_native"}:
+    for name in want:
         assert tflags._defaults[name] == jflags._defaults[name], name
-    # by design: the port has no native transport, so it is off
-    assert jflags._defaults["dataloader_use_native"] is True
-    assert tflags._defaults["dataloader_use_native"] is False
+    # the native transport is ported: on by default, as in the JAX package
+    assert tflags._defaults["dataloader_use_native"] is True
 
 
 @pytest.mark.parametrize("name", ["use_pallas_kernels",
@@ -109,13 +108,20 @@ def test_check_nan_inf_reader_follows_set_flags(monkeypatch):
 
 
 def test_native_loader_reader_follows_set_flags(monkeypatch):
+    # the flag picks the transport of a loader with workers: the native
+    # ring (its batches counted in ring_batches) or the worker queue
     from paddle_tpu_torch import io as tio
     monkeypatch.delenv("FLAGS_dataloader_use_native", raising=False)
-    ds = tio.TensorDataset([np.zeros((4, 2), np.float32)])
-    tio.DataLoader(ds, num_workers=2, places="cpu")
-    tflags.set_flags({"dataloader_use_native": True})
-    with pytest.raises(UnimplementedError):
-        tio.DataLoader(ds, num_workers=2, places="cpu")
+    ds = tio.TensorDataset([np.arange(8, dtype=np.float32).reshape(4, 2)])
+    runs = {}
+    for flag in (False, True):
+        tflags.set_flags({"dataloader_use_native": flag})
+        dl = tio.DataLoader(ds, batch_size=2, num_workers=2,
+                            to_device=False)
+        runs[flag] = (list(dl), dl.ring_batches)
+    assert runs[False][1] == 0 and runs[True][1] == 2
+    for a, b in zip(runs[False][0], runs[True][0]):
+        assert a[0].dtype == b[0].dtype and a[0].tobytes() == b[0].tobytes()
 
 
 def test_top_level_flag_functions():

@@ -44,7 +44,6 @@ from paddle_tpu_torch import nn as tnn
 from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.convert import load_jax_state
 from paddle_tpu_torch.framework import io as tframework_io
-from paddle_tpu_torch.framework.errors import UnimplementedError
 from paddle_tpu_torch.hapi import (Callback as TCallback,
                                    EarlyStopping as TES, Model as TModel,
                                    flops as tflops, summary as tsummary)
@@ -190,12 +189,20 @@ def test_port_loader_contract():
 
 
 def test_native_transport_flag_is_refused(monkeypatch):
-    ds = tio.TensorDataset([np.zeros((4, 2), np.float32)])
+    # the flag is no longer refused: with workers and shared memory the
+    # batches cross the native ring; without either they take the queue
+    ds = tio.TensorDataset([np.arange(8, dtype=np.float32).reshape(4, 2)])
     monkeypatch.setenv("FLAGS_dataloader_use_native", "1")
-    with pytest.raises(UnimplementedError):
-        tio.DataLoader(ds, num_workers=2, places="cpu")
-    tio.DataLoader(ds, num_workers=2, places="cpu", use_shared_memory=False)
-    tio.DataLoader(ds, num_workers=0, places="cpu")
+    dl = tio.DataLoader(ds, batch_size=2, num_workers=2, places="cpu")
+    ring = [b[0].numpy() for b in dl]
+    assert dl.ring_batches == 2
+    queued = tio.DataLoader(ds, batch_size=2, num_workers=2, places="cpu",
+                            use_shared_memory=False)
+    assert [b[0].numpy().tobytes() for b in queued] == \
+        [b.tobytes() for b in ring]
+    assert queued.ring_batches == 0
+    single = tio.DataLoader(ds, batch_size=2, num_workers=0, places="cpu")
+    assert len(list(single)) == 2 and single.ring_batches == 0
 
 
 # -- Model: an MLP classifier -----------------------------------------------

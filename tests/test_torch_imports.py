@@ -136,6 +136,29 @@ def test_package_imports_with_jax_blocked():
             "import paddle_tpu_torch.framework.tensor_methods\n"
             "import paddle_tpu_torch.incubate.graph_ops\n"
             "import paddle_tpu_torch.ops.spec\n"
+            "import paddle_tpu_torch.utils\n"
+            "import paddle_tpu_torch.utils.unique_name\n"
+            "import paddle_tpu_torch.utils.cpp_extension\n"
+            "import paddle_tpu_torch.utils.download\n"
+            "import paddle_tpu_torch.version\n"
+            "import paddle_tpu_torch.sysconfig\n"
+            "import paddle_tpu_torch.callbacks\n"
+            "import paddle_tpu_torch.hub\n"
+            "import paddle_tpu_torch.reader\n"
+            "import paddle_tpu_torch.dataset\n"
+            "import paddle_tpu_torch.dataset.mnist\n"
+            "import paddle_tpu_torch.dataset.cifar\n"
+            "import paddle_tpu_torch.dataset.flowers\n"
+            "import paddle_tpu_torch.dataset.imdb\n"
+            "import paddle_tpu_torch.dataset.imikolov\n"
+            "import paddle_tpu_torch.dataset.uci_housing\n"
+            "import paddle_tpu_torch.text.tokenizer\n"
+            "import paddle_tpu_torch.io.native\n"
+            "import paddle_tpu_torch.distribution\n"
+            "import paddle_tpu_torch.sparse\n"
+            "import paddle_tpu_torch.incubate.optimizer\n"
+            "import paddle_tpu_torch.incubate.sparsity\n"
+            "import paddle_tpu_torch.profiler\n"
             "assert 'triton' not in sys.modules\n"
             "loaded = [m for m in sys.modules if sys.modules[m] is not None]\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
@@ -158,7 +181,9 @@ def test_top_level_import_pulls_in_the_subpackages():
             "subs = ['amp', 'autograd', 'framework', 'nn', 'optimizer',\n"
             "        'device', 'fft', 'signal', 'hapi', 'incubate',\n"
             "        'inference', 'io', 'linalg', 'metric', 'observability',\n"
-            "        'regularizer', 'utils', 'vision', 'text']\n"
+            "        'regularizer', 'utils', 'vision', 'text',\n"
+            "        'distribution', 'sparse', 'reader', 'dataset',\n"
+            "        'sysconfig', 'callbacks', 'hub', 'profiler', 'version']\n"
             "for s in subs:\n"
             "    assert 'paddle_tpu_torch.' + s in sys.modules, s\n"
             "    assert getattr(paddle, s) is sys.modules[\n"

@@ -1786,3 +1786,181 @@ def test_int8_matmul_is_exact_on_the_card(dev):
         got = int_matmul(a.to(dev), b.to(dev))
         assert got.dtype == torch.int32
         assert torch.equal(got.cpu(), int_matmul(a, b))
+
+
+# -- the long tail (slice 16) on the card ------------------------------------
+def _tiny_training(dev):
+    from paddle_tpu_torch.convert import training_workload
+    from paddle_tpu_torch.models.gpt import gpt_tiny
+    cfg = gpt_tiny(hidden_dropout=0.0, attention_dropout=0.0,
+                   use_pallas_attention=True, dtype="bfloat16")
+    return training_workload(dev, cfg, batch=2, seq_len=128)
+
+
+def test_asp_and_incubate_optimizers_on_card(dev):
+    from paddle_tpu_torch.incubate import LookAhead, ModelAverage, sparsity
+    from paddle_tpu_torch.incubate.optimizer import DistributedFusedLamb
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.training import train_step
+    m, _, ids, labels = _tiny_training(dev)
+    sparsity.reset_masks()
+    sparsity.set_excluded_layers(["gpt.wte", "gpt.wpe"])
+    try:
+        masks = sparsity.prune_model(m, 2, 4, "mask_1d")
+        opt = sparsity.decorate(AdamW(learning_rate=1e-3,
+                                      parameters=m.named_parameters()))
+        _kernels.reset_launches()
+        for _ in range(2):
+            assert np.isfinite(float(train_step(m, opt, ids, labels)))
+        assert _kernels.launches["flash_fwd"] == 4     # 2 layers x 2 steps
+        params = dict(m.named_parameters())
+        for name, mask in masks.items():
+            assert sparsity.check_sparsity(params[name])
+            assert torch.equal(params[name] == 0,
+                               torch.from_numpy(mask == 0).to(dev))
+    finally:
+        sparsity.reset_masks()
+        sparsity.reset_excluded_layers()
+    la = LookAhead(AdamW(learning_rate=1e-3,
+                         parameters=m.named_parameters()), alpha=0.5, k=2)
+    for _ in range(2):
+        train_step(m, la, ids, labels)
+    for n, p in m.named_parameters():
+        assert torch.equal(p.detach(), la.slow[n].to(p.dtype))
+    ma = ModelAverage(AdamW(learning_rate=1e-3,
+                            parameters=m.named_parameters()))
+    for _ in range(2):
+        train_step(m, ma, ids, labels)
+    trained = {n: p.detach().clone() for n, p in m.named_parameters()}
+    with ma.apply():
+        pass
+    assert all(torch.equal(p.detach(), trained[n])
+               for n, p in m.named_parameters())
+    lamb = DistributedFusedLamb(parameters=m.named_parameters())
+    before = {n: p.detach().clone() for n, p in m.named_parameters()}
+    assert np.isfinite(float(train_step(m, lamb, ids, labels)))
+    assert int(lamb._state["step"]) == 1
+    assert any(not torch.equal(p.detach(), before[n])
+               for n, p in m.named_parameters())
+
+
+def test_profiler_trace_names_every_counted_kernel(dev, tmp_path):
+    import json
+    from paddle_tpu_torch import profiler as P
+    from paddle_tpu_torch.training import train_step
+    m, opt, ids, labels = _tiny_training(dev)
+    train_step(m, opt, ids, labels)                    # warm
+    prof = P.Profiler(scheduler=P.make_scheduler(closed=0, ready=1,
+                                                 record=1, repeat=1),
+                      on_trace_ready=P.export_chrome_tracing(
+                          str(tmp_path), "t"))
+    prof.start()
+    _kernels.reset_launches()
+    prof.step()
+    with P.RecordEvent("one_step"):
+        train_step(m, opt, ids, labels)
+    prof.step()
+    prof.stop()
+    (path,) = list(tmp_path.iterdir())
+    trace = P.load_profiler_result(str(path))
+    kernels = [e["name"] for e in trace["traceEvents"]
+               if str(e.get("cat", "")).lower() == "kernel"]
+    for name in ("flash_fwd_", "flash_dkdv_", "flash_dq_"):
+        counter = name.rstrip("_")
+        assert sum(name in k for k in kernels) == \
+            _kernels.launches[counter] == 2
+    assert any(e.get("name") == "one_step" for e in trace["traceEvents"])
+    assert "one_step" in prof.summary()
+    json.dumps(trace)
+
+
+# a window that opens and closes on counted launches of a port kernel, with
+# a READY step before it and with none (the window then sets CUPTI up as it
+# opens): every launch is in the trace, the first and the last included
+@pytest.mark.parametrize("ready", [1, 0])
+def test_profiler_window_edged_by_port_kernels_keeps_them(dev, tmp_path,
+                                                          ready):
+    from paddle_tpu_torch import profiler as P
+    x = _t(dev, 128, 256)
+    w, b = _t(dev, 256, 512, std=0.05), _t(dev, 512, std=0.05)
+    g, beta = 1 + _t(dev, 256, std=0.1), _t(dev, 256, std=0.1)
+    fb.ln_linear_tiled_cuda(x, w, b, g, beta, EPS)       # build and bind
+    torch.cuda.synchronize()
+    prof = P.Profiler(scheduler=P.make_scheduler(closed=1, ready=ready,
+                                                 record=1, repeat=1),
+                      on_trace_ready=P.export_chrome_tracing(
+                          str(tmp_path), "t"))
+    prof.start()
+    for _ in range(ready):
+        prof.step()
+    _kernels.reset_launches()
+    prof.step()
+    assert prof.current_state == P.ProfilerState.RECORD_AND_RETURN
+    for _ in range(3):
+        fb.ln_linear_tiled_cuda(x, w, b, g, beta, EPS)
+    prof.step()
+    prof.stop()
+    (path,) = list(tmp_path.iterdir())
+    # by the host's launch records: the device clock may place a set-up
+    # kernel's record inside the window
+    kernels = [rec and rec["name"] for _, rec in P.launch_records(
+        P.load_profiler_result(str(path)))]
+    assert _kernels.launches["ln_linear_tiled"] == 3
+    assert len(kernels) == 3 and all(k and "ln_linear_tiled_kernel" in k
+                                     for k in kernels), kernels
+
+
+def test_native_ring_loader_feeds_the_card(dev):
+    from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch.framework.flags import set_flags
+    ds = tio.TensorDataset([np.arange(64, dtype=np.int64).reshape(16, 4)])
+    set_flags({"dataloader_use_native": True})
+    dl = tio.DataLoader(ds, batch_size=4, num_workers=2, places=dev)
+    out = [b[0] for b in dl]
+    assert dl.ring_batches == 4 and out[0].device.type == "cuda"
+    assert torch.equal(torch.cat(out).cpu(),
+                       torch.arange(64).reshape(16, 4))
+
+
+def test_distribution_and_sparse_on_card_match_cpu(dev):
+    from paddle_tpu_torch import distribution as D
+    from paddle_tpu_torch import sparse as S
+    r = np.random.RandomState(0)
+    a = r.uniform(0.5, 3, 64).astype(np.float32)
+    b = r.uniform(0.5, 3, 64).astype(np.float32)
+    x = r.uniform(0.1, 0.9, 64).astype(np.float32)
+    card = D.Beta(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))
+    cpu = D.Beta(torch.from_numpy(a).double(), torch.from_numpy(b).double())
+    lp = card.log_prob(torch.from_numpy(x).to(dev)).double().cpu()
+    assert float((lp - cpu.log_prob(torch.from_numpy(x).double())).abs()
+                 .max()) < 1e-4
+    assert float((card.entropy().double().cpu() - cpu.entropy()).abs()
+                 .max()) < 1e-4
+    s = D.Normal(torch.zeros(2, device=dev), torch.ones(2, device=dev))
+    draws = s.sample((200000,), generator=torch.Generator(dev).manual_seed(0))
+    assert float(draws.mean(0).abs().max()) < 4 / 200000 ** 0.5
+    dense = torch.from_numpy(r.randn(64, 48).astype(np.float32)
+                             * (r.rand(64, 48) < 0.1))
+    rhs = torch.from_numpy(r.randn(48, 8).astype(np.float32))
+    for make in (S.to_sparse_coo, S.to_sparse_csr):
+        sp = make(dense.to(dev))
+        got = S.matmul(sp, rhs.to(dev)).cpu()
+        assert float((got - dense @ rhs).abs().max()) < 1e-5
+        sm = S.softmax(sp).to_dense().cpu()
+        assert torch.allclose(sm, S.softmax(make(dense)).to_dense(),
+                              atol=1e-6)
+
+
+def test_run_check_and_a_host_op_on_card(dev, tmp_path, capsys):
+    from paddle_tpu_torch import utils
+    from paddle_tpu_torch.utils import cpp_extension
+    assert utils.run_check() is True
+    assert "on cuda" in capsys.readouterr().out
+    src = tmp_path / "neg.cc"
+    src.write_text('#include <stdint.h>\nextern "C" void neg(const float* i,'
+                   ' float* o, int64_t n) { for (int64_t k = 0; k < n; ++k)'
+                   ' o[k] = -i[k]; }\n')
+    op = cpp_extension.custom_op(cpp_extension.load("neg_op", [str(src)]),
+                                 "neg")
+    x = torch.arange(10, dtype=torch.float32, device=dev)
+    assert torch.equal(op(x), -x)
