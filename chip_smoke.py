@@ -509,11 +509,14 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               steps, each within 1e-5 of a float64 plain LAMB from the
               same state and gradients; (3) the profiler (make_scheduler)
               over the fused float32 serving engine's prefills and 8
-              decode steps and 2 training steps: the exported chrome
-              trace names every kernel the counters saw (paged decode,
-              the stream and tiled K1-K3, the flash kernels) as often,
-              each with device time, the RecordEvent ranges, summary(),
-              the decode step's ms with and without the profiler; (4)
+              decode steps and 2 training steps, in this process: the
+              exported chrome trace's launch account (per kernel the
+              counter's launches = recorded + unrecorded, the unrecorded
+              ones launches the trace holds without a device record;
+              paged decode, the stream and tiled K1-K3, the flash
+              kernels), device time for each recorded kernel, the
+              RecordEvent ranges, summary(), the decode step's ms with
+              and without the profiler; (4)
               FLAGS_dataloader_use_native with 2 workers feeds Model.fit
               4 steps over the ring (its counter 4), the ring's batches
               the queue's byte for byte, batches/s of both; (5)
@@ -527,6 +530,28 @@ Phases, each fatal on failure (the script then exits non-zero and prints no
               on the CPU, each op's ms; (7) run_check and a
               cpp_extension host op on the card; one long_tail JSON line
               with the card's name and power limit;
+  (c2m) hybrid parallel training: GPT-3 1.3B at full width (h=2048, 16
+              heads, vocab 50304) cut to 4 layers, B=16, S=512, by 8
+              ranks of one launch (python -m paddle_tpu_torch.
+              distributed.launch --nproc_per_node 8 chip_smoke.py
+              --c2m-child '<json>') sharing this card over gloo: dp2 x
+              mp2 x pp2, 1F1B over 4 micro-batches, the tied embedding
+              summed over the end stages, vocab-parallel loss; (1) leg A
+              (dropout 0, bf16 O1, AdamW(1e-4, wd 0.01), clip 1.0) 3
+              steps, each step's loss and clip norm and, after the last,
+              every parameter gathered back against (2) the serial run of
+              the same model and batch on this card, within the spread of
+              two serial runs (whole batch / 8 row blocks); (3) leg B
+              (dropout 0.1, O2 with a GradScaler, the warm-up cosine
+              schedule): finite losses equal on all ranks, dp replicas'
+              parameters bit-equal after each step; (4) each rank's
+              coordinates, flash launches a step (the schedule's: stage
+              layers x micro-batches, the forward twice under
+              recompute), peak memory, host-staged bytes (the
+              activations' exactly) and step ms (time-sliced on one card,
+              not a speed); the children compile nothing; one
+              hybrid_parallel JSON line with the card's name and power
+              limit;
   (c3) generate GPTForCausalLM.generate at full width (convert.
               generate_workload: B=8, prompt 512, 128 greedy tokens, bf16),
               unfused (use_pallas_attention) and fused (use_fused_block):
@@ -639,8 +664,8 @@ def main() -> int:
         return c2e_child(json.loads(sys.argv[2]))   # (c2e 4)'s processes
     if len(sys.argv) == 3 and sys.argv[1] == "--c2k-child":
         return c2k_child(json.loads(sys.argv[2]))   # (c2k 1)'s predictor
-    if len(sys.argv) == 3 and sys.argv[1] == "--c2l-child":
-        return c2l_child(json.loads(sys.argv[2]))   # (c2l 3)'s window
+    if len(sys.argv) == 3 and sys.argv[1] == "--c2m-child":
+        return c2m_child(json.loads(sys.argv[2]))   # (c2m)'s ranks
 
     # -- (a) build -----------------------------------------------------------
     built = _kernels.build()
@@ -758,6 +783,13 @@ def main() -> int:
     long_tail(torch, np, dev, _kernels, root)
     torch.cuda.empty_cache()
     done("c2l_long_tail")
+
+    # -- (c2m) hybrid parallel training: dp x mp x pp by 8 ranks ---------------
+    hybrid = hybrid_parallel(torch, np, dev, _kernels, root)
+    for name, n in hybrid["launches_per_rank_step"].items():
+        results[name]["launches_per_rank_step_hybrid"] = n
+    torch.cuda.empty_cache()
+    done("c2m_hybrid")
 
     # -- (c3) generate -------------------------------------------------------
     generating = generate(torch, np, dev, _kernels)
@@ -7998,30 +8030,6 @@ C2L_LAMB_TOL = 1e-5
 # same recurrence over the same snapshots
 C2L_MA_TOL = 1e-5
 C2L_EXCLUDED = ["gpt.wte", "gpt.wpe"]     # ASP: the two embeddings
-# the kernel counter -> a substring of the __global__ function that each of
-# its counted launches runs once (ffn_tiled's up and down passes, ffn_stream
-# and its finalize kernel: the first of each pair)
-C2L_TRACE_NAMES = {
-    "paged_decode": "paged_decode_kernel",
-    "ln_linear": "ln_linear_kernel",
-    "ln_linear_mma": "ln_linear_mma_kernel",
-    "ln_linear_stream": "ln_linear_stream_kernel",
-    "ln_linear_tiled": "ln_linear_tiled_kernel",
-    "linear_residual": "linear_residual_kernel",
-    "linear_residual_mma": "linear_residual_mma_kernel",
-    "linear_residual_stream": "linear_residual_stream_kernel",
-    "linear_residual_tiled": "linear_residual_tiled_kernel",
-    "ffn": "ffn_kernel",
-    "ffn_mma": "ffn_mma_kernel",
-    "ffn_stream": "ffn_stream_kernel",
-    "ffn_tiled": "ffn_tiled_up_kernel",
-    "flash_fwd": "flash_fwd_",
-    "flash_dkdv": "flash_dkdv_",
-    "flash_dq": "flash_dq_",
-    "flash_decode": "flash_decode_kernel",
-}
-
-
 def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
     return subprocess.run(
@@ -8308,17 +8316,19 @@ def c2l_lamb(torch, np, _kernels, model, ids, labels):
 
 def c2l_trace_kernels(trace):
     """Kernel events of a chrome trace: counts and device us by counter
-    name (C2L_TRACE_NAMES), and the unmatched kernels' total."""
+    name (profiler.KERNEL_TRACE_NAMES), and the unmatched kernels'
+    total."""
+    from paddle_tpu_torch.profiler import KERNEL_TRACE_NAMES as names
     counts, dur, other = {}, {}, 0
     for e in trace.get("traceEvents", []):
         if str(e.get("cat", "")).lower() != "kernel":
             continue
         name = e.get("name", "")
-        hit = [k for k, sub in C2L_TRACE_NAMES.items() if sub in name]
+        hit = [k for k, sub in names.items() if sub in name]
         if not hit:
             other += 1
             continue
-        key = max(hit, key=lambda k: len(C2L_TRACE_NAMES[k]))   # longest
+        key = max(hit, key=lambda k: len(names[k]))   # longest
         counts[key] = counts.get(key, 0) + 1
         dur[key] = dur.get(key, 0.0) + float(e.get("dur", 0.0))
     return counts, dur, other
@@ -8402,21 +8412,33 @@ def c2l_profiler(torch, np, dev, _kernels, work, train):
     load_s = time.perf_counter() - t0
     counts, dur, other = c2l_trace_kernels(trace)
     unrecorded = P.unrecorded_launches(trace)
-    # the window's first launch on the host timeline (the device clock
-    # may place a set-up kernel's record inside the window)
+    # the window's account (in this old process the tracer may drop
+    # records): every kernel's recorded + unrecorded launches are its
+    # counter's, and the unrecorded ones are launches the trace holds on
+    # the host without a device record
+    account = trace.get("ptpuLaunchAccount")
+    require(account is not None, "trace: no ptpuLaunchAccount")
     records = P.launch_records(trace)
     first = (records[0][1] or {}) if records else {}
-    if dev.type == "cuda":
-        require(C2L_TRACE_NAMES[opener.kernel] in first.get("name", ""),
-                f"trace: the window's first launch ran {first.get('name')}, "
-                f"not the counted {opener.kernel} launch that opened it")
     seen = {n: c for n, c in launches.items() if c}
+    lost_ours = 0
     for name, c in seen.items():
-        require(counts.get(name, 0) == c,
-                f"trace: {name} {counts.get(name, 0)} kernels, the counter "
-                f"{c} ({unrecorded} launches of the window have no device "
-                "record)")
-        require(dur.get(name, 0.0) > 0.0, f"trace: {name} has no device time")
+        k = account["kernels"].get(name, {})
+        require(k.get("recorded", 0) == counts.get(name, 0),
+                f"account: {name} recorded {k.get('recorded')}, the trace "
+                f"{counts.get(name, 0)}")
+        require(k.get("recorded", 0) + k.get("unrecorded", 0) == c,
+                f"account: {name} {k} does not add up to the counter {c}")
+        lost_ours += k.get("unrecorded", 0)
+        require(counts.get(name, 0) == 0 or dur.get(name, 0.0) > 0.0,
+                f"trace: {name} has no device time")
+    require(lost_ours <= unrecorded,
+            f"account: {lost_ours} port launches unrecorded, but the trace "
+            f"has {unrecorded} launches without a device record")
+    log("c2l (3) launch account: " + json.dumps(
+        {n: [k["recorded"], k["unrecorded"]]
+         for n, k in account["kernels"].items()}) +
+        f"; launches without a record {unrecorded}")
     extra = {n: c for n, c in counts.items() if not launches.get(n)}
     require(not extra, f"trace: kernels the counters did not see: {extra}")
     if dev.type == "cuda":
@@ -8443,7 +8465,7 @@ def c2l_profiler(torch, np, dev, _kernels, work, train):
     cost = c2l_profiler_cost(P, engine, steps)
     del model
     return {"launches": seen, "first_kernel": first.get("name"),
-            "unrecorded_launches": unrecorded,
+            "unrecorded_launches": unrecorded, "account": account,
             "trace_kernels": counts,
             "trace_device_ms": {n: d / 1e3 for n, d in dur.items()},
             "other_kernels": other, "trace_bytes": os.path.getsize(
@@ -8476,38 +8498,11 @@ def c2l_k1_opener(torch, dev):
     return opener
 
 
-def c2l_child(spec):
-    """(3)'s profiled window in a fresh process (``chip_smoke.py
-    --c2l-child '<spec>'``) on a fresh training workload: the tracer
-    drops more of a window's first device records the longer a process
-    has run under load, and the edge probe measures that in the smoke's
-    own process."""
-    import numpy as np
-    import torch
-    from paddle_tpu_torch import _kernels
-    dev = torch.device("cuda", 0)
-    train = c2l_workload(dev)
-    out = c2l_profiler(torch, np, dev, _kernels, spec["work"], train)
-    print(json.dumps({"c2l_child": out}, default=str), flush=True)
-    return 0
-
-
-def c2l_profiled(torch, np, dev, _kernels, work, root):
-    """(3): the profiled window in a child process (:func:`c2l_child`),
-    then the edge probe here."""
+def c2l_profiled(torch, np, dev, _kernels, work):
+    """(3): the profiled window on a fresh training workload, then the
+    edge probe, both in the smoke's own process."""
     from paddle_tpu_torch import profiler as P
-    child = subprocess.run(
-        [sys.executable, os.path.join(root, "chip_smoke.py"), "--c2l-child",
-         json.dumps({"work": work})],
-        capture_output=True, text=True, timeout=900)
-    require(child.returncode == 0,
-            f"c2l child failed ({child.returncode}): {child.stderr[-3000:]}")
-    lines = child.stdout.splitlines()
-    for line in lines:
-        if line.startswith("c2l (3)") or line.startswith("  "):
-            log(line)
-    out = json.loads([line for line in lines
-                      if line.startswith('{"c2l_child"')][-1])["c2l_child"]
+    out = c2l_profiler(torch, np, dev, _kernels, work, c2l_workload(dev))
     out["edges"] = c2l_trace_edges(torch, P, dev, c2l_k1_opener(torch, dev),
                                    work)
     return out
@@ -9044,7 +9039,7 @@ def long_tail(torch, np, dev, _kernels, root):
     line["lamb"] = part("lamb", lambda: c2l_lamb(torch, np, _kernels, model,
                                                  ids, labels))
     line["profiler"] = part("profiler", lambda: c2l_profiled(
-        torch, np, dev, _kernels, work, root))
+        torch, np, dev, _kernels, work))
     line["native_loader"] = part("native_loader", lambda: c2l_native_loader(
         torch, np, dev, _kernels, model))
     del model, ids, labels
@@ -9061,6 +9056,434 @@ def long_tail(torch, np, dev, _kernels, root):
                  "card": card_line()})
     log(json.dumps({"long_tail": line}, default=str))
     return line
+
+
+# ---------------------------------------------------------------------------
+# (c2m) hybrid parallel training: dp x mp x pp GPT-3 1.3B (full width, 4
+# layers) by 8 ranks on one card over gloo
+# ---------------------------------------------------------------------------
+C2M_RANKS = 8
+C2M_LAYOUT = {"dp": 2, "mp": 2, "pp": 2, "micro": 4}
+C2M_LAYERS = 4                  # 2 a stage: depth cut from 24
+C2M_BATCH, C2M_SEQ = 16, 512    # global batch: 2 rows a micro-batch
+C2M_STEPS = 3
+C2M_SPLITS = 8                  # the serial reference's second split: the
+# parallel run's (replica, micro-batch) row blocks in order
+C2M_TOL_FACTOR = 4.0            # x the serial runs' spread (PERF.md, c2m)
+C2M_LOSS_FLOOR = 1e-4           # of the loss / norm, added to the bound
+# a parameter's relative update error: at most 4 x the larger of its own
+# serial spread and the median one over all parameters, + 0.05 (PERF.md,
+# c2m: the per-parameter spread misses mp's extra bf16 rounding, the
+# largest one is a noise-driven qkv bias)
+C2M_UPDATE_FACTOR, C2M_UPDATE_FLOOR = 4.0, 0.05
+
+
+def c2m_config(leg: str):
+    """gpt_1p3b at full width with its depth cut to C2M_LAYERS, the
+    pretraining workload's settings for ``leg``."""
+    from paddle_tpu_torch.models.gpt import gpt_1p3b
+    drop = 0.0 if leg == "A" else 0.1
+    return gpt_1p3b(num_layers=C2M_LAYERS, vocab_size=50304,
+                    hidden_dropout=drop, attention_dropout=drop,
+                    use_recompute=True, use_pallas_attention=True,
+                    dtype="bfloat16")
+
+
+def c2m_data(np, torch, dev):
+    """The pretraining workload's ids then labels at (C2M_BATCH,
+    C2M_SEQ)."""
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, 50304, (C2M_BATCH, C2M_SEQ))
+    labels = rng.randint(0, 50304, (C2M_BATCH, C2M_SEQ))
+    return (torch.from_numpy(ids).to(dev), torch.from_numpy(labels).to(dev))
+
+
+def c2m_per_step(cfg):
+    """Each flash kernel's launches a step on one rank, as the schedule
+    implies: the stage's layers x the micro-batches, the forward twice
+    (recompute replays it in the backward)."""
+    n = (C2M_LAYERS // C2M_LAYOUT["pp"]) * C2M_LAYOUT["micro"]
+    return {"flash_fwd": 2 * n if cfg.use_recompute else n,
+            "flash_dkdv": n, "flash_dq": n}
+
+
+def c2m_digest(torch, model) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for name, p in sorted(model.named_parameters()):
+        h.update(name.encode())
+        h.update(p.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()
+
+
+def c2m_child(spec):
+    """One rank of a c2m launch (``python -m
+    paddle_tpu_torch.distributed.launch --nproc_per_node 8 chip_smoke.py
+    --c2m-child '<spec>'``): the whole model drawn on the card as the
+    parent draws it, this rank's shard cut from it, C2M_STEPS pipeline
+    steps of leg ``spec["leg"]``; per step the loss, the clip's norm, the
+    flash launches, peak memory, host-staged bytes, ms (time-sliced with
+    seven other ranks on one card) and a parameter digest; the rank's JSON
+    in ``spec["work"]``, and leg A's final shard there (dp rank 0)."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import _kernels, amp, convert
+    from paddle_tpu_torch.distributed import collective, fleet
+    from paddle_tpu_torch.distributed.topology import (
+        get_hybrid_communicate_group, set_hybrid_communicate_group)
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+    import torch.distributed as tdist
+    leg, work = spec["leg"], spec["work"]
+    built = _kernels.build(TRAINING_KERNELS)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = c2m_config(leg)
+    whole = convert.init_random_(GPTForCausalLM(cfg, device=dev),
+                                 convert.PRETRAINING_SEED).state_dict()
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {"dp_degree": C2M_LAYOUT["dp"],
+                               "mp_degree": C2M_LAYOUT["mp"],
+                               "pp_degree": C2M_LAYOUT["pp"]}
+    strategy.pipeline_configs = {"accumulate_steps": C2M_LAYOUT["micro"]}
+    strategy.tensor_parallel_configs = {"tensor_init_seed": PRETRAIN_SEED}
+    fleet.init(is_collective=True, strategy=strategy, backend="gloo")
+    hcg = get_hybrid_communicate_group()
+    coord = hcg.coord()
+    model = GPTForCausalLM(cfg, device=dev)
+    model.load_state_dict(convert.shard_state(
+        whole, mp_rank=coord["mp"], mp=C2M_LAYOUT["mp"], pp_rank=coord["pp"],
+        pp=C2M_LAYOUT["pp"], device=dev), strict=True)
+    del whole
+    torch.cuda.empty_cache()
+    model.train()
+    if leg == "A":
+        inner = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                      grad_clip=ClipGradByGlobalNorm(1.0),
+                      parameters=model.named_parameters())
+        kw = {"level": "O1"}
+    else:
+        two_d = {n for n, p in model.named_parameters() if p.dim() == 2}
+        scheduler = LinearWarmup(
+            CosineAnnealingDecay(2e-4, convert.PRETRAINING_T_MAX,
+                                 eta_min=2e-5),
+            convert.PRETRAINING_WARMUP, start_lr=0.0, end_lr=2e-4)
+        inner = AdamW(learning_rate=scheduler, beta1=0.9, beta2=0.95,
+                      epsilon=1e-8, weight_decay=0.1,
+                      grad_clip=ClipGradByGlobalNorm(1.0),
+                      parameters=model.named_parameters(),
+                      apply_decay_param_fun=two_d.__contains__)
+        model, inner = amp.decorate(model, inner, level="O2",
+                                    dtype="bfloat16")
+        kw = {"level": "O2", "scheduler": scheduler,
+              "scaler": fleet.distributed_scaler(
+                  amp.GradScaler(decr_every_n_nan_or_inf=1))}
+    pipe = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(inner)
+    ids, labels = c2m_data(np, torch, dev)
+    rows = C2M_BATCH // C2M_LAYOUT["dp"]
+    ids = ids[coord["dp"] * rows:(coord["dp"] + 1) * rows]
+    labels = labels[coord["dp"] * rows:(coord["dp"] + 1) * rows]
+    steps = []
+    for step in range(C2M_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _kernels.reset_launches()
+        collective.reset_host_staged_bytes()
+        t0 = time.perf_counter()
+        loss = float(pipe.train_batch(ids, labels, opt, **kw))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        steps.append({
+            "loss": loss, "norm": float(inner._grad_clip.last_norm),
+            "launches": {n: c for n, c in _kernels.launches.items() if c},
+            "peak_bytes": torch.cuda.max_memory_allocated(dev),
+            "staged_bytes": collective.host_staged_bytes(),
+            "staged_by_op": {op: collective.host_staged_bytes(op)
+                             for op in ("p2p", "all_gather", "broadcast",
+                                        "all_reduce")},
+            "ms_time_sliced": ms, "digest": c2m_digest(torch, model)})
+    if leg == "A" and coord["dp"] == 0:
+        torch.save({k: p.detach().float().cpu()
+                    for k, p in model.named_parameters()},
+                   os.path.join(work, f"shard_{coord['pp']}_{coord['mp']}.pt"))
+    rank = tdist.get_rank()
+    out = {"rank": rank, "coord": coord, "compiled": built["compiled"],
+           "backend": tdist.get_backend(), "leg": leg, "steps": steps}
+    with open(os.path.join(work, f"rank{rank}_{leg}.json"), "w") as f:
+        json.dump(out, f)
+    tdist.barrier()
+    set_hybrid_communicate_group(None)
+    tdist.destroy_process_group()
+    return 0
+
+
+def c2m_start(root, work, leg):
+    """Start one launch of C2M_RANKS ranks of leg ``leg`` (the launcher
+    process, its log file, its start time)."""
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(C2M_RANKS),
+           os.path.join(root, "chip_smoke.py"), "--c2m-child",
+           json.dumps({"leg": leg, "work": work})]
+    fh = open(os.path.join(work, f"launch_{leg}.log"), "w")
+    proc = subprocess.Popen(cmd, cwd=root, stdout=fh,
+                            stderr=subprocess.STDOUT)
+    return proc, fh, time.perf_counter(), leg, work
+
+
+def c2m_wait(launch):
+    """Wait for a launch (killed at 600 s); its ranks' JSON, by rank, and
+    its wall seconds."""
+    proc, fh, t0, leg, work = launch
+    try:
+        rc = proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        rc = proc.wait()
+    wall = time.perf_counter() - t0
+    fh.close()
+    if rc != 0:
+        with open(fh.name) as f:
+            tail = f.read()[-6000:]
+        raise RuntimeError(f"c2m leg {leg}: launch exited {rc}:\n{tail}")
+    ranks = []
+    for r in range(C2M_RANKS):
+        with open(os.path.join(work, f"rank{r}_{leg}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks, wall
+
+
+def c2m_serial(torch, np, dev, splits):
+    """Leg A's C2M_STEPS steps of the whole model on the card, the batch
+    in ``splits`` row blocks a step (gradients summed, the loss the mean
+    of the blocks' means); each step's loss and clip norm, the initial
+    and final parameters (float32, host)."""
+    from paddle_tpu_torch import amp, convert
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW, ClipGradByGlobalNorm
+    model = convert.init_random_(GPTForCausalLM(c2m_config("A"), device=dev),
+                                 convert.PRETRAINING_SEED)
+    first = {k: p.detach().float().cpu().numpy()
+             for k, p in model.named_parameters()}
+    opt = AdamW(learning_rate=1e-4, weight_decay=0.01,
+                grad_clip=ClipGradByGlobalNorm(1.0),
+                parameters=model.named_parameters())
+    ids, labels = c2m_data(np, torch, dev)
+    rows = C2M_BATCH // splits
+    losses, norms = [], []
+    model.train()
+    for _ in range(C2M_STEPS):
+        opt.zero_grad(set_to_none=True)
+        total = 0.0
+        for j in range(splits):
+            with amp.auto_cast(level="O1", dtype="bfloat16"):
+                loss, _ = model(ids[j * rows:(j + 1) * rows],
+                                labels=labels[j * rows:(j + 1) * rows])
+            (loss / splits).backward()
+            total += float(loss.detach()) / splits
+        opt.step()
+        losses.append(total)
+        norms.append(float(opt._grad_clip.last_norm))
+    last = {k: p.detach().float().cpu().numpy()
+            for k, p in model.named_parameters()}
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"losses": losses, "norms": norms, "first": first, "last": last}
+
+
+def c2m_update_error(np, a, b, first):
+    """Per parameter, ||(a - first) - (b - first)|| / ||b - first||: how far
+    one run's update is from another's."""
+    out = {}
+    for k in first:
+        ub = b[k].astype(np.float64) - first[k]
+        ua = a[k].astype(np.float64) - first[k]
+        out[k] = float(np.linalg.norm(ua - ub) / max(np.linalg.norm(ub),
+                                                     1e-30))
+    return out
+
+
+def c2m_rank_checks(ranks, cfg, leg):
+    """(4) every rank's coordinates distinct, no kernel compiled, each
+    step's flash launches the schedule's and nothing else of the eight,
+    the host-staged bytes the activations' (micro-batches x 2 ways x
+    bytes a micro-batch's activation, bf16), finite losses equal on
+    every rank of a step."""
+    per = c2m_per_step(cfg)
+    act = (C2M_BATCH // C2M_LAYOUT["dp"] // C2M_LAYOUT["micro"]) * C2M_SEQ \
+        * cfg.hidden_size * 2
+    coords = {tuple(sorted(r["coord"].items())) for r in ranks}
+    require(len(coords) == C2M_RANKS, f"c2m {leg}: coordinates {coords}")
+    for r in ranks:
+        require(r["compiled"] == [], f"c2m {leg}: rank {r['rank']} compiled "
+                f"{r['compiled']} (the parent built every kernel)")
+        require(r["backend"] == "gloo", f"c2m {leg}: backend {r['backend']}")
+        for i, s in enumerate(r["steps"]):
+            require(s["launches"] == per,
+                    f"c2m {leg}: rank {r['rank']} step {i} launched "
+                    f"{s['launches']}, the schedule implies {per}")
+            want = 2 * C2M_LAYOUT["micro"] * act
+            require(s["staged_bytes"] == want,
+                    f"c2m {leg}: rank {r['rank']} step {i} staged "
+                    f"{s['staged_by_op']}, not the activations' {want}")
+    for i in range(C2M_STEPS):
+        losses = {r["steps"][i]["loss"] for r in ranks}
+        require(len(losses) == 1 and all(math.isfinite(x) for x in losses),
+                f"c2m {leg}: step {i} losses {losses}")
+
+
+def c2m_log_ranks(ranks, leg, card):
+    for r in sorted(ranks, key=lambda r: r["rank"]):
+        log(json.dumps({"c2m_rank": {
+            "leg": leg, "rank": r["rank"], "coord": r["coord"],
+            "flash_launches_per_step": r["steps"][0]["launches"],
+            "peak_memory_gb": [s["peak_bytes"] / 1e9 for s in r["steps"]],
+            "host_staged_bytes_per_step": [s["staged_bytes"]
+                                           for s in r["steps"]],
+            "step_ms_time_sliced_on_one_card_not_a_speed":
+                [s["ms_time_sliced"] for s in r["steps"]],
+            "card": card}}))
+
+
+def hybrid_parallel(torch, np, dev, _kernels, root):
+    """(c2m): (2) the serial reference of leg A in two row splits, (1) leg
+    A by 8 ranks (dp2 x mp2 x pp2, 1F1B over 4 micro-batches, gloo,
+    every rank on this card): each step's loss and norm, and after the
+    last step every parameter gathered back, against the serial run within
+    the serial runs' own spread; (3) leg B by 8 ranks: finite losses equal
+    on every rank, parameters equal across the dp replicas after each
+    step; (4) each rank's coordinates, flash launches (the schedule's),
+    peak memory, host-staged bytes and time-sliced step ms."""
+    import shutil
+    t_phase = time.perf_counter()
+    card = card_line()
+    work = os.path.join(root, "build", "c2m")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    cfg = c2m_config("A")
+    require(cfg.hidden_size == 2048 and cfg.num_heads == 16
+            and cfg.vocab_size == 50304 and cfg.max_position_embeddings
+            == 2048 and cfg.num_layers == C2M_LAYERS,
+            "c2m: not GPT-3 1.3B at full width")
+    # the ranks start (imports, the model drawn on the card) while the
+    # serial reference runs here
+    launches = [c2m_start(root, work, "A")]
+    try:
+        return c2m_checked(torch, np, dev, root, work, cfg, card, t_phase,
+                           launches)
+    finally:
+        for proc, fh, *_ in launches:      # stop every rank on a failure
+            if proc.poll() is None:
+                proc.terminate()
+                proc.wait(timeout=60)
+            fh.close()
+
+
+def c2m_checked(torch, np, dev, root, work, cfg, card, t_phase, launches):
+    """hybrid_parallel's body (``launches`` holds leg A's started launch
+    and gets leg B's)."""
+    import shutil
+    from paddle_tpu_torch import convert
+    launch_a = launches[0]
+    t0 = time.perf_counter()
+    s1 = c2m_serial(torch, np, dev, 1)
+    s8 = c2m_serial(torch, np, dev, C2M_SPLITS)
+    serial_s = time.perf_counter() - t0
+    spread_loss = max(abs(a - b) for a, b in zip(s1["losses"],
+                                                  s8["losses"]))
+    spread_norm = max(abs(a - b) for a, b in zip(s1["norms"], s8["norms"]))
+    spread_upd = c2m_update_error(np, s1["last"], s8["last"], s8["first"])
+    ranks_a, wall_a = c2m_wait(launch_a)
+    launch_b = c2m_start(root, work, "B")      # runs while A is checked
+    launches.append(launch_b)
+    c2m_rank_checks(ranks_a, cfg, "A")
+    losses_a = [ranks_a[0]["steps"][i]["loss"] for i in range(C2M_STEPS)]
+    norms_a = [ranks_a[0]["steps"][i]["norm"] for i in range(C2M_STEPS)]
+    for i in range(C2M_STEPS):
+        ref = s8["losses"][i]
+        bound = C2M_TOL_FACTOR * spread_loss + C2M_LOSS_FLOOR * abs(ref)
+        require(abs(losses_a[i] - ref) <= bound,
+                f"c2m A step {i}: loss {losses_a[i]} vs serial {ref} "
+                f"(bound {bound})")
+        nref = s8["norms"][i]
+        nbound = C2M_TOL_FACTOR * spread_norm + C2M_LOSS_FLOOR * abs(nref)
+        require(abs(norms_a[i] - nref) <= nbound,
+                f"c2m A step {i}: norm {norms_a[i]} vs serial {nref} "
+                f"(bound {nbound})")
+    shards = {}
+    for pp in range(C2M_LAYOUT["pp"]):
+        for mp in range(C2M_LAYOUT["mp"]):
+            shards[(pp, mp)] = torch.load(
+                os.path.join(work, f"shard_{pp}_{mp}.pt"))
+    gathered = convert.gather_state(shards)
+    del shards
+    require(sorted(gathered) == sorted(s8["last"]),
+            "c2m A: the gathered keys are not the model's")
+    upd = c2m_update_error(np, gathered, s8["last"], s8["first"])
+    upd_s1 = c2m_update_error(np, gathered, s1["last"], s8["first"])
+    spread_med = statistics.median(spread_upd.values())
+    bounds = {k: C2M_UPDATE_FACTOR * max(spread_upd[k], spread_med)
+              + C2M_UPDATE_FLOOR for k in upd}
+    ranked = sorted(upd, key=lambda k: upd[k] / bounds[k], reverse=True)
+    log(json.dumps({"c2m_check": {
+        "losses": {"parallel": losses_a, "serial_1": s1["losses"],
+                   "serial_8": s8["losses"]},
+        "norms": {"parallel": norms_a, "serial_1": s1["norms"],
+                  "serial_8": s8["norms"]},
+        "update_spread_median": spread_med,
+        "update_spread_max": max(spread_upd.values()),
+        "worst_updates": {k: {"vs_serial_8": upd[k], "vs_serial_1":
+                              upd_s1[k], "serial_spread": spread_upd[k],
+                              "bound": bounds[k]}
+                          for k in ranked[:8]}}}))
+    worst = (ranked[0], upd[ranked[0]], bounds[ranked[0]])
+    for k, e in upd.items():
+        require(e <= bounds[k], f"c2m A: {k} update error {e:.4g} > bound "
+                f"{bounds[k]:.4g} (its serial spread {spread_upd[k]:.4g}, "
+                f"the median {spread_med:.4g})")
+    for r in ranks_a:           # dp replicas equal after every step
+        twin = [q for q in ranks_a if q["coord"]["pp"] == r["coord"]["pp"]
+                and q["coord"]["mp"] == r["coord"]["mp"]]
+        require(all(q["steps"][i]["digest"] == r["steps"][i]["digest"]
+                    for q in twin for i in range(C2M_STEPS)),
+                f"c2m A: dp replicas differ at {r['coord']}")
+    serial = {"losses_1": s1["losses"], "losses_8": s8["losses"],
+              "norms_1": s1["norms"], "norms_8": s8["norms"]}
+    del gathered, s1, s8
+    c2m_log_ranks(ranks_a, "A", card)
+
+    ranks_b, wall_b = c2m_wait(launch_b)
+    c2m_rank_checks(ranks_b, c2m_config("B"), "B")
+    for r in ranks_b:
+        twin = [q for q in ranks_b if q["coord"]["pp"] == r["coord"]["pp"]
+                and q["coord"]["mp"] == r["coord"]["mp"]]
+        for i in range(C2M_STEPS):
+            require(len({q["steps"][i]["digest"] for q in twin}) == 1,
+                    f"c2m B step {i}: dp replicas differ at {r['coord']}")
+    c2m_log_ranks(ranks_b, "B", card)
+    shutil.rmtree(work, ignore_errors=True)
+    per = c2m_per_step(cfg)
+    line = {
+        "model": "gpt_1p3b", "layers": C2M_LAYERS, "hidden": 2048,
+        "heads_per_rank": 16 // C2M_LAYOUT["mp"], "vocab": 50304,
+        "layout": C2M_LAYOUT, "ranks": C2M_RANKS, "backend": "gloo",
+        "batch": C2M_BATCH, "seq": C2M_SEQ, "steps": C2M_STEPS,
+        "serial": serial, "leg_a_losses": losses_a,
+        "leg_a_norms": norms_a,
+        "serial_spread": {"loss": spread_loss, "norm": spread_norm,
+                          "update_max": max(spread_upd.values())},
+        "update_error_max": max(upd.values()),
+        "worst_update": {"param": worst[0], "error": worst[1],
+                         "bound": worst[2]},
+        "leg_b_losses": [ranks_b[0]["steps"][i]["loss"]
+                         for i in range(C2M_STEPS)],
+        "flash_launches_per_rank_step": per,
+        "launch_wall_s": {"A": wall_a, "B": wall_b}, "serial_s": serial_s,
+        "phase_s": time.perf_counter() - t_phase, "card": card}
+    log(json.dumps({"hybrid_parallel": line}))
+    return {"launches_per_rank_step": per, "line": line}
 
 
 # ---------------------------------------------------------------------------

@@ -876,32 +876,9 @@ def create_parameter(shape, dtype, name=None, attr=None,
                      is_bias=is_bias)
 
 
-class DataParallel(nn.Layer):
-    """Reference paddle.DataParallel(model) on one card: a pass-through
-    wrapper with the reference's surface (forward delegation, ``_layers``,
-    state_dict passthrough, the no-op scale_loss / apply_collective_grads
-    pair).  Process groups and gradient all-reduce across cards come with
-    multi-GPU parallelism (``ROADMAP.md`` Queue 1 item 10)."""
-
-    def __init__(self, layers, strategy=None, comm_buffer_size=25,
-                 last_comm_buffer_size=1, find_unused_parameters=False):
-        super().__init__()
-        self._layers = layers
-
-    def forward(self, *args, **kwargs):
-        return self._layers(*args, **kwargs)
-
-    def scale_loss(self, loss):
-        return loss
-
-    def apply_collective_grads(self):
-        pass
-
-    def state_dict(self, *a, **k):
-        return self._layers.state_dict(*a, **k)
-
-    def set_state_dict(self, sd, *a, **k):
-        return self._layers.set_state_dict(sd, *a, **k)
+# paddle.DataParallel: the dp group's gradient all-reduce (a pass-through
+# without a process group)
+from .distributed.parallel import DataParallel  # noqa: E402
 
 
 # the extended op corpus (reference tensor/{math,manipulation,search,

@@ -7,7 +7,10 @@ A library's file name carries a digest of its source, the shared headers
 (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
 unchanged one is loaded as it is.
 :func:`build` starts one ``nvcc`` per source, all at once, and waits for
-all of them.  The libraries are loaded with ``ctypes``; nothing here
+all of them, holding an exclusive file lock (``fcntl``) on
+``BUILD_DIR/.build.lock`` meanwhile: processes that start together (the
+ranks of one card) compile each library once, and the others wait and
+load the same ``.so``.  The libraries are loaded with ``ctypes``; nothing here
 includes PyTorch's headers, which keeps a build to seconds.
 
 Every C entry point returns ``cudaGetLastError()``; :func:`check` raises on
@@ -23,7 +26,9 @@ a kernel runs.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -126,7 +131,22 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, object]:
         enforce(name in KERNELS, f"unknown kernel {name!r}")
     maybe_enable_persistent_cache()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    reg = get_registry()
+    with _build_lock():
+        return _build_locked(names, get_registry(), get_tracker())
+
+
+@contextlib.contextmanager
+def _build_lock():
+    """An exclusive lock on ``BUILD_DIR/.build.lock`` across processes."""
+    with open(BUILD_DIR / ".build.lock", "a+") as fh:
+        fcntl.flock(fh.fileno(), fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh.fileno(), fcntl.LOCK_UN)
+
+
+def _build_locked(names: List[str], reg, tracker) -> Dict[str, object]:
     t0 = time.perf_counter()
     jobs = []
     for name in names:
@@ -147,9 +167,9 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, object]:
     for name, proc, tmp, out, log in jobs:
         if proc.wait() == 0:
             os.replace(tmp, out)
-            get_tracker().observe(f"kernels.{name}", [out.name],
-                                  arg_names=["library"],
-                                  wall_ms=(time.perf_counter() - t0) * 1e3)
+            tracker.observe(f"kernels.{name}", [out.name],
+                            arg_names=["library"],
+                            wall_ms=(time.perf_counter() - t0) * 1e3)
         else:
             failed.append(f"{name}:\n{log.read_text()}")
     enforce(not failed, "nvcc failed for " + "\n".join(failed),

@@ -16,6 +16,7 @@ the port.  Nothing here imports JAX: the input is plain numpy.
 """
 from __future__ import annotations
 
+import re
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -42,7 +43,8 @@ __all__ = ["state_dict_from_jax", "load_jax_state", "random_state",
            "vision_training_workload", "VISION_BATCH", "VISION_HW",
            "transformer_training_workload", "translation_recipe",
            "TRANSFORMER_SEED", "TRANSFORMER_VOCAB", "TRANSFORMER_BATCH",
-           "TRANSFORMER_SEQ", "program_state_from_jax"]
+           "TRANSFORMER_SEQ", "program_state_from_jax", "shard_state",
+           "gather_state", "MP_SPLIT"]
 
 
 def state_dict_from_jax(np_state: Dict[str, np.ndarray],
@@ -59,6 +61,100 @@ def state_dict_from_jax(np_state: Dict[str, np.ndarray],
         arr = np.ascontiguousarray(np.asarray(value))
         out[key] = torch.from_numpy(arr.copy()).to(dev)
     return out
+
+
+# the parameters split over mp, by name suffix: the axis each rank takes a
+# contiguous block of (the JAX layers' PartitionSpecs: ColumnParallelLinear
+# P(None, 'mp'), RowParallelLinear P('mp', None), VocabParallelEmbedding
+# P('mp', None)); every other parameter is whole on every mp rank
+MP_SPLIT = {"wte.weight": 0, "qkv_proj.weight": 1, "qkv_proj.bias": 0,
+            "out_proj.weight": 0, "fc_in.weight": 1, "fc_in.bias": 0,
+            "fc_out.weight": 0}
+_LAYER = re.compile(r"^gpt\.h\.(\d+)\.")
+
+
+def _mp_axis(key: str) -> Optional[int]:
+    for suffix, axis in MP_SPLIT.items():
+        if key.endswith(suffix):
+            return axis
+    return None
+
+
+def _on_stage(key: str, stage: int, pp: int, num_layers: int) -> bool:
+    """Whether pipeline stage ``stage`` of ``pp`` holds ``key``: its
+    uniform cut of the layers (the JAX ``stack_stage_params``), the
+    embeddings on stage 0, the final LN on the last, the tied table on
+    both."""
+    m = _LAYER.match(key)
+    if m:
+        per = num_layers // pp
+        return int(m.group(1)) // per == stage
+    if key.startswith("gpt.wte."):
+        return stage in (0, pp - 1)
+    if key.startswith("gpt.wpe"):
+        return stage == 0
+    if key.startswith("gpt.ln_f."):
+        return stage == pp - 1
+    return True
+
+
+def shard_state(state, *, mp_rank: int = 0, mp: int = 1, pp_rank: int = 0,
+                pp: int = 1, device=None) -> Dict[str, torch.Tensor]:
+    """One rank's shard of a whole GPT state (numpy arrays, as a JAX
+    ``state_dict``, or tensors), for a model built under a hybrid group at
+    coordinates (``mp_rank`` of ``mp``, stage ``pp_rank`` of ``pp``):
+    the :data:`MP_SPLIT` parameters' ``mp_rank``-th block, the others
+    whole, and only the keys the stage holds.  :func:`gather_state` is its
+    inverse."""
+    layers = {int(m.group(1)) for m in map(_LAYER.match, state) if m}
+    num_layers = max(layers) + 1 if layers else 0
+    enforce(num_layers % pp == 0,
+            f"{num_layers} layers not divisible into {pp} stages")
+    dev = resolve_device(device)
+    out: Dict[str, torch.Tensor] = {}
+    for key, value in state.items():
+        if not _on_stage(key, pp_rank, pp, num_layers):
+            continue
+        t = value if torch.is_tensor(value) else torch.from_numpy(
+            np.ascontiguousarray(np.asarray(value)))
+        axis = _mp_axis(key)
+        if axis is not None and mp > 1:
+            enforce(t.shape[axis] % mp == 0,
+                    f"{key}: axis {axis} of {tuple(t.shape)} not divisible "
+                    f"by mp = {mp}")
+            t = t.chunk(mp, dim=axis)[mp_rank]
+        out[key] = t.detach().to(dev).contiguous().clone()
+    return out
+
+
+def gather_state(shards: Dict[Tuple[int, int], Dict[str, object]]
+                 ) -> Dict[str, np.ndarray]:
+    """The whole state of the shards of every rank of one data-parallel
+    replica, ``{(pp_rank, mp_rank): state_dict}`` (tensors or arrays):
+    the :data:`MP_SPLIT` blocks concatenated in mp order, every other
+    parameter taken from its lowest (stage, mp rank)."""
+    mp = 1 + max(m for _, m in shards)
+    out: Dict[str, np.ndarray] = {}
+    for (stage, m) in sorted(shards):
+        for key, value in shards[(stage, m)].items():
+            if key in out:
+                continue
+            axis = _mp_axis(key)
+            if axis is None or mp == 1:
+                out[key] = _numpy(value)
+                continue
+            out[key] = np.concatenate(
+                [_numpy(shards[(stage, r)][key]) for r in range(mp)],
+                axis=axis)
+    return out
+
+
+def _numpy(value) -> np.ndarray:
+    if torch.is_tensor(value):
+        value = value.detach().float().cpu() if value.dtype == \
+            torch.bfloat16 else value.detach().cpu()
+        return value.numpy()
+    return np.asarray(value)
 
 
 def load_jax_state(model: nn.Module, np_state: Dict[str, np.ndarray]

@@ -16,7 +16,13 @@ a training step that draws dropout masks or hash-dropout seeds leaves
   activation recompute replays a block's forward from the snapshot taken
   before it (``torch.utils.checkpoint``'s RNG preservation covers only
   torch's default generators), and a checkpoint carries the streams so a
-  resumed run draws what the uninterrupted one would.
+  resumed run draws what the uninterrupted one would;
+- named streams (:func:`add_stream`, :func:`use_stream`) are further sets
+  of per-device generators with seeds of their own: inside ``with
+  use_stream(name)`` every draw of this thread (:func:`generator`,
+  :func:`draw_seed`) comes from that set.  The model-parallel RNG tracker
+  (``distributed/random.py``) keeps its streams here, so recompute's
+  snapshot covers them too.
 
 JAX's threefry keys and torch's Philox streams give different numbers from
 one seed, so the port's masks are reproducible per seed but are not JAX's;
@@ -25,15 +31,20 @@ tests hand both packages the same explicit hash seeds instead.
 from __future__ import annotations
 
 import threading
-from typing import Dict, Union
+import contextlib
+from typing import Dict, Iterator, Optional, Tuple, Union
 
 import torch
 
-__all__ = ["seed", "generator", "draw_seed", "get_state", "set_state"]
+__all__ = ["seed", "generator", "draw_seed", "get_state", "set_state",
+           "add_stream", "remove_streams", "use_stream", "active_stream"]
 
 _lock = threading.Lock()
 _seed = 0
 _generators: Dict[torch.device, torch.Generator] = {}
+# named streams: name -> (seed, {device: generator})
+_named: Dict[str, Tuple[int, Dict[torch.device, torch.Generator]]] = {}
+_tls = threading.local()
 
 
 def _key(device: Union[str, torch.device]) -> torch.device:
@@ -53,15 +64,61 @@ def seed(value: int) -> None:
 
 
 def generator(device: Union[str, torch.device] = "cpu") -> torch.Generator:
-    """The explicit generator of ``device``."""
+    """The explicit generator of ``device``: the default stream's, or the
+    named stream's inside :func:`use_stream`."""
     dev = _key(device)
+    name = active_stream()
     with _lock:
-        gen = _generators.get(dev)
+        if name is None:
+            table, value = _generators, _seed
+        else:
+            value, table = _named[name]
+        gen = table.get(dev)
         if gen is None:
             gen = torch.Generator(device=dev)
-            gen.manual_seed(_seed)
-            _generators[dev] = gen
+            gen.manual_seed(value)
+            table[dev] = gen
     return gen
+
+
+def add_stream(name: str, value: int) -> None:
+    """Register the named stream ``name``, seeded with ``value`` on every
+    device.  Its CPU generator and the current card's are made now, so a
+    :func:`get_state` snapshot taken before the stream's first draw holds
+    them (recompute replays a block from such a snapshot)."""
+    with _lock:
+        if name in _named:
+            raise ValueError(f"random stream {name!r} already exists")
+        _named[name] = (int(value), {})
+    with use_stream(name):
+        generator("cpu")
+        if torch.cuda.is_available():
+            generator("cuda")
+
+
+def remove_streams() -> None:
+    """Forget every named stream."""
+    with _lock:
+        _named.clear()
+
+
+def active_stream() -> Optional[str]:
+    """The named stream this thread draws from, None for the default."""
+    return getattr(_tls, "active", None)
+
+
+@contextlib.contextmanager
+def use_stream(name: str) -> Iterator[None]:
+    """Draw from the named stream ``name`` inside the block (this
+    thread)."""
+    if name not in _named:
+        raise KeyError(f"unknown random stream {name!r}")
+    prev = active_stream()
+    _tls.active = name
+    try:
+        yield
+    finally:
+        _tls.active = prev
 
 
 def draw_seed() -> int:
@@ -71,18 +128,32 @@ def draw_seed() -> int:
 
 
 def get_state() -> Dict[str, torch.Tensor]:
-    """Every stream's state, by device name (``"cpu"``, ``"cuda:0"``): the
-    ``uint8`` CPU tensors of ``torch.Generator.get_state``.  The CPU stream
-    is created first if no draw has made it yet."""
-    generator("cpu")
+    """Every stream's state, by device name (``"cpu"``, ``"cuda:0"``;
+    ``"<stream>/<device>"`` for a named stream's generators): the
+    ``uint8`` CPU tensors of ``torch.Generator.get_state``.  The default
+    CPU stream is created first if no draw has made it yet."""
     with _lock:
-        return {str(dev): gen.get_state()
-                for dev, gen in _generators.items()}
+        if torch.device("cpu") not in _generators:
+            gen = torch.Generator(device="cpu")
+            gen.manual_seed(_seed)
+            _generators[torch.device("cpu")] = gen
+        out = {str(dev): gen.get_state()
+               for dev, gen in _generators.items()}
+        for name, (_, table) in _named.items():
+            out.update({f"{name}/{dev}": gen.get_state()
+                        for dev, gen in table.items()})
+        return out
 
 
 def set_state(state: Dict[str, torch.Tensor]) -> None:
     """Restore the streams of a :func:`get_state` (a stream it does not
-    name is left as it is)."""
-    for name, value in state.items():
-        generator(name).set_state(torch.as_tensor(value, dtype=torch.uint8)
-                                  .cpu())
+    name is left as it is; a named stream this process has not registered
+    is skipped)."""
+    for key, value in state.items():
+        name, _, dev = key.rpartition("/")
+        if name and name not in _named:
+            continue
+        ctx = use_stream(name) if name else contextlib.nullcontext()
+        with ctx:
+            generator(dev).set_state(torch.as_tensor(value, dtype=torch.uint8)
+                                     .cpu())

@@ -70,9 +70,10 @@ What differs from the JAX step, and why it is safe:
   every bisection probe and before the replay, so they draw what the
   faulted step drew.  Greedy serving draws nothing.
 
-Still to port (ROADMAP.md Queue 1): the hybrid-mesh check of the JAX
-constructor (the port has no mesh until multi-GPU parallelism, item 10)
-and the engine's decode step as a CUDA graph.  The serving fleet above
+The engine refuses to run under a hybrid group (``fleet.init``), as the
+JAX constructor refuses a mesh: its model would hold one rank's shard.
+Still to port (ROADMAP.md Queue 1): the engine's decode step as a CUDA
+graph.  The serving fleet above
 the engine (router, journal, replicas) is :mod:`.fleet`.
 
 Env knobs: ``PTPU_MAX_SEQS``, ``PTPU_KV_BLOCK_SIZE``,
@@ -209,6 +210,10 @@ class ServingEngine:
                  run_dir: Optional[str] = None,
                  replica_id: Optional[int] = None,
                  step_fault: Optional[Callable] = None):
+        from ..distributed.topology import get_mesh
+        enforce(get_mesh() is None,
+                "ServingEngine is single-card (a model built under a hybrid "
+                "group holds one rank's shard) — run it outside fleet groups")
         cfg = model.config
         self.model = model
         model.eval()

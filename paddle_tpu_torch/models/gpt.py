@@ -40,11 +40,24 @@ replay adds nothing), and the training loss adds ``moe_aux_weight`` times
 their sum.  The cache paths route the step's rows at the capacity of that
 step's token count, as the JAX layer does.
 
+Under a hybrid group (``distributed.fleet.init``) the model holds this
+rank's shard, as the JAX layers' ``PartitionSpec``s place it: each rank
+keeps ``num_heads / mp`` heads (the qkv columns are head-major, head0
+q|k|v, head1 q|k|v, ..., so a contiguous column block is whole heads), the
+FFN's ``ffn / mp`` columns, the tied embedding's ``vocab / mp`` rows, and
+under pp only its stage's layers (``gpt.h.<i>`` keep their global index;
+stage 0 holds the embeddings, the last stage the final LN and the tied
+table too; ``models/gpt_pipeline.py`` runs them).  The tied head and the
+fused LM loss are vocab-parallel, attention dropout draws from the
+model-parallel stream (``distributed/random.py``), and the fused block is
+off, as the JAX ``_fused_block_ok`` turns it off under a mesh.
+
 Not in these slices (ROADMAP): sequence and context parallelism; their
 config fields raise when set.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -55,8 +68,11 @@ from torch import nn
 
 from .. import _kernels
 from ..device import resolve_device
+from ..distributed import topology as topo
 from ..distributed.mp_layers import (ColumnParallelLinear, RowParallelLinear,
-                                     VocabParallelEmbedding)
+                                     VocabParallelEmbedding, copy_to_mp,
+                                     gather_from_mp)
+from ..distributed.random import MODEL_PARALLEL_RNG, get_rng_state_tracker
 from ..distributed.fleet.recompute import POLICIES, recompute
 from ..distributed.moe import MoELayer, _record_aux, collect_aux_losses
 from ..distributed.mp_ops import parallel_cross_entropy
@@ -159,16 +175,23 @@ class GPTAttention(Layer):
         c = config
         self.config = c
         std = c.initializer_range
+        mp = topo.axis_size("mp")
+        enforce(c.num_heads % mp == 0,
+                f"num_heads {c.num_heads} not divisible by the "
+                f"model-parallel degree {mp}")
+        self.local_heads = c.num_heads // mp
         self.qkv_proj = ColumnParallelLinear(c.hidden_size, 3 * c.hidden_size,
-                                             std=std, device=device)
+                                             std=std, gather_output=False,
+                                             device=device)
         self.out_proj = RowParallelLinear(
             c.hidden_size, c.hidden_size,
-            std=std / math.sqrt(2.0 * c.num_layers), device=device)
+            std=std / math.sqrt(2.0 * c.num_layers), input_is_parallel=True,
+            device=device)
         self.resid_dropout = Dropout(c.hidden_dropout)
 
     def _split_qkv(self, qkv, b, s):
         c = self.config
-        qkv = qkv.reshape(b, s, c.num_heads, 3, c.head_dim)
+        qkv = qkv.reshape(b, s, self.local_heads, 3, c.head_dim)
         q = qkv[:, :, :, 0].transpose(1, 2)           # (b, heads, s, d)
         k = qkv[:, :, :, 1].transpose(1, 2)
         v = qkv[:, :, :, 2].transpose(1, 2)
@@ -182,15 +205,20 @@ class GPTAttention(Layer):
         q, k, v = self._split_qkv(self.qkv_proj(x), b, s)
         if cache is None:
             c = self.config
-            if c.use_pallas_attention:
-                out = flash_attention(q, k, v, causal=True,
-                                      dropout_p=c.attention_dropout,
-                                      training=self.training)
-            else:
-                out = F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, dropout_p=c.attention_dropout,
-                    training=self.training)
-            out = out.transpose(1, 2).reshape(b, s, c.hidden_size)
+            with _head_stream():
+                if c.use_pallas_attention:
+                    # under mp the hash's batch*head salt counts this
+                    # rank's heads only; the model-parallel stream's seed
+                    # differs per mp rank, so the ranks' masks differ
+                    out = flash_attention(q, k, v, causal=True,
+                                          dropout_p=c.attention_dropout,
+                                          training=self.training)
+                else:
+                    out = F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True,
+                        dropout_p=c.attention_dropout,
+                        training=self.training)
+            out = out.transpose(1, 2).reshape(b, s, out.shape[1] * c.head_dim)
             return self.resid_dropout(self.out_proj(out))
         if isinstance(cache, PagedLayerCache):
             out, new_cache = self._paged_cache_forward(q, k, v, cache, b, s)
@@ -286,11 +314,11 @@ class GPTMLP(Layer):
         c = config
         self.fc_in = ColumnParallelLinear(c.hidden_size, c.ffn_hidden_size,
                                           std=c.initializer_range,
-                                          device=device)
+                                          gather_output=False, device=device)
         self.fc_out = RowParallelLinear(
             c.ffn_hidden_size, c.hidden_size,
             std=c.initializer_range / math.sqrt(2.0 * c.num_layers),
-            device=device)
+            input_is_parallel=True, device=device)
         self.dropout = Dropout(c.hidden_dropout)
 
     def forward(self, x):
@@ -322,8 +350,11 @@ class GPTDecoderLayer(Layer):
             self.mlp = GPTMLP(c, device=device)
 
     def _fused_block_ok(self) -> bool:
-        """The fused kernels cover the dense pre-LN block only."""
-        return self.config.use_fused_block and not self._is_moe
+        """The fused kernels cover the dense pre-LN block only, and a whole
+        one: under a hybrid group (a rank's shard) the block is unfused,
+        as the JAX package's is under a mesh."""
+        return (self.config.use_fused_block and not self._is_moe
+                and topo.get_mesh() is None)
 
     def _block_fused(self, x):
         """The cache-free fused block (training): the attention half as K1
@@ -399,31 +430,59 @@ class GPTDecoderLayer(Layer):
         return x, new_cache
 
 
+class _Absent(Layer):
+    """The place of a decoder layer another pipeline stage holds."""
+
+    def forward(self, x, cache=None):
+        raise RuntimeError("this decoder layer lives on another pipeline "
+                           "stage")
+
+
 class GPTModel(Layer):
-    """Embeddings + decoder stack + final LN."""
+    """Embeddings + decoder stack + final LN.  Under a hybrid group with
+    pp > 1 only this stage's part: the embeddings on the first stage,
+    ``num_layers / pp`` layers (the others are placeholders without
+    parameters), the final LN on the last stage, and the tied table on
+    both end stages."""
 
     def __init__(self, config: GPTConfig, device=None):
         super().__init__()
         c = config
         self.config = c
-        self.wte = VocabParallelEmbedding(c.vocab_size, c.hidden_size,
-                                          std=c.initializer_range,
-                                          device=device)
-        self.wpe = nn.Parameter(torch.empty(c.max_position_embeddings,
-                                            c.hidden_size, device=device))
-        nn.init.normal_(self.wpe, 0.0, c.initializer_range)
+        pp, stage = topo.axis_size("pp"), topo.axis_rank("pp")
+        enforce(c.num_layers % pp == 0,
+                f"{c.num_layers} layers not divisible into {pp} stages")
+        enforce(c.moe_num_experts == 0 or topo.get_mesh() is None,
+                "MoE layers under a hybrid group come with expert "
+                "parallelism (ROADMAP.md Queue 1 item 10)",
+                exc=UnimplementedError)
+        per = c.num_layers // pp
+        self.stage_layers = range(stage * per, (stage + 1) * per)
+        self.first_stage, self.last_stage = stage == 0, stage == pp - 1
+        self.wte = (VocabParallelEmbedding(c.vocab_size, c.hidden_size,
+                                           std=c.initializer_range,
+                                           device=device)
+                    if self.first_stage or self.last_stage else None)
+        if self.wte is not None and pp > 1:
+            # one tied table on two stages: the hybrid global norm counts
+            # the first stage's copy only
+            self.wte.weight.pp_tied = True
+        if self.first_stage:
+            self.wpe = nn.Parameter(torch.empty(c.max_position_embeddings,
+                                                c.hidden_size, device=device))
+            nn.init.normal_(self.wpe, 0.0, c.initializer_range)
+        else:
+            self.wpe = None
         self.drop = Dropout(c.hidden_dropout)
         self.h = LayerList([GPTDecoderLayer(c, i, device=device)
+                            if i in self.stage_layers else _Absent()
                             for i in range(c.num_layers)])
-        self.ln_f = LayerNorm(c.hidden_size, epsilon=c.layer_norm_epsilon,
-                              device=device)
+        self.ln_f = (LayerNorm(c.hidden_size, epsilon=c.layer_norm_epsilon,
+                               device=device) if self.last_stage else None)
 
-    def forward(self, input_ids, position_offset=0,
-                caches: Optional[List[Any]] = None):
-        """Hidden states ``(b, s, h)``, with the new caches when ``caches``
-        are given.  ``position_offset`` is a scalar or a ``(b,)`` vector —
-        every ragged-batch row decodes at its own position — as an int or a
-        device tensor (read on the device: no host sync)."""
+    def embed(self, input_ids, position_offset=0):
+        """The embeddings (``wte + wpe``, cast to the activation dtype,
+        dropout) of the first stage."""
         c = self.config
         b, s = input_ids.shape
         dev = input_ids.device
@@ -433,7 +492,18 @@ class GPTModel(Layer):
         x = self.wte(input_ids) + self.wpe[pos]
         if c.dtype != "float32":
             x = x.to(c.torch_dtype)
-        x = self.drop(x)
+        return self.drop(x)
+
+    def forward(self, input_ids, position_offset=0,
+                caches: Optional[List[Any]] = None):
+        """Hidden states ``(b, s, h)``, with the new caches when ``caches``
+        are given.  ``position_offset`` is a scalar or a ``(b,)`` vector —
+        every ragged-batch row decodes at its own position — as an int or a
+        device tensor (read on the device: no host sync)."""
+        enforce(self.first_stage and self.last_stage,
+                "a pipeline stage runs through models.gpt_pipeline."
+                "GPTPipeline (fleet.distributed_model), not forward")
+        x = self.embed(input_ids, position_offset)
         if caches is None:
             for layer in self.h:
                 x = layer(x)
@@ -444,6 +514,15 @@ class GPTModel(Layer):
             new_caches.append(kv)
         x = self.ln_f(x)
         return x, new_caches
+
+
+def _head_stream():
+    """The model-parallel stream under mp (each rank's heads draw their
+    own attention dropout), else no change."""
+    tracker = get_rng_state_tracker()
+    if topo.axis_size("mp") > 1 and tracker.has(MODEL_PARALLEL_RNG):
+        return tracker.rng_state(MODEL_PARALLEL_RNG)
+    return contextlib.nullcontext()
 
 
 class GPTForCausalLM(Layer):
@@ -464,25 +543,41 @@ class GPTForCausalLM(Layer):
         ``labels[:, t + 1]``, plus ``moe_aux_weight`` times the sum of the
         MoE layers' aux.  With ``fused_lm_loss`` and a sequence that a
         multiple of 128 divides, the loss comes from the chunked
-        :func:`linear_softmax_cross_entropy` and the logits slot is None."""
+        :func:`linear_softmax_cross_entropy` and the logits slot is None.
+        Under mp the head is vocab-parallel (the logits gathered when no
+        labels are given)."""
         c = self.config
         with collect_aux_losses() as aux_losses:
             hidden = self.gpt(input_ids)
-        table = self.gpt.wte.weight.to(hidden.dtype)
         if labels is None:
-            return torch.matmul(hidden, table.t())
-        shifted = shift_labels(labels)
-        if c.fused_lm_loss and _lce_chunk(hidden.shape[1]) is not None:
-            loss = linear_softmax_cross_entropy(hidden, table, shifted,
-                                                reduction="mean")
-            logits = None
-        else:
-            logits = torch.matmul(hidden, table.t())
-            loss = parallel_cross_entropy(logits.float(), shifted,
-                                          reduction="mean")
+            table = self.gpt.wte.weight.to(hidden.dtype)
+            return gather_from_mp(torch.matmul(copy_to_mp(hidden),
+                                               table.t()))
+        loss, logits = self.lm_loss(hidden, shift_labels(labels))
         if aux_losses:
             loss = loss + c.moe_aux_weight * sum(aux_losses)
         return loss, logits
+
+    def lm_loss(self, hidden, shifted, reduction: str = "mean"):
+        """``(loss, logits)`` of the tied head on final hidden states
+        against shifted labels: the chunked fused loss (logits None) when
+        ``fused_lm_loss`` and the sequence allow it, else the logits
+        (this rank's vocabulary block under mp) and their
+        cross-entropy."""
+        c = self.config
+        table = self.gpt.wte.weight.to(hidden.dtype)
+        if c.fused_lm_loss and _lce_chunk(hidden.shape[1]) is not None:
+            return linear_softmax_cross_entropy(
+                hidden, table, shifted, reduction=reduction), None
+        logits = torch.matmul(copy_to_mp(hidden), table.t())
+        return parallel_cross_entropy(logits.float(), shifted,
+                                      reduction=reduction), logits
+
+    def build_pipeline(self, num_stages: int, num_microbatches: int):
+        """The pipeline wrapper of this stage (``fleet.distributed_model``
+        returns it when pp > 1; reference fleet_base.py:1027)."""
+        from .gpt_pipeline import GPTPipeline
+        return GPTPipeline(self, num_stages, num_microbatches)
 
     @torch.no_grad()
     def generate_step(self, input_ids, caches, position_offset):
@@ -546,6 +641,9 @@ class GPTForCausalLM(Layer):
         host sync.  Returns the prompt and the new tokens, int32 ``(b,
         prompt_len + n)``."""
         c = self.config
+        enforce(topo.get_mesh() is None,
+                "generate runs on one card: a model built under a hybrid "
+                "group holds one rank's shard")
         self.eval()
         ids = torch.as_tensor(input_ids).to(device=self.device,
                                             dtype=torch.int32)

@@ -222,26 +222,99 @@ class _LinearCE(torch.autograd.Function):
         return dh, dw.to(table.dtype), None, None
 
 
+class _LinearCEParallel(torch.autograd.Function):
+    """:class:`_LinearCE` over this mp rank's block of the vocabulary
+    (``table`` rows from ``vocab_start``): per chunk the row max, the sum
+    of exponentials and the target's logit are all-reduced over mp, and
+    backward sums the hidden state's gradient over mp (every rank's block
+    feeds it); the table's gradient stays on the rank's rows."""
+
+    @staticmethod
+    def forward(ctx, hidden, table, labels, chunk: int, vocab_start: int):
+        from ..distributed import collective
+        b, s, _ = hidden.shape
+        n = table.shape[0]
+        loss = torch.empty((b, s), dtype=torch.float32, device=hidden.device)
+        lse = torch.empty_like(loss)
+        for c0 in range(0, s, chunk):
+            _, logits = _chunk_logits(hidden, table, c0, chunk)
+            gmax = collective.all_reduce(
+                logits.amax(dim=-1), op=collective.ReduceOp.MAX, group="mp")
+            sum_exp = collective.all_reduce(
+                torch.exp(logits - gmax[:, None]).sum(dim=-1), group="mp")
+            lse_c = gmax + torch.log(sum_exp)
+            local = labels[:, c0:c0 + chunk].reshape(-1).long() - vocab_start
+            hit = (local >= 0) & (local < n)
+            picked = logits.gather(1, local.clamp(0, n - 1)[:, None])[:, 0]
+            picked = collective.all_reduce(
+                torch.where(hit, picked, torch.zeros_like(picked)),
+                group="mp")
+            lse[:, c0:c0 + chunk] = lse_c.view(b, chunk)
+            loss[:, c0:c0 + chunk] = (lse_c - picked).view(b, chunk)
+        ctx.save_for_backward(hidden, table, labels, lse)
+        ctx.chunk, ctx.vocab_start = chunk, vocab_start
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..distributed import collective
+        hidden, table, labels, lse = ctx.saved_tensors
+        chunk = ctx.chunk
+        b, s, h = hidden.shape
+        n = table.shape[0]
+        dh = torch.empty(hidden.shape, dtype=torch.float32,
+                         device=hidden.device)
+        dw = torch.zeros(table.shape, dtype=torch.float32,
+                         device=table.device)
+        for c0 in range(0, s, chunk):
+            hc, logits = _chunk_logits(hidden, table, c0, chunk)
+            p = torch.exp(logits - lse[:, c0:c0 + chunk].reshape(-1, 1))
+            local = (labels[:, c0:c0 + chunk].reshape(-1).long()
+                     - ctx.vocab_start)
+            hit = (local >= 0) & (local < n)
+            rows = torch.arange(local.numel(), device=local.device)[hit]
+            p[rows, local[hit]] -= 1.0
+            grad = (p * g[:, c0:c0 + chunk].reshape(-1, 1)).to(table.dtype)
+            dh[:, c0:c0 + chunk] = _f32_product(grad, table).view(b, chunk, h)
+            dw += _f32_product(grad.t(), hc)
+        dh = collective.all_reduce(dh, group="mp")
+        return dh.to(hidden.dtype), dw.to(table.dtype), None, None, None
+
+
 def linear_softmax_cross_entropy(hidden, table, labels, *,
                                  ignore_index: int = -100,
                                  reduction: str = "mean",
-                                 seq_chunk: Optional[int] = None):
+                                 seq_chunk: Optional[int] = None,
+                                 vocab_start: Optional[int] = None):
     """Cross-entropy of ``softmax(hidden @ table.T)`` against ``labels``
     without materialising the full logits.
 
     hidden: (b, s, h); table: (v, h), e.g. a tied embedding; labels: (b, s)
-    integer ids, ``ignore_index`` masked out.  Falls back to the unfused
-    loss (full logits, :func:`parallel_cross_entropy`) when no multiple of
-    128 divides the sequence."""
+    integer ids, ``ignore_index`` masked out.  Under a model-parallel
+    group of more than one rank, ``table`` is this rank's block of the
+    vocabulary (from ``vocab_start``, by default its mp coordinate times
+    the block) and the loss is the whole vocabulary's, with the
+    statistics all-reduced over mp (:class:`_LinearCEParallel`).  Falls
+    back to the unfused loss (full logits, :func:`parallel_cross_entropy`)
+    when no multiple of 128 divides the sequence."""
+    from ..distributed import topology as topo
     b, s, _ = hidden.shape
     dt = torch.promote_types(hidden.dtype, table.dtype)
     hidden, table = hidden.to(dt), table.to(dt)
+    mp = topo.axis_size("mp")
+    if vocab_start is None:
+        vocab_start = topo.axis_rank("mp") * table.shape[0]
     chunk = (seq_chunk if seq_chunk is not None
              else _lce_chunk(s, b, table.shape[0]))
     if chunk is None or s % chunk != 0:
         logits = torch.matmul(hidden, table.t())
         return parallel_cross_entropy(logits.float(), labels,
                                       ignore_index=ignore_index,
-                                      reduction=reduction)
-    loss = _LinearCE.apply(hidden, table, labels.to(torch.int32), chunk)
+                                      reduction=reduction,
+                                      vocab_start=vocab_start)
+    if mp > 1:
+        loss = _LinearCEParallel.apply(hidden, table, labels.to(torch.int32),
+                                       chunk, int(vocab_start))
+    else:
+        loss = _LinearCE.apply(hidden, table, labels.to(torch.int32), chunk)
     return masked_token_reduce(loss, labels != ignore_index, reduction)

@@ -21,7 +21,13 @@ set-up therefore runs a few kernels of its own and waits for them before
 the window opens.  The same clock may place one of those records inside
 the window; :func:`launch_records` pairs each launch of a trace with its
 device record in host order, and :func:`unrecorded_launches` counts the
-launches that still have none.
+launches that still have none.  In an old process under load the tracer
+still drops some, so every window keeps an account of the port's kernels
+(:func:`launch_account`): per kernel the launches its wrapper counted in
+the window (``_kernels.launches``), the device records the trace holds and
+the difference, the unrecorded launches; the exported trace carries it
+under ``"ptpuLaunchAccount"`` and :meth:`Profiler.summary` prints it and
+warns when a launch lost its record.
 """
 from __future__ import annotations
 
@@ -33,6 +39,7 @@ import socket
 import tempfile
 import threading
 import time
+import warnings
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import torch
@@ -40,10 +47,35 @@ import torch
 __all__ = ["ProfilerTarget", "ProfilerState", "Profiler", "RecordEvent",
            "make_scheduler", "record_function", "profiler_summary",
            "SortedKeys", "export_chrome_tracing", "export_protobuf",
-           "load_profiler_result", "launch_records", "unrecorded_launches"]
+           "load_profiler_result", "launch_records", "unrecorded_launches",
+           "launch_account", "KERNEL_TRACE_NAMES"]
 
 # kernels each window's set-up launches (and waits for) before it records
 _WARM_LAUNCHES = 16
+
+# each launch counter of ``_kernels.launches`` -> a substring of the
+# __global__ function that each of its counted launches runs once (a
+# counted ffn_tiled or ffn_stream launch runs two kernels: the first of
+# each pair is named here)
+KERNEL_TRACE_NAMES = {
+    "paged_decode": "paged_decode_kernel",
+    "ln_linear": "ln_linear_kernel",
+    "ln_linear_mma": "ln_linear_mma_kernel",
+    "ln_linear_stream": "ln_linear_stream_kernel",
+    "ln_linear_tiled": "ln_linear_tiled_kernel",
+    "linear_residual": "linear_residual_kernel",
+    "linear_residual_mma": "linear_residual_mma_kernel",
+    "linear_residual_stream": "linear_residual_stream_kernel",
+    "linear_residual_tiled": "linear_residual_tiled_kernel",
+    "ffn": "ffn_kernel",
+    "ffn_mma": "ffn_mma_kernel",
+    "ffn_stream": "ffn_stream_kernel",
+    "ffn_tiled": "ffn_tiled_up_kernel",
+    "flash_fwd": "flash_fwd_",
+    "flash_dkdv": "flash_dkdv_",
+    "flash_dq": "flash_dq_",
+    "flash_decode": "flash_decode_kernel",
+}
 
 
 class ProfilerTarget(enum.Enum):
@@ -197,6 +229,9 @@ class Profiler:
         self._step_range = None
         self._step_t0 = None
         self._step_times = []
+        self._counted_at_start = None   # _kernels.launches as a window opens
+        self.window_launches = None     # counted launches of the last window
+        self._account = None
 
     def _card(self) -> bool:
         return torch.cuda.is_available() and any(
@@ -289,6 +324,7 @@ class Profiler:
             return
         self._prepare_trace()
         self._prof.start_trace()
+        self._counted_at_start = _counted()
         self._prepared = False
         self._tracing = True
 
@@ -298,18 +334,42 @@ class Profiler:
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         self._prof.stop_trace()
+        now = _counted()
+        self.window_launches = {n: c - self._counted_at_start.get(n, 0)
+                                for n, c in now.items()
+                                if c - self._counted_at_start.get(n, 0)}
+        self._account = None
         self._tracing = False
         if trigger_callback and self.on_trace_ready is not None:
             self.on_trace_ready(self)
 
     # -- results -------------------------------------------------------------
     def export(self, path: str, format: str = "json") -> str:
-        """Write the last recording window's chrome trace to ``path``."""
+        """Write the last recording window's chrome trace to ``path``, with
+        the window's launch account (:func:`launch_account`) under
+        ``"ptpuLaunchAccount"``."""
         if self._prof is None:
             raise RuntimeError("no recorded window to export")
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
         self._prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+        self._account = launch_account(trace, self.window_launches or {})
+        trace["ptpuLaunchAccount"] = self._account
+        with open(path, "w") as f:
+            json.dump(trace, f)
         return path
+
+    def launch_account(self) -> Optional[Dict[str, Any]]:
+        """The last window's :func:`launch_account` (its trace exported to
+        a temporary file when :meth:`export` has not run); None without a
+        recorded window on the card."""
+        if self._prof is None or self.window_launches is None:
+            return None
+        if self._account is None:
+            with tempfile.TemporaryDirectory() as tmp:
+                self.export(os.path.join(tmp, "window.json"))
+        return self._account
 
     def key_averages(self):
         """``torch.profiler``'s per-name table of the last window."""
@@ -352,6 +412,8 @@ class Profiler:
                              f"{'total ms':>10s}")
                 for name, n, us in dev:
                     lines.append(f"{name[:40]:40s} {n:8d} {us / 1e3:10.3f}")
+        if self._card():
+            lines.extend(_account_lines(self.launch_account()))
         return "\n".join(lines)
 
     def __enter__(self) -> "Profiler":
@@ -423,3 +485,61 @@ def unrecorded_launches(trace) -> int:
     """The launches of a chrome trace whose device record the tracer
     dropped (:func:`launch_records`)."""
     return sum(1 for _, dev in launch_records(trace) if dev is None)
+
+
+def _counted() -> Dict[str, int]:
+    from .. import _kernels
+    return dict(_kernels.launches)
+
+
+def launch_account(trace, counted: Dict[str, int]) -> Dict[str, Any]:
+    """Which launches of a window lost their device record: for every
+    kernel of the port that ``counted`` (its launch counters' increase
+    over the window) names, ``counted``, ``recorded`` (its device records
+    in the chrome ``trace``, by :data:`KERNEL_TRACE_NAMES`) and
+    ``unrecorded`` (the difference); ``launches_without_record`` is every
+    host launch of the trace without a device record
+    (:func:`unrecorded_launches`) and ``unattributed`` those of them that
+    are not the port's (torch's own kernels, whose launches are not
+    counted)."""
+    recorded: Dict[str, int] = {}
+    for e in trace.get("traceEvents", []):
+        if str(e.get("cat", "")).lower() != "kernel":
+            continue
+        name = str(e.get("name", ""))
+        hit = [k for k, sub in KERNEL_TRACE_NAMES.items() if sub in name]
+        if hit:
+            key = max(hit, key=lambda k: len(KERNEL_TRACE_NAMES[k]))
+            recorded[key] = recorded.get(key, 0) + 1
+    kernels = {}
+    for name in sorted(set(counted) | set(recorded)):
+        c, r = int(counted.get(name, 0)), recorded.get(name, 0)
+        kernels[name] = {"counted": c, "recorded": r,
+                         "unrecorded": max(0, c - r)}
+    lost = unrecorded_launches(trace)
+    ours = sum(k["unrecorded"] for k in kernels.values())
+    return {"kernels": kernels, "launches_without_record": lost,
+            "unattributed": max(0, lost - ours)}
+
+
+def _account_lines(account) -> list:
+    """The summary's table of a launch account; warns when a launch of the
+    window has no device record."""
+    if not account:
+        return []
+    lines = ["", f"{'launches (port kernels)':40s} {'counted':>8s} "
+             f"{'recorded':>9s} {'unrecorded':>11s}"]
+    for name, k in account["kernels"].items():
+        lines.append(f"{name[:40]:40s} {k['counted']:8d} {k['recorded']:9d} "
+                     f"{k['unrecorded']:11d}")
+    lines.append(f"launches without a device record: "
+                 f"{account['launches_without_record']} (not the port's: "
+                 f"{account['unattributed']})")
+    lost = {n: k["unrecorded"] for n, k in account["kernels"].items()
+            if k["unrecorded"]}
+    if lost or account["launches_without_record"]:
+        warnings.warn(
+            f"profiler: {account['launches_without_record']} launches of the "
+            f"window have no device record (the tracer dropped them); port "
+            f"kernels unrecorded: {lost}", RuntimeWarning, stacklevel=3)
+    return lines

@@ -49,6 +49,17 @@ B, S, V = 2, 128, 1024
 F32_TOL = 1e-4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's torch work: under the suite's
+    six xdist workers, eight OpenMP threads a worker oversubscribe the
+    eight cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _no_mesh():
     # JAX model parity runs serially; earlier files may leave a mesh

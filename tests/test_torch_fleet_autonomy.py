@@ -19,6 +19,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import pytest
+import torch
 
 import jax.numpy as jnp
 
@@ -44,6 +45,17 @@ MODEL_KW = dict(hidden_dropout=0.0, attention_dropout=0.0,
                 use_fused_block=True, dtype="float32")
 ENGINE_KW = dict(max_seqs=4, kv_block_size=4)
 PROMPTS = [[1, 2, 3 + i] for i in range(6)]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's torch work: under the suite's
+    six xdist workers, eight OpenMP threads a worker oversubscribe the
+    eight cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)

@@ -24,6 +24,17 @@ GRAD_TOL = 5e-4
 H, HEADS, EPS = 64, 4, 1e-5
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's torch work: under the suite's
+    six xdist workers, eight OpenMP threads a worker oversubscribe the
+    eight cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(params=["reference", "pallas"])
 def route(request, monkeypatch):
     monkeypatch.setenv(jfb.FUSED_BLOCK_ENV, request.param)

@@ -39,6 +39,17 @@ CONFIGS = {
 }
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's torch work: under the suite's
+    six xdist workers, eight OpenMP threads a worker oversubscribe the
+    eight cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(autouse=True)
 def _no_mesh():
     # the JAX decode kernel route is mesh-gated; earlier files in a full run

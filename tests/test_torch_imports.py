@@ -65,6 +65,19 @@ def test_package_imports_with_jax_blocked():
             "import paddle_tpu_torch.models.bert\n"
             "import paddle_tpu_torch.distributed.moe\n"
             "import paddle_tpu_torch.distributed.elastic\n"
+            "import paddle_tpu_torch.distributed.topology\n"
+            "import paddle_tpu_torch.distributed.collective\n"
+            "import paddle_tpu_torch.distributed.parallel\n"
+            "import paddle_tpu_torch.distributed.spawn\n"
+            "import paddle_tpu_torch.distributed.launch\n"
+            "import paddle_tpu_torch.distributed.random\n"
+            "import paddle_tpu_torch.distributed.mp_layers\n"
+            "import paddle_tpu_torch.distributed.fleet\n"
+            "import paddle_tpu_torch.distributed.fleet.optimizer\n"
+            "import paddle_tpu_torch.distributed.fleet.meta_parallel\n"
+            "import paddle_tpu_torch.distributed.fleet.utils\n"
+            "import paddle_tpu_torch.models.gpt_pipeline\n"
+            "import paddle_tpu_torch.testing.hybrid_cases\n"
             "import paddle_tpu_torch.observability.tracing\n"
             "import paddle_tpu_torch.observability.mfu\n"
             "import paddle_tpu_torch.observability.memory\n"
